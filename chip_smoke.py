@@ -142,6 +142,64 @@ def compare(names, got, want) -> float:
     return float(worst)
 
 
+def phase_a_bytes(topo, wl, num_podsets: int, start_rank, outs) -> int:
+    """Bytes phase_a must move on these inputs: per head, its request,
+    flags and eligibility rows; of the [Q,F,R] inputs (nominal, offered,
+    avail, usage) only the elements of the heads' CQs in a flavor of the
+    requested resource's group; of the per-CQ rows only the heads' CQs;
+    every output once."""
+    import torch
+    q = wl["wl_cq"].long()
+    req = wl["requests"][:, :num_podsets]                    # [W,NP,R]
+    gid = topo["group_id"][q]                                 # [W,R]
+    rel = (((req > 0) & (gid[:, None, :] >= 0))[:, :, None, :]
+           & (topo["flavor_group"][q][:, None, :, None]
+              == gid[:, None, None, :]))                      # [W,NP,F,R]
+    touched = torch.zeros(topo["nominal"].shape, dtype=torch.int32,
+                          device=q.device)
+    touched.index_add_(0, q, rel.any(1).to(torch.int32))
+    F, R = topo["nominal"].shape[1:]
+    moved = int((touched > 0).sum()) * (8 + 1 + 8 + 8)
+    moved += int(torch.unique(q).numel()) * (R * 4 + 2 * F * 4 + 1)
+    moved += int(rel.any(3).sum())                            # eligible
+    moved += nbytes(req, wl["podset_active"], wl["wl_cq"], wl["solvable"],
+                    *outs)
+    if start_rank is not None:
+        moved += nbytes(start_rank[:, :num_podsets])
+    return moved
+
+
+def phase_b_bytes(topo, usage, cohort_usage, asg, fit, wl_cq, offsets,
+                  members, outs) -> int:
+    """Bytes phase_b must move on these inputs: the CSR and per-head
+    flags; the assignment rows of fitting heads; the CQ quota and usage
+    elements those rows touch, and the cohort elements up their chains;
+    the usage and cohort-usage elements that change, written once; the
+    admitted flags."""
+    import torch
+    admitted, usage_out, cohort_out = outs
+    w = torch.nonzero(fit).flatten()
+    q = wl_cq[w].long()
+    touched = torch.zeros(usage.shape, dtype=torch.int32, device=fit.device)
+    touched.index_add_(0, q, (asg[w] != 0).to(torch.int32))
+    touched = touched > 0
+    has_cohort = topo["cq_cohort"] >= 0
+    chain = topo["cq_chain"].long()
+    up = torch.zeros(cohort_usage.shape, dtype=torch.int32, device=fit.device)
+    for d in range(chain.shape[1]):
+        on = has_cohort & (chain[:, d] >= 0)
+        up.index_add_(0, chain[on, d], touched[on].to(torch.int32))
+    qs = torch.unique(q)
+    FR = usage[0].numel()
+    moved = int(touched.sum()) * 8 * 4      # nominal, guaranteed, limit, usage
+    moved += int((up > 0).sum()) * 8 * 4    # subtree, guaranteed, limit, usage
+    moved += int((usage_out != usage).sum() + (cohort_out != cohort_usage)
+                 .sum()) * 8
+    moved += int(qs.numel()) * 4 + int(has_cohort[qs].sum()) * chain.shape[1] * 4
+    moved += int(w.numel()) * FR * 8
+    return moved + nbytes(fit, wl_cq, offsets, members, admitted)
+
+
 def kernel_inputs(kind: str, device):
     import numpy as np
     import torch
@@ -189,10 +247,7 @@ def kernel_phase(kind: str, device, results: dict) -> None:
         compare(("fit", "borrows", "chosen", "chosen_borrow", "asg_usage"),
                 k.phase_a(*a_args), ref_a),
         lambda: k.phase_a(*a_args), lambda: k.phase_a_plain(*a_args),
-        nbytes(topo["group_id"], topo["flavor_group"], topo["flavor_rank"],
-               topo["nominal"], topo["offered"], topo["prefer_no_borrow"],
-               ref_avail, usage, wl["requests"], wl["podset_active"],
-               wl["wl_cq"], wl["eligible"], wl["solvable"], sr, *ref_a))
+        phase_a_bytes(topo, wl, P, sr, ref_a))
 
     fit, borrows, chosen, chosen_borrow, asg = ref_a
     order = k.admit_order(fit, borrows, wl["priority"], wl["timestamp"])
@@ -204,11 +259,8 @@ def kernel_phase(kind: str, device, results: dict) -> None:
         compare(("admitted", "usage", "cohort_usage"), k.phase_b(*b_args),
                 ref_b),
         lambda: k.phase_b(*b_args), lambda: k.phase_b_plain(*b_args),
-        nbytes(topo["cq_cohort"], topo["cq_chain"], topo["nominal"],
-               topo["guaranteed"], topo["borrow_limit"],
-               topo["cohort_subtree"], topo["cohort_guaranteed"],
-               topo["cohort_borrow_limit"], usage, cu, asg, fit, wl["wl_cq"],
-               offsets, members, *ref_b))
+        phase_b_bytes(topo, usage, cu, asg, fit, wl["wl_cq"], offsets,
+                      members, ref_b))
 
     p_args = (chosen, chosen_borrow, fit, ref_b[0], borrows)
     ref_p = k.pack_plain(*p_args)
@@ -280,7 +332,10 @@ def e2e_phase(device) -> dict:
     def run_cycle(cycle: int) -> tuple:
         """One main-path cycle; returns (admitted, cycle seconds,
         snapshot s, admit s, gc s). The CPU reference solve runs between
-        the solve and the admissions and is not part of the cycle."""
+        the solve and the admissions and is not part of the cycle; a full
+        collection after it, also untimed, takes the reference's garbage
+        (a second encode and decode of every head) out of the timed
+        phases."""
         heads = heaps.heads()
         g0, t0 = gc_clock.total, time.perf_counter()
         snapshot = cache.snapshot()
@@ -291,6 +346,8 @@ def e2e_phase(device) -> dict:
         if normalize(decisions) != normalize(expected):
             raise AssertionError(f"cycle {cycle}: CUDA decisions differ "
                                  "from the CPU plain path")
+        del expected
+        gc.collect()
         g3, t3 = gc_clock.total, time.perf_counter()
         n = ns.apply_decisions(cache, heaps, heads, decisions, 1000.0 + cycle)
         g4, t4 = gc_clock.total, time.perf_counter()
@@ -301,7 +358,7 @@ def e2e_phase(device) -> dict:
             f" heads={len(heads)} admitted={n} flavors={depth} "
             f"pending={len(heaps)} cycle_ms={cycle_s * 1e3:.1f} snapshot_ms="
             f"{(t1 - t0) * 1e3:.1f} admit_ms={(t4 - t3) * 1e3:.1f} gc_ms="
-            f"{gc_s * 1e3:.1f} solve_ms="
+            f"{gc_s * 1e3:.1f} untimed_gc_ms={(g3 - g2) * 1e3:.1f} solve_ms="
             + json.dumps({k: round(v * 1e3, 3) for k, v in
                           solver.last_phase_s.items()}))
         return n, cycle_s, t1 - t0, t4 - t3, gc_s
@@ -403,11 +460,15 @@ def main() -> int:
                                for k in results),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "ms_source": row["ms_source"],
-            "call_ms": row["call_ms"],
+            "bound_bytes": row["bytes"], "library_ms": None,
+            "ms_source": row["ms_source"], "call_ms": row["call_ms"],
             "nested": {k: v for k, v in results["nested"][name].items()
-                       if k in ("ms", "call_ms", "plain_ms", "bound_ms")},
-            **({"dependent_steps": row["dependent_steps"]}
+                       if k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                "dependent_steps")},
+            # phase_b's real limit is its serial chain, which a byte or
+            # operation count does not capture
+            **({"latency_bound": f"{row['dependent_steps']} dependent steps",
+                "dependent_steps": row["dependent_steps"]}
                if name == "phase_b" else {})})
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -72,18 +72,21 @@ def build_cluster(num_cqs: int, num_cohorts: int, flavors: list,
     return cache
 
 
+# queue-order timestamps under the default policy
+_ORDERING = wlpkg.Ordering()
+
+
 class PendingHeaps:
     """Per-CQ pending heaps in queue order (priority desc, then
     queue-order timestamp asc, then arrival)."""
 
-    def __init__(self, ordering=None):
-        self.ordering = ordering or wlpkg.Ordering()
+    def __init__(self):
         self._heaps: dict = {}
         self._seq = itertools.count()
 
     def push(self, info: wlpkg.Info) -> None:
         key = (-prioritypkg.priority(info.obj),
-               self.ordering.queue_order_timestamp(info.obj), next(self._seq))
+               _ORDERING.queue_order_timestamp(info.obj), next(self._seq))
         heapq.heappush(self._heaps.setdefault(info.cluster_queue, []),
                        (key, info))
 

@@ -499,14 +499,15 @@ reset_launch_counts()
 
 def solve_cycle_fused(topo, usage, cohort_usage, requests, podset_active,
                       wl_cq, priority, timestamp, eligible, solvable,
-                      num_podsets: int, max_rank: int, start_rank=None,
+                      num_podsets: int, max_rank: int = 0, start_rank=None,
                       compact: bool = True) -> dict:
     """One fit-mode admission cycle, the port of
     kueue_tpu/solver/kernel.py:476 solve_cycle_fused_impl with fair
     sharing and cluster columns off. Returns admitted/chosen/borrows/
     chosen_borrow/fit/usage/cohort_usage, or dec_pr/dec_bits in place of
     the five decision arrays when compact. max_rank is taken for
-    signature parity: the CSR of the order needs no per-domain bound."""
+    signature parity and unused: the CSR of the order needs no
+    per-domain bound."""
     del max_rank
     avail_q = avail(topo, usage, cohort_usage)
     fit, borrows, chosen, chosen_borrow, asg_usage = phase_a(

@@ -33,7 +33,6 @@ from kueue_tpu_torch.solver import encode
 from kueue_tpu_torch.solver.kernel import (
     DECISION_KEYS,
     MAX_COMPACT_FLAVORS,
-    max_rank_bound,
     solve_cycle_fused,
     topo_to_device,
 )
@@ -79,12 +78,11 @@ class Plan:
 
 
 class BatchSolver:
-    def __init__(self, max_podsets: int = 4,
-                 ordering: Optional[wlpkg.Ordering] = None, device=None):
+    def __init__(self, max_podsets: int = 4, device=None):
         """device=None means the card (raises without one); the tests
-        pass device="cpu", which runs the kernels' plain versions."""
+        pass device="cpu", which runs the kernels' plain versions.
+        Workloads are ordered by the default wlpkg.Ordering."""
         self.max_podsets = max_podsets
-        self.ordering = ordering or wlpkg.Ordering()
         self.device = resolve(device)
         self._topo_cache = None
         self._topo_key = None
@@ -114,7 +112,6 @@ class BatchSolver:
         topo, topo_dev = self._topology(snapshot)
         state = encode.encode_state(snapshot, topo)
         batch = encode.encode_workloads(entries, snapshot, topo,
-                                        ordering=self.ordering,
                                         max_podsets=self.max_podsets)
         self.last_phase_s["encode"] = time.perf_counter() - t0
         if not batch.solvable.any():
@@ -140,8 +137,6 @@ class BatchSolver:
         compact = topo.nominal.shape[1] <= MAX_COMPACT_FLAVORS
         result = solve_cycle_fused(
             plan.topo_dev, *dev[:9], num_podsets=self.max_podsets,
-            max_rank=max_rank_bound(batch.wl_cq, topo.cq_cohort,
-                                    topo.cohort_root),
             start_rank=start_rank, compact=compact)
         self._sync()
         self.last_phase_s["upload"] = t1 - t0
