@@ -6,11 +6,22 @@ Builds the solver's CUDA kernels from kueue_tpu_torch/solver/csrc, holds
 each one against its plain PyTorch version on the card at the north-star
 shape (2048 ClusterQueues, 256 cohorts, 32 flavors, 2 resources, 2048
 heads, 4 podsets) and on a nested-cohort input (depth 3, 3 active
-podsets), and times both. Then it drives the port's main path end to
-end: a 2048-CQ cluster with 51,200 pending workloads in the port's
-Cache, one warm-up and ten timed admission cycles through
-BatchSolver(device="cuda"), each checked against the same solve on the
-CPU with the plain versions, admissions applied between cycles.
+podsets), and times both. Then it drives the port's main paths end to
+end on a 2048-CQ cluster with 51,200 workloads pending in the port's
+queue Manager, each cycle's decisions held against the same solve on
+the CPU with the plain versions:
+
+1. unbound: BatchSolver(device="cuda") re-encodes and uploads the state
+   and the batch every cycle (1 warm-up and 3 timed cycles);
+2. bound fill: the solver bound to the Cache and the Manager, usage
+   resident on the card and the batch gathered from the encode arena's
+   device twin, filling an empty cluster (1 + 10 cycles);
+3. bound churn: the same on a cluster whose flavors are all full, where
+   128 admitted workloads finish before each cycle, so the journal's
+   corrections and the arena's changed rows reach the card as the
+   sparse delta prologue and the row scatter (1 + 10 cycles). Every
+   bound cycle's resident usage is also held against the host mirror
+   and a fresh encode of the cache.
 
 Every phase raises on failure; nothing is caught. The last lines are
 the card's name and power limit, one JSON line with the kernels'
@@ -37,14 +48,33 @@ NESTED = dict(num_cqs=2048, num_leaf_cohorts=256, fanout=4, depth=3,
               num_podsets=3, no_cohort_every=16)
 E2E_WAVES = 25          # 25 x 2048 = 51,200 pending workloads
 E2E_WARMUP = 1
-E2E_TIMED = 10
+UNBOUND_TIMED = 3
+BOUND_TIMED = 10
 NOMINAL_UNITS = 40      # per flavor and CQ; workloads are one flavor's size
+CHURN_FINISHES = 128    # admitted workloads finishing before a churn cycle
+# The kernel phase's shapes for the resident kernels, as the churn gives
+# them: each finish frees a (cq, flavor) of cpu and memory, and about as
+# many arena rows change; the twin holds the slots the bound phases reach.
+DELTA_COORDS = 2 * CHURN_FINISHES
+SCATTER_ROWS = CHURN_FINISHES
+ARENA_SLOTS = 4096
 
 REPLACES = {
     "avail": "kueue_tpu/solver/kernel.py:50",
     "phase_a": "kueue_tpu/solver/kernel.py:221",
+    "order": "kueue_tpu/solver/kernel.py:498",
     "phase_b": "kueue_tpu/solver/kernel.py:420",
     "pack": "kueue_tpu/solver/kernel.py:372",
+    "deltas": "kueue_tpu/solver/kernel.py:765",
+    "arena_scatter": "kueue_tpu/solver/kernel.py:863",
+    "arena_gather": "kueue_tpu/solver/kernel.py:892",
+}
+# the kernels each end-to-end phase must launch
+PHASE_KERNELS = {
+    "unbound": ("avail", "phase_a", "order", "phase_b", "pack"),
+    "bound_fill": ("arena_gather", "avail", "phase_a", "order", "phase_b",
+                   "pack"),
+    "bound_churn": tuple(REPLACES),
 }
 
 
@@ -108,9 +138,9 @@ class GcClock:
 
 
 def profiled_device_ms(fn, iters: int, kernel_name: str):
-    """Mean device time of the CUDA kernel `kernel_name` per call, from a
-    torch.profiler trace of `iters` calls; None when the trace holds no
-    device time for it."""
+    """Mean device time per call of the CUDA kernels whose names start
+    with `<kernel_name>_`, from a torch.profiler trace of `iters` calls;
+    None when the trace holds no device time for them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -120,26 +150,25 @@ def profiled_device_ms(fn, iters: int, kernel_name: str):
             fn()
         torch.cuda.synchronize()
     total = sum(device_us(e) for e in prof.key_averages()
-                if e.key.startswith(kernel_name))
+                if e.key.startswith(f"{kernel_name}_"))
     return total / iters / 1e3 if total else None
 
 
 def compare(names, got, want) -> float:
-    """Largest element difference between a kernel's outputs and its
-    plain version's; raises when any element differs."""
+    """Raises unless a kernel's outputs equal its plain version's element
+    by element; returns the largest difference, which is then 0."""
     import torch
-    worst = 0
     for name, a, b in zip(names, got, want):
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"{name}: {a.shape}/{a.dtype} vs "
                                  f"{b.shape}/{b.dtype}")
-        diff = (a.to(torch.int64) - b.to(torch.int64)).abs().max().item() \
-            if a.numel() else 0
-        if diff:
-            raise AssertionError(f"{name}: kernel differs from its plain "
-                                 f"version by up to {diff}")
-        worst = max(worst, diff)
-    return float(worst)
+        if torch.equal(a, b):
+            continue
+        wide = torch.float64 if a.dtype.is_floating_point else torch.int64
+        diff = (a.to(wide) - b.to(wide)).abs().max().item()
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version by up to {diff}")
+    return 0.0
 
 
 def phase_a_bytes(topo, wl, num_podsets: int, start_rank, outs) -> int:
@@ -200,10 +229,38 @@ def phase_b_bytes(topo, usage, cohort_usage, asg, fit, wl_cq, offsets,
     return moved + nbytes(fit, wl_cq, offsets, members, admitted)
 
 
-def kernel_inputs(kind: str, device):
+def order_bytes(topo, fit, borrows, priority, timestamp, wl_cq,
+                outs) -> int:
+    """Bytes the order must move: every head's key fields once, the
+    cohort of each heads' CQ and the root of each such cohort, the CSR
+    written once."""
+    import torch
+    qs = torch.unique(wl_cq.long())
+    cohorts = topo["cq_cohort"][qs]
+    return nbytes(fit, borrows, priority, timestamp, wl_cq, *outs) + \
+        4 * int(qs.numel()) + 4 * int(torch.unique(cohorts[cohorts >= 0])
+                                      .numel())
+
+
+def deltas_bytes(deltas) -> int:
+    """Bytes the delta prologue must move: the coord arrays once, and for
+    each real (q,f,r) and cohort coord its usage element read and written
+    and its guaranteed quota read."""
+    dq, _, _, _, lvl_c, _ = deltas
+    coords = int((dq >= 0).sum()) + int((lvl_c[..., 0] >= 0).sum())
+    return nbytes(*deltas) + coords * 3 * 8
+
+
+def row_bytes(twin: dict) -> int:
+    """Bytes of one arena row over every field."""
+    return sum(t[0].numel() * t.element_size() for t in twin.values())
+
+
+def kernel_inputs(kind: str, device) -> dict:
     import numpy as np
     import torch
     from kueue_tpu_torch.solver import kernel, synth
+    from kueue_tpu_torch.solver.arena import ARENA_FIELDS
     if kind == "north_star":
         topo, usage, cu, wl = synth.synth_solver_inputs(seed=42, **NORTH_STAR)
         start_rank = None
@@ -214,21 +271,48 @@ def kernel_inputs(kind: str, device):
         wl["podset_active"][:] = True
         wl["requests"] = rng.integers(1, 20, size=(W, P, R)).astype(np.int64) * 1000
         start_rank = synth.synth_start_rank(wl, NESTED["num_flavors"], seed=7)
-    wl_d = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in wl.items()}
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    # The encode arena's twin at the bound phases' capacity, filled with
+    # heads' rows; SCATTER_ROWS changed rows padded to the 512 bucket
+    # with the out-of-range slot; a gather of W slots, the last 16 padding.
+    rng = np.random.default_rng(11)
+    W = wl["wl_cq"].shape[0]
+    twin = {k: dev(wl[k][rng.integers(0, W, size=ARENA_SLOTS)])
+            for k in ARENA_FIELDS}
+    upd_rows = {k: dev(wl[k][rng.integers(0, W, size=512)])
+                for k in ARENA_FIELDS}
+    upd_slots = np.full(512, ARENA_SLOTS, np.int32)
+    upd_slots[:SCATTER_ROWS] = rng.choice(ARENA_SLOTS, SCATTER_ROWS,
+                                          replace=False)
+    slots = rng.choice(ARENA_SLOTS, W, replace=False).astype(np.int32)
+    slots[-16:] = -1
     usage_d, cu_d = kernel.state_to_device(usage, cu, device)
-    sr = None if start_rank is None else torch.from_numpy(start_rank).to(device)
-    return kernel.topo_to_device(topo, device), usage_d, cu_d, wl_d, sr
+    return {
+        "topo": kernel.topo_to_device(topo, device), "usage": usage_d,
+        "cu": cu_d, "wl": {k: dev(v) for k, v in wl.items()},
+        "start_rank": None if start_rank is None else dev(start_rank),
+        "deltas": tuple(dev(a) for a in synth.synth_deltas(
+            topo, usage, DELTA_COORDS, seed=5)),
+        "twin": twin, "upd_rows": upd_rows, "upd_slots": dev(upd_slots),
+        "slots": dev(slots)}
 
 
 def kernel_phase(kind: str, device, results: dict) -> None:
     """Each kernel against its plain version on the same inputs on the
-    card, and both timed."""
+    card, and both timed, with the library calls that compute the same
+    function where there are such calls."""
+    import torch
     from kueue_tpu_torch.solver import kernel as k
-    topo, usage, cu, wl, sr = kernel_inputs(kind, device)
+    from kueue_tpu_torch.solver.arena import ARENA_FIELDS
+    inp = kernel_inputs(kind, device)
+    topo, usage, cu, wl, sr = (inp[n] for n in ("topo", "usage", "cu", "wl",
+                                                "start_rank"))
     W, P, R = wl["requests"].shape
     F = wl["eligible"].shape[2]
-    rows = {}
+    rows = {}  # name -> (max_abs_err, kernel, plain, bytes, library)
 
     v_args = (topo, usage, cu)
     ref_avail = k.avail_plain(*v_args)
@@ -238,7 +322,7 @@ def kernel_phase(kind: str, device, results: dict) -> None:
         nbytes(topo["cq_cohort"], topo["cq_chain"], topo["nominal"],
                topo["guaranteed"], topo["borrow_limit"], usage,
                topo["cohort_subtree"], topo["cohort_guaranteed"],
-               topo["cohort_borrow_limit"], cu, ref_avail))
+               topo["cohort_borrow_limit"], cu, ref_avail), None)
 
     a_args = (topo, ref_avail, usage, wl["requests"], wl["podset_active"],
               wl["wl_cq"], wl["eligible"], wl["solvable"], P, sr)
@@ -247,11 +331,21 @@ def kernel_phase(kind: str, device, results: dict) -> None:
         compare(("fit", "borrows", "chosen", "chosen_borrow", "asg_usage"),
                 k.phase_a(*a_args), ref_a),
         lambda: k.phase_a(*a_args), lambda: k.phase_a_plain(*a_args),
-        phase_a_bytes(topo, wl, P, sr, ref_a))
+        phase_a_bytes(topo, wl, P, sr, ref_a), None)
 
     fit, borrows, chosen, chosen_borrow, asg = ref_a
-    order = k.admit_order(fit, borrows, wl["priority"], wl["timestamp"])
-    offsets, members = k.domain_csr(topo, wl["wl_cq"], order)
+    o_args = (topo, fit, borrows, wl["priority"], wl["timestamp"],
+              wl["wl_cq"])
+    ref_o = k.order_csr_plain(*o_args)
+    # the plain version is the library chain (five stable torch.sort
+    # passes, a stable sort by domain, a bincount and a cumsum): its time
+    # is the row's library time as well
+    rows["order"] = (
+        compare(("offsets", "members"), k.order_csr(*o_args), ref_o),
+        lambda: k.order_csr(*o_args), lambda: k.order_csr_plain(*o_args),
+        order_bytes(*o_args, ref_o), "plain")
+
+    offsets, members = ref_o
     b_args = (topo, usage, cu, asg, fit, wl["wl_cq"], offsets, members)
     ref_b = k.phase_b_plain(*b_args)
     steps = int((offsets[1:] - offsets[:-1]).max().item())
@@ -260,39 +354,89 @@ def kernel_phase(kind: str, device, results: dict) -> None:
                 ref_b),
         lambda: k.phase_b(*b_args), lambda: k.phase_b_plain(*b_args),
         phase_b_bytes(topo, usage, cu, asg, fit, wl["wl_cq"], offsets,
-                      members, ref_b))
+                      members, ref_b), None)
 
     p_args = (chosen, chosen_borrow, fit, ref_b[0], borrows)
     ref_p = k.pack_plain(*p_args)
     rows["pack"] = (
         compare(("dec_pr", "dec_bits"), k.pack(*p_args), ref_p),
         lambda: k.pack(*p_args), lambda: k.pack_plain(*p_args),
-        nbytes(*p_args, *ref_p))
+        nbytes(*p_args, *ref_p), None)
+
+    # in place: each version on its own copy of the resident state
+    deltas = inp["deltas"]
+    got_d, want_d = (usage.clone(), cu.clone()), (usage.clone(), cu.clone())
+    k.apply_state_deltas(topo, *got_d, *deltas)
+    k.apply_state_deltas_plain(topo, *want_d, *deltas)
+    rows["deltas"] = (
+        compare(("usage", "cohort_usage"), got_d, want_d),
+        lambda: k.apply_state_deltas(topo, *got_d, *deltas),
+        lambda: k.apply_state_deltas_plain(topo, *want_d, *deltas),
+        deltas_bytes(deltas), None)
+
+    twin, upd_slots, upd_rows = inp["twin"], inp["upd_slots"], inp["upd_rows"]
+    got_t = {n: t.clone() for n, t in twin.items()}
+    want_t = {n: t.clone() for n, t in twin.items()}
+    lib_t = {n: t.clone() for n, t in twin.items()}
+    k.scatter_arena_rows(got_t, upd_slots, upd_rows)
+    k.scatter_arena_rows_plain(want_t, upd_slots, upd_rows)
+    real = upd_slots[:SCATTER_ROWS].long()
+
+    def scatter_library():
+        for n in ARENA_FIELDS:
+            lib_t[n].index_copy_(0, real, upd_rows[n][:SCATTER_ROWS])
+    rows["arena_scatter"] = (
+        compare(ARENA_FIELDS, [got_t[n] for n in ARENA_FIELDS],
+                [want_t[n] for n in ARENA_FIELDS]),
+        lambda: k.scatter_arena_rows(got_t, upd_slots, upd_rows),
+        lambda: k.scatter_arena_rows_plain(want_t, upd_slots, upd_rows),
+        nbytes(upd_slots) + 2 * SCATTER_ROWS * row_bytes(twin),
+        scatter_library)
+
+    slots = inp["slots"]
+    clamped = slots.long().clamp_min(0)
+    n_real = int((slots >= 0).sum())
+    rows["arena_gather"] = (
+        compare(ARENA_FIELDS, k.gather_arena(twin, slots),
+                k.gather_arena_plain(twin, slots)),
+        lambda: k.gather_arena(twin, slots),
+        lambda: k.gather_arena_plain(twin, slots),
+        nbytes(slots) + (n_real + W) * row_bytes(twin),
+        lambda: [twin[n].index_select(0, clamped) for n in ARENA_FIELDS])
 
     log(f"[kernels:{kind}] W={W} P={P} F={F} R={R} "
         f"Q={usage.shape[0]} C={cu.shape[0]} DC={topo['cq_chain'].shape[1]} "
         f"fit={int(fit.sum())} admitted={int(ref_b[0].sum())} "
-        f"phase_b dependent steps={steps}")
-    for name, (err, run_kernel, run_plain, moved) in rows.items():
+        f"phase_b dependent steps={steps} deltas D={deltas[0].shape[0]} "
+        f"(coords {int((deltas[0] >= 0).sum())}, levels "
+        f"{deltas[4].shape[0]}) arena slots={ARENA_SLOTS} "
+        f"scatter rows={SCATTER_ROWS}/512")
+    for name, (err, run_kernel, run_plain, moved, library) in rows.items():
         # call_ms: back-to-back wrapper calls between CUDA events, bounded
         # by the host's enqueue rate; ms: the kernel's own device time
         # from a profiler trace (call_ms when the trace shows none)
+        torch.cuda.synchronize()
         call_ms = time_cuda(run_kernel, iters=50)
         plain_ms = time_cuda(run_plain, iters=10 if name == "phase_b" else 50)
-        kernel_ms = profiled_device_ms(run_kernel, 50, f"{name}_kernel")
+        kernel_ms = profiled_device_ms(run_kernel, 50, name)
         ms, source = (kernel_ms, "profiler") if kernel_ms is not None \
             else (call_ms, "events")
+        library_ms = None
+        if library == "plain":
+            library_ms = plain_ms
+        elif library is not None:
+            library_ms = time_cuda(library, iters=50)
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
         log(f"[kernels:{kind}] {name}: equal to plain (max_abs_err {err}) "
             f"ms={ms:.5f} ({source}) call_ms={call_ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
-            f"({moved} bytes / 3.35 TB/s)"
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms} "
+            f"bound_ms={bound_ms:.6f} ({moved} bytes / 3.35 TB/s)"
             + (f"; latency-bound: {steps} dependent steps"
                if name == "phase_b" else ""))
         results.setdefault(kind, {})[name] = {
             "max_abs_err": err, "ms": ms, "ms_source": source,
-            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bytes": moved,
+            "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bytes": moved,
             **({"dependent_steps": steps} if name == "phase_b" else {})}
 
 
@@ -307,99 +451,168 @@ def normalize(decisions: dict) -> dict:
     return out
 
 
-def e2e_phase(device) -> dict:
-    """The main path: cache snapshot -> BatchSolver(device) -> admissions,
-    with every cycle's decisions held against the CPU plain path."""
+def check_resident(solver, cache, topo) -> None:
+    """The resident usage fetched from the card equals the host mirror,
+    and the mirror equals a fresh encode of the cache."""
+    import numpy as np
+    from kueue_tpu_torch.solver import encode
+    rs = solver.resident
+    if rs.device_backlog:
+        raise AssertionError("corrections left unshipped after a cycle")
+    truth = encode.encode_state(cache.snapshot(), topo)
+    for name, got, want in (
+            ("usage", rs.usage_dev.cpu().numpy(), rs.mirror_usage),
+            ("cohort_usage", rs.cohort_dev.cpu().numpy(), rs.mirror_cohort),
+            ("mirror usage", rs.mirror_usage, truth.usage),
+            ("mirror cohort_usage", rs.mirror_cohort, truth.cohort_usage)):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"resident {name} differs from the host")
+
+
+def e2e_phase(device, phase: str) -> dict:
+    """One main path, cycle after cycle: heads from the Manager, a cache
+    snapshot, BatchSolver(device), the admissions applied as the
+    scheduler applies them. Every cycle's decisions are held against the
+    CPU plain path on the same snapshot and heads, outside the timed
+    window."""
+    from collections import deque
+
+    from kueue_tpu_torch.api import kueue as api
     from kueue_tpu_torch.sim import northstar as ns
-    from kueue_tpu_torch.solver import BatchSolver, kernel
+    from kueue_tpu_torch.solver import BatchSolver, encode, kernel
+    bound, churn = phase != "unbound", phase == "bound_churn"
+    timed = BOUND_TIMED if bound else UNBOUND_TIMED
     num_cqs, num_cohorts = NORTH_STAR["num_cqs"], NORTH_STAR["num_cohorts"]
     flavors = [f"f{i}" for i in range(NORTH_STAR["num_flavors"])]
-    t0 = time.perf_counter()
-    cache = ns.build_cluster(num_cqs, num_cohorts, flavors, NOMINAL_UNITS)
-    heaps = ns.PendingHeaps()
-    staged = ns.stage_waves(heaps, E2E_WAVES, num_cqs, NOMINAL_UNITS)
-    log(f"[e2e] cluster: {num_cqs} CQs, {num_cohorts} cohorts, "
-        f"{len(flavors)} flavors x {NOMINAL_UNITS} units; {staged} pending "
-        f"staged in {time.perf_counter() - t0:.1f} s")
+    t_phase = time.perf_counter()
+    # StrictFIFO in the churn keeps a requeued head at its queue's front,
+    # so the heads that do not fit come back unchanged every cycle.
+    cache, queues = ns.build_cluster(
+        num_cqs, num_cohorts, flavors, NOMINAL_UNITS,
+        api.STRICT_FIFO if churn else api.BEST_EFFORT_FIFO)
+    admitted = deque() if churn else None
+    if churn:  # every flavor of every CQ full, oldest first by flavor
+        for f in flavors:
+            for i in range(num_cqs):
+                wl = ns.admitted_workload(f"pre-{f}-{i}", f"cq{i}", f,
+                                          NOMINAL_UNITS, 0.0)
+                cache.assume_workload(wl)
+                admitted.append(wl)
+    staged = ns.stage_waves(queues, E2E_WAVES, num_cqs, NOMINAL_UNITS)
+    log(f"[{phase}] cluster: {num_cqs} CQs, {num_cohorts} cohorts, "
+        f"{len(flavors)} flavors x {NOMINAL_UNITS} units; "
+        f"{len(admitted or ())} admitted and {staged} pending staged in "
+        f"{time.perf_counter() - t_phase:.1f} s")
     solver = BatchSolver(device=device)
+    if bound:
+        solver.bind_cache(cache)
+        solver.bind_queues(queues)
     reference = BatchSolver(device="cpu")
-    phases = {p: [] for p in ("snapshot", "encode", "upload", "device",
-                              "fetch", "decode", "admit", "gc", "cycle")}
+    topo = encode.encode_topology(cache.snapshot())
+    keys = ("heads", "snapshot", "encode", "upload", "device", "fetch",
+            "decode", "admit", "gc", "cycle", "upload_bytes")
+    phases = {p: [] for p in keys}
     admitted_timed = 0
     gc_clock = GcClock()
     gc.callbacks.append(gc_clock)
 
-    def run_cycle(cycle: int) -> tuple:
-        """One main-path cycle; returns (admitted, cycle seconds,
-        snapshot s, admit s, gc s). The CPU reference solve runs between
-        the solve and the admissions and is not part of the cycle; a full
-        collection after it, also untimed, takes the reference's garbage
-        (a second encode and decode of every head) out of the timed
-        phases."""
-        heads = heaps.heads()
+    def check() -> None:
+        if bound:
+            check_resident(solver, cache, topo)
+
+    def run_cycle(cycle: int, check_first: bool = True) -> dict:
+        """One main-path cycle. Untimed: the check of the previous
+        cycle's resident state, the finishes, the CPU reference solve and
+        a full collection after it, which takes the reference's garbage (a
+        second encode and decode of every head) out of the timed phases."""
+        if check_first and cycle > 0:
+            check()
+        finished = ns.finish_admitted(cache, admitted, CHURN_FINISHES) \
+            if churn else 0
         g0, t0 = gc_clock.total, time.perf_counter()
-        snapshot = cache.snapshot()
+        heads = queues.heads_nonblocking()
         t1 = time.perf_counter()
+        snapshot = cache.snapshot()
+        t2 = time.perf_counter()
         decisions = solver.solve(snapshot, heads)
-        g2, t2 = gc_clock.total, time.perf_counter()
+        g3, t3 = gc_clock.total, time.perf_counter()
         expected = reference.solve(snapshot, heads)
         if normalize(decisions) != normalize(expected):
-            raise AssertionError(f"cycle {cycle}: CUDA decisions differ "
-                                 "from the CPU plain path")
+            raise AssertionError(f"{phase} cycle {cycle}: CUDA decisions "
+                                 "differ from the CPU plain path")
         del expected
         gc.collect()
-        g3, t3 = gc_clock.total, time.perf_counter()
-        n = ns.apply_decisions(cache, heaps, heads, decisions, 1000.0 + cycle)
         g4, t4 = gc_clock.total, time.perf_counter()
-        cycle_s, gc_s = (t2 - t0) + (t4 - t3), (g2 - g0) + (g4 - g3)
+        n = ns.apply_decisions(cache, queues, solver if bound else None,
+                               heads, decisions, 1000.0 + cycle, admitted)
+        g5, t5 = gc_clock.total, time.perf_counter()
+        row = {"heads": t1 - t0, "snapshot": t2 - t1, **solver.last_phase_s,
+               "admit": t5 - t4, "gc": (g3 - g0) + (g5 - g4),
+               "cycle": (t3 - t0) + (t5 - t4),
+               "upload_bytes": solver.last_upload_bytes}
         depth = sorted({ps.flavors["cpu"].name for a, ok in decisions.values()
                         if ok for ps in a.pod_sets})
-        log(f"[e2e] cycle {cycle}{' (warm-up)' if cycle < E2E_WARMUP else ''}:"
-            f" heads={len(heads)} admitted={n} flavors={depth} "
-            f"pending={len(heaps)} cycle_ms={cycle_s * 1e3:.1f} snapshot_ms="
-            f"{(t1 - t0) * 1e3:.1f} admit_ms={(t4 - t3) * 1e3:.1f} gc_ms="
-            f"{gc_s * 1e3:.1f} untimed_gc_ms={(g3 - g2) * 1e3:.1f} solve_ms="
-            + json.dumps({k: round(v * 1e3, 3) for k, v in
-                          solver.last_phase_s.items()}))
-        return n, cycle_s, t1 - t0, t4 - t3, gc_s
+        arena = solver.arena
+        log(f"[{phase}] cycle {cycle}"
+            f"{' (warm-up)' if cycle < E2E_WARMUP else ''}: finished="
+            f"{finished} heads={len(heads)} fit={len(decisions)} admitted="
+            f"{n} flavors={depth if len(depth) < 4 else len(depth)} "
+            f"pending={queues.pending_total()} cycle_ms="
+            f"{row['cycle'] * 1e3:.1f} gc_ms={row['gc'] * 1e3:.1f} "
+            f"untimed_gc_ms={(g4 - g3) * 1e3:.1f} upload_bytes="
+            f"{row['upload_bytes']} arena full_uploads={arena.full_uploads} "
+            f"row_uploads={arena.row_uploads} resident_cycles="
+            f"{solver.counters['resident_cycles']} ms="
+            + json.dumps({k: round(row[k] * 1e3, 3) for k in keys
+                          if k not in ("gc", "cycle", "upload_bytes")}))
+        row["admitted"] = n
+        return row
 
     kernel.reset_launch_counts()
-    for cycle in range(E2E_WARMUP + E2E_TIMED):
-        n, cycle_s, snap_s, admit_s, gc_s = run_cycle(cycle)
+    for cycle in range(E2E_WARMUP + timed):
+        row = run_cycle(cycle)
         if cycle < E2E_WARMUP:
             continue
-        admitted_timed += n
-        phases["snapshot"].append(snap_s)
-        for k, v in solver.last_phase_s.items():
-            phases[k].append(v)
-        phases["admit"].append(admit_s)
-        phases["gc"].append(gc_s)
-        phases["cycle"].append(cycle_s)
+        admitted_timed += row["admitted"]
+        for k in keys:
+            phases[k].append(row[k])
     launches = kernel.launch_counts()
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} never launched on the main path")
+    for name in PHASE_KERNELS[phase]:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{phase} path")
     summary = {k: {"p50_ms": percentile(v, 50) * 1e3,
-                   "p99_ms": percentile(v, 99) * 1e3}
-               for k, v in phases.items()}
+                   "max_ms": max(v) * 1e3}
+               for k, v in phases.items() if k != "upload_bytes"}
+    summary["upload_bytes"] = {"p50": percentile(phases["upload_bytes"], 50),
+                               "max": max(phases["upload_bytes"])}
     summary["admitted_per_s"] = admitted_timed / sum(phases["cycle"])
     summary["admitted_timed"] = admitted_timed
     summary["launches"] = launches
-    summary["counters"] = solver.counters
-    summary["traced_cycle"] = traced_cycle(run_cycle, E2E_WARMUP + E2E_TIMED)
+    summary["counters"] = dict(solver.counters)
+    arena = solver.arena
+    summary["arena"] = {"cap": arena.cap, "full_uploads": arena.full_uploads,
+                        "row_uploads": arena.row_uploads,
+                        "encoded_rows": arena.encoded_rows}
+    check()
+    summary["traced_cycle"] = traced_cycle(phase, run_cycle,
+                                           E2E_WARMUP + timed)
+    check()
     gc.callbacks.remove(gc_clock)
-    log("[e2e] " + json.dumps(summary))
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[{phase}] " + json.dumps(summary))
     return summary
 
 
-def traced_cycle(run_cycle, cycle: int) -> dict:
+def traced_cycle(phase: str, run_cycle, cycle: int) -> dict:
     """One more main-path cycle under torch.profiler (after the timed
-    ones, outside the launch count): device busy time by kernel and the
-    card's idle share of the cycle's wall time."""
+    ones, outside the launch count, its resident-state check made before
+    the trace starts): device busy time by kernel and the card's idle
+    share of the cycle's wall time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, cycle_s, _, _, _ = run_cycle(cycle)
+        cycle_s = run_cycle(cycle, check_first=False)["cycle"]
     # device-side rows only (kernels, copies): an operator's row repeats
     # the device time of the kernels it launched
     rows = sorted(((e.key, device_us(e, self_only=True))
@@ -410,7 +623,7 @@ def traced_cycle(run_cycle, cycle: int) -> dict:
     out = {"wall_ms": cycle_s * 1e3, "device_busy_ms": busy_us / 1e3,
            "idle_share": 1.0 - busy_us / 1e3 / (cycle_s * 1e3),
            "top_device_ms": {k[:60]: us / 1e3 for k, us in rows[:12] if us}}
-    log("[trace] " + json.dumps(out))
+    log(f"[trace:{phase}] " + json.dumps(out))
     return out
 
 
@@ -427,6 +640,7 @@ def main() -> int:
     sys.path.insert(0, str(repo))
     from kueue_tpu_torch.solver import _build
 
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     cap = torch.cuda.get_device_capability(0)
     smi = nvidia_smi()
@@ -446,30 +660,38 @@ def main() -> int:
 
     results: dict = {}
     for kind in ("north_star", "nested"):
+        t0 = time.perf_counter()
         kernel_phase(kind, device, results)
-    e2e = e2e_phase(device)
+        log(f"[kernels:{kind}] wall {time.perf_counter() - t0:.1f} s")
+    e2e = {phase: e2e_phase(device, phase) for phase in PHASE_KERNELS}
 
     kernels = []
     for name in _build.KERNELS:
         row = results["north_star"][name]
+        by_phase = {p: e2e[p]["launches"][name] for p in e2e}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"kueue_tpu_torch/solver/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": e2e["launches"][name],
+            "replaces": REPLACES[name],
+            # this slice's main path: the bound solver, fill and churn
+            "launches": by_phase["bound_fill"] + by_phase["bound_churn"],
+            "launches_by_phase": by_phase,
             "max_abs_err": max(results[k][name]["max_abs_err"]
                                for k in results),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
-            "bound_bytes": row["bytes"], "library_ms": None,
+            "bound_bytes": row["bytes"], "library_ms": row["library_ms"],
             "ms_source": row["ms_source"], "call_ms": row["call_ms"],
             "nested": {k: v for k, v in results["nested"][name].items()
-                       if k in ("ms", "call_ms", "plain_ms", "bound_ms",
-                                "dependent_steps")},
+                       if k in ("ms", "call_ms", "plain_ms", "library_ms",
+                                "bound_ms", "dependent_steps")},
             # phase_b's real limit is its serial chain, which a byte or
             # operation count does not capture
             **({"latency_bound": f"{row['dependent_steps']} dependent steps",
                 "dependent_steps": row["dependent_steps"]}
                if name == "phase_b" else {})})
+    log(f"[wall] {time.perf_counter() - t_start:.1f} s, phases "
+        + json.dumps({p: round(e2e[p]["wall_s"], 1) for p in e2e}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

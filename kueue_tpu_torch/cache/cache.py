@@ -6,8 +6,10 @@ ClusterQueues/cohorts/flavors/checks/local-queues plus assumed workloads
 Snapshots for lock-free scheduling cycles.
 
 The port keeps the full-rebuild path only (the JAX package's
-Cache(incremental_snapshots=False)): no usage journal, no incremental
-snapshot maintainer, no handout recycling, no remote-cluster columns.
+Cache(incremental_snapshots=False)) with the usage journal its solver
+consumes: no incremental snapshot maintainer (and so no snapshot
+consumer of the journal), no light snapshots, no handout recycling, no
+remote-cluster columns.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ from kueue_tpu_torch.cache.clusterqueue import (
 from kueue_tpu_torch.cache.snapshot import ClusterQueueSnapshot, CohortSnapshot, Snapshot
 from kueue_tpu_torch.core import workload as wlpkg
 from kueue_tpu_torch.core.hierarchy import Manager as HierarchyManager
+
+# The journal consumer the solver's device-resident state registers as.
+SOLVER_CONSUMER = "solver"
 
 
 @dataclass
@@ -70,11 +75,93 @@ class Cache:
         # generations (those bump on every workload deletion purely to
         # invalidate flavor-resume state).
         self.topology_epoch = 0
+        # Usage journal: every usage-moving workload mutation appends
+        # (seq, kind, cq, key, usage) so a consumer can reconcile derived
+        # state with tiny deltas instead of a full rebuild per cycle.
+        # Consumers read through per-consumer cursors; entries are pruned
+        # once every cursor has passed them. kinds: 'add'/'del' move
+        # usage; 'cq'/'ready' (non-structural ClusterQueue updates,
+        # pods-ready flips) carry usage=None. Off until a consumer
+        # registers (enable_usage_journal).
+        self.usage_journal_enabled = False
+        self._journal: list = []
+        self._journal_seq = 0
+        self._journal_cap = 200_000
+        self._journal_cursors: dict = {}  # consumer -> consumed-up-to seq
+        self._journal_overflowed: set = set()  # consumers that lost entries
 
     def _new_cohort(self, name: str) -> CohortCache:
         cohort = CohortCache(name)
         cohort.manager = self.hm
         return cohort
+
+    # --- usage journal (device-resident solver state reconciliation) ---
+
+    def enable_usage_journal(self, consumer: str = SOLVER_CONSUMER) -> None:
+        with self._lock:
+            self.usage_journal_enabled = True
+            self._journal_cursors.setdefault(consumer, self._journal_seq)
+
+    def _journal_usage(self, kind: str, cq_name: str, key: str,
+                       usage: Optional[dict]) -> None:
+        """kind: 'add' | 'del' (usage-moving) | 'cq' | 'ready'
+        (usage=None). Caller holds the lock."""
+        if not self.usage_journal_enabled:
+            return
+        self._journal_seq += 1
+        self._journal.append((self._journal_seq, kind, cq_name, key, usage))
+        if len(self._journal) > self._journal_cap:
+            # Bound memory when a consumer stops draining: only the
+            # laggards lose their backlog (and see the overflow flag on
+            # their next drain, falling back to a full rebuild); an
+            # actively-draining consumer keeps its pending entries.
+            for name, cur in self._journal_cursors.items():
+                if self._journal_seq - cur > self._journal_cap:
+                    self._journal_overflowed.add(name)
+                    self._journal_cursors[name] = self._journal_seq
+            self._prune_journal_locked()
+
+    def _prune_journal_locked(self) -> None:
+        """Drop entries every registered consumer has consumed. Seqs are
+        contiguous (+1 per append, pruned only from the front), so list
+        index == seq - first_seq."""
+        if not self._journal:
+            return
+        if not self._journal_cursors:
+            self._journal.clear()
+            return
+        low = min(self._journal_cursors.values())
+        first = self._journal[0][0]
+        if low >= first:
+            del self._journal[:low - first + 1]
+
+    def journal_overflowed(self, consumer: str = SOLVER_CONSUMER) -> bool:
+        """Peek (without clearing) whether ``consumer`` lost journal
+        entries since its last drain."""
+        with self._lock:
+            return consumer in self._journal_overflowed
+
+    def drain_usage_journal(self, upto_seq: int,
+                            consumer: str = SOLVER_CONSUMER) -> tuple:
+        """Return (entries with cursor < seq <= upto_seq, overflowed) for
+        `consumer` and advance its cursor; the overflow flag resets once
+        observed. Entries stay visible to the other registered consumers
+        until everyone's cursor has passed them."""
+        with self._lock:
+            cursor = self._journal_cursors.get(consumer, 0)
+            upto = min(upto_seq, self._journal_seq)
+            entries: list = []
+            if self._journal and upto >= self._journal[0][0]:
+                first = self._journal[0][0]
+                lo = max(0, cursor - first + 1)
+                hi = upto - first + 1
+                if hi > lo:
+                    entries = self._journal[lo:hi]
+            self._journal_cursors[consumer] = max(cursor, upto)
+            overflow = consumer in self._journal_overflowed
+            self._journal_overflowed.discard(consumer)
+            self._prune_journal_locked()
+            return entries, overflow
 
     # --- ClusterQueues ---
 
@@ -126,6 +213,10 @@ class Cache:
             self._refresh_cohort(cqc)
             if self._topo_signature(cqc) != old_sig:
                 self.topology_epoch += 1
+            else:
+                # Non-structural update (namespace selector, preemption
+                # policy, fungibility knobs): invisible to every epoch.
+                self._journal_usage("cq", cqc.name, "", None)
 
     def terminate_cluster_queue(self, name: str) -> None:
         """Stop admissions while keeping the usage accounting alive until
@@ -322,6 +413,8 @@ class Cache:
             cqc.add_workload(info)
             not_ready = (self.pods_ready_tracking and not is_condition_true(
                 wl.status.conditions, api.WORKLOAD_PODS_READY))
+            self._journal_usage("add", cqc.name, info.key,
+                                info.flavor_resource_usage())
             if not_ready:
                 cqc.workloads_not_ready.add(info.key)
             self._pods_ready_cond.notify_all()
@@ -354,6 +447,8 @@ class Cache:
         if info is None:
             return False
         cqc.delete_workload(info)
+        self._journal_usage("del", cqc.name, key,
+                            info.flavor_resource_usage())
         cqc.workloads_not_ready.discard(key)
         self._capacity_version += 1  # freed capacity invalidates resume state
         return True
@@ -377,6 +472,8 @@ class Cache:
             cqc.add_workload(info)
             not_ready = (self.pods_ready_tracking and not is_condition_true(
                 wl.status.conditions, api.WORKLOAD_PODS_READY))
+            self._journal_usage("add", cqc.name, key,
+                                info.flavor_resource_usage())
             if not_ready:
                 cqc.workloads_not_ready.add(key)
             self.assumed_workloads[key] = cqc.name
@@ -415,6 +512,7 @@ class Cache:
             for cqc in self.hm.cluster_queues.values():
                 if key in cqc.workloads_not_ready:
                     cqc.workloads_not_ready.discard(key)
+                    self._journal_usage("ready", cqc.name, key, None)
             self._pods_ready_cond.notify_all()
 
     def wait_for_pods_ready(self, timeout: Optional[float] = None) -> bool:
@@ -466,6 +564,7 @@ class Cache:
             snap.cohort_epoch = self.cohort_epoch
             snap.flavor_spec_epoch = self.flavor_spec_epoch
             snap.topology_epoch = self.topology_epoch
+            snap.journal_seq = self._journal_seq
             return snap
 
     # --- usage reporting (status/metrics) ---

@@ -162,6 +162,9 @@ class Snapshot:
     cohort_epoch: int = 0  # cohort-object structure version (Cache.cohort_epoch)
     flavor_spec_epoch: int = 0  # ResourceFlavor spec version (taints/labels)
     topology_epoch: int = 0  # solver-topology version (Cache.topology_epoch)
+    # The cache's usage-journal position when the snapshot was taken:
+    # the solver drains the journal up to here before each cycle.
+    journal_seq: int = 0
 
     def remove_workload(self, wl: wlpkg.Info) -> None:
         """Simulate removal (reference: snapshot.go:39)."""

@@ -1,41 +1,42 @@
-"""The north-star deployment on the port's object model, and a pending
-heap per ClusterQueue in place of the queue manager.
+"""The north-star deployment on the port's object model, driven through
+the port's queue Manager.
 
 The cluster is the flagship scenario of the JAX package's benchmark
 (bench.py make_flavor / make_cq / make_workload / build_env,
 BASELINE.json): ClusterQueues in cohorts, each CQ offering every flavor
-with one resource group covering cpu and memory. Workloads are sized in
+with one resource group covering cpu and memory, and a LocalQueue
+`lq{i}` in namespace "default" feeding `cq{i}`. Workloads are sized in
 cpu units (1 unit = 1000 milli-cpu and 1 GiB).
 
-`PendingHeaps` keeps each CQ's pending workloads in the queue's own
-order (priority descending, then queue-order timestamp; the JAX
-package's queue/cluster_queue.py:34-39). A cycle takes the top of every
-non-empty heap as its heads; an admitted head is popped, a head that is
-not admitted stays on top for the next cycle.
+A cycle is the scheduler's loop around a BatchSolver: heads from
+`Manager.heads_nonblocking` (one per CQ), `solve`, then
+`apply_decisions`: admitted heads are assumed into the cache and handed
+to `solver.release_workload`, the rest are requeued. `finish_admitted`
+ends admitted workloads between cycles, as their jobs completing would.
 """
 
 from __future__ import annotations
 
-import heapq
-import itertools
+from collections import deque
 
 from kueue_tpu_torch.api import kueue as api
 from kueue_tpu_torch.api.corev1 import Container, PodSpec, PodTemplateSpec
 from kueue_tpu_torch.api.meta import LabelSelector, ObjectMeta
 from kueue_tpu_torch.cache import Cache
-from kueue_tpu_torch.core import priority as prioritypkg
 from kueue_tpu_torch.core import workload as wlpkg
+from kueue_tpu_torch.queue import Manager, RequeueReason
 
 
 def make_flavor(name: str) -> api.ResourceFlavor:
     return api.ResourceFlavor(metadata=ObjectMeta(name=name, uid=f"rf-{name}"))
 
 
-def make_cq(name: str, cohort: str, flavors: list,
-            nominal_units: int) -> api.ClusterQueue:
+def make_cq(name: str, cohort: str, flavors: list, nominal_units: int,
+            queueing_strategy: str = api.BEST_EFFORT_FIFO) -> api.ClusterQueue:
     cq = api.ClusterQueue(metadata=ObjectMeta(name=name, uid=f"cq-{name}"))
     cq.spec.namespace_selector = LabelSelector()
     cq.spec.cohort = cohort
+    cq.spec.queueing_strategy = queueing_strategy
     cq.spec.resource_groups.append(api.ResourceGroup(
         covered_resources=["cpu", "memory"],
         flavors=[api.FlavorQuotas(name=f, resources=[
@@ -43,6 +44,12 @@ def make_cq(name: str, cohort: str, flavors: list,
             api.ResourceQuota(name="memory", nominal_quota=nominal_units << 30),
         ]) for f in flavors]))
     return cq
+
+
+def make_local_queue(name: str, cluster_queue: str) -> api.LocalQueue:
+    return api.LocalQueue(
+        metadata=ObjectMeta(name=name, namespace="default"),
+        spec=api.LocalQueueSpec(cluster_queue=cluster_queue))
 
 
 def make_workload(name: str, queue: str, cpu_units: int, priority: int = 0,
@@ -61,51 +68,24 @@ def make_workload(name: str, queue: str, cpu_units: int, priority: int = 0,
 
 
 def build_cluster(num_cqs: int, num_cohorts: int, flavors: list,
-                  nominal_units: int) -> Cache:
-    """cq{i} in cohort-{i % num_cohorts}, every flavor at nominal_units."""
+                  nominal_units: int,
+                  queueing_strategy: str = api.BEST_EFFORT_FIFO) -> tuple:
+    """cq{i} in cohort-{i % num_cohorts}, every flavor at nominal_units,
+    fed by lq{i}. Returns (Cache, Manager)."""
     cache = Cache()
+    queues = Manager()
     for f in flavors:
         cache.add_or_update_resource_flavor(make_flavor(f))
     for i in range(num_cqs):
-        cache.add_cluster_queue(make_cq(f"cq{i}", f"cohort-{i % num_cohorts}",
-                                        flavors, nominal_units))
-    return cache
+        cq = make_cq(f"cq{i}", f"cohort-{i % num_cohorts}", flavors,
+                     nominal_units, queueing_strategy)
+        cache.add_cluster_queue(cq)
+        queues.add_cluster_queue(cq)
+        queues.add_local_queue(make_local_queue(f"lq{i}", f"cq{i}"))
+    return cache, queues
 
 
-# queue-order timestamps under the default policy
-_ORDERING = wlpkg.Ordering()
-
-
-class PendingHeaps:
-    """Per-CQ pending heaps in queue order (priority desc, then
-    queue-order timestamp asc, then arrival)."""
-
-    def __init__(self):
-        self._heaps: dict = {}
-        self._seq = itertools.count()
-
-    def push(self, info: wlpkg.Info) -> None:
-        key = (-prioritypkg.priority(info.obj),
-               _ORDERING.queue_order_timestamp(info.obj), next(self._seq))
-        heapq.heappush(self._heaps.setdefault(info.cluster_queue, []),
-                       (key, info))
-
-    def heads(self) -> list:
-        """The top of every non-empty heap, in CQ-name order."""
-        return [h[0][1] for _, h in sorted(self._heaps.items()) if h]
-
-    def pop(self, info: wlpkg.Info) -> None:
-        """Remove an admitted head (it is the top of its heap)."""
-        heap = self._heaps[info.cluster_queue]
-        if heap[0][1] is not info:
-            raise ValueError(f"{info.key} is not the head of its queue")
-        heapq.heappop(heap)
-
-    def __len__(self) -> int:
-        return sum(len(h) for h in self._heaps.values())
-
-
-def stage_waves(heaps: PendingHeaps, waves: int, num_cqs: int,
+def stage_waves(queues: Manager, waves: int, num_cqs: int,
                 cpu_units: int) -> int:
     """`waves` workloads per CQ, made as the JAX package's benchmark makes
     them (bench.py _run_e2e): workload n has priority n % 5 and creation
@@ -115,16 +95,31 @@ def stage_waves(heaps: PendingHeaps, waves: int, num_cqs: int,
         for i in range(num_cqs):
             wl = make_workload(f"w{wave}-{i}", f"lq{i}", cpu_units=cpu_units,
                                priority=n % 5, creation=float(n))
-            heaps.push(wlpkg.Info(wl, cluster_queue=f"cq{i}"))
+            if not queues.add_or_update_workload(wl):
+                raise ValueError(f"no queue for {wl.metadata.name}")
             n += 1
     return n
 
 
-def admit(cache: Cache, info: wlpkg.Info, assignment, now: float) -> None:
+def admitted_workload(name: str, cq: str, flavor: str, cpu_units: int,
+                      now: float) -> api.Workload:
+    """A workload holding quota in `cq` on `flavor`, as a past admission
+    left it: for filling a cluster before the first cycle."""
+    wl = make_workload(name, "", cpu_units)
+    wlpkg.set_quota_reservation(wl, api.Admission(
+        cluster_queue=cq, pod_set_assignments=[api.PodSetAssignment(
+            name="main", flavors={"cpu": flavor, "memory": flavor},
+            resource_usage={"cpu": cpu_units * 1000,
+                            "memory": cpu_units << 30}, count=1)]), now)
+    return wl
+
+
+def admit(cache: Cache, info: wlpkg.Info, assignment,
+          now: float) -> api.Workload:
     """Reserve quota for an admitted head as the scheduler's admit does
     (scheduler.go:571-623): the admission goes on a status copy of the
     workload, and the cache assumes it so the next snapshot carries its
-    usage."""
+    usage. Returns the admitted copy."""
     new_wl = wlpkg.clone_for_status_update(info.obj)
     admission = api.Admission(cluster_queue=info.cluster_queue,
                               pod_set_assignments=assignment.to_api())
@@ -135,25 +130,43 @@ def admit(cache: Cache, info: wlpkg.Info, assignment, now: float) -> None:
         wlpkg.sync_admitted_condition(new_wl, now)
     cache.assume_workload(new_wl, info=wlpkg.Info.from_assignment(
         new_wl, info.cluster_queue, assignment))
+    return new_wl
 
 
-def apply_decisions(cache: Cache, heaps: PendingHeaps, heads: list,
-                    decisions: dict, now: float) -> int:
+def apply_decisions(cache: Cache, queues: Manager, solver, heads: list,
+                    decisions: dict, now: float,
+                    admitted: deque = None) -> int:
     """Apply one cycle's decisions as the scheduler does: every decided
     head keeps its assignment's resume state (scheduler.go's
     `w.last_assignment = assignment.last_state`); admitted heads are
-    reserved and popped, the rest stay pending. Returns the number
-    admitted."""
+    assumed into the cache and their arena slots released
+    (solver.release_workload; solver may be None when unbound); every
+    other head is requeued. The admitted workloads are appended to
+    `admitted` when given. Returns the number admitted."""
     n = 0
     for i, info in enumerate(heads):
         decision = decisions.get(i)
-        if decision is None:
-            continue
-        assignment, admitted = decision
-        info.last_assignment = assignment.last_state
-        if not admitted:
-            continue
-        admit(cache, info, assignment, now)
-        heaps.pop(info)
+        if decision is not None:
+            assignment, ok = decision
+            info.last_assignment = assignment.last_state
+            if ok:
+                wl = admit(cache, info, assignment, now)
+                if solver is not None:
+                    solver.release_workload(info.key)
+                if admitted is not None:
+                    admitted.append(wl)
+                n += 1
+                continue
+        queues.requeue_workload(info, RequeueReason.GENERIC)
+    return n
+
+
+def finish_admitted(cache: Cache, admitted: deque, count: int) -> int:
+    """Finish the `count` oldest admitted workloads: their quota is
+    released (cache.delete_workload), which the usage journal carries to
+    a bound solver. Returns the number finished."""
+    n = 0
+    while admitted and n < count:
+        cache.delete_workload(admitted.popleft())
         n += 1
     return n

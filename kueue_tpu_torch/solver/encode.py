@@ -14,8 +14,8 @@ flattened into [Q,F,R] / [C,F,R] integer tensors; taint/affinity
 eligibility (string matching) is computed host-side into a [W,P,F] mask
 so the device program is pure integer arithmetic.
 
-The port's copy leaves out the MultiKueue cluster columns and the
-device-resident state deltas; the module stays numpy on the host.
+The port's copy leaves out the MultiKueue cluster columns; the module
+stays numpy on the host.
 """
 
 from __future__ import annotations
@@ -466,6 +466,109 @@ def encode_workloads(entries: list, snapshot: Snapshot, topo: Topology,
     fill_start_ranks(batch.start_rank, entries, batch.solvable, snapshot,
                      topo, P)
     return batch
+
+
+# ---------------------------------------------------------------------------
+# Device-resident state: sparse correction encoding + the host mirror
+# ---------------------------------------------------------------------------
+
+def encode_deltas(corrections: dict, topo: Topology):
+    """corrections: {(cq_name, FlavorResource) -> net delta}. Returns the
+    (dq, df, dr, dv, lvl_c, lvl_seg) tuple for kernel.apply_state_deltas,
+    or None when nothing maps onto the topology. Coords are unique per
+    level by construction (aggregation dict + np.unique)."""
+    coords = []
+    for (cq_name, fr), dv in corrections.items():
+        if dv == 0:
+            continue
+        qi = topo.cq_index.get(cq_name)
+        fi = topo.flavor_index.get(fr.flavor)
+        ri = topo.resource_index.get(fr.resource)
+        if qi is None or fi is None or ri is None:
+            continue
+        coords.append((qi, fi, ri, dv))
+    if not coords:
+        return None
+    return deltas_from_coords(coords, topo.cq_chain, topo.cohort_parent)
+
+
+def deltas_from_coords(coords: list, cq_chain: np.ndarray,
+                       cohort_parent: np.ndarray) -> tuple:
+    """Unique (q, f, r, delta) coords -> the padded delta tuple: [D]
+    coords (D bucketed from 8 by 4, dq = -1 on padding), then per chain
+    level the unique cohort coords lvl_c[L,D,3] and lvl_seg[L,D], which
+    maps row d of the level below (level 0: the delta coords) to its
+    cohort coord's row (-1 = chain ends or padding)."""
+    D = _bucket(len(coords), 8)
+    dq = np.full(D, -1, np.int32)
+    df = np.zeros(D, np.int32)
+    dr = np.zeros(D, np.int32)
+    dv = np.zeros(D, np.int64)
+    arr = np.asarray(coords, np.int64)
+    n = len(coords)
+    dq[:n] = arr[:, 0]
+    df[:n] = arr[:, 1]
+    dr[:n] = arr[:, 2]
+    dv[:n] = arr[:, 3]
+
+    L = cq_chain.shape[1]
+    lvl_c = np.full((L, D, 3), -1, np.int32)
+    lvl_seg = np.full((L, D), -1, np.int32)
+    # level 0 parents: the delta coords' direct cohorts; level l parents:
+    # level l-1's cohort coords' parents. Dedup per level with np.unique.
+    prev_c = np.where(dq >= 0, cq_chain[np.maximum(dq, 0), 0], -1)  # [D]
+    prev_f, prev_r = df, dr
+    for lvl in range(L):
+        valid = prev_c >= 0
+        if not valid.any():
+            break
+        key = (prev_c.astype(np.int64) << 32) | \
+              (prev_f.astype(np.int64) << 16) | prev_r.astype(np.int64)
+        key = np.where(valid, key, np.int64(-1))
+        uniq, inv = np.unique(key, return_inverse=True)
+        off = 1 if uniq[0] == -1 else 0  # drop the invalid bucket
+        m = len(uniq) - off
+        lvl_c[lvl, :m, 0] = (uniq[off:] >> 32).astype(np.int32)
+        lvl_c[lvl, :m, 1] = ((uniq[off:] >> 16) & 0xFFFF).astype(np.int32)
+        lvl_c[lvl, :m, 2] = (uniq[off:] & 0xFFFF).astype(np.int32)
+        lvl_seg[lvl] = np.where(valid, inv - off, -1).astype(np.int32)
+        # next level: parents of this level's unique cohorts
+        prev_c = np.full(D, -1, np.int32)
+        prev_c[:m] = cohort_parent[lvl_c[lvl, :m, 0]]
+        prev_f = np.maximum(lvl_c[lvl, :, 1], 0)
+        prev_r = np.maximum(lvl_c[lvl, :, 2], 0)
+    return dq, df, dr, dv, lvl_c, lvl_seg
+
+
+def apply_deltas_np(topo: Topology, usage: np.ndarray,
+                    cohort_usage: np.ndarray, deltas) -> None:
+    """In-place numpy twin of kernel.apply_state_deltas — keeps the host
+    mirror bit-identical to the device-resident state."""
+    dq, df, dr, dv, lvl_c, lvl_seg = deltas
+    valid = dq >= 0
+    dqs = np.maximum(dq, 0)
+    dvm = np.where(valid, dv, 0)
+    old = usage[dqs, df, dr].copy()
+    np.add.at(usage, (dqs, df, dr), dvm)
+    g = topo.guaranteed[dqs, df, dr]
+    dover = np.maximum(0, old + dvm - g) - np.maximum(0, old - g)
+    D = len(dq)
+    for lvl in range(lvl_c.shape[0]):
+        seg = lvl_seg[lvl]
+        delta_l = np.zeros(D, np.int64)
+        np.add.at(delta_l, np.maximum(seg, 0), np.where(seg >= 0, dover, 0))
+        c = lvl_c[lvl, :, 0]
+        cvalid = c >= 0
+        if not cvalid.any():
+            break
+        cs = np.maximum(c, 0)
+        fs = np.maximum(lvl_c[lvl, :, 1], 0)
+        rs = np.maximum(lvl_c[lvl, :, 2], 0)
+        delta_l = np.where(cvalid, delta_l, 0)
+        oldc = cohort_usage[cs, fs, rs].copy()
+        np.add.at(cohort_usage, (cs, fs, rs), delta_l)
+        gc = topo.cohort_guaranteed[cs, fs, rs]
+        dover = np.maximum(0, oldc + delta_l - gc) - np.maximum(0, oldc - gc)
 
 
 def _eligibility_key(pod_spec) -> tuple:

@@ -1,16 +1,23 @@
-"""The fit-mode admission solve on the card: four hand-written CUDA
-kernels and the library sort between them.
+"""The admission solve on the card: hand-written CUDA kernels, each with
+a plain PyTorch version beside it.
 
-Counterpart of kueue_tpu/solver/kernel.py's `solve_cycle_fused_impl`
-(the production single-chip program) with fair sharing, preemption,
-device-resident state and MultiKueue columns left out. One cycle is:
+Counterpart of kueue_tpu/solver/kernel.py's fit-mode programs: the
+unbound cycle `solve_cycle_fused_impl`, and the production cycles of a
+solver bound to its cache and queues, `solve_cycle_resident_impl` and
+`solve_cycle_resident_arena_impl`, with fair sharing, preemption and
+MultiKueue columns left out. One fused cycle is:
 
 1. `avail`   - availability of every CQ, walked down its cohort chain.
 2. `phase_a` - flavor assignment for every head (vectorized over W).
-3. the admit order - five stable `torch.sort` passes (library sort).
+3. `order_csr` - the admit order and the conflict-domain CSR of it.
 4. `phase_b` - the order-dependent admit with intra-cycle accounting,
-   one thread block per conflict domain, reading a CSR of the order.
+   one thread block per conflict domain, reading the CSR.
 5. `pack`    - the compact decision wire format.
+
+The resident cycle first applies the journal's sparse usage corrections
+to the usage that stays on the card (`apply_state_deltas`); the arena
+cycle first gathers the heads' rows from the device twin of the encode
+arena (`gather_arena`), which `scatter_arena_rows` keeps current.
 
 Each kernel has a wrapper, a plain PyTorch version in this module and a
 launch counter (`<wrapper>.launches`, a plain int bumped once per
@@ -23,11 +30,13 @@ the plain versions agree exactly.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
 
 from kueue_tpu_torch.solver import _build
+from kueue_tpu_torch.solver.arena import ARENA_FIELDS
 
 NO_LIMIT = 2**62
 INF_RANK = 10**6  # "no fitting flavor" rank (kueue_tpu/solver/kernel.py:165)
@@ -67,12 +76,13 @@ def state_to_device(usage, cohort_usage, device) -> tuple:
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
+    for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    """{kernel name (its csrc/<name>.cu): launches since the reset}."""
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -303,16 +313,30 @@ def phase_a(topo, avail_q, usage, requests, podset_active, wl_cq, eligible,
 
 
 # ---------------------------------------------------------------------------
-# The admit order and the conflict-domain CSR (library sort + scan)
+# order_csr: the admit order and the conflict-domain CSR
 # ---------------------------------------------------------------------------
+#
+# Replaces kueue_tpu/solver/kernel.py:498-525, the lexsort of the admit
+# order and the [L,D] order grid of solve_cycle_fused_impl. Output: a CSR
+# offsets[D+1] / members[W] of each conflict domain's workloads in admit
+# order, which phase_b walks. Both are one stable sort on the composite
+# key (domain, ~fit, borrows, share, -priority, timestamp, index). Bound
+# on the H100: latency — a few KB in and out. Design: a counting rank.
+# One warp per workload counts the workloads whose composite key is
+# smaller (tiles of the keys staged through shared memory, lanes summed
+# with shuffles) and writes members[rank] = i and its domain at the same
+# rank; a second kernel on the stream gives one thread to each domain
+# boundary d, whose lower bound in the sorted domains is offsets[d].
+# O(W^2) comparisons, no atomics.
 
-def admit_order(fit, borrows, priority, timestamp):
+def admit_order(fit, borrows, priority, timestamp, share=None):
     """Stable lexsort on (timestamp, -priority, share, borrows, ~fit), the
     last key most significant (kueue_tpu/solver/kernel.py:498-501;
     reference: entryOrdering.Less, scheduler.go:643-672): one stable
     sort per key, least significant first. share is zero with fair
     sharing off."""
-    share = torch.zeros_like(priority)
+    if share is None:
+        share = torch.zeros_like(priority)
     order = torch.sort(timestamp, stable=True).indices
     for key in (-priority, share, borrows.to(torch.int32),
                 (~fit).to(torch.int32)):
@@ -320,21 +344,62 @@ def admit_order(fit, borrows, priority, timestamp):
     return order
 
 
-def domain_csr(topo, wl_cq, order):
-    """Conflict domains (root cohort, or C + q for a CQ with no cohort;
-    kueue_tpu/solver/kernel.py:503-508) as a CSR of the admit order:
-    offsets[D+1] and members[W], each domain's members in admit order."""
+def _domains(topo, wl_cq):
+    """Conflict domain of each workload: its root cohort, or C + q for a
+    CQ with no cohort (kueue_tpu/solver/kernel.py:503-508)."""
     C = topo["cohort_subtree"].shape[0]
-    D = C + topo["cq_cohort"].shape[0]
     q = wl_cq.long()
     cohort_of = topo["cq_cohort"][q].long()
     root_of = topo["cohort_root"][cohort_of.clamp_min(0)].long()
-    domain = torch.where(cohort_of >= 0, root_of, C + q)
+    return torch.where(cohort_of >= 0, root_of, C + q)
+
+
+def domain_csr(topo, wl_cq, order):
+    """The admit order as a CSR over conflict domains: offsets[D+1] and
+    members[W], each domain's members in admit order."""
+    D = topo["cohort_subtree"].shape[0] + topo["cq_cohort"].shape[0]
+    domain = _domains(topo, wl_cq)
     perm = torch.sort(domain[order], stable=True).indices
     members = order[perm].to(torch.int32)
     counts = torch.bincount(domain, minlength=D)
     offsets = torch.zeros(D + 1, dtype=torch.int32, device=wl_cq.device)
     offsets[1:] = torch.cumsum(counts, 0)
+    return offsets, members
+
+
+def order_csr_plain(topo, fit, borrows, priority, timestamp, wl_cq,
+                    share=None):
+    """The torch chain: five stable sorts, a stable sort by domain, a
+    histogram and a scan. Returns (offsets[D+1] int32, members[W] int32)."""
+    order = admit_order(fit, borrows, priority, timestamp, share)
+    return domain_csr(topo, wl_cq, order)
+
+
+def order_csr(topo, fit, borrows, priority, timestamp, wl_cq, share=None):
+    if _is_cpu(fit):
+        return order_csr_plain(topo, fit, borrows, priority, timestamp,
+                               wl_cq, share)
+    W = fit.shape[0]
+    C = topo["cohort_subtree"].shape[0]
+    D = C + topo["cq_cohort"].shape[0]
+    dev = fit.device
+    offsets = torch.empty(D + 1, dtype=torch.int32, device=dev)
+    members = torch.empty(W, dtype=torch.int32, device=dev)
+    sorted_dom = torch.empty(W, dtype=torch.int32, device=dev)  # scratch
+    _launch("order", [
+        _ptr(topo["cq_cohort"], torch.int32, "cq_cohort"),
+        _ptr(topo["cohort_root"], torch.int32, "cohort_root"),
+        _ptr(fit, torch.bool, "fit"),
+        _ptr(borrows, torch.bool, "borrows"),
+        0 if share is None else _ptr(share, torch.int64, "share"),
+        _ptr(priority, torch.int64, "priority"),
+        _ptr(timestamp, torch.float64, "timestamp"),
+        _ptr(wl_cq, torch.int32, "wl_cq"),
+        _ptr(offsets, torch.int32, "offsets"),
+        _ptr(members, torch.int32, "members"),
+        _ptr(sorted_dom, torch.int32, "sorted_dom"),
+    ], [W, C, D], dev)
+    order_csr.launches += 1
     return offsets, members
 
 
@@ -352,7 +417,7 @@ def domain_csr(topo, wl_cq, order):
 # other; a block walks its own members in admit order with one thread
 # per (f,r) (each thread only ever touches its own (f,r) column) and
 # __syncthreads_and for still_fits. The TPU's dense [L,D] grid is not
-# built: the kernel reads the CSR from domain_csr. usage/cohort_usage
+# built: the kernel reads the CSR from order_csr. usage/cohort_usage
 # are updated in place on copies of the inputs.
 
 def phase_b_plain(topo, usage, cohort_usage, asg_usage, fit, wl_cq,
@@ -489,7 +554,175 @@ def pack(chosen, chosen_borrow, fit, admitted, borrows):
     return dec_pr, dec_bits
 
 
-KERNEL_WRAPPERS = (avail, phase_a, phase_b, pack)
+# ---------------------------------------------------------------------------
+# apply_state_deltas: sparse usage corrections on the resident state
+# ---------------------------------------------------------------------------
+#
+# Replaces kueue_tpu/solver/kernel.py:765 apply_state_deltas_impl. The
+# usage a bound solver keeps on the card between cycles is corrected by
+# the cache journal's net deltas (finishes, evictions, reverted
+# admissions): D unique (q,f,r) coords with their deltas, bubbled up the
+# cohort chain as a difference of clamps past each level's guaranteed
+# quota; per level, several children may feed one cohort coord, so the
+# level's delta is a segment sum. Bound on the H100: latency — D <= 512
+# coords, a few KB. Design: one block; the coords of a level are spread
+# over the threads, the segment sums are 64-bit atomic adds into shared
+# memory (an unsigned add wraps correctly for negative deltas), and a
+# barrier separates the levels. usage/cohort_usage are updated IN PLACE
+# (the JAX program returns new arrays; in place is the torch form).
+
+# The largest D the kernel takes (two int64 per coord in shared memory).
+MAX_DELTA_COORDS = 2048
+
+
+def apply_state_deltas_plain(topo, usage, cohort_usage, dq, df, dr, dv,
+                             lvl_c, lvl_seg):
+    """In place on usage[Q,F,R] and cohort_usage[C,F,R] (int64)."""
+    valid = dq >= 0
+    dqs, dfs, drs = (x.clamp_min(0).long() for x in (dq, df, dr))
+    dv = torch.where(valid, dv, 0)
+    old = usage[dqs, dfs, drs]
+    usage.index_put_((dqs, dfs, drs), dv, accumulate=True)  # pads add 0
+    g = topo["guaranteed"][dqs, dfs, drs]
+    dover = (old + dv - g).clamp_min(0) - (old - g).clamp_min(0)
+    D = dq.shape[0]
+    for lvl in range(lvl_c.shape[0]):
+        seg = lvl_seg[lvl]
+        delta_l = torch.zeros(D, dtype=torch.int64, device=usage.device)
+        delta_l.index_add_(0, seg.clamp_min(0).long(),
+                           torch.where(seg >= 0, dover, 0))
+        c = lvl_c[lvl, :, 0]
+        cs, fs, rs = (lvl_c[lvl, :, k].clamp_min(0).long() for k in range(3))
+        delta_l = torch.where(c >= 0, delta_l, 0)
+        oldc = cohort_usage[cs, fs, rs]
+        cohort_usage.index_put_((cs, fs, rs), delta_l, accumulate=True)
+        gc = topo["cohort_guaranteed"][cs, fs, rs]
+        dover = (oldc + delta_l - gc).clamp_min(0) - (oldc - gc).clamp_min(0)
+
+
+def apply_state_deltas(topo, usage, cohort_usage, dq, df, dr, dv, lvl_c,
+                       lvl_seg):
+    if _is_cpu(usage):
+        return apply_state_deltas_plain(topo, usage, cohort_usage, dq, df,
+                                        dr, dv, lvl_c, lvl_seg)
+    D = dq.shape[0]
+    if D > MAX_DELTA_COORDS:
+        raise ValueError(f"apply_state_deltas takes D <= {MAX_DELTA_COORDS}"
+                         f", got {D}")
+    _, F, R = usage.shape
+    _launch("deltas", [
+        _ptr(topo["guaranteed"], torch.int64, "guaranteed"),
+        _ptr(topo["cohort_guaranteed"], torch.int64, "cohort_guaranteed"),
+        _ptr(usage, torch.int64, "usage"),
+        _ptr(cohort_usage, torch.int64, "cohort_usage"),
+        _ptr(dq, torch.int32, "dq"),
+        _ptr(df, torch.int32, "df"),
+        _ptr(dr, torch.int32, "dr"),
+        _ptr(dv, torch.int64, "dv"),
+        _ptr(lvl_c, torch.int32, "lvl_c"),
+        _ptr(lvl_seg, torch.int32, "lvl_seg"),
+    ], [D, lvl_c.shape[0], F, R], usage.device)
+    apply_state_deltas.launches += 1
+
+
+# ---------------------------------------------------------------------------
+# The encode arena's device twin: changed-row scatter and per-cycle gather
+# ---------------------------------------------------------------------------
+#
+# Replace kueue_tpu/solver/kernel.py:863 scatter_arena_rows_impl (and its
+# donated form, :888) and :892 gather_arena_impl. The twin holds the
+# ARENA_FIELDS rows of every arena slot; bools are bytes. Bound on the
+# H100: bytes — each row (217 B at P=4, F=32, R=2) is read once and
+# written once — but at <= 512 scattered rows and 2048 gathered rows the
+# launch latency dominates. Design: one block per row, its threads copy
+# the row's bytes of every field (gather: or zero them for a padding
+# slot); both kernels take the seven fields as (pointer, row bytes)
+# pairs, so one copy loop serves every dtype.
+
+ARENA_DTYPES = {"requests": torch.int64, "podset_active": torch.bool,
+                "wl_cq": torch.int32, "priority": torch.int64,
+                "timestamp": torch.float64, "eligible": torch.bool,
+                "solvable": torch.bool}
+
+
+def _row_bytes(t: torch.Tensor) -> int:
+    return math.prod(t.shape[1:]) * t.element_size()
+
+
+def scatter_arena_rows_plain(arena: dict, upd_slots, upd_rows: dict) -> None:
+    """In place: arena[f][upd_slots[d]] = upd_rows[f][d] for every field;
+    slots outside [0, cap) (the padding, which is `cap`) are dropped."""
+    cap = arena["wl_cq"].shape[0]
+    keep = (upd_slots >= 0) & (upd_slots < cap)
+    idx = upd_slots[keep].long()
+    for name in ARENA_FIELDS:
+        arena[name][idx] = upd_rows[name][keep]
+
+
+def scatter_arena_rows(arena: dict, upd_slots, upd_rows: dict) -> None:
+    if _is_cpu(upd_slots):
+        return scatter_arena_rows_plain(arena, upd_slots, upd_rows)
+    cap = arena["wl_cq"].shape[0]
+    D = upd_slots.shape[0]
+    srcs, dsts, sizes = [], [], []
+    for name in ARENA_FIELDS:
+        dst, src = arena[name], upd_rows[name]
+        if dst.shape[1:] != src.shape[1:] or src.shape[0] != D:
+            raise ValueError(f"{name}: rows {tuple(src.shape)} do not fit "
+                             f"the twin {tuple(dst.shape)}")
+        srcs.append(_ptr(src, ARENA_DTYPES[name], f"rows.{name}"))
+        dsts.append(_ptr(dst, ARENA_DTYPES[name], f"arena.{name}"))
+        sizes.append(_row_bytes(dst))
+    _launch("arena_scatter", [_ptr(upd_slots, torch.int32, "upd_slots"),
+                              *srcs, *dsts], [D, cap, *sizes],
+            upd_slots.device)
+    scatter_arena_rows.launches += 1
+
+
+def gather_arena_plain(arena: dict, slots) -> tuple:
+    """[W] slots (-1 = padding) -> the batch tensors (requests,
+    podset_active, wl_cq, priority, timestamp, eligible, solvable);
+    padding rows are all zero / False."""
+    cap = arena["wl_cq"].shape[0]
+    valid = (slots >= 0) & (slots < cap)
+    s = torch.where(valid, slots, 0).long()
+    requests = torch.where(valid[:, None, None], arena["requests"][s], 0)
+    podset_active = arena["podset_active"][s] & valid[:, None]
+    wl_cq = torch.where(valid, arena["wl_cq"][s], 0)
+    priority = torch.where(valid, arena["priority"][s], 0)
+    timestamp = torch.where(valid, arena["timestamp"][s], 0.0)
+    eligible = arena["eligible"][s] & valid[:, None, None]
+    solvable = arena["solvable"][s] & valid
+    return (requests, podset_active, wl_cq, priority, timestamp, eligible,
+            solvable)
+
+
+def gather_arena(arena: dict, slots) -> tuple:
+    if _is_cpu(slots):
+        return gather_arena_plain(arena, slots)
+    cap = arena["wl_cq"].shape[0]
+    W = slots.shape[0]
+    outs, srcs, dsts, sizes = [], [], [], []
+    for name in ARENA_FIELDS:  # the batch order of the outputs
+        src = arena[name]
+        out = torch.empty((W,) + tuple(src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
+        outs.append(out)
+        srcs.append(_ptr(src, ARENA_DTYPES[name], f"arena.{name}"))
+        dsts.append(_ptr(out, ARENA_DTYPES[name], name))
+        sizes.append(_row_bytes(src))
+    _launch("arena_gather", [_ptr(slots, torch.int32, "slots"), *srcs,
+                             *dsts], [W, cap, *sizes], slots.device)
+    gather_arena.launches += 1
+    return tuple(outs)
+
+
+# kernel name (solver/csrc/<name>.cu) -> its wrapper
+KERNEL_WRAPPERS = {"avail": avail, "phase_a": phase_a, "order": order_csr,
+                   "phase_b": phase_b, "pack": pack,
+                   "deltas": apply_state_deltas,
+                   "arena_scatter": scatter_arena_rows,
+                   "arena_gather": gather_arena}
 reset_launch_counts()
 
 
@@ -513,8 +746,8 @@ def solve_cycle_fused(topo, usage, cohort_usage, requests, podset_active,
     fit, borrows, chosen, chosen_borrow, asg_usage = phase_a(
         topo, avail_q, usage, requests, podset_active, wl_cq, eligible,
         solvable, num_podsets, start_rank)
-    order = admit_order(fit, borrows, priority, timestamp)
-    offsets, members = domain_csr(topo, wl_cq, order)
+    offsets, members = order_csr(topo, fit, borrows, priority, timestamp,
+                                 wl_cq)
     admitted, usage_out, cohort_out = phase_b(
         topo, usage, cohort_usage, asg_usage, fit, wl_cq, offsets, members)
     out = {"usage": usage_out, "cohort_usage": cohort_out}
@@ -525,6 +758,37 @@ def solve_cycle_fused(topo, usage, cohort_usage, requests, podset_active,
         out.update(admitted=admitted, chosen=chosen, borrows=borrows,
                    chosen_borrow=chosen_borrow, fit=fit)
     return out
+
+
+def solve_cycle_resident(topo, usage, cohort_usage, deltas, requests,
+                         podset_active, wl_cq, priority, timestamp, eligible,
+                         solvable, num_podsets: int, max_rank: int = 0,
+                         start_rank=None, compact: bool = True) -> dict:
+    """The device-resident cycle (kueue_tpu/solver/kernel.py:808
+    solve_cycle_resident_impl, fit mode): the sparse correction prologue,
+    applied IN PLACE to the resident usage/cohort_usage, then the fused
+    cycle, whose usage/cohort_usage outputs are the next cycle's resident
+    state. deltas: None or the tensors (dq, df, dr, dv, lvl_c, lvl_seg)."""
+    if deltas is not None:
+        apply_state_deltas(topo, usage, cohort_usage, *deltas)
+    return solve_cycle_fused(topo, usage, cohort_usage, requests,
+                             podset_active, wl_cq, priority, timestamp,
+                             eligible, solvable, num_podsets=num_podsets,
+                             max_rank=max_rank, start_rank=start_rank,
+                             compact=compact)
+
+
+def solve_cycle_resident_arena(topo, usage, cohort_usage, deltas, arena,
+                               slots, num_podsets: int, max_rank: int = 0,
+                               start_rank=None, compact: bool = True) -> dict:
+    """The arena-resident cycle (kueue_tpu/solver/kernel.py:909
+    solve_cycle_resident_arena_impl, fit mode): gather the heads' rows
+    from the device twin by slot (-1 = padding), then the resident
+    cycle."""
+    batch = gather_arena(arena, slots)
+    return solve_cycle_resident(topo, usage, cohort_usage, deltas, *batch,
+                                num_podsets=num_podsets, max_rank=max_rank,
+                                start_rank=start_rank, compact=compact)
 
 
 def max_rank_bound(wl_cq, cq_cohort, cohort_root) -> int:

@@ -1,17 +1,30 @@
 """BatchSolver: the fit-mode admission solve from a snapshot to decisions.
 
-The port of kueue_tpu/solver/service.py's unbound path
-(`BatchSolver().solve(snapshot, entries)`): encode the cycle, upload it,
-run the fused cycle (kernel.solve_cycle_fused) on the solver's device,
-fetch only the packed decisions, unpack and decode them into the
-scheduler's Assignment form, including the LastTriedFlavorIdx resume
-state.
+The port of kueue_tpu/solver/service.py's single-chip fit path. Unbound
+(`BatchSolver().solve(snapshot, entries)`): encode the cycle, upload the
+state and the batch, run the fused cycle (kernel.solve_cycle_fused) on
+the solver's device, fetch only the packed decisions, unpack and decode
+them into the scheduler's Assignment form, including the
+LastTriedFlavorIdx resume state.
 
-Left out of this slice (the JAX package has them): the adaptive CPU/device
-router (`_route`), the dispatch supervisor and watchdog, fault injection,
-the flight recorder, the encode arena, device-resident state with its
-usage journal, preemption, fair sharing, MultiKueue cluster columns, and
-the multi-chip mesh.
+Bound to its Cache (`bind_cache`) and queue Manager (`bind_queues`), it
+runs the JAX package's production cycle: usage and cohort usage stay on
+the device across cycles (ResidentState), reconciled with the cache's
+usage journal by a sparse correction prologue (kernel.apply_state_deltas);
+the heads' encoded rows live in the encode arena (solver/arena.py),
+whose device twin takes only the changed rows each cycle
+(kernel.scatter_arena_rows) and from which the cycle gathers its batch
+by slot (kernel.solve_cycle_resident_arena). The caller's cycle is the
+scheduler's: heads from the Manager, `solve`, then for each admitted
+head `cache.assume_workload` and `release_workload`, and
+`Manager.requeue_workload` for the rest; a failed assume is reported
+with `note_unapplied`.
+
+Left out of these slices (the JAX package has them): the adaptive
+CPU/device router (`_route`), the dispatch supervisor and watchdog, the
+background fetch pool, fault injection, the flight recorder,
+preemption, fair sharing, MultiKueue cluster columns, and the
+multi-chip mesh.
 """
 
 from __future__ import annotations
@@ -30,12 +43,20 @@ from kueue_tpu_torch.core.resources import FlavorResource
 from kueue_tpu_torch.device import resolve
 from kueue_tpu_torch.scheduler import flavorassigner as fa
 from kueue_tpu_torch.solver import encode
+from kueue_tpu_torch.solver.arena import WorkloadArena
 from kueue_tpu_torch.solver.kernel import (
     DECISION_KEYS,
     MAX_COMPACT_FLAVORS,
     solve_cycle_fused,
+    solve_cycle_resident,
+    solve_cycle_resident_arena,
     topo_to_device,
 )
+
+# The largest device backlog shipped as a delta prologue: a bigger
+# correction set re-uploads the mirror wholesale (the JAX package's
+# bound, kueue_tpu/solver/service.py:1034).
+MAX_BACKLOG = 512
 
 # the dense decision keys the compact wire format replaces
 DENSE_DECISION_KEYS = ("admitted", "fit", "chosen", "borrows",
@@ -75,6 +96,38 @@ class Plan:
         self.state = state
         self.batch = batch
         self.start_rank = start_rank
+        self.slots = None       # arena slots of the heads (bound to queues)
+        self.deltas = None      # the delta prologue (numpy tuple) or None
+        self.resident = False   # dispatch on the device-resident state
+        self.rs = None          # the ResidentState the plan was built on
+        self.backlog_gen = 0
+
+
+class ResidentState:
+    """Device-resident usage/cohort_usage across cycles + the host-side
+    bookkeeping that keeps them honest (kueue_tpu/solver/service.py:256):
+
+    - usage_dev/cohort_dev: the cycle's own post-cycle outputs, fed back
+      as next cycle's inputs — no per-cycle state upload.
+    - mirror_usage/mirror_cohort: numpy twin, kept bit-identical to the
+      device by applying the same delta updates host-side.
+    - pending: device-applied admissions awaiting their cache-journal
+      confirmation (the assume write); confirmed entries cancel, entries
+      the caller failed to assume are reverted.
+    - device_backlog: net corrections (evictions, finishes, reverted
+      admissions) the device has not seen yet; shipped as a sparse delta
+      prologue in the next dispatch.
+    """
+
+    def __init__(self, token):
+        self.token = token
+        self.usage_dev = None
+        self.cohort_dev = None
+        self.mirror_usage = None
+        self.mirror_cohort = None
+        self.pending: dict = {}        # key -> (cq_name, usage dict, age)
+        self.device_backlog: dict = {}  # (cq_name, fr) -> net delta
+        self.backlog_gen = 0
 
 
 class BatchSolver:
@@ -84,15 +137,75 @@ class BatchSolver:
         Workloads are ordered by the default wlpkg.Ordering."""
         self.max_podsets = max_podsets
         self.device = resolve(device)
+        self.ordering = wlpkg.Ordering()
         self._topo_cache = None
         self._topo_key = None
+        self._cache = None   # bound Cache (usage journal source)
+        self._queues = None  # bound Manager (encode arena delta feed)
+        self._resident: Optional[ResidentState] = None
+        # Workload encode arena: engaged only once a Manager is bound —
+        # without the feed there is no invalidation source for in-place
+        # object updates, so unbound callers keep the from-scratch encode.
+        self._arena = WorkloadArena(max_podsets)
         self.counters = {"dispatches": 0, "collects": 0, "upload_bytes": 0,
-                         "fetch_bytes": 0}
+                         "fetch_bytes": 0, "resident_cycles": 0,
+                         "establishes": 0}
+        self.last_upload_bytes = 0
         self.last_phase_s = dict.fromkeys(PHASES, 0.0)
+
+    # --- binding to the control plane ---
+
+    def bind_cache(self, cache) -> None:
+        """Attach the Cache: enables the usage journal that keeps the
+        device-resident state reconciled across cycles."""
+        self._cache = cache
+        cache.enable_usage_journal()
+
+    def bind_queues(self, queues) -> None:
+        """Attach the queue Manager's workload delta feed: the encode
+        arena's rows are invalidated/freed by deltas instead of being
+        rebuilt per cycle. Idempotent."""
+        if self._queues is queues:
+            return
+        self._queues = queues
+        queues.add_workload_listener(self._arena.note)
+
+    def release_workload(self, key: str) -> None:
+        """The workload was admitted (it holds quota and leaves the
+        pending set without a queue-manager delete), so its arena slot
+        can be recycled."""
+        self._arena.release(key)
+
+    def slot_generations(self, slots):
+        """Per-slot encode-arena generations for a dispatched batch's
+        slots: any upsert/delete of a dispatched workload since bumps its
+        slot's generation. None when no Manager is bound."""
+        if slots is None or self._queues is None:
+            return None
+        return self._arena.slot_generations(slots)
+
+    @property
+    def resident_capable(self) -> bool:
+        return self._cache is not None
+
+    @property
+    def arena(self) -> WorkloadArena:
+        return self._arena
+
+    @property
+    def resident(self) -> Optional[ResidentState]:
+        return self._resident
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array as a tensor on the solver's device that owns its
+        memory (on the CPU a plain .to() would alias the array, and the
+        resident tensors are updated in place)."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device,
+                                                             copy=True)
 
     def _topology(self, snapshot: Snapshot):
         # keyed on topology_epoch: it bumps on every spec change that
@@ -105,49 +218,249 @@ class BatchSolver:
         return self._topo_cache
 
     def prepare(self, snapshot: Snapshot, entries: list) -> Optional[Plan]:
-        """Encode the cycle; None when nothing is solvable."""
+        """Encode the cycle; None when nothing is solvable. With a bound
+        cache the usage state is device-resident and reconciled through
+        the journal; with bound queues the batch comes from the arena."""
         if not entries:
             return None
         t0 = time.perf_counter()
         topo, topo_dev = self._topology(snapshot)
-        state = encode.encode_state(snapshot, topo)
-        batch = encode.encode_workloads(entries, snapshot, topo,
-                                        max_podsets=self.max_podsets)
+        state, deltas, resident = self._state_for_cycle(snapshot, topo)
+        if resident:
+            self.counters["resident_cycles"] += 1
+        slots = None
+        if self._queues is not None:
+            self._arena.begin_cycle(topo)
+            batch, slots = self._arena.assemble(entries, snapshot, topo,
+                                                self.ordering,
+                                                self.max_podsets)
+        else:
+            batch = encode.encode_workloads(entries, snapshot, topo,
+                                            max_podsets=self.max_podsets)
         self.last_phase_s["encode"] = time.perf_counter() - t0
         if not batch.solvable.any():
             return None
         start_rank = batch.start_rank if batch.start_rank.any() else None
-        return Plan(topo, topo_dev, state, batch, start_rank)
+        plan = Plan(topo, topo_dev, state, batch, start_rank)
+        plan.slots = slots
+        plan.deltas = deltas
+        plan.resident = resident
+        if resident:
+            plan.rs = self._resident  # identity-pinned: a residency reset
+            plan.backlog_gen = self._resident.backlog_gen
+        return plan
+
+    # --- device-resident state management ---
+
+    def _state_for_cycle(self, snapshot: Snapshot, topo):
+        """Returns (state-with-mirror-arrays, encoded deltas or None,
+        resident?). Establishes residency on the first cycle (full
+        encode + upload), reconciles via the journal afterwards."""
+        if not self.resident_capable:
+            return encode.encode_state(snapshot, topo), None, False
+        rs = self._resident
+        if rs is not None and rs.token == topo.token \
+                and self._reconcile(snapshot, topo):
+            state = encode.State(usage=rs.mirror_usage,
+                                 cohort_usage=rs.mirror_cohort)
+            if len(rs.device_backlog) > MAX_BACKLOG:
+                # A huge correction set (mass completions): the mirror IS
+                # device state + backlog, so re-upload it wholesale.
+                rs.usage_dev = None
+                rs.cohort_dev = None
+                rs.device_backlog = {}
+            if rs.usage_dev is None:
+                # Not dispatched yet: the establishing upload ships the
+                # (already-corrected) mirror itself — shipping the backlog
+                # as a delta prologue too would double-count it.
+                rs.device_backlog = {}
+                deltas = None
+            else:
+                deltas = (encode.encode_deltas(rs.device_backlog, topo)
+                          if rs.device_backlog else None)
+                if deltas is None:
+                    rs.device_backlog = {}
+            return state, deltas, True
+        # (re)establish: the snapshot is the full truth — drop any journal
+        # history up to it, encode once, upload once.
+        self._cache.drain_usage_journal(snapshot.journal_seq)
+        state = encode.encode_state(snapshot, topo)
+        rs = ResidentState(topo.token)
+        rs.mirror_usage = state.usage
+        rs.mirror_cohort = state.cohort_usage
+        self._resident = rs
+        return state, None, True
+
+    def _reconcile(self, snapshot: Snapshot, topo) -> bool:
+        """Drain the cache journal up to the snapshot: device admissions
+        confirmed by their assume write cancel; everything else (other
+        admissions, evictions, finishes, reverts of failed assumes)
+        becomes a sparse correction applied to the mirror now and shipped
+        to the device at the next dispatch. False = residency must be
+        dropped (journal overflow)."""
+        rs = self._resident
+        entries, overflow = self._cache.drain_usage_journal(
+            snapshot.journal_seq)
+        if overflow:
+            self._resident = None
+            return False
+        corr: dict = {}
+        for _seq, kind, cq_name, key, usage in entries:
+            if kind == "add":
+                p = rs.pending.pop(key, None)
+                if p is not None:
+                    pcq, pusage, _age = p
+                    if pcq == cq_name and pusage == usage:
+                        continue  # confirmed exactly — device already has it
+                    # divergent confirmation: revert the device's version,
+                    # then apply the journal's
+                    for fr, v in pusage.items():
+                        k = (pcq, fr)
+                        corr[k] = corr.get(k, 0) - v
+                sign = 1
+            elif kind == "del":
+                sign = -1
+            else:
+                continue  # 'cq' / 'ready': no usage movement
+            for fr, v in usage.items():
+                k = (cq_name, fr)
+                corr[k] = corr.get(k, 0) + sign * v
+        # age out device admissions never confirmed (aborted cycles);
+        # note_unapplied() covers the common failure synchronously.
+        expired = [k for k, (_cq, _u, age) in rs.pending.items() if age >= 3]
+        for key in expired:
+            pcq, pusage, _age = rs.pending.pop(key)
+            for fr, v in pusage.items():
+                k = (pcq, fr)
+                corr[k] = corr.get(k, 0) - v
+        for key, (pcq, pusage, age) in rs.pending.items():
+            rs.pending[key] = (pcq, pusage, age + 1)
+        if corr:
+            self._apply_corrections(rs, topo, corr)
+        return True
+
+    @staticmethod
+    def _apply_corrections(rs: ResidentState, topo, corr: dict) -> None:
+        """Fold net corrections into the mirror NOW and the device backlog
+        (shipped as the next dispatch's delta prologue)."""
+        deltas = encode.encode_deltas(corr, topo)
+        if deltas is not None:
+            encode.apply_deltas_np(topo, rs.mirror_usage,
+                                   rs.mirror_cohort, deltas)
+        for k, v in corr.items():
+            nv = rs.device_backlog.get(k, 0) + v
+            if nv:
+                rs.device_backlog[k] = nv
+            else:
+                rs.device_backlog.pop(k, None)
+
+    def note_unapplied(self, key: str) -> None:
+        """The caller failed to assume a device-admitted workload: revert
+        it from the mirror and queue the device correction."""
+        rs = self._resident
+        if rs is None:
+            return
+        p = rs.pending.pop(key, None)
+        if p is None:
+            return
+        pcq, pusage, _age = p
+        corr = {(pcq, fr): -v for fr, v in pusage.items()}
+        topo = self._topo_cache[0] if self._topo_cache else None
+        if topo is not None:
+            self._apply_corrections(rs, topo, corr)
+
+    def invalidate_resident(self) -> None:
+        self._resident = None
+        # The arena twin may hold rows from an aborted dispatch whose
+        # dirty-set was already cleared: force a full re-upload.
+        self._arena.drop_device()
+
+    # --- the cycle ---
 
     def dispatch(self, plan: Plan) -> tuple:
-        """Upload the state and the batch, run the fused cycle. Returns
-        (device outputs, keys to fetch)."""
+        """Upload what the cycle needs and run it. Returns (device
+        outputs, keys to fetch). Bound, the upload is the heads' slot
+        indices, the arena's changed rows, the delta prologue and the
+        flavor-resume ranks; unbound, the state and the whole batch."""
         t0 = time.perf_counter()
         topo, batch, state = plan.topo, plan.batch, plan.state
-        host = [state.usage, state.cohort_usage, batch.requests,
-                batch.podset_active, batch.wl_cq, batch.priority,
-                batch.timestamp, batch.eligible, batch.solvable]
-        if plan.start_rank is not None:
-            host.append(plan.start_rank)
-        dev = [torch.from_numpy(a).to(self.device, non_blocking=True)
-               for a in host]
-        start_rank = dev[9] if plan.start_rank is not None else None
-        self._sync()
-        t1 = time.perf_counter()
         compact = topo.nominal.shape[1] <= MAX_COMPACT_FLAVORS
-        result = solve_cycle_fused(
-            plan.topo_dev, *dev[:9], num_podsets=self.max_podsets,
-            start_rank=start_rank, compact=compact)
+        start_rank = None if plan.start_rank is None else \
+            self._upload(plan.start_rank)
+        # Identity check: the plan must have been built on the CURRENT
+        # ResidentState — after an invalidate + re-establish, a stale
+        # plan's decisions must not chain into the fresh device arrays.
+        rs = self._resident
+        if plan.resident and plan.rs is not rs:
+            plan.resident = False
+        establishing = rs is None or rs.usage_dev is None
+        batch_np = (batch.requests, batch.podset_active, batch.wl_cq,
+                    batch.priority, batch.timestamp, batch.eligible,
+                    batch.solvable)
+        kwargs = dict(num_podsets=self.max_podsets, start_rank=start_rank,
+                      compact=compact)
+        if plan.resident and rs is not None and rs.token == topo.token:
+            if rs.usage_dev is None:
+                usage_in = self._upload(state.usage)
+                cohort_in = self._upload(state.cohort_usage)
+            else:
+                usage_in, cohort_in = rs.usage_dev, rs.cohort_dev
+            deltas = None if plan.deltas is None else \
+                tuple(self._upload(a) for a in plan.deltas)
+            if plan.slots is not None:
+                # Arena dispatch: the batch rows already live on the
+                # device — ship the head slots and the changed rows.
+                arena_dev, up = self._arena.prepare_device(self.device)
+                slots_w = np.full(batch.requests.shape[0], -1, np.int32)
+                slots_w[:batch.n] = plan.slots
+                slots_dev = self._upload(slots_w)
+                up += slots_w.nbytes
+                self._sync()
+                t1 = time.perf_counter()
+                result = solve_cycle_resident_arena(
+                    plan.topo_dev, usage_in, cohort_in, deltas, arena_dev,
+                    slots_dev, **kwargs)
+            else:
+                dev = [self._upload(a) for a in batch_np]
+                up = sum(a.nbytes for a in batch_np)
+                self._sync()
+                t1 = time.perf_counter()
+                result = solve_cycle_resident(
+                    plan.topo_dev, usage_in, cohort_in, deltas, *dev,
+                    **kwargs)
+            rs.usage_dev = result["usage"]
+            rs.cohort_dev = result["cohort_usage"]
+            if plan.deltas is not None and plan.backlog_gen == rs.backlog_gen:
+                rs.device_backlog = {}
+                rs.backlog_gen += 1
+        else:
+            plan.resident = False
+            dev = [self._upload(a) for a in
+                   (state.usage, state.cohort_usage, *batch_np)]
+            up = sum(a.nbytes for a in batch_np)
+            self._sync()
+            t1 = time.perf_counter()
+            result = solve_cycle_fused(plan.topo_dev, *dev, **kwargs)
         self._sync()
         self.last_phase_s["upload"] = t1 - t0
         self.last_phase_s["device"] = time.perf_counter() - t1
+        if plan.start_rank is not None:
+            up += plan.start_rank.nbytes
+        if not plan.resident or establishing:
+            up += state.usage.nbytes + state.cohort_usage.nbytes
+        if plan.resident and plan.deltas is not None:
+            up += sum(a.nbytes for a in plan.deltas)
+        self.last_upload_bytes = up
         self.counters["dispatches"] += 1
-        self.counters["upload_bytes"] += sum(a.nbytes for a in host)
+        self.counters["upload_bytes"] += up
+        if plan.resident and establishing:
+            self.counters["establishes"] += 1
         keys = DECISION_KEYS if compact else DENSE_DECISION_KEYS
         return result, keys
 
     def collect(self, plan: Plan, result: dict, keys, snapshot: Snapshot):
-        """Fetch the decisions only, unpack and decode them."""
+        """Fetch the decisions only, unpack and decode them, and update
+        the residency bookkeeping."""
         t0 = time.perf_counter()
         fetched = {k: result[k].cpu().numpy() for k in keys}
         self.counters["fetch_bytes"] += sum(v.nbytes for v in fetched.values())
@@ -155,8 +468,12 @@ class BatchSolver:
         fetched = unpack_decisions(fetched, self.max_podsets,
                                    plan.topo.nominal.shape[2])
         t1 = time.perf_counter()
+        # Mirror/pending updates only apply when the plan's ResidentState
+        # is still the live one (not invalidated+re-established since).
+        resident_ok = plan.resident and plan.rs is self._resident
         decisions = self._decode_batch(plan.batch.infos, snapshot, plan.topo,
-                                       plan.batch, fetched)
+                                       plan.batch, fetched,
+                                       resident=resident_ok)
         self.last_phase_s["fetch"] = t1 - t0
         self.last_phase_s["decode"] = time.perf_counter() - t1
         return decisions
@@ -174,7 +491,8 @@ class BatchSolver:
         return self.collect(plan, result, keys, snapshot)
 
     def _decode_batch(self, entries: list, snapshot: Snapshot,
-                      topo: encode.Topology, batch, fetched: dict) -> dict:
+                      topo: encode.Topology, batch, fetched: dict,
+                      resident: bool = False) -> dict:
         """Decisions into the scheduler's Assignment form, with the
         LastTriedFlavorIdx resume state exactly as the CPU assigner
         stores it (reference: flavorassigner.go:289-324): the rank where
@@ -220,6 +538,8 @@ class BatchSolver:
         # generation is the cache's capacity version, which moves on
         # events that never rebuild the topology.
         gen_cache: dict = {}
+        rs = self._resident if resident else None
+        mirror_corr: dict = {}
         out = {}
         for row, wi in enumerate(idx.tolist()):
             info = entries[wi]
@@ -260,5 +580,20 @@ class BatchSolver:
                     name=psr.name, flavors=flavors, requests=reqs,
                     count=psr.count))
                 assignment.last_state.last_tried_flavor_idx.append(flavor_idx)
-            out[wi] = (assignment, bool(admitted_l[row]))
+            was_admitted = bool(admitted_l[row])
+            if rs is not None and was_admitted:
+                # The device's phase B applied this usage; track it until
+                # the assume write confirms it through the journal, and
+                # bring the host mirror up to the device state.
+                rs.pending[info.key] = (info.cluster_queue, dict(usage), 0)
+                cq_name = info.cluster_queue
+                for fr, v in usage.items():
+                    k = (cq_name, fr)
+                    mirror_corr[k] = mirror_corr.get(k, 0) + v
+            out[wi] = (assignment, was_admitted)
+        if rs is not None and mirror_corr:
+            deltas = encode.encode_deltas(mirror_corr, topo)
+            if deltas is not None:
+                encode.apply_deltas_np(topo, rs.mirror_usage,
+                                       rs.mirror_cohort, deltas)
         return out

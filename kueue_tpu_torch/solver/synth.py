@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from kueue_tpu_torch.solver.encode import deltas_from_coords
+
 
 def synth_solver_inputs(num_cqs: int = 256, num_cohorts: int = 32,
                         num_flavors: int = 8, num_resources: int = 2,
@@ -159,6 +161,24 @@ def synth_nested_inputs(num_cqs: int = 64, num_leaf_cohorts: int = 8,
         "cq_chain": chain, "cohort_lendable": lendable,
     })
     return topo, usage, cusage, wl
+
+
+def synth_deltas(topo: dict, usage: np.ndarray, num_coords: int,
+                 seed: int = 0) -> tuple:
+    """A delta prologue for kernel.apply_state_deltas: `num_coords`
+    unique (q, f, r) coords with net deltas that keep usage non-negative
+    (finishes free at most what is used, admissions add up to nominal),
+    encoded as encode.encode_deltas encodes the journal's corrections."""
+    rng = np.random.default_rng(seed + 3)
+    Q, F, R = usage.shape
+    pick = rng.choice(Q * F * R, size=min(num_coords, Q * F * R),
+                      replace=False)
+    coords = []
+    for q, f, r in zip(*np.unravel_index(pick, (Q, F, R))):
+        lo, hi = -int(usage[q, f, r]), int(topo["nominal"][q, f, r])
+        coords.append((int(q), int(f), int(r),
+                       int(rng.integers(lo, hi + 1)) or 1000))
+    return deltas_from_coords(coords, topo["cq_chain"], topo["cohort_parent"])
 
 
 def synth_start_rank(wl: dict, num_flavors: int, seed: int = 0) -> np.ndarray:

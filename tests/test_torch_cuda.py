@@ -7,14 +7,17 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+from collections import deque
+
 import numpy as np
 import pytest
 import torch
 
+from kueue_tpu_torch.api import kueue as api
 from kueue_tpu_torch.sim import northstar as ns
-from kueue_tpu_torch.solver import BatchSolver
+from kueue_tpu_torch.solver import BatchSolver, encode
 from kueue_tpu_torch.solver import kernel as tk
-from kueue_tpu_torch.solver.synth import (synth_nested_inputs,
+from kueue_tpu_torch.solver.synth import (synth_deltas, synth_nested_inputs,
                                           synth_solver_inputs,
                                           synth_start_rank)
 
@@ -63,7 +66,8 @@ def test_fused_cycle_on_card_equals_plain(kind, compact, cuda_device):
                                compact=compact)
     torch.cuda.synchronize()
     after = tk.launch_counts()
-    launched = ("avail", "phase_a", "phase_b") + (("pack",) if compact else ())
+    launched = ("avail", "phase_a", "order", "phase_b") + \
+        (("pack",) if compact else ())
     assert all(after[k] == before[k] + 1 for k in launched)
     assert set(got) == set(want)
     for k in want:
@@ -71,17 +75,102 @@ def test_fused_cycle_on_card_equals_plain(kind, compact, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ("flat", "nested"))
+def test_order_deltas_arena_on_card_equal_plain(kind, cuda_device):
+    """order with ties (priorities and timestamps drawn from a few
+    values), deltas on a nested chain, and the arena scatter (padded
+    with `cap`) and gather (padded with -1)."""
+    topo, usage, cu, wl = inputs(kind)
+    rng = np.random.default_rng(5)
+    W = wl["wl_cq"].shape[0]
+    host_topo = tk.topo_to_device(topo, "cpu")
+    card_topo = {k: v.to(cuda_device) for k, v in host_topo.items()}
+    args = [torch.from_numpy(a) for a in (
+        rng.uniform(size=W) < 0.7, rng.uniform(size=W) < 0.3,
+        rng.integers(0, 3, size=W).astype(np.int64),
+        rng.integers(0, 4, size=W).astype(np.float64), wl["wl_cq"])]
+    for n in (W, W - 5):  # W - 5: a ragged last warp and block
+        want = tk.order_csr(host_topo, *(a[:n] for a in args))
+        got = tk.order_csr(card_topo, *(a[:n].to(cuda_device) for a in args))
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+    deltas = [torch.from_numpy(a) for a in synth_deltas(topo, usage, 100,
+                                                         seed=5)]
+    u, c = tk.state_to_device(usage, cu, "cpu")
+    u_card, c_card = u.to(cuda_device), c.to(cuda_device)
+    tk.apply_state_deltas(host_topo, u, c, *deltas)
+    tk.apply_state_deltas(card_topo, u_card, c_card,
+                          *(d.to(cuda_device) for d in deltas))
+    assert torch.equal(u_card.cpu(), u) and torch.equal(c_card.cpu(), c)
+
+    S, D = 512, 32
+    twin = {k: torch.from_numpy(np.ascontiguousarray(v[rng.integers(
+        0, W, size=S)])) for k, v in wl.items() if k in tk.ARENA_FIELDS}
+    rows = {k: v[torch.from_numpy(rng.integers(0, S, size=D))]
+            for k, v in twin.items()}
+    upd = np.full(D, S, np.int32)
+    upd[:D - 5] = rng.choice(S, size=D - 5, replace=False)
+    card_twin = {k: v.to(cuda_device) for k, v in twin.items()}
+    tk.scatter_arena_rows(twin, torch.from_numpy(upd), rows)
+    tk.scatter_arena_rows(card_twin, torch.from_numpy(upd).to(cuda_device),
+                          {k: v.to(cuda_device) for k, v in rows.items()})
+    for k in tk.ARENA_FIELDS:
+        assert torch.equal(card_twin[k].cpu(), twin[k]), k
+    slots = rng.integers(-1, S, size=W).astype(np.int32)
+    want = tk.gather_arena(twin, torch.from_numpy(slots))
+    got = tk.gather_arena(card_twin, torch.from_numpy(slots).to(cuda_device))
+    for k, a, b in zip(tk.ARENA_FIELDS, got, want):
+        assert torch.equal(a.cpu(), b), k
+
+
+@pytest.mark.cuda
 def test_batch_solver_on_card_equals_cpu(cuda_device):
     flavors = [f"f{i}" for i in range(6)]
-    cache = ns.build_cluster(48, 6, flavors, 40)
-    heaps = ns.PendingHeaps()
-    ns.stage_waves(heaps, 4, 48, 40)
+    cache, queues = ns.build_cluster(48, 6, flavors, 40)
+    ns.stage_waves(queues, 4, 48, 40)
     on_card, on_cpu = BatchSolver(device=cuda_device), BatchSolver(device="cpu")
     for cycle in range(3):
-        heads = heaps.heads()
+        heads = queues.heads_nonblocking()
         snapshot = cache.snapshot()
         got = on_card.solve(snapshot, heads)
         want = on_cpu.solve(snapshot, heads)
         assert {i: (a.pod_sets, ok) for i, (a, ok) in got.items()} == \
             {i: (a.pod_sets, ok) for i, (a, ok) in want.items()}
-        assert ns.apply_decisions(cache, heaps, heads, got, float(cycle)) == 48
+        assert ns.apply_decisions(cache, queues, None, heads, got,
+                                  float(cycle)) == 48
+
+
+@pytest.mark.cuda
+def test_bound_solver_on_card_equals_cpu(cuda_device):
+    """A short churn on a full cluster: finishes feed the delta prologue,
+    requeued heads keep their arena rows, new heads are scattered."""
+    flavors = [f"f{i}" for i in range(4)]
+    cache, queues = ns.build_cluster(32, 4, flavors, 10, api.STRICT_FIFO)
+    admitted = deque()
+    for f in flavors:
+        for i in range(32):
+            wl = ns.admitted_workload(f"pre-{f}-{i}", f"cq{i}", f, 10, 0.0)
+            cache.assume_workload(wl)
+            admitted.append(wl)
+    ns.stage_waves(queues, 4, 32, 10)
+    solver = BatchSolver(device=cuda_device)
+    solver.bind_cache(cache)
+    solver.bind_queues(queues)
+    reference = BatchSolver(device="cpu")
+    tk.reset_launch_counts()
+    for cycle in range(4):
+        ns.finish_admitted(cache, admitted, 8)
+        heads = queues.heads_nonblocking()
+        snapshot = cache.snapshot()
+        got = solver.solve(snapshot, heads)
+        want = reference.solve(snapshot, heads)
+        assert {i: (a.pod_sets, ok) for i, (a, ok) in got.items()} == \
+            {i: (a.pod_sets, ok) for i, (a, ok) in want.items()}
+        assert ns.apply_decisions(cache, queues, solver, heads, got,
+                                  float(cycle), admitted) > 0
+        rs = solver.resident
+        truth = encode.encode_state(cache.snapshot(), solver._topo_cache[0])
+        assert np.array_equal(rs.usage_dev.cpu().numpy(), truth.usage)
+        assert np.array_equal(rs.cohort_dev.cpu().numpy(), truth.cohort_usage)
+    assert all(n > 0 for n in tk.launch_counts().values())

@@ -4,12 +4,17 @@ Each plain PyTorch version in kueue_tpu_torch.solver.kernel (the code a
 wrapper runs for CPU tensors) against its JAX counterpart in
 kueue_tpu.solver.kernel, on the same seeded numpy inputs: flat cohorts
 from the JAX package's synth, hand-built nested trees of depth 2 and 3
-with CQs outside any cohort, up to 3 podsets. Outputs are int64 and
-bool, so every comparison is exact equality.
+with CQs outside any cohort, up to 3 podsets. The admit order is held
+against the order grid the JAX fused program builds (with ties and
+padding rows), the state deltas against apply_state_deltas_impl and the
+numpy mirror, the arena scatter and gather against theirs. Outputs are
+int64 and bool, so every comparison is exact equality.
 
 tests/test_torch_cuda.py holds the CUDA kernels against these plain
 versions on the card.
 """
+
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +22,11 @@ import pytest
 import torch
 
 from kueue_tpu.solver import kernel as jk  # enables jax x64 before any array
+from kueue_tpu.core.resources import FlavorResource as JaxFR
+from kueue_tpu.solver import encode as jenc
 from kueue_tpu.solver.synth import synth_solver_inputs
+from kueue_tpu_torch.core.resources import FlavorResource as TorchFR
+from kueue_tpu_torch.solver import encode as tenc
 from kueue_tpu_torch.solver import kernel as tk
 from kueue_tpu_torch.solver.synth import synth_nested_inputs, synth_start_rank
 
@@ -189,6 +198,170 @@ def test_solve_cycle_fused_matches_jax(kind, seed, compact):
     assert set(got) == set(ref)
     for k in ref:
         assert_same(got[k], ref[k], k)
+
+
+def fused_order_grid(topo, usage, cu, wl, monkeypatch):
+    """The JAX package's K4 as its fused program computes it: run
+    solve_cycle_fused_impl eagerly and capture the [L,D] order grid it
+    hands to phase B. Returns (grid, fit, borrows)."""
+    captured = {}
+    real = jk.solve_phase_b_domains_impl
+
+    def capture(topo_, usage_, cohort_, asg, fit, wl_cq, grid):
+        captured["grid"] = np.asarray(grid)
+        return real(topo_, usage_, cohort_, asg, fit, wl_cq, grid)
+
+    monkeypatch.setattr(jk, "solve_phase_b_domains_impl", capture)
+    out = jk.solve_cycle_fused_impl(
+        jax_topo(topo), jnp.asarray(usage), jnp.asarray(cu),
+        *(jnp.asarray(wl[k]) for k in WL_KEYS), num_podsets=P,
+        max_rank=wl["wl_cq"].shape[0])
+    return captured["grid"], np.asarray(out["fit"]), np.asarray(out["borrows"])
+
+
+def with_ties_and_padding(wl, seed):
+    """Few distinct priorities and timestamps (ties broken by index), and
+    the last rows padding as the encoder pads: wl_cq 0, nothing active,
+    not solvable."""
+    rng = np.random.default_rng(seed)
+    W = wl["wl_cq"].shape[0]
+    wl["priority"] = rng.integers(-1, 2, size=W).astype(np.int64)
+    wl["timestamp"] = rng.integers(0, 3, size=W).astype(np.float64)
+    pad = slice(W - 6, W)
+    for k in ("requests", "podset_active", "eligible", "solvable",
+              "priority", "timestamp"):
+        wl[k][pad] = 0
+    wl["wl_cq"][pad] = 0
+    return wl
+
+
+@pytest.mark.parametrize("variant", ("synth", "ties_padding"))
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_order_csr_matches_fused_grid(kind, seed, variant, monkeypatch):
+    topo, usage, cu, wl = make_inputs(kind, seed)
+    if variant == "ties_padding":
+        wl = with_ties_and_padding(wl, seed)
+    grid, fit, borrows = fused_order_grid(topo, usage, cu, wl, monkeypatch)
+    offsets, members = tk.order_csr(torch_topo(topo), t(fit), t(borrows),
+                                    t(wl["priority"]), t(wl["timestamp"]),
+                                    t(wl["wl_cq"]))
+    offsets, members = offsets.numpy(), members.numpy()
+    D = grid.shape[1]
+    assert offsets.shape == (D + 1,) and members.shape == (len(fit),)
+    for d in range(D):
+        col = grid[:, d]
+        np.testing.assert_array_equal(members[offsets[d]:offsets[d + 1]],
+                                      col[col >= 0], err_msg=f"domain {d}")
+    # the composite key, written out: one stable sort
+    q = wl["wl_cq"]
+    cohort = topo["cq_cohort"][q]
+    C = topo["cohort_subtree"].shape[0]
+    domain = np.where(cohort >= 0, topo["cohort_root"][np.maximum(cohort, 0)],
+                      C + q)
+    ref = np.lexsort((np.arange(len(q)), wl["timestamp"], -wl["priority"],
+                      np.zeros(len(q), np.int64), borrows.astype(np.int32),
+                      (~fit).astype(np.int32), domain))
+    np.testing.assert_array_equal(members, ref)
+
+
+def random_corrections(topo, usage, seed, n):
+    """n unique (q, f, r) coords of the offered quota with deltas that
+    keep usage non-negative; several coords share cohort coords."""
+    rng = np.random.default_rng(seed)
+    cells = np.argwhere(topo["offered"])
+    pick = cells[rng.choice(len(cells), size=min(n, len(cells)),
+                            replace=False)]
+    coords = []
+    for q, f, r in pick:
+        lo, hi = -int(usage[q, f, r]), int(topo["nominal"][q, f, r])
+        dv = int(rng.integers(lo, hi + 1)) or 1000
+        coords.append((int(q), int(f), int(r), dv))
+    return coords
+
+
+@pytest.mark.parametrize("n", (1, 7, 30))
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_apply_state_deltas_matches_jax(kind, seed, n):
+    topo, usage, cu, _ = make_inputs(kind, seed)
+    coords = random_corrections(topo, usage, seed, n)
+    ns_topo = SimpleNamespace(
+        cq_index={f"cq{i}": i for i in range(Q)},
+        flavor_index={f"f{i}": i for i in range(F)},
+        resource_index={f"r{i}": i for i in range(R)},
+        cq_chain=topo["cq_chain"], cohort_parent=topo["cohort_parent"],
+        guaranteed=topo["guaranteed"],
+        cohort_guaranteed=topo["cohort_guaranteed"])
+    deltas = tenc.encode_deltas({(f"cq{q}", TorchFR(f"f{f}", f"r{r}")): v
+                                 for q, f, r, v in coords}, ns_topo)
+    ref_deltas = jenc.encode_deltas({(f"cq{q}", JaxFR(f"f{f}", f"r{r}")): v
+                                     for q, f, r, v in coords}, ns_topo)
+    for a, b in zip(deltas, ref_deltas):
+        assert_same(a, b)
+    assert (deltas[0] < 0).any()  # padding rows
+    ref = jk.apply_state_deltas_impl(jax_topo(topo), jnp.asarray(usage),
+                                     jnp.asarray(cu),
+                                     *(jnp.asarray(a) for a in deltas))
+    got_u, got_c = t(usage), t(cu)
+    tk.apply_state_deltas(torch_topo(topo), got_u, got_c,
+                          *(t(a) for a in deltas))
+    assert_same(got_u, ref[0], "usage")
+    assert_same(got_c, ref[1], "cohort_usage")
+    assert not np.array_equal(got_u.numpy(), usage)
+    mirror_u, mirror_c = usage.copy(), cu.copy()
+    tenc.apply_deltas_np(ns_topo, mirror_u, mirror_c, deltas)
+    assert_same(mirror_u, ref[0], "mirror usage")
+    assert_same(mirror_c, ref[1], "mirror cohort_usage")
+
+
+def arena_twin(seed, S=64, F_=5, R_=2):
+    rng = np.random.default_rng(seed)
+    return {
+        "requests": rng.integers(0, 9000, size=(S, P, R_)).astype(np.int64),
+        "podset_active": rng.uniform(size=(S, P)) < 0.6,
+        "wl_cq": rng.integers(0, Q, size=S).astype(np.int32),
+        "priority": rng.integers(-3, 4, size=S).astype(np.int64),
+        "timestamp": rng.uniform(0, 100, size=S),
+        "eligible": rng.uniform(size=(S, P, F_)) < 0.5,
+        "solvable": rng.uniform(size=S) < 0.8,
+    }
+
+
+@pytest.mark.parametrize("D", (8, 512))
+@pytest.mark.parametrize("seed", SEEDS)
+def test_scatter_arena_rows_matches_jax(seed, D):
+    rng = np.random.default_rng(seed + 100)
+    twin = arena_twin(seed)
+    S = twin["wl_cq"].shape[0]
+    rows = {k: v[rng.integers(0, S, size=D)] for k, v in
+            arena_twin(seed + 1).items()}
+    n = min(D - 3, S)  # the arena pads with the out-of-range slot `cap`
+    upd_slots = np.full(D, S, np.int32)
+    upd_slots[:n] = rng.choice(S, size=n, replace=False)
+    ref = jk.scatter_arena_rows_impl({k: jnp.asarray(v) for k, v in
+                                      twin.items()}, jnp.asarray(upd_slots),
+                                     {k: jnp.asarray(v) for k, v in
+                                      rows.items()})
+    got = {k: t(v) for k, v in twin.items()}
+    tk.scatter_arena_rows(got, t(upd_slots), {k: t(v) for k, v in
+                                              rows.items()})
+    for k in tk.ARENA_FIELDS:
+        assert_same(got[k], ref[k], k)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gather_arena_matches_jax(seed):
+    rng = np.random.default_rng(seed + 200)
+    twin = arena_twin(seed)
+    slots = rng.integers(0, twin["wl_cq"].shape[0], size=W).astype(np.int32)
+    slots[rng.uniform(size=W) < 0.2] = -1
+    slots[-5:] = -1  # the padded tail of a batch
+    ref = jk.gather_arena_impl({k: jnp.asarray(v) for k, v in twin.items()},
+                               jnp.asarray(slots))
+    got = tk.gather_arena({k: t(v) for k, v in twin.items()}, t(slots))
+    for name, a, b in zip(tk.ARENA_FIELDS, got, ref):
+        assert_same(a, b, name)
 
 
 def test_topo_fields_match_jax():
