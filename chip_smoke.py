@@ -6,10 +6,13 @@ Builds the solver's CUDA kernels from kueue_tpu_torch/solver/csrc, holds
 each one against its plain PyTorch version on the card at the north-star
 shape (2048 ClusterQueues, 256 cohorts, 32 flavors, 2 resources, 2048
 heads, 4 podsets) and on a nested-cohort input (depth 3, 3 active
-podsets), and times both. Then it drives the port's main paths end to
-end on a 2048-CQ cluster with 51,200 workloads pending in the port's
-queue Manager, each cycle's decisions held against the same solve on
-the CPU with the plain versions:
+podsets), and times both; drf_share also on fair weights 0/500/1000/3000
+with a root cohort lending nothing, and the admit order also with those
+shares and with a mix of ties, negative shares and NO_LIMIT. Then it
+drives the port's main paths end to end on a 2048-CQ cluster with
+51,200 workloads pending in the port's queue Manager, each cycle's
+decisions held against the same solve on the CPU with the plain
+versions:
 
 1. unbound: BatchSolver(device="cuda") re-encodes and uploads the state
    and the batch every cycle (1 warm-up and 3 timed cycles);
@@ -22,6 +25,20 @@ the CPU with the plain versions:
    sparse delta prologue and the row scatter (1 + 10 cycles). Every
    bound cycle's resident usage is also held against the host mirror
    and a fresh encode of the cache.
+4. scheduler fair: the port's own Scheduler with fair sharing on, its
+   BatchSolver(device="cuda") bound to the Cache and the Manager, on
+   the JAX package's fair-sharing benchmark configuration (2048 CQs in
+   256 cohorts, one flavor of 2 units per CQ, 4-unit workloads, 30,720
+   pending; the last cycle's admissions finish before each cycle):
+   1 + 10 cycles, every one on the device route with drf_share launched,
+   each bound cycle's resident usage held against the mirror and a
+   fresh encode; drf_share's inputs in the first timed cycle are kept
+   and its shares there held against the plain version on the same card
+   tensors, and again with a seeded usage and weights 0/500/1000/3000
+   (the cell's own shares are uniform: every CQ has weight 1000 and
+   starts the cycle empty); then the same cycles on the CPU
+   (device="cpu") must admit the same workloads and leave the same
+   usage per CQ.
 
 Every phase raises on failure; nothing is caught. The last lines are
 the card's name and power limit, one JSON line with the kernels'
@@ -62,6 +79,7 @@ ARENA_SLOTS = 4096
 REPLACES = {
     "avail": "kueue_tpu/solver/kernel.py:50",
     "phase_a": "kueue_tpu/solver/kernel.py:221",
+    "drf_share": "kueue_tpu/solver/kernel.py:197",
     "order": "kueue_tpu/solver/kernel.py:498",
     "phase_b": "kueue_tpu/solver/kernel.py:420",
     "pack": "kueue_tpu/solver/kernel.py:372",
@@ -74,8 +92,21 @@ PHASE_KERNELS = {
     "unbound": ("avail", "phase_a", "order", "phase_b", "pack"),
     "bound_fill": ("arena_gather", "avail", "phase_a", "order", "phase_b",
                    "pack"),
-    "bound_churn": tuple(REPLACES),
+    "bound_churn": tuple(k for k in REPLACES if k != "drf_share"),
+    # the finishes free more than 512 (cq, resource) coords and replace
+    # more than 512 arena rows each cycle: the state and the twin are
+    # re-uploaded whole, so deltas and arena_scatter do not run here
+    "scheduler_fair": ("arena_gather", "avail", "phase_a", "drf_share",
+                       "order", "phase_b", "pack"),
 }
+# The fair-sharing benchmark configuration (bench.py bench_fair_sharing,
+# builders bench.py:107-214): every admission borrows, 1024 per cycle.
+FAIR = dict(num_cqs=2048, num_cohorts=256, nominal_units=2, cpu_units=4)
+FAIR_TIMED = 10
+FAIR_WAVES = 15         # cycles + 4, as the bench stages: 30,720 pending
+# the order kernel's check with non-zero shares: mixed values and ties,
+# negative shares (a root lending nothing) and NO_LIMIT (weight 0)
+MIXED_SHARES = (-2, -1, 0, 0, 125, 125, 333, 2**62)
 
 
 def log(msg: str) -> None:
@@ -242,6 +273,23 @@ def order_bytes(topo, fit, borrows, priority, timestamp, wl_cq,
                                       .numel())
 
 
+def drf_share_bytes(topo, asg, wl_cq) -> int:
+    """Bytes drf_share must move: every head's assignment row and CQ
+    index, the nominal, offered and usage rows and the cohort and weight
+    of the heads' CQs, the root and lendable row of their cohorts, the
+    shares written once."""
+    import torch
+    qs = torch.unique(wl_cq.long())
+    F, R = asg.shape[1:]
+    cohorts = topo["cq_cohort"][qs]
+    cohorts = torch.unique(cohorts[cohorts >= 0].long())
+    roots = torch.unique(topo["cohort_root"][cohorts])
+    return nbytes(asg, wl_cq) + int(qs.numel()) * (F * R * (8 + 1 + 8)
+                                                  + 4 + 8) + \
+        4 * int(cohorts.numel()) + 8 * R * int(roots.numel()) + \
+        8 * wl_cq.shape[0]
+
+
 def deltas_bytes(deltas) -> int:
     """Bytes the delta prologue must move: the coord arrays once, and for
     each real (q,f,r) and cohort coord its usage element read and written
@@ -290,8 +338,19 @@ def kernel_inputs(kind: str, device) -> dict:
     slots = rng.choice(ARENA_SLOTS, W, replace=False).astype(np.int32)
     slots[-16:] = -1
     usage_d, cu_d = kernel.state_to_device(usage, cu, device)
+    # fair weights 0/500/1000/3000, the first root cohort lending nothing
+    # (its borrowers' ratio is -1, their share -1000 // weight, floored)
+    fair = dict(topo)
+    fair["fair_weight"] = np.array([0, 500, 1000, 3000], np.int64)[
+        rng.integers(0, 4, size=topo["cq_cohort"].shape[0])]
+    fair["cohort_lendable"] = topo["cohort_lendable"].copy()
+    roots = topo["cohort_root"][topo["cq_cohort"][topo["cq_cohort"] >= 0]]
+    fair["cohort_lendable"][roots.min()] = 0
     return {
         "topo": kernel.topo_to_device(topo, device), "usage": usage_d,
+        "fair_topo": kernel.topo_to_device(fair, device),
+        "mixed_shares": dev(rng.choice(np.array(MIXED_SHARES, np.int64),
+                                       size=W)),
         "cu": cu_d, "wl": {k: dev(v) for k, v in wl.items()},
         "start_rank": None if start_rank is None else dev(start_rank),
         "deltas": tuple(dev(a) for a in synth.synth_deltas(
@@ -334,6 +393,36 @@ def kernel_phase(kind: str, device, results: dict) -> None:
         phase_a_bytes(topo, wl, P, sr, ref_a), None)
 
     fit, borrows, chosen, chosen_borrow, asg = ref_a
+    ftopo = inp["fair_topo"]
+    s_args = (ftopo, usage, asg, wl["wl_cq"])
+    ref_s = k.drf_share_plain(*s_args)
+    floor_topo = dict(ftopo, fair_weight=torch.full_like(
+        ftopo["fair_weight"], 3000), cohort_lendable=torch.zeros_like(
+        ftopo["cohort_lendable"]))
+    floor_args = (floor_topo, usage, asg, wl["wl_cq"])
+    ref_floor = k.drf_share_plain(*floor_args)
+    for what, want in (("fair", ref_s), ("floor", ref_floor)):
+        # the inputs reach the branches the floor division guards
+        if not ((want < 0).any() and (want != 0).any()):
+            raise AssertionError(f"drf_share {what} inputs have no "
+                                 "negative share")
+    if not (ref_floor == -1).any():
+        raise AssertionError("drf_share floor inputs: no -1000 // 3000")
+    rows["drf_share"] = (
+        compare(("share", "floor share"),
+                (k.drf_share(*s_args), k.drf_share(*floor_args)),
+                (ref_s, ref_floor)),
+        lambda: k.drf_share(*s_args), lambda: k.drf_share_plain(*s_args),
+        drf_share_bytes(ftopo, asg, wl["wl_cq"]), None)
+    shares = {"none": None, "drf": ref_s, "mixed": inp["mixed_shares"]}
+    share_counts = {n: (0 if v is None else int((v != 0).sum()),
+                        0 if v is None else int((v < 0).sum()))
+                    for n, v in shares.items()}
+    for name, share in shares.items():
+        args = (topo, fit, borrows, wl["priority"], wl["timestamp"],
+                wl["wl_cq"], share)
+        compare((f"offsets ({name} shares)", f"members ({name} shares)"),
+                k.order_csr(*args), k.order_csr_plain(*args))
     o_args = (topo, fit, borrows, wl["priority"], wl["timestamp"],
               wl["wl_cq"])
     ref_o = k.order_csr_plain(*o_args)
@@ -404,6 +493,11 @@ def kernel_phase(kind: str, device, results: dict) -> None:
         nbytes(slots) + (n_real + W) * row_bytes(twin),
         lambda: [twin[n].index_select(0, clamped) for n in ARENA_FIELDS])
 
+    log(f"[kernels:{kind}] order equal to plain with shares (non-zero, "
+        f"negative) {json.dumps(share_counts)}; drf_share shares "
+        f"{int((ref_s != 0).sum())} non-zero, {int((ref_s < 0).sum())} "
+        f"negative, {int((ref_s == k.NO_LIMIT).sum())} NO_LIMIT; floor "
+        f"case {int((ref_floor == -1).sum())} x -1")
     log(f"[kernels:{kind}] W={W} P={P} F={F} R={R} "
         f"Q={usage.shape[0]} C={cu.shape[0]} DC={topo['cq_chain'].shape[1]} "
         f"fit={int(fit.sum())} admitted={int(ref_b[0].sum())} "
@@ -509,8 +603,8 @@ def e2e_phase(device, phase: str) -> dict:
         solver.bind_queues(queues)
     reference = BatchSolver(device="cpu")
     topo = encode.encode_topology(cache.snapshot())
-    keys = ("heads", "snapshot", "encode", "upload", "device", "fetch",
-            "decode", "admit", "gc", "cycle", "upload_bytes")
+    keys = ("heads", "snapshot", "encode", "upload", "device",
+            "fetch", "decode", "admit", "gc", "cycle", "upload_bytes")
     phases = {p: [] for p in keys}
     admitted_timed = 0
     gc_clock = GcClock()
@@ -604,11 +698,225 @@ def e2e_phase(device, phase: str) -> dict:
     return summary
 
 
-def traced_cycle(phase: str, run_cycle, cycle: int) -> dict:
+SCHED_PHASES = ("heads", "snapshot", "nominate", "encode",
+                "upload", "device", "fetch", "decode", "apply", "requeue")
+
+
+def fair_env(device):
+    """The fair-sharing configuration through the port's Scheduler, its
+    solver on `device`. Returns (scheduler, cache, queues, client)."""
+    from kueue_tpu_torch.sim import northstar as ns
+    from kueue_tpu_torch.solver import BatchSolver
+    env = ns.build_scheduler(FAIR["num_cqs"], FAIR["num_cohorts"], ["f0"],
+                             FAIR["nominal_units"],
+                             solver=BatchSolver(device=device),
+                             fair_sharing=True)
+    ns.stage_waves(env[2], FAIR_WAVES, FAIR["num_cqs"], FAIR["cpu_units"])
+    return env
+
+
+def cycle_record(client, cache) -> tuple:
+    """What a cycle left: the workloads it admitted, in order."""
+    return tuple(wl.metadata.name for wl in client.new_applied)
+
+
+def usage_by_cq(cache) -> list:
+    return [sorted(cache.usage_for_cluster_queue(f"cq{i}")[0].items())
+            for i in range(FAIR["num_cqs"])]
+
+
+def scheduler_phase(device) -> dict:
+    """The port's Scheduler with fair sharing, cycle after cycle, on the
+    card: before each cycle the last cycle's admissions finish (outside
+    the timed window, with the check of the resident state and a full
+    collection); the cycle is one schedule() call. Then the same cycles
+    with device="cpu" must admit the same workloads in the same order
+    and leave the same usage per CQ."""
+    from kueue_tpu_torch.sim import northstar as ns
+    from kueue_tpu_torch.solver import encode, kernel
+    phase = "scheduler_fair"
+    t_phase = time.perf_counter()
+    sched, cache, queues, client = fair_env(device)
+    solver = sched.solver
+    log(f"[{phase}] cluster: {FAIR['num_cqs']} CQs, {FAIR['num_cohorts']} "
+        f"cohorts, 1 flavor x {FAIR['nominal_units']} units, workloads of "
+        f"{FAIR['cpu_units']} units; {queues.pending_total()} pending staged "
+        f"in {time.perf_counter() - t_phase:.1f} s")
+    topo = encode.encode_topology(cache.snapshot())
+    keys = SCHED_PHASES + ("gc", "other", "cycle")
+    phases = {p: [] for p in keys}
+    records = []
+    admitted_timed = 0
+    gc_clock = GcClock()
+    gc.callbacks.append(gc_clock)
+
+    def run_cycle(cycle: int, check_first: bool = True) -> dict:
+        if check_first and cycle > 0:
+            check_resident(solver, cache, topo)
+        t0 = time.perf_counter()
+        finished = ns.finish_applied(cache, queues, client)
+        t_finish = time.perf_counter() - t0
+        gc.collect()
+        before = client.admitted
+        g0, t0 = gc_clock.total, time.perf_counter()
+        sched.schedule(timeout=0)
+        g1, t1 = gc_clock.total, time.perf_counter()
+        if sched.last_route != "device":
+            raise AssertionError(f"{phase} cycle {cycle} took the "
+                                 f"{sched.last_route!r} route")
+        records.append(cycle_record(client, cache))
+        row = {**sched.last_phase_s, **solver.last_phase_s,
+               "gc": g1 - g0, "cycle": t1 - t0}
+        row["other"] = row["cycle"] - sum(row[p] for p in SCHED_PHASES)
+        row["admitted"] = client.admitted - before
+        log(f"[{phase}] cycle {cycle}"
+            f"{' (warm-up)' if cycle < E2E_WARMUP else ''}: finished="
+            f"{finished} (finish_ms={t_finish * 1e3:.1f}) admitted="
+            f"{row['admitted']} pending={queues.pending_total()} cycle_ms="
+            f"{row['cycle'] * 1e3:.1f} upload_bytes="
+            f"{solver.last_upload_bytes} ms="
+            + json.dumps({p: round(row[p] * 1e3, 3) for p in keys
+                          if p != "cycle"}))
+        return row
+
+    captured = Captured(kernel, "drf_share")
+    kernel.reset_launch_counts()
+    for cycle in range(E2E_WARMUP + FAIR_TIMED):
+        if cycle == E2E_WARMUP:
+            # the first timed cycle keeps drf_share's inputs and output
+            with captured:
+                row = run_cycle(cycle)
+        else:
+            row = run_cycle(cycle)
+        if cycle < E2E_WARMUP:
+            continue
+        admitted_timed += row["admitted"]
+        for p in keys:
+            phases[p].append(row[p])
+    launches = kernel.launch_counts()
+    for name in PHASE_KERNELS[phase]:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{phase} path")
+    summary = {p: {"p50_ms": percentile(v, 50) * 1e3, "max_ms": max(v) * 1e3}
+               for p, v in phases.items()}
+    summary["admitted_per_s"] = admitted_timed / sum(phases["cycle"])
+    summary["admitted_timed"] = admitted_timed
+    summary["launches"] = launches
+    summary["counters"] = dict(solver.counters)
+    summary["cycle_counts"] = dict(sched.cycle_counts)
+    summary["drf_share_check"] = check_captured_share(captured, kernel)
+    check_resident(solver, cache, topo)
+    summary["traced_cycle"] = traced_cycle(
+        phase, run_cycle, E2E_WARMUP + FAIR_TIMED, kernel="drf_share")
+    check_resident(solver, cache, topo)
+    gc.callbacks.remove(gc_clock)
+    # the same cycles on the CPU, with the kernels' plain versions
+    t_cpu = time.perf_counter()
+    c_sched, c_cache, c_queues, c_client = fair_env("cpu")
+    for cycle, want in enumerate(records):
+        ns.finish_applied(c_cache, c_queues, c_client)
+        c_sched.schedule(timeout=0)
+        if cycle_record(c_client, c_cache) != want:
+            raise AssertionError(f"{phase} cycle {cycle}: the card admitted "
+                                 "other workloads than the CPU")
+    if c_client.admitted != client.admitted \
+            or usage_by_cq(c_cache) != usage_by_cq(cache):
+        raise AssertionError(f"{phase}: admitted totals or usage per CQ "
+                             "differ between the card and the CPU")
+    summary["cpu_check_s"] = time.perf_counter() - t_cpu
+    summary["admitted_total"] = client.admitted
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[{phase}] equal to the CPU run: {len(records)} cycles, "
+        f"{client.admitted} admitted, usage of {FAIR['num_cqs']} CQs")
+    log(f"[{phase}] " + json.dumps(summary))
+    return summary
+
+
+class Captured:
+    """Within the block, `module.name` keeps the arguments (cloned before
+    the call) and the result of its last call, and calls through. The
+    wrapper bumps its launch count on its own module-level name, which
+    is this object inside the block: `launches` reads and writes the
+    registered wrapper's count, so the count stays where it was."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.args = self.out = None
+
+    @property
+    def launches(self) -> int:
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.real.launches = n
+
+    def __call__(self, *args):
+        self.args = tuple({k: v.clone() for k, v in a.items()}
+                          if isinstance(a, dict) else a.clone()
+                          for a in args)
+        self.out = self.real(*args)
+        return self.out
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def check_captured_share(captured: Captured, k) -> dict:
+    """drf_share on the main path's own inputs: the shares the captured
+    cycle ordered by must equal the plain version's on the same card
+    tensors. The fair cell's shares are uniform (every CQ at weight 1000
+    starts the cycle empty and every head borrows alike), so the kernel
+    is also held against its plain version on the same heads, CQs and
+    assignments with a seeded usage and weights 0/500/1000/3000, which
+    must give more than two distinct shares. Runs after the phase's
+    launch counts are read."""
+    import numpy as np
+    import torch
+    if captured.args is None:
+        raise AssertionError("drf_share was not called in the captured "
+                             "cycle")
+    topo, usage, asg, wl_cq = captured.args
+    compare(("share (main path)",), (captured.out,),
+            (k.drf_share_plain(*captured.args),))
+    rng = np.random.default_rng(13)
+    nominal = topo["nominal"].cpu().numpy()
+    weights = np.array([0, 500, 1000, 3000], np.int64)[
+        rng.integers(0, 4, size=nominal.shape[0])]
+    varied_topo = dict(topo, fair_weight=torch.from_numpy(weights).to(
+        usage.device))
+    varied_usage = torch.from_numpy(
+        rng.integers(0, 2 * nominal + 1)).to(usage.device)
+    v_args = (varied_topo, varied_usage, asg, wl_cq)
+    want = k.drf_share_plain(*v_args)
+    compare(("share (varied usage and weights)",), (k.drf_share(*v_args),),
+            (want,))
+    distinct = int(torch.unique(want).numel())
+    if distinct <= 2:
+        raise AssertionError(f"drf_share varied inputs give only {distinct} "
+                             "distinct shares")
+    out = {"heads": int(asg.shape[0]), "shape": list(asg.shape),
+           "main_path_distinct": sorted(
+               int(v) for v in torch.unique(captured.out).cpu())[:16],
+           "varied_distinct": distinct, "max_abs_err": 0}
+    log("[scheduler_fair] drf_share equal to plain on the captured cycle's "
+        "inputs and on them with varied usage and weights: "
+        + json.dumps(out))
+    return out
+
+
+def traced_cycle(phase: str, run_cycle, cycle: int,
+                 kernel: str = None) -> dict:
     """One more main-path cycle under torch.profiler (after the timed
     ones, outside the launch count, its resident-state check made before
-    the trace starts): device busy time by kernel and the card's idle
-    share of the cycle's wall time."""
+    the trace starts): device busy time by kernel, the card's idle
+    share of the cycle's wall time, and `kernel`'s device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -623,6 +931,14 @@ def traced_cycle(phase: str, run_cycle, cycle: int) -> dict:
     out = {"wall_ms": cycle_s * 1e3, "device_busy_ms": busy_us / 1e3,
            "idle_share": 1.0 - busy_us / 1e3 / (cycle_s * 1e3),
            "top_device_ms": {k[:60]: us / 1e3 for k, us in rows[:12] if us}}
+    if kernel is not None:
+        out[f"{kernel}_device_ms"] = sum(
+            us for k, us in rows if k.startswith(f"{kernel}_")) / 1e3
+    # the phase's kernels that launched in the cycle but of which the
+    # trace kept no record (the busy time then reads low)
+    out["missing_from_trace"] = [
+        name for name in PHASE_KERNELS[phase]
+        if not any(k.startswith(f"{name}_") for k, _ in rows)]
     log(f"[trace:{phase}] " + json.dumps(out))
     return out
 
@@ -663,7 +979,8 @@ def main() -> int:
         t0 = time.perf_counter()
         kernel_phase(kind, device, results)
         log(f"[kernels:{kind}] wall {time.perf_counter() - t0:.1f} s")
-    e2e = {phase: e2e_phase(device, phase) for phase in PHASE_KERNELS}
+    e2e = {phase: scheduler_phase(device) if phase == "scheduler_fair"
+           else e2e_phase(device, phase) for phase in PHASE_KERNELS}
 
     kernels = []
     for name in _build.KERNELS:
@@ -673,8 +990,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"kueue_tpu_torch/solver/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            # this slice's main path: the bound solver, fill and churn
-            "launches": by_phase["bound_fill"] + by_phase["bound_churn"],
+            # every main path, each counted from its own reset
+            "launches": sum(by_phase.values()),
             "launches_by_phase": by_phase,
             "max_abs_err": max(results[k][name]["max_abs_err"]
                                for k in results),

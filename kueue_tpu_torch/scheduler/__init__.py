@@ -1,5 +1,8 @@
-"""Flavor assignment: the sequential (CPU) assigner and the Assignment
-types the solver decodes into (reference: pkg/scheduler/flavorassigner)."""
+"""Admission engine: the Scheduler's cycle (scheduler.py), which drives
+the BatchSolver on the card and nominates the rest on the CPU; the
+sequential flavor assigner and the Assignment types the solver decodes
+into (flavorassigner.py); the CPU Preemptor (preemption.py)
+(reference: pkg/scheduler)."""
 
 from kueue_tpu_torch.scheduler.flavorassigner import (  # noqa: F401
     FIT,
@@ -8,3 +11,4 @@ from kueue_tpu_torch.scheduler.flavorassigner import (  # noqa: F401
     Assignment,
     FlavorAssigner,
 )
+from kueue_tpu_torch.scheduler.scheduler import Scheduler  # noqa: F401

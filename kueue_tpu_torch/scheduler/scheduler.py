@@ -1,0 +1,680 @@
+"""One admission cycle: heads -> snapshot -> nominate -> sort -> admit.
+
+The port of kueue_tpu/scheduler/scheduler.py's synchronous cycle
+(reference: pkg/scheduler/scheduler.go:197-353, the MultiplePreemptions
+path):
+
+1. queues.heads(): one head per ClusterQueue
+2. cache.snapshot()
+3. nominate: per-head validation, flavor assignment, preemption targets
+4. sort by borrows -> DRF share -> priority -> FIFO
+5. sequential admit with intra-cycle usage accounting: skip overlapping
+   preemption targets, re-check fit after earlier admissions, reserve
+   capacity for blocked preemptors
+6. requeue the heads not admitted, with Pending condition patches
+
+With a BatchSolver (route "device": a solver is set and the cycle has
+at least `solver_min_heads` heads) the solve stage replaces steps 3-5
+for the heads the device fits: the solver, bound to this scheduler's
+Cache and Manager, solves the cycle against its device-resident state
+with one device sync, and the heads it did not fit are nominated on
+the CPU against the pre-cycle snapshot before the device's admissions
+are accounted on it. With fair sharing on, the device orders the admits
+by DRF share (kernel.drf_share). Otherwise (route "cpu-forced") the CPU
+path runs the whole cycle.
+
+Differences from the JAX Scheduler, on this synchronous path:
+- Preempt-mode entries on the device route take their targets from the
+  CPU Preemptor, the JAX Scheduler's branch when its preemption work
+  gate prefers the CPU (scheduler.py:2005-2011); the device preemption
+  problems come with the K9 kernel.
+- Heads that may be partially admitted go to CPU nomination, the JAX
+  branch taken when the batched partial admission gives no result
+  (scheduler.py:2185-2191); their Pending message on failure is the CPU
+  assigner's rather than the batched path's generic one.
+- A solver exception propagates instead of rerunning the cycle on the
+  CPU: nothing hides a device fault.
+- No host-side router (the JAX solver's `_route`): the non-fit heads
+  are read from the device's decisions after the sync, not predicted
+  before it, so the device is dispatched even when no head fits. The
+  choices are the same; the router comes back when preemption problems
+  must be built before the sync.
+- Not ported: the speculative pipeline, adaptive routing (the route is
+  the JAX Scheduler's "always" one), the degradation ladder, breaker,
+  warm governor and watchdog, journeys, the flight recorder, the query
+  plane, aging, metrics, leader_check, cq_filter and MultiKueue
+  placements. At their defaults each is a no-op on the synchronous
+  path.
+
+Each cycle's phase times (seconds) are in `last_phase_s`: heads,
+snapshot, nominate, apply and requeue here, and on the device route the
+solver's own (encode, upload, device, fetch, decode) in
+`solver.last_phase_s`.
+"""
+
+from __future__ import annotations
+
+import time as _time
+from dataclasses import dataclass, field
+from typing import Optional
+
+from kueue_tpu_torch import features
+from kueue_tpu_torch.api import kueue as api
+from kueue_tpu_torch.api.meta import REAL_CLOCK, Clock
+from kueue_tpu_torch.cache import Cache, Snapshot
+from kueue_tpu_torch.cache.snapshot import ClusterQueueSnapshot
+from kueue_tpu_torch.core import limitrange as limitrangepkg
+from kueue_tpu_torch.core import priority as prioritypkg
+from kueue_tpu_torch.core import workload as wlpkg
+from kueue_tpu_torch.core.resources import container_limits_violations
+from kueue_tpu_torch.queue import Manager, RequeueReason
+from kueue_tpu_torch.scheduler import flavorassigner as fa
+from kueue_tpu_torch.scheduler import stages
+from kueue_tpu_torch.scheduler.podset_reducer import PodSetReducer
+from kueue_tpu_torch.scheduler.preemption import (
+    Preemptor,
+    make_reclaim_oracle,
+    parse_strategies,
+)
+from kueue_tpu_torch.utils.wait import KeepGoing, SlowDown, SpeedSignal
+
+# entry statuses (reference: scheduler.go:355-366)
+NOT_NOMINATED = ""
+NOMINATED = "nominated"
+SKIPPED = "skipped"
+ASSUMED = "assumed"
+
+# the scheduler's own phases of a cycle, timed in last_phase_s
+CYCLE_PHASES = ("heads", "snapshot", "nominate", "apply", "requeue")
+
+
+@dataclass
+class Entry:
+    info: wlpkg.Info
+    assignment: fa.Assignment = field(default_factory=fa.Assignment)
+    preemption_targets: list = field(default_factory=list)
+    dominant_resource_share: int = 0
+    dominant_resource_name: str = ""
+    status: str = NOT_NOMINATED
+    inadmissible_msg: str = ""
+    requeue_reason: RequeueReason = RequeueReason.GENERIC
+
+    def net_usage(self) -> dict:
+        """Capacity needed net of preempted resources
+        (reference: scheduler.go:385-400)."""
+        if self.assignment.representative_mode() == fa.FIT:
+            return self.assignment.usage
+        usage = dict(self.assignment.usage)
+        for target in self.preemption_targets:
+            for fr, v in target.workload_info.flavor_resource_usage().items():
+                if fr in usage:
+                    usage[fr] = max(0, usage[fr] - v)
+        return usage
+
+
+class SchedulerClient:
+    """Host-environment interface for the scheduler's reads/writes.
+
+    The reference talks to the kube-apiserver; the sim (sim/northstar.py)
+    and the tests implement this.
+    """
+
+    def namespace_labels(self, namespace: str) -> Optional[dict]:
+        return {}
+
+    def limit_ranges(self, namespace: str) -> list:
+        return []
+
+    def apply_admission(self, wl: api.Workload) -> None:
+        """Persist admission status. Raise KeyError if deleted."""
+
+    def patch_not_admitted(self, wl: api.Workload) -> None:
+        """Persist the Pending/QuotaReserved=False condition."""
+
+    def event(self, wl: api.Workload, event_type: str, reason: str,
+              message: str) -> None:
+        pass
+
+
+class Scheduler:
+    def __init__(self, queues: Manager, cache: Cache, client: SchedulerClient,
+                 ordering: Optional[wlpkg.Ordering] = None,
+                 fair_sharing_enabled: bool = False,
+                 fs_preemption_strategies: Optional[list] = None,
+                 clock: Clock = REAL_CLOCK,
+                 solver=None, solver_min_heads: int = 64):
+        self.queues = queues
+        self.cache = cache
+        self.client = client
+        self.ordering = ordering or wlpkg.Ordering()
+        self.fair_sharing_enabled = fair_sharing_enabled
+        self.clock = clock
+        # Optional kueue_tpu_torch.solver.BatchSolver: the batched
+        # fit-mode admission on the card, bound to this cache (resident
+        # usage, reconciled through the usage journal) and these queues
+        # (the encode arena). Attached later, it is bound at the next
+        # schedule().
+        self.solver = solver
+        if solver is not None:
+            solver.bind_cache(cache)
+            solver.bind_queues(queues)
+        # Routing is the JAX Scheduler's "always" (adaptive routing is not
+        # ported): the device route whenever a solver is set and the
+        # cycle is wide enough. Below this head count the cycle runs on the CPU path even with
+        # a solver (0 = always solve).
+        self.solver_min_heads = solver_min_heads
+        self.cycle_counts: dict = {}  # route -> cycles
+        self.last_route = ""
+        self.last_phase_s = dict.fromkeys(CYCLE_PHASES, 0.0)
+        self.preemptor = Preemptor(
+            ordering=self.ordering,
+            enable_fair_sharing=fair_sharing_enabled,
+            fs_strategies=parse_strategies(fs_preemption_strategies),
+            clock=clock,
+            apply_preemption=self._apply_preemption)
+
+    # --- the cycle ---
+
+    def schedule(self, timeout: Optional[float] = None) -> SpeedSignal:
+        self.last_phase_s = dict.fromkeys(CYCLE_PHASES, 0.0)
+        if self.solver is not None:
+            # Solvers attached after construction still get the
+            # journal-backed resident state and the encode arena.
+            if not self.solver.resident_capable:
+                self.solver.bind_cache(self.cache)
+            self.solver.bind_queues(self.queues)
+        t_ph = _time.perf_counter()
+        heads = self.queues.heads(timeout=timeout)
+        self._span("heads", t_ph)
+        if not heads:
+            return KeepGoing
+        route = self._route_mode(heads)
+
+        t_ph = _time.perf_counter()
+        snapshot = self.cache.snapshot()
+        self._span("snapshot", t_ph)
+        nom = self._stage_nominate(heads, snapshot, route, timeout)
+        self._stage_apply(nom, timeout)
+        applied = self._stage_requeue(nom)
+        self.cycle_counts[route] = self.cycle_counts.get(route, 0) + 1
+        self.last_route = route
+        return KeepGoing if applied.success else SlowDown
+
+    def _span(self, name: str, t0: float) -> float:
+        """Add the seconds since t0 to phase `name`; returns now."""
+        now = _time.perf_counter()
+        self.last_phase_s[name] = self.last_phase_s.get(name, 0.0) + now - t0
+        return now
+
+    def _route_mode(self, heads: list) -> str:
+        """"device" (the solve stage) or "cpu-forced" (no solver, or a
+        cycle narrower than solver_min_heads)."""
+        if self.solver is None or len(heads) < self.solver_min_heads:
+            return "cpu-forced"
+        return "device"
+
+    # --- the stage machine (contracts in scheduler/stages.py) ---
+
+    def _stage_nominate(self, heads: list, snapshot: Snapshot, route: str,
+                        timeout) -> stages.NominatedCycle:
+        """NOMINATE stage: route the device share through the solve
+        stage, CPU-nominate the remainder against the cycle snapshot, and
+        sort by the admission order."""
+        solver_entries: list = []
+        pre_entries: list = []
+        if route == "device":
+            solver_entries, pre_entries, heads = self._stage_solve(
+                heads, snapshot, timeout)
+        t_ph = _time.perf_counter()
+        entries = pre_entries + self.nominate(heads, snapshot)
+        entries.sort(key=self._entry_sort_key())
+        self._span("nominate", t_ph)
+        return stages.NominatedCycle(snapshot=snapshot, entries=entries,
+                                     solver_entries=solver_entries,
+                                     route=route)
+
+    def _stage_apply(self, nom: stages.NominatedCycle, timeout) -> None:
+        """APPLY stage: sequential admit with intra-cycle usage
+        accounting — skip overlapping preemption targets, re-check fit
+        after earlier admissions, reserve capacity for blocked
+        preemptors, issue evictions (reference: scheduler.go:238-330).
+        Mutates the nominated entries in place."""
+        snapshot = nom.snapshot
+        t_ph = _time.perf_counter()
+        preempted_workloads: set = set()
+        for e in nom.entries:
+            mode = e.assignment.representative_mode()
+            if mode == fa.NO_FIT:
+                continue
+            cq = snapshot.cluster_queues[e.info.cluster_queue]
+
+            if mode == fa.PREEMPT and not e.preemption_targets:
+                # Reserve capacity so lower-priority workloads can't admit
+                # ahead of the blocked preemptor (reference: scheduler.go:245-253).
+                cq.add_usage(resources_to_reserve(e, cq))
+                continue
+
+            pending = {t.workload_info.key for t in e.preemption_targets}
+            if pending & preempted_workloads:
+                self._set_skipped(e, "Workload has overlapping preemption "
+                                     "targets with another workload")
+                continue
+
+            usage = e.net_usage()
+            if not cq.fits(usage):
+                self._set_skipped(e, "Workload no longer fits after "
+                                     "processing another workload")
+                continue
+            preempted_workloads.update(pending)
+            cq.add_usage(usage)
+
+            if mode != fa.FIT:
+                if e.preemption_targets:
+                    # Next attempt should try all flavors again.
+                    e.info.last_assignment = None
+                    preempted = self.preemptor.issue_preemptions(
+                        e.info, e.preemption_targets)
+                    if preempted:
+                        e.inadmissible_msg += (f". Pending the preemption of "
+                                               f"{preempted} workload(s)")
+                        e.requeue_reason = RequeueReason.PENDING_PREEMPTION
+                continue
+
+            self._wait_pods_ready_if_needed(e, timeout)
+            e.status = NOMINATED
+            try:
+                self.admit(e, cq)
+            except Exception as exc:  # noqa: BLE001 — cache/API races surface here
+                e.inadmissible_msg = f"Failed to admit workload: {exc}"
+        self._span("apply", t_ph)
+
+    def _stage_requeue(self, nom: stages.NominatedCycle) -> stages.AppliedCycle:
+        """Requeue sweep closing the apply stage: re-heap every
+        non-admitted entry (solver-routed entries rejoin here), count
+        admissions, release the admitted heads' encode-arena slots."""
+        entries = nom.solver_entries + nom.entries
+        nom.entries = entries
+        admitted_n = 0
+        t_ph = _time.perf_counter()
+        for e in entries:
+            if e.status != ASSUMED:
+                self.requeue_and_update(e)
+            else:
+                admitted_n += 1
+                if self.solver is not None:
+                    self.solver.release_workload(e.info.key)
+        self._span("requeue", t_ph)
+        return stages.AppliedCycle(admitted=admitted_n,
+                                   success=admitted_n > 0)
+
+    def _stage_solve(self, heads: list, snapshot: Snapshot, timeout):
+        """SOLVE stage: run the batched solver over the validated heads.
+
+        One device sync per cycle. The heads the device did not fit (no
+        decision) are then CPU-nominated against the pre-cycle snapshot,
+        exactly like the reference's nominate phase
+        (scheduler.go:404-441), before the device's fit decisions are
+        accounted on the snapshot and admitted, in the solver's admit
+        order.
+
+        Returns (solver entries, nominated preempt/nofit entries for the
+        main admit loop, remaining heads for post-sync CPU nomination)."""
+        valid_heads, invalid_entries = [], []
+        for w in heads:
+            if self.cache.is_assumed_or_admitted(w):
+                continue
+            err = self._validate_head(w, snapshot)
+            if err is None:
+                valid_heads.append(w)
+            else:
+                e = Entry(info=w)
+                e.inadmissible_msg, e.requeue_reason = err
+                invalid_entries.append(e)
+
+        plan = self.solver.prepare(snapshot, valid_heads)
+        if plan is None:
+            return invalid_entries, [], valid_heads
+        decisions, _ = self.solver.solve_prepared(
+            plan, snapshot, fair_sharing=self.fair_sharing_enabled)
+
+        # Entries the device did not fit get their CPU nomination (flavor
+        # assignment + preemption targets) before any admission is
+        # accounted. Device-NoFit shortcut: Phase A proved these entries
+        # can't fit, and a Never/Never preemption policy (with no partial
+        # admission possible) means the CPU assigner could only restate
+        # NoFit.
+        nofit_entries, rest = [], []
+        for i, w in enumerate(valid_heads):
+            if i in decisions:
+                continue
+            e = self._device_nofit_entry(w, snapshot)
+            if e is not None:
+                nofit_entries.append(e)
+            else:
+                rest.append(w)  # preemption or partial admission: CPU
+        t_ph = _time.perf_counter()
+        pre_entries = nofit_entries + self.nominate(rest, snapshot,
+                                                    defer_preemption=True)
+        pending = [e for e in pre_entries if e.preemption_targets is None]
+        for e in pending:
+            e.preemption_targets = []
+        # Preempt-mode targets from the CPU Preemptor (the JAX
+        # Scheduler's branch when its work gate prefers the CPU).
+        self._cpu_preempt_targets(pending, snapshot)
+        self._span("nominate", t_ph)
+
+        t_ph = _time.perf_counter()
+        solver_entries = list(invalid_entries)
+        # Snapshot accounting only matters when the pre-nominated
+        # preempt/nofit set will read the snapshot after us.
+        account = bool(pre_entries)
+        for i, w in enumerate(valid_heads):
+            decision = decisions.get(i)
+            if decision is None:
+                continue  # CPU-nominated above
+            assignment, admitted = decision
+            e = Entry(info=w, assignment=assignment)
+            w.last_assignment = assignment.last_state
+            if not admitted:
+                # Assigned against the pre-cycle snapshot but no longer fit
+                # after intra-cycle accounting (phase B) — skip, don't
+                # re-assign (reference: scheduler.go:266-273).
+                self._set_skipped(e, "Workload no longer fits after "
+                                     "processing another workload")
+                solver_entries.append(e)
+                continue
+            cq = snapshot.cluster_queues[w.cluster_queue]
+            if account:
+                # Account on the snapshot so the CPU remainder sees it.
+                cq.add_usage(assignment.usage)
+            self._wait_pods_ready_if_needed(e, timeout)
+            e.status = NOMINATED
+            try:
+                self.admit(e, cq)
+            except Exception as exc:  # noqa: BLE001
+                e.inadmissible_msg = f"Failed to admit workload: {exc}"
+                self.solver.note_unapplied(w.key)
+            solver_entries.append(e)
+        self._span("apply", t_ph)
+        return solver_entries, pre_entries, []
+
+    def _device_nofit_entry(self, w: wlpkg.Info,
+                            snapshot: Snapshot) -> Optional[Entry]:
+        """A device-proved non-fit entry whose CQ can never preempt and
+        which can't be partially admitted needs no CPU nomination.
+        Returns the ready Entry, or None when the CPU path must run.
+        Its Pending message is the batch path's generic one instead of
+        the per-flavor reason list (the resume state is equivalent: a
+        NoFit walk always ends exhausted)."""
+        cq = snapshot.cluster_queues[w.cluster_queue]
+        p = cq.preemption
+        if (p.within_cluster_queue != api.PREEMPTION_NEVER
+                or p.reclaim_within_cohort != api.PREEMPTION_NEVER):
+            return None
+        if features.enabled(features.PARTIAL_ADMISSION) \
+                and w.can_be_partially_admitted():
+            return None
+        e = Entry(info=w)  # empty assignment => representative NO_FIT
+        e.inadmissible_msg = ("couldn't assign flavors: insufficient quota "
+                              "(batched assignment)")
+        return e
+
+    def _cpu_preempt_targets(self, pending: list, snapshot: Snapshot) -> None:
+        """Resolve deferred preempt-mode entries with the CPU preemptor
+        (assignments are already computed)."""
+        for e in pending:
+            e.preemption_targets = self.preemptor.get_targets(
+                e.info, e.assignment, snapshot)
+        self._retry_partial_admission(pending, snapshot)
+
+    def _retry_partial_admission(self, pending: list,
+                                 snapshot: Snapshot) -> None:
+        """No feasible target set: the CPU path would now attempt partial
+        admission (get_assignments' reducer branch)."""
+        if not features.enabled(features.PARTIAL_ADMISSION):
+            return
+        for e in pending:
+            if not e.preemption_targets and e.info.can_be_partially_admitted():
+                e.assignment, e.preemption_targets = self.get_assignments(
+                    e.info, snapshot)
+                e.inadmissible_msg = e.assignment.message()
+                e.info.last_assignment = e.assignment.last_state
+
+    def _validate_head(self, w: wlpkg.Info, snapshot: Snapshot):
+        """Pre-admission validation (the non-assignment part of nominate).
+        Returns None if admissible, else (message, requeue reason)."""
+        cq = snapshot.cluster_queues.get(w.cluster_queue)
+        ns_labels = self.client.namespace_labels(w.obj.metadata.namespace)
+        if wlpkg.has_retry_checks(w.obj) or wlpkg.has_rejected_checks(w.obj):
+            return ("The workload has failed admission checks",
+                    RequeueReason.GENERIC)
+        if w.cluster_queue in snapshot.inactive_cluster_queue_sets:
+            return (f"ClusterQueue {w.cluster_queue} is inactive",
+                    RequeueReason.GENERIC)
+        if cq is None:
+            return (f"ClusterQueue {w.cluster_queue} not found",
+                    RequeueReason.GENERIC)
+        if ns_labels is None:
+            return "Could not obtain workload namespace", RequeueReason.GENERIC
+        if cq.namespace_selector is None \
+                or not cq.namespace_selector.matches(ns_labels):
+            return ("Workload namespace doesn't match ClusterQueue selector",
+                    RequeueReason.NAMESPACE_MISMATCH)
+        if (err := self._validate_resources(w)) is not None:
+            return err, RequeueReason.GENERIC
+        if (err := self._validate_limit_range(w)) is not None:
+            return err, RequeueReason.GENERIC
+        return None
+
+    def _wait_pods_ready_if_needed(self, e: Entry, timeout) -> None:
+        """waitForPodsReady blockAdmission (reference: scheduler.go:316-327)."""
+        if not self.cache.pods_ready_for_all_admitted_workloads():
+            # Patch a clone: e.info.obj may alias the store's object.
+            patch = wlpkg.clone_for_status_update(e.info.obj)
+            wlpkg.unset_quota_reservation_with_condition(
+                patch, "Waiting",
+                "waiting for all admitted workloads to be in PodsReady "
+                "condition", self.clock.now())
+            self.client.patch_not_admitted(patch)
+            self.cache.wait_for_pods_ready(timeout=timeout)
+
+    # --- nomination (reference: scheduler.go:404-441) ---
+
+    def nominate(self, heads: list, snapshot: Snapshot,
+                 defer_preemption: bool = False) -> list:
+        entries = []
+        for w in heads:
+            cq = snapshot.cluster_queues.get(w.cluster_queue)
+            e = Entry(info=w)
+            if self.cache.is_assumed_or_admitted(w):
+                continue
+            err = self._validate_head(w, snapshot)
+            if err is not None:
+                e.inadmissible_msg, e.requeue_reason = err
+            else:
+                e.assignment, e.preemption_targets = self.get_assignments(
+                    w, snapshot, defer_preemption=defer_preemption)
+                e.inadmissible_msg = e.assignment.message()
+                w.last_assignment = e.assignment.last_state
+                if self.fair_sharing_enabled \
+                        and e.assignment.representative_mode() != fa.NO_FIT:
+                    e.dominant_resource_share, e.dominant_resource_name = \
+                        cq.dominant_resource_share_with(
+                            e.assignment.total_requests_for(w))
+            entries.append(e)
+        return entries
+
+    def get_assignments(self, wl: wlpkg.Info, snapshot: Snapshot,
+                        defer_preemption: bool = False):
+        """reference: scheduler.go:469-507. With defer_preemption a
+        preempt-mode assignment returns targets None, resolved later
+        (_cpu_preempt_targets)."""
+        cq = snapshot.cluster_queues[wl.cluster_queue]
+        oracle = make_reclaim_oracle(self.preemptor, snapshot)
+        assigner = fa.FlavorAssigner(wl, cq, snapshot.resource_flavors,
+                                     self.fair_sharing_enabled, oracle)
+        full = assigner.assign()
+        mode = full.representative_mode()
+        if mode == fa.FIT:
+            return full, []
+        if defer_preemption and mode == fa.PREEMPT:
+            return full, None
+        targets: list = []
+        if mode == fa.PREEMPT:
+            targets = self.preemptor.get_targets(wl, full, snapshot)
+
+        if not features.enabled(features.PARTIAL_ADMISSION) or targets:
+            return full, targets
+
+        if wl.can_be_partially_admitted():
+            def fits(counts: list):
+                assignment = assigner.assign(counts)
+                m = assignment.representative_mode()
+                if m == fa.FIT:
+                    return (assignment, []), True
+                if m == fa.PREEMPT:
+                    t = self.preemptor.get_targets(wl, assignment, snapshot)
+                    if t:
+                        return (assignment, t), True
+                return None, False
+
+            reducer = PodSetReducer(wl.obj.spec.pod_sets, fits)
+            result, found = reducer.search()
+            if found:
+                return result
+        return full, []
+
+    # --- validation (reference: scheduler.go:509-566) ---
+
+    def _validate_resources(self, wl: wlpkg.Info) -> Optional[str]:
+        reasons = []
+        for ps in wl.obj.spec.pod_sets:
+            spec = ps.template.spec
+            bad = container_limits_violations(
+                list(spec.init_containers) + list(spec.containers))
+            if bad:
+                reasons.append(f"podSets[{ps.name}][{', '.join(bad)}] "
+                               f"requests exceed limits")
+        if reasons:
+            return "resource validation failed: " + "; ".join(reasons)
+        return None
+
+    def _validate_limit_range(self, wl: wlpkg.Info) -> Optional[str]:
+        ranges = self.client.limit_ranges(wl.obj.metadata.namespace)
+        if not ranges:
+            return None
+        summary = limitrangepkg.summarize(*ranges)
+        reasons = []
+        for ps in wl.obj.spec.pod_sets:
+            reasons.extend(limitrangepkg.validate_pod_spec(
+                ps.template.spec, summary, path=f"podSets[{ps.name}]"))
+        if reasons:
+            return ("didn't satisfy LimitRange constraints: "
+                    + "; ".join(reasons))
+        return None
+
+    # --- admission (reference: scheduler.go:571-623) ---
+
+    def admit(self, e: Entry, cq: ClusterQueueSnapshot) -> None:
+        new_wl = wlpkg.clone_for_status_update(e.info.obj)
+        admission = api.Admission(cluster_queue=e.info.cluster_queue,
+                                  pod_set_assignments=e.assignment.to_api())
+        now = self.clock.now()
+        wlpkg.set_quota_reservation(new_wl, admission, now)
+        checks = wlpkg.admission_checks_for_workload(new_wl,
+                                                     cq.admission_checks)
+        if wlpkg.has_all_checks(new_wl, checks):
+            wlpkg.sync_admitted_condition(new_wl, now)
+        self.cache.assume_workload(new_wl, info=wlpkg.Info.from_assignment(
+            new_wl, e.info.cluster_queue, e.assignment))
+        e.status = ASSUMED
+
+        def apply():
+            try:
+                self.client.apply_admission(new_wl)
+            except KeyError:
+                # Deleted or CQ gone: roll back the assumption.
+                try:
+                    self.cache.forget_workload(new_wl)
+                except KeyError:
+                    pass
+                return
+            wait_time = wlpkg.queued_wait_time(new_wl, now)
+            self.client.event(new_wl, "Normal", "QuotaReserved",
+                              f"Quota reserved in ClusterQueue "
+                              f"{admission.cluster_queue}, wait time since "
+                              f"queued was {wait_time:.0f}s")
+            if wlpkg.is_admitted(new_wl):
+                self.client.event(new_wl, "Normal", "Admitted",
+                                  f"Admitted by ClusterQueue "
+                                  f"{admission.cluster_queue}, wait time "
+                                  f"since reservation was 0s")
+
+        apply()
+
+    def _apply_preemption(self, wl: api.Workload, preempting_cq: str,
+                          reason: str, message: str) -> None:
+        target = wlpkg.clone_for_status_update(wl)
+        now = self.clock.now()
+        wlpkg.set_evicted_condition(target, api.EVICTED_BY_PREEMPTION,
+                                    message, now)
+        wlpkg.set_preempted_condition(target, reason, message, now)
+        self.client.apply_admission(target)
+        self.client.event(target, "Normal", "Preempted", message)
+
+    # --- requeue (reference: scheduler.go:674-692) ---
+
+    def requeue_and_update(self, e: Entry) -> None:
+        if e.status != NOT_NOMINATED \
+                and e.requeue_reason == RequeueReason.GENERIC:
+            e.requeue_reason = RequeueReason.FAILED_AFTER_NOMINATION
+        self.queues.requeue_workload(e.info, e.requeue_reason)
+        if e.status in (NOT_NOMINATED, SKIPPED):
+            # Clone only when the Pending condition would actually change.
+            if wlpkg.pending_patch_needed(e.info.obj, "Pending",
+                                          e.inadmissible_msg):
+                patch = wlpkg.clone_for_status_update(e.info.obj)
+                wlpkg.unset_quota_reservation_with_condition(
+                    patch, "Pending", e.inadmissible_msg, self.clock.now())
+                self.client.patch_not_admitted(patch)
+            self.client.event(e.info.obj, "Normal", "Pending",
+                              e.inadmissible_msg[:1024])
+
+    @staticmethod
+    def _set_skipped(e: Entry, msg: str) -> None:
+        e.status = SKIPPED
+        e.inadmissible_msg = msg
+        e.requeue_reason = RequeueReason.GENERIC
+
+    # --- ordering (reference: scheduler.go:625-672) ---
+
+    def _entry_sort_key(self):
+        def sort_key(e: Entry):
+            borrows = e.assignment.borrows()
+            share = e.dominant_resource_share if self.fair_sharing_enabled \
+                else 0
+            prio = (prioritypkg.priority(e.info.obj)
+                    if features.enabled(features.PRIORITY_SORTING_WITHIN_COHORT)
+                    else 0)
+            ts = self.ordering.queue_order_timestamp(e.info.obj)
+            return (borrows, share, -prio, ts)
+        return sort_key
+
+
+def resources_to_reserve(e: Entry, cq: ClusterQueueSnapshot) -> dict:
+    """How much capacity a blocked preemptor reserves
+    (reference: scheduler.go:444-462)."""
+    if e.assignment.representative_mode() != fa.PREEMPT:
+        return e.assignment.usage
+    reserved = {}
+    for fr, usage in e.assignment.usage.items():
+        quota = cq.quota_for(fr)
+        if e.assignment.borrowing:
+            if quota.borrowing_limit is None:
+                reserved[fr] = usage
+            else:
+                reserved[fr] = min(usage, quota.nominal + quota.borrowing_limit
+                                   - cq.usage_for(fr))
+        else:
+            reserved[fr] = max(0, min(usage, quota.nominal - cq.usage_for(fr)))
+    return reserved

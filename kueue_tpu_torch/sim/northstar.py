@@ -8,11 +8,15 @@ with one resource group covering cpu and memory, and a LocalQueue
 `lq{i}` in namespace "default" feeding `cq{i}`. Workloads are sized in
 cpu units (1 unit = 1000 milli-cpu and 1 GiB).
 
-A cycle is the scheduler's loop around a BatchSolver: heads from
-`Manager.heads_nonblocking` (one per CQ), `solve`, then
-`apply_decisions`: admitted heads are assumed into the cache and handed
-to `solver.release_workload`, the rest are requeued. `finish_admitted`
-ends admitted workloads between cycles, as their jobs completing would.
+Two ways to drive a cycle:
+- the port's own Scheduler (`build_scheduler`, `SimClient`,
+  `finish_applied`): the fair-sharing deployment of the JAX package's
+  benchmark (bench.py bench_fair_sharing, builders bench.py:107-214);
+- the solver by hand: heads from `Manager.heads_nonblocking` (one per
+  CQ), `solve`, then `apply_decisions`: admitted heads are assumed into
+  the cache and handed to `solver.release_workload`, the rest are
+  requeued. `finish_admitted` ends admitted workloads between cycles, as
+  their jobs completing would.
 """
 
 from __future__ import annotations
@@ -21,10 +25,11 @@ from collections import deque
 
 from kueue_tpu_torch.api import kueue as api
 from kueue_tpu_torch.api.corev1 import Container, PodSpec, PodTemplateSpec
-from kueue_tpu_torch.api.meta import LabelSelector, ObjectMeta
+from kueue_tpu_torch.api.meta import FakeClock, LabelSelector, ObjectMeta
 from kueue_tpu_torch.cache import Cache
 from kueue_tpu_torch.core import workload as wlpkg
 from kueue_tpu_torch.queue import Manager, RequeueReason
+from kueue_tpu_torch.scheduler.scheduler import Scheduler, SchedulerClient
 
 
 def make_flavor(name: str) -> api.ResourceFlavor:
@@ -32,11 +37,16 @@ def make_flavor(name: str) -> api.ResourceFlavor:
 
 
 def make_cq(name: str, cohort: str, flavors: list, nominal_units: int,
-            queueing_strategy: str = api.BEST_EFFORT_FIFO) -> api.ClusterQueue:
+            queueing_strategy: str = api.BEST_EFFORT_FIFO,
+            fair_weight: int = None) -> api.ClusterQueue:
+    """fair_weight: the CQ's fair-sharing weight in milli-units (None
+    leaves the spec without one, which weighs 1000)."""
     cq = api.ClusterQueue(metadata=ObjectMeta(name=name, uid=f"cq-{name}"))
     cq.spec.namespace_selector = LabelSelector()
     cq.spec.cohort = cohort
     cq.spec.queueing_strategy = queueing_strategy
+    if fair_weight is not None:
+        cq.spec.fair_sharing = api.FairSharing(weight=fair_weight)
     cq.spec.resource_groups.append(api.ResourceGroup(
         covered_resources=["cpu", "memory"],
         flavors=[api.FlavorQuotas(name=f, resources=[
@@ -69,16 +79,20 @@ def make_workload(name: str, queue: str, cpu_units: int, priority: int = 0,
 
 def build_cluster(num_cqs: int, num_cohorts: int, flavors: list,
                   nominal_units: int,
-                  queueing_strategy: str = api.BEST_EFFORT_FIFO) -> tuple:
+                  queueing_strategy: str = api.BEST_EFFORT_FIFO,
+                  queues: Manager = None, fair_weights: tuple = None) -> tuple:
     """cq{i} in cohort-{i % num_cohorts}, every flavor at nominal_units,
-    fed by lq{i}. Returns (Cache, Manager)."""
+    fed by lq{i}; with fair_weights, cq{i} weighs
+    fair_weights[i % len(fair_weights)]. Returns (Cache, Manager)."""
     cache = Cache()
-    queues = Manager()
+    queues = Manager() if queues is None else queues
     for f in flavors:
         cache.add_or_update_resource_flavor(make_flavor(f))
     for i in range(num_cqs):
         cq = make_cq(f"cq{i}", f"cohort-{i % num_cohorts}", flavors,
-                     nominal_units, queueing_strategy)
+                     nominal_units, queueing_strategy,
+                     fair_weights[i % len(fair_weights)]
+                     if fair_weights else None)
         cache.add_cluster_queue(cq)
         queues.add_cluster_queue(cq)
         queues.add_local_queue(make_local_queue(f"lq{i}", f"cq{i}"))
@@ -170,3 +184,57 @@ def finish_admitted(cache: Cache, admitted: deque, count: int) -> int:
         cache.delete_workload(admitted.popleft())
         n += 1
     return n
+
+
+class SimClient(SchedulerClient):
+    """The sim's SchedulerClient (bench.py BenchClient): no store; counts
+    admission writes and evictions and keeps the admitted workloads
+    until `drain_applied`."""
+
+    def __init__(self):
+        self.admitted = 0
+        self.evicted = 0
+        self.new_applied: list = []  # admission writes since the drain
+
+    def apply_admission(self, wl: api.Workload) -> None:
+        if wlpkg.is_evicted(wl):
+            self.evicted += 1
+        else:
+            self.admitted += 1
+            self.new_applied.append(wl)
+
+    def drain_applied(self) -> list:
+        out, self.new_applied = self.new_applied, []
+        return out
+
+
+def build_scheduler(num_cqs: int, num_cohorts: int, flavors: list,
+                    nominal_units: int, solver=None,
+                    fair_sharing: bool = False,
+                    fair_weights: tuple = None) -> tuple:
+    """The JAX package's benchmark environment (bench.py build_env) on
+    the port: a FakeClock at 1000 s, the cluster of build_cluster and a
+    Scheduler that takes the device route on every cycle when a solver
+    is given (solver_min_heads 0). fair_weights as in build_cluster.
+    Returns (Scheduler, Cache, Manager, SimClient)."""
+    clock = FakeClock(1000.0)
+    cache, queues = build_cluster(num_cqs, num_cohorts, flavors,
+                                  nominal_units,
+                                  queues=Manager(clock=clock),
+                                  fair_weights=fair_weights)
+    client = SimClient()
+    sched = Scheduler(queues, cache, client, clock=clock, solver=solver,
+                      solver_min_heads=0, fair_sharing_enabled=fair_sharing)
+    return sched, cache, queues, client
+
+
+def finish_applied(cache: Cache, queues: Manager, client: SimClient) -> int:
+    """The admissions since the last call finish: their quota is
+    released, and each cohort's parked inadmissible workloads are queued
+    again, as the workload controller does on delete (manager.go:381).
+    Returns the number finished."""
+    done = client.drain_applied()
+    for wl in done:
+        cache.delete_workload(wl)
+        queues.queue_associated_inadmissible_workloads_after(wl)
+    return len(done)

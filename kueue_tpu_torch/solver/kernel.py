@@ -4,11 +4,13 @@ a plain PyTorch version beside it.
 Counterpart of kueue_tpu/solver/kernel.py's fit-mode programs: the
 unbound cycle `solve_cycle_fused_impl`, and the production cycles of a
 solver bound to its cache and queues, `solve_cycle_resident_impl` and
-`solve_cycle_resident_arena_impl`, with fair sharing, preemption and
-MultiKueue columns left out. One fused cycle is:
+`solve_cycle_resident_arena_impl`, fair sharing included, with
+preemption and MultiKueue columns left out. One fused cycle is:
 
 1. `avail`   - availability of every CQ, walked down its cohort chain.
 2. `phase_a` - flavor assignment for every head (vectorized over W).
+   With fair sharing on, `drf_share` then gives each head its dominant
+   resource share, the admit order's third key.
 3. `order_csr` - the admit order and the conflict-domain CSR of it.
 4. `phase_b` - the order-dependent admit with intra-cycle accounting,
    one thread block per conflict domain, reading the CSR.
@@ -310,6 +312,64 @@ def phase_a(topo, avail_q, usage, requests, podset_active, wl_cq, eligible,
     ], [W, P, num_podsets, F, R], dev)
     phase_a.launches += 1
     return fit, borrows, chosen, chosen_borrow, asg_usage
+
+
+# ---------------------------------------------------------------------------
+# drf_share: the fair-sharing sort key
+# ---------------------------------------------------------------------------
+#
+# Replaces kueue_tpu/solver/kernel.py:197 _drf_share. The dominant
+# resource share of each head against the pre-cycle usage (the resident
+# usage after the delta prologue): the largest borrowing x 1000 // the
+# root cohort's lendable over resources, then x 1000 // the CQ's fair
+# weight; -1 where the root lends nothing, NO_LIMIT for weight 0, and 0
+# for a head that borrows nothing or whose CQ has no cohort. Both
+# divisions floor (JAX's //), which differs from C's truncation for the
+# negative drs. Bound on the H100: bytes — the head's [F,R] assignment
+# row and its CQ's nominal/offered/usage rows, a few integer ops each.
+# Design: one warp per workload; per resource the lanes stride over the
+# flavors and a shuffle sum gives the borrowing; lane 0 writes.
+
+def drf_share_plain(topo, usage, asg_usage, wl_cq):
+    """share[W] int64."""
+    q = wl_cq.long()
+    remaining = (topo["nominal"] - usage)[q]                  # [W,F,R]
+    b = torch.where(topo["offered"][q], asg_usage - remaining, 0)
+    borrowing = b.clamp_min(0).sum(dim=1)                     # [W,R]
+    has_borrow = (borrowing > 0).any(dim=1)
+    cohort = topo["cq_cohort"][q].long()
+    root = topo["cohort_root"][cohort.clamp_min(0)].long()
+    lendable = topo["cohort_lendable"][root]                  # [W,R]
+    ratio = torch.where(lendable > 0,
+                        torch.div(borrowing * 1000, lendable.clamp_min(1),
+                                  rounding_mode="floor"), -1)
+    drs = ratio.amax(dim=1)
+    weight = topo["fair_weight"][q]
+    dws = torch.where(weight > 0,
+                      torch.div(drs * 1000, weight.clamp_min(1),
+                                rounding_mode="floor"), NO_LIMIT)
+    return torch.where(has_borrow & (cohort >= 0), dws, 0)
+
+
+def drf_share(topo, usage, asg_usage, wl_cq):
+    if _is_cpu(asg_usage):
+        return drf_share_plain(topo, usage, asg_usage, wl_cq)
+    W, F, R = asg_usage.shape
+    share = torch.empty(W, dtype=torch.int64, device=asg_usage.device)
+    _launch("drf_share", [
+        _ptr(topo["nominal"], torch.int64, "nominal"),
+        _ptr(topo["offered"], torch.bool, "offered"),
+        _ptr(topo["cq_cohort"], torch.int32, "cq_cohort"),
+        _ptr(topo["cohort_root"], torch.int32, "cohort_root"),
+        _ptr(topo["cohort_lendable"], torch.int64, "cohort_lendable"),
+        _ptr(topo["fair_weight"], torch.int64, "fair_weight"),
+        _ptr(usage, torch.int64, "usage"),
+        _ptr(asg_usage, torch.int64, "asg_usage"),
+        _ptr(wl_cq, torch.int32, "wl_cq"),
+        _ptr(share, torch.int64, "share"),
+    ], [W, F, R], asg_usage.device)
+    drf_share.launches += 1
+    return share
 
 
 # ---------------------------------------------------------------------------
@@ -718,7 +778,8 @@ def gather_arena(arena: dict, slots) -> tuple:
 
 
 # kernel name (solver/csrc/<name>.cu) -> its wrapper
-KERNEL_WRAPPERS = {"avail": avail, "phase_a": phase_a, "order": order_csr,
+KERNEL_WRAPPERS = {"avail": avail, "phase_a": phase_a,
+                   "drf_share": drf_share, "order": order_csr,
                    "phase_b": phase_b, "pack": pack,
                    "deltas": apply_state_deltas,
                    "arena_scatter": scatter_arena_rows,
@@ -732,22 +793,26 @@ reset_launch_counts()
 
 def solve_cycle_fused(topo, usage, cohort_usage, requests, podset_active,
                       wl_cq, priority, timestamp, eligible, solvable,
-                      num_podsets: int, max_rank: int = 0, start_rank=None,
+                      num_podsets: int, max_rank: int = 0,
+                      fair_sharing: bool = False, start_rank=None,
                       compact: bool = True) -> dict:
     """One fit-mode admission cycle, the port of
-    kueue_tpu/solver/kernel.py:476 solve_cycle_fused_impl with fair
-    sharing and cluster columns off. Returns admitted/chosen/borrows/
-    chosen_borrow/fit/usage/cohort_usage, or dec_pr/dec_bits in place of
-    the five decision arrays when compact. max_rank is taken for
-    signature parity and unused: the CSR of the order needs no
-    per-domain bound."""
+    kueue_tpu/solver/kernel.py:476 solve_cycle_fused_impl with cluster
+    columns off. With fair_sharing the admit order takes each head's DRF
+    share (drf_share) as its third key; without, the share is 0. Returns
+    admitted/chosen/borrows/chosen_borrow/fit/usage/cohort_usage, or
+    dec_pr/dec_bits in place of the five decision arrays when compact.
+    max_rank is taken for signature parity and unused: the CSR of the
+    order needs no per-domain bound."""
     del max_rank
     avail_q = avail(topo, usage, cohort_usage)
     fit, borrows, chosen, chosen_borrow, asg_usage = phase_a(
         topo, avail_q, usage, requests, podset_active, wl_cq, eligible,
         solvable, num_podsets, start_rank)
+    share = drf_share(topo, usage, asg_usage, wl_cq) if fair_sharing \
+        else None
     offsets, members = order_csr(topo, fit, borrows, priority, timestamp,
-                                 wl_cq)
+                                 wl_cq, share)
     admitted, usage_out, cohort_out = phase_b(
         topo, usage, cohort_usage, asg_usage, fit, wl_cq, offsets, members)
     out = {"usage": usage_out, "cohort_usage": cohort_out}
@@ -763,7 +828,8 @@ def solve_cycle_fused(topo, usage, cohort_usage, requests, podset_active,
 def solve_cycle_resident(topo, usage, cohort_usage, deltas, requests,
                          podset_active, wl_cq, priority, timestamp, eligible,
                          solvable, num_podsets: int, max_rank: int = 0,
-                         start_rank=None, compact: bool = True) -> dict:
+                         fair_sharing: bool = False, start_rank=None,
+                         compact: bool = True) -> dict:
     """The device-resident cycle (kueue_tpu/solver/kernel.py:808
     solve_cycle_resident_impl, fit mode): the sparse correction prologue,
     applied IN PLACE to the resident usage/cohort_usage, then the fused
@@ -774,13 +840,14 @@ def solve_cycle_resident(topo, usage, cohort_usage, deltas, requests,
     return solve_cycle_fused(topo, usage, cohort_usage, requests,
                              podset_active, wl_cq, priority, timestamp,
                              eligible, solvable, num_podsets=num_podsets,
-                             max_rank=max_rank, start_rank=start_rank,
-                             compact=compact)
+                             max_rank=max_rank, fair_sharing=fair_sharing,
+                             start_rank=start_rank, compact=compact)
 
 
 def solve_cycle_resident_arena(topo, usage, cohort_usage, deltas, arena,
                                slots, num_podsets: int, max_rank: int = 0,
-                               start_rank=None, compact: bool = True) -> dict:
+                               fair_sharing: bool = False, start_rank=None,
+                               compact: bool = True) -> dict:
     """The arena-resident cycle (kueue_tpu/solver/kernel.py:909
     solve_cycle_resident_arena_impl, fit mode): gather the heads' rows
     from the device twin by slot (-1 = padding), then the resident
@@ -788,6 +855,7 @@ def solve_cycle_resident_arena(topo, usage, cohort_usage, deltas, arena,
     batch = gather_arena(arena, slots)
     return solve_cycle_resident(topo, usage, cohort_usage, deltas, *batch,
                                 num_podsets=num_podsets, max_rank=max_rank,
+                                fair_sharing=fair_sharing,
                                 start_rank=start_rank, compact=compact)
 
 

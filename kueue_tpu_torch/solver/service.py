@@ -15,16 +15,19 @@ the heads' encoded rows live in the encode arena (solver/arena.py),
 whose device twin takes only the changed rows each cycle
 (kernel.scatter_arena_rows) and from which the cycle gathers its batch
 by slot (kernel.solve_cycle_resident_arena). The caller's cycle is the
-scheduler's: heads from the Manager, `solve`, then for each admitted
-head `cache.assume_workload` and `release_workload`, and
+scheduler's (kueue_tpu_torch.scheduler.Scheduler drives it): heads from
+the Manager, `prepare`, `solve_prepared`, then for each admitted head
+`cache.assume_workload` and `release_workload`, and
 `Manager.requeue_workload` for the rest; a failed assume is reported
-with `note_unapplied`.
+with `note_unapplied`. With `fair_sharing` the admit order takes each
+head's DRF share (kernel.drf_share).
 
-Left out of these slices (the JAX package has them): the adaptive
-CPU/device router (`_route`), the dispatch supervisor and watchdog, the
-background fetch pool, fault injection, the flight recorder,
-preemption, fair sharing, MultiKueue cluster columns, and the
-multi-chip mesh.
+Left out of these slices (the JAX package has them): the host-side
+router (`_route`, Plan.fit_pred: the exact fit bits before the sync,
+which the preemption slice needs to build its problems), the dispatch
+supervisor and watchdog, the background fetch pool, fault injection,
+the flight recorder, preemption batches, batched partial admission,
+MultiKueue cluster columns, and the multi-chip mesh.
 """
 
 from __future__ import annotations
@@ -220,7 +223,9 @@ class BatchSolver:
     def prepare(self, snapshot: Snapshot, entries: list) -> Optional[Plan]:
         """Encode the cycle; None when nothing is solvable. With a bound
         cache the usage state is device-resident and reconciled through
-        the journal; with bound queues the batch comes from the arena."""
+        the journal; with bound queues the batch comes from the arena.
+        Starts the cycle's phase times (last_phase_s)."""
+        self.last_phase_s = dict.fromkeys(PHASES, 0.0)
         if not entries:
             return None
         t0 = time.perf_counter()
@@ -377,11 +382,12 @@ class BatchSolver:
 
     # --- the cycle ---
 
-    def dispatch(self, plan: Plan) -> tuple:
+    def dispatch(self, plan: Plan, fair_sharing: bool = False) -> tuple:
         """Upload what the cycle needs and run it. Returns (device
         outputs, keys to fetch). Bound, the upload is the heads' slot
         indices, the arena's changed rows, the delta prologue and the
-        flavor-resume ranks; unbound, the state and the whole batch."""
+        flavor-resume ranks; unbound, the state and the whole batch.
+        fair_sharing orders the admits by DRF share (kernel.drf_share)."""
         t0 = time.perf_counter()
         topo, batch, state = plan.topo, plan.batch, plan.state
         compact = topo.nominal.shape[1] <= MAX_COMPACT_FLAVORS
@@ -397,8 +403,8 @@ class BatchSolver:
         batch_np = (batch.requests, batch.podset_active, batch.wl_cq,
                     batch.priority, batch.timestamp, batch.eligible,
                     batch.solvable)
-        kwargs = dict(num_podsets=self.max_podsets, start_rank=start_rank,
-                      compact=compact)
+        kwargs = dict(num_podsets=self.max_podsets, fair_sharing=fair_sharing,
+                      start_rank=start_rank, compact=compact)
         if plan.resident and rs is not None and rs.token == topo.token:
             if rs.usage_dev is None:
                 usage_in = self._upload(state.usage)
@@ -478,17 +484,31 @@ class BatchSolver:
         self.last_phase_s["decode"] = time.perf_counter() - t1
         return decisions
 
-    def solve(self, snapshot: Snapshot, entries: list) -> dict:
+    def solve_prepared(self, plan: Plan, snapshot: Snapshot,
+                       preempt_batch=None, fair_sharing: bool = False,
+                       fair_batch=None) -> tuple:
+        """Dispatch the prepared cycle, sync once, decode
+        (kueue_tpu/solver/service.py:1219, single chip). Returns
+        (decisions, aux); aux is None until preemption batches are
+        ported, and passing one raises."""
+        if preempt_batch is not None or fair_batch is not None:
+            raise NotImplementedError(
+                "preemption batches are not ported to the device yet")
+        result, keys = self.dispatch(plan, fair_sharing=fair_sharing)
+        return self.collect(plan, result, keys, snapshot), None
+
+    def solve(self, snapshot: Snapshot, entries: list,
+              fair_sharing: bool = False) -> dict:
         """entries: list of workload Info. Returns {entry index ->
         (fa.Assignment, admitted)} for every entry the solver could fully
         assign (fit mode); admitted=False means the assignment no longer
         fit after intra-cycle accounting (reference: scheduler.go:266-273)."""
-        self.last_phase_s = dict.fromkeys(PHASES, 0.0)
         plan = self.prepare(snapshot, entries)
         if plan is None:
             return {}
-        result, keys = self.dispatch(plan)
-        return self.collect(plan, result, keys, snapshot)
+        decisions, _ = self.solve_prepared(plan, snapshot,
+                                           fair_sharing=fair_sharing)
+        return decisions
 
     def _decode_batch(self, entries: list, snapshot: Snapshot,
                       topo: encode.Topology, batch, fetched: dict,

@@ -45,13 +45,29 @@ def inputs(kind: str):
     return topo, usage + topo["nominal"] // 3, cu, wl
 
 
+def fair_inputs(kind: str):
+    """inputs() with fair weights 0/500/1000/3000 and the first root
+    cohort lending nothing (shares of -1000 // weight, floored)."""
+    topo, usage, cu, wl = inputs(kind)
+    rng = np.random.default_rng(9)
+    Q = topo["cq_cohort"].shape[0]
+    topo["fair_weight"] = np.array([0, 500, 1000, 3000],
+                                   np.int64)[rng.integers(0, 4, size=Q)]
+    roots = topo["cohort_root"][topo["cq_cohort"][topo["cq_cohort"] >= 0]]
+    topo["cohort_lendable"] = topo["cohort_lendable"].copy()
+    topo["cohort_lendable"][roots.min()] = 0
+    return topo, usage, cu, wl
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("fair", (False, True))
 @pytest.mark.parametrize("compact", (True, False))
 @pytest.mark.parametrize("kind", ("flat", "nested"))
-def test_fused_cycle_on_card_equals_plain(kind, compact, cuda_device):
+def test_fused_cycle_on_card_equals_plain(kind, compact, fair, cuda_device):
     """F=40 puts more than one flavor on a lane; R=3 and P=3 widen the
-    per-podset loops."""
-    topo, usage, cu, wl = inputs(kind)
+    per-podset loops; with fair sharing the order takes drf_share's
+    shares."""
+    topo, usage, cu, wl = fair_inputs(kind) if fair else inputs(kind)
     start_rank = torch.from_numpy(synth_start_rank(wl, 40, seed=3))
     host = [tk.topo_to_device(topo, "cpu"),
             *tk.state_to_device(usage, cu, "cpu"),
@@ -59,15 +75,17 @@ def test_fused_cycle_on_card_equals_plain(kind, compact, cuda_device):
     card = [{k: v.to(cuda_device) for k, v in host[0].items()}] + \
         [t.to(cuda_device) for t in host[1:]]
     want = tk.solve_cycle_fused(*host, num_podsets=3, max_rank=0,
-                                start_rank=start_rank, compact=compact)
+                                fair_sharing=fair, start_rank=start_rank,
+                                compact=compact)
     before = tk.launch_counts()
     got = tk.solve_cycle_fused(*card, num_podsets=3, max_rank=0,
+                               fair_sharing=fair,
                                start_rank=start_rank.to(cuda_device),
                                compact=compact)
     torch.cuda.synchronize()
     after = tk.launch_counts()
     launched = ("avail", "phase_a", "order", "phase_b") + \
-        (("pack",) if compact else ())
+        (("pack",) if compact else ()) + (("drf_share",) if fair else ())
     assert all(after[k] == before[k] + 1 for k in launched)
     assert set(got) == set(want)
     for k in want:
@@ -125,6 +143,51 @@ def test_order_deltas_arena_on_card_equal_plain(kind, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ("flat", "nested"))
+def test_drf_share_and_shared_order_on_card_equal_plain(kind, cuda_device):
+    """drf_share on Phase A's assignment (weights 0/500/1000/3000, a root
+    lending nothing), W and the ragged W - 5; the order with those
+    shares and with a mix of ties, negatives and NO_LIMIT; and the floor
+    case: drs -1 over weight 3000 is -1."""
+    topo, usage, cu, wl = fair_inputs(kind)
+    host_topo = tk.topo_to_device(topo, "cpu")
+    card_topo = {k: v.to(cuda_device) for k, v in host_topo.items()}
+    u, c = tk.state_to_device(usage, cu, "cpu")
+    a = tk.phase_a(host_topo, tk.avail(host_topo, u, c), u,
+                   *(torch.from_numpy(np.array(wl[k])) for k in
+                     ("requests", "podset_active", "wl_cq", "eligible",
+                      "solvable")), 3)
+    fit, borrows, asg = a[0], a[1], a[4]
+    wl_cq = torch.from_numpy(wl["wl_cq"])
+    rng = np.random.default_rng(4)
+    W = wl_cq.shape[0]
+    mixed = torch.from_numpy(rng.choice(np.array(
+        [-2, -1, 0, 0, 125, 125, 333, tk.NO_LIMIT], np.int64), size=W))
+    prio = torch.from_numpy(rng.integers(0, 3, size=W).astype(np.int64))
+    ts = torch.from_numpy(rng.integers(0, 4, size=W).astype(np.float64))
+    for n in (W, W - 5):
+        want = tk.drf_share(host_topo, u, asg[:n], wl_cq[:n])
+        got = tk.drf_share(card_topo, u.to(cuda_device),
+                           asg[:n].to(cuda_device), wl_cq[:n].to(cuda_device))
+        assert torch.equal(got.cpu(), want)
+        assert (want < 0).any() and (want == tk.NO_LIMIT).any()
+        for share in (want, mixed[:n]):
+            args = (fit[:n], borrows[:n], prio[:n], ts[:n], wl_cq[:n], share)
+            ref = tk.order_csr(host_topo, *args)
+            out = tk.order_csr(card_topo, *(x.to(cuda_device) for x in args))
+            for x, y in zip(out, ref):
+                assert torch.equal(x.cpu(), y)
+    floor_topo = {k: v.clone() for k, v in card_topo.items()}
+    floor_topo["fair_weight"][:] = 3000
+    floor_topo["cohort_lendable"][:] = 0
+    share = tk.drf_share(floor_topo, u.to(cuda_device), asg.to(cuda_device),
+                         wl_cq.to(cuda_device)).cpu()
+    assert (share == -1).any() and not (share == 0).all()
+    assert torch.equal(share, tk.drf_share_plain(
+        {k: v.cpu() for k, v in floor_topo.items()}, u, asg, wl_cq))
+
+
+@pytest.mark.cuda
 def test_batch_solver_on_card_equals_cpu(cuda_device):
     flavors = [f"f{i}" for i in range(6)]
     cache, queues = ns.build_cluster(48, 6, flavors, 40)
@@ -142,9 +205,12 @@ def test_batch_solver_on_card_equals_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-def test_bound_solver_on_card_equals_cpu(cuda_device):
+@pytest.mark.parametrize("fair", (False, True))
+def test_bound_solver_on_card_equals_cpu(fair, cuda_device):
     """A short churn on a full cluster: finishes feed the delta prologue,
-    requeued heads keep their arena rows, new heads are scattered."""
+    requeued heads keep their arena rows, new heads are scattered. Every
+    kernel of the bound cycle launches; drf_share only with fair
+    sharing."""
     flavors = [f"f{i}" for i in range(4)]
     cache, queues = ns.build_cluster(32, 4, flavors, 10, api.STRICT_FIFO)
     admitted = deque()
@@ -163,8 +229,8 @@ def test_bound_solver_on_card_equals_cpu(cuda_device):
         ns.finish_admitted(cache, admitted, 8)
         heads = queues.heads_nonblocking()
         snapshot = cache.snapshot()
-        got = solver.solve(snapshot, heads)
-        want = reference.solve(snapshot, heads)
+        got = solver.solve(snapshot, heads, fair_sharing=fair)
+        want = reference.solve(snapshot, heads, fair_sharing=fair)
         assert {i: (a.pod_sets, ok) for i, (a, ok) in got.items()} == \
             {i: (a.pod_sets, ok) for i, (a, ok) in want.items()}
         assert ns.apply_decisions(cache, queues, solver, heads, got,
@@ -173,4 +239,39 @@ def test_bound_solver_on_card_equals_cpu(cuda_device):
         truth = encode.encode_state(cache.snapshot(), solver._topo_cache[0])
         assert np.array_equal(rs.usage_dev.cpu().numpy(), truth.usage)
         assert np.array_equal(rs.cohort_dev.cpu().numpy(), truth.cohort_usage)
-    assert all(n > 0 for n in tk.launch_counts().values())
+    launched = tk.launch_counts()
+    assert all(n > 0 for name, n in launched.items() if name != "drf_share")
+    assert (launched["drf_share"] > 0) == fair
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", (None, (500, 1000, 3000, 0, 2000)))
+def test_scheduler_fair_on_card_equals_cpu(weights, cuda_device):
+    """The port's Scheduler with fair sharing on the fair-sharing
+    configuration (2 units per CQ, 4-unit workloads), on the card and on
+    the CPU: the same admissions and usage every cycle, every cycle on
+    the device route, drf_share launched. With the configuration's equal
+    weights every share is the same; with mixed weights the shares set
+    the order within each cohort (test_torch_scheduler.py
+    test_fair_weights_change_the_admissions)."""
+    runs = []
+    tk.reset_launch_counts()
+    for device in (cuda_device, "cpu"):
+        env = ns.build_scheduler(32, 8, ["f0"], 2,
+                                 solver=BatchSolver(device=device),
+                                 fair_sharing=True, fair_weights=weights)
+        ns.stage_waves(env[2], 5, 32, 4)
+        runs.append(env)
+    for cycle in range(4):
+        rows = []
+        for sched, cache, queues, client in runs:
+            ns.finish_applied(cache, queues, client)
+            sched.schedule(timeout=0)
+            assert sched.last_route == "device"
+            rows.append((client.admitted,
+                         sorted(wl.metadata.name for wl in client.new_applied),
+                         [cache.usage_for_cluster_queue(f"cq{i}")
+                          for i in range(32)]))
+        assert rows[0] == rows[1], cycle
+    assert runs[0][3].admitted == 4 * 16
+    assert tk.launch_counts()["drf_share"] == 4

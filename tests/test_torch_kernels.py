@@ -6,7 +6,9 @@ kueue_tpu.solver.kernel, on the same seeded numpy inputs: flat cohorts
 from the JAX package's synth, hand-built nested trees of depth 2 and 3
 with CQs outside any cohort, up to 3 podsets. The admit order is held
 against the order grid the JAX fused program builds (with ties and
-padding rows), the state deltas against apply_state_deltas_impl and the
+padding rows, and with the fair-sharing shares of drf_share, which is
+held against _drf_share with fair weights 0/500/1000/3000 and roots that
+lend nothing), the state deltas against apply_state_deltas_impl and the
 numpy mirror, the arena scatter and gather against theirs. Outputs are
 int64 and bool, so every comparison is exact equality.
 
@@ -174,11 +176,14 @@ def test_pack_matches_jax(seed, num_workloads):
     assert_same(got[1], ref["dec_bits"], "dec_bits")
 
 
+@pytest.mark.parametrize("fair", (False, True))
 @pytest.mark.parametrize("compact", (True, False))
 @pytest.mark.parametrize("seed", SEEDS[:2])
 @pytest.mark.parametrize("kind", KINDS)
-def test_solve_cycle_fused_matches_jax(kind, seed, compact):
+def test_solve_cycle_fused_matches_jax(kind, seed, compact, fair):
     topo, usage, cu, wl = make_inputs(kind, seed)
+    if fair:
+        topo, wl = with_fair_sharing(topo, wl, seed)
     start_rank = synth_start_rank(wl, F, seed) if compact else None
     max_rank = jk.max_rank_bound(wl["wl_cq"], topo["cq_cohort"],
                                  topo["cohort_root"])
@@ -187,12 +192,12 @@ def test_solve_cycle_fused_matches_jax(kind, seed, compact):
     ref = jk.solve_cycle_fused(
         jax_topo(topo), jnp.asarray(usage), jnp.asarray(cu),
         *(jnp.asarray(wl[k]) for k in WL_KEYS), num_podsets=P,
-        max_rank=max_rank,
+        max_rank=max_rank, fair_sharing=fair,
         start_rank=None if start_rank is None else jnp.asarray(start_rank),
         compact=compact)
     got = tk.solve_cycle_fused(
         torch_topo(topo), t(usage), t(cu), *(t(wl[k]) for k in WL_KEYS),
-        num_podsets=P, max_rank=max_rank,
+        num_podsets=P, max_rank=max_rank, fair_sharing=fair,
         start_rank=None if start_rank is None else t(start_rank),
         compact=compact)
     assert set(got) == set(ref)
@@ -200,7 +205,7 @@ def test_solve_cycle_fused_matches_jax(kind, seed, compact):
         assert_same(got[k], ref[k], k)
 
 
-def fused_order_grid(topo, usage, cu, wl, monkeypatch):
+def fused_order_grid(topo, usage, cu, wl, monkeypatch, fair_sharing=False):
     """The JAX package's K4 as its fused program computes it: run
     solve_cycle_fused_impl eagerly and capture the [L,D] order grid it
     hands to phase B. Returns (grid, fit, borrows)."""
@@ -215,7 +220,7 @@ def fused_order_grid(topo, usage, cu, wl, monkeypatch):
     out = jk.solve_cycle_fused_impl(
         jax_topo(topo), jnp.asarray(usage), jnp.asarray(cu),
         *(jnp.asarray(wl[k]) for k in WL_KEYS), num_podsets=P,
-        max_rank=wl["wl_cq"].shape[0])
+        max_rank=wl["wl_cq"].shape[0], fair_sharing=fair_sharing)
     return captured["grid"], np.asarray(out["fit"]), np.asarray(out["borrows"])
 
 
@@ -233,6 +238,123 @@ def with_ties_and_padding(wl, seed):
         wl[k][pad] = 0
     wl["wl_cq"][pad] = 0
     return wl
+
+
+WEIGHTS = np.array([0, 500, 1000, 3000], np.int64)
+
+
+def root_cohorts(topo):
+    cohorts = topo["cq_cohort"][topo["cq_cohort"] >= 0]
+    return np.unique(topo["cohort_root"][cohorts])
+
+
+def with_fair_sharing(topo, wl, seed):
+    """Fair weights from {0, 500, 1000, 3000}; the last root cohort lends
+    in one resource only and, where there are several roots, the first
+    lends nothing (its borrowers' ratio is -1, so their share is
+    -1000 // weight, floored); ties and padding rows as
+    with_ties_and_padding."""
+    rng = np.random.default_rng(seed + 100)
+    topo["fair_weight"] = WEIGHTS[rng.integers(0, 4, size=Q)]
+    lend = topo["cohort_lendable"].copy()
+    roots = root_cohorts(topo)
+    lend[roots[-1], 0] = 0
+    if len(roots) > 1:
+        lend[roots[0]] = 0
+    topo["cohort_lendable"] = lend
+    return topo, with_ties_and_padding(wl, seed)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_drf_share_matches_jax(kind, seed):
+    topo, usage, cu, wl = make_inputs(kind, seed)
+    topo, wl = with_fair_sharing(topo, wl, seed)
+    asg = np.asarray(jax_phase_a(topo, usage, cu, wl)[4])
+    ref = np.asarray(jk._drf_share(jax_topo(topo), jnp.asarray(usage),
+                                   jnp.asarray(asg), jnp.asarray(wl["wl_cq"])))
+    got = tk.drf_share(torch_topo(topo), t(usage), t(asg), t(wl["wl_cq"]))
+    assert_same(got, ref, "share")
+    # the inputs reach every branch: no borrowing, a ratio, weight 0 and,
+    # with several roots, the -1 of a root lending nothing
+    assert (ref == 0).any() and (ref > 0).any()
+    assert (ref == tk.NO_LIMIT).any()
+    assert (ref < 0).any() == (len(root_cohorts(topo)) > 1)
+
+
+def test_drf_share_floors_like_jax():
+    """drs = -1 (the root lends nothing) divided by weights 500, 1000,
+    3000 and 0: JAX's // floors, so weight 3000 gives -1, not C's 0; the
+    same CQs under a root lending 3 units; a CQ without a cohort gets 0."""
+    weights = np.array([500, 1000, 3000, 0, 500, 1000, 3000, 0, 1000],
+                       np.int64)
+    Qn = len(weights)
+    topo = {
+        "nominal": np.full((Qn, 1, 1), 1000, np.int64),
+        "offered": np.ones((Qn, 1, 1), bool),
+        "cq_cohort": np.array([0] * 4 + [1] * 4 + [-1], np.int32),
+        "cohort_root": np.array([0, 1], np.int32),
+        "cohort_lendable": np.array([[0], [3000]], np.int64),
+        "fair_weight": weights,
+    }
+    usage = np.zeros((Qn, 1, 1), np.int64)
+    asg = np.full((Qn, 1, 1), 5000, np.int64)   # borrows 4000
+    wl_cq = np.arange(Qn, dtype=np.int32)
+    ref = np.asarray(jk._drf_share({k: jnp.asarray(v) for k, v in topo.items()},
+                                   jnp.asarray(usage), jnp.asarray(asg),
+                                   jnp.asarray(wl_cq)))
+    got = tk.drf_share({k: t(v) for k, v in topo.items()}, t(usage), t(asg),
+                       t(wl_cq))
+    assert_same(got, ref, "share")
+    expected = [-2, -1, -1, tk.NO_LIMIT, 2666, 1333, 444, tk.NO_LIMIT, 0]
+    assert got.tolist() == expected
+
+
+@pytest.mark.parametrize("variant", ("drf", "mixed"))
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_order_csr_with_shares(kind, seed, variant, monkeypatch):
+    """The order with non-zero shares: drf_share's (held against the
+    grid of the JAX fused program with fair sharing on), and a mix of
+    ties, negative values and NO_LIMIT (held against the lexsort of the
+    composite key)."""
+    topo, usage, cu, wl = make_inputs(kind, seed)
+    topo, wl = with_fair_sharing(topo, wl, seed)
+    tt = torch_topo(topo)
+    fit, borrows, _, _, asg = tk.phase_a(
+        tt, tk.avail(tt, t(usage), t(cu)), t(usage),
+        *(t(wl[k]) for k in ("requests", "podset_active", "wl_cq",
+                             "eligible", "solvable")), P)
+    if variant == "drf":
+        share = tk.drf_share(tt, t(usage), asg, t(wl["wl_cq"]))
+    else:
+        rng = np.random.default_rng(seed)
+        share = t(rng.choice(np.array([-2, -1, 0, 0, 125, 125, 333,
+                                       tk.NO_LIMIT], np.int64), size=W))
+    offsets, members = tk.order_csr(tt, fit, borrows, t(wl["priority"]),
+                                    t(wl["timestamp"]), t(wl["wl_cq"]),
+                                    share)
+    offsets, members = offsets.numpy(), members.numpy()
+    if variant == "drf":
+        grid, jfit, jborrows = fused_order_grid(topo, usage, cu, wl,
+                                                monkeypatch, fair_sharing=True)
+        np.testing.assert_array_equal(fit.numpy(), jfit)
+        np.testing.assert_array_equal(borrows.numpy(), jborrows)
+        for d in range(grid.shape[1]):
+            col = grid[:, d]
+            np.testing.assert_array_equal(members[offsets[d]:offsets[d + 1]],
+                                          col[col >= 0], err_msg=f"domain {d}")
+    share = share.numpy()
+    assert (share != 0).any()
+    q = wl["wl_cq"]
+    cohort = topo["cq_cohort"][q]
+    C = topo["cohort_subtree"].shape[0]
+    domain = np.where(cohort >= 0, topo["cohort_root"][np.maximum(cohort, 0)],
+                      C + q)
+    ref = np.lexsort((np.arange(len(q)), wl["timestamp"], -wl["priority"],
+                      share, borrows.numpy().astype(np.int32),
+                      (~fit.numpy()).astype(np.int32), domain))
+    np.testing.assert_array_equal(members, ref)
 
 
 @pytest.mark.parametrize("variant", ("synth", "ties_padding"))

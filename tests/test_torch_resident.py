@@ -4,7 +4,8 @@ script: admissions, finishes between cycles (the journal's delta
 prologue), an assume that fails and is reported with note_unapplied,
 and a new ClusterQueue, which changes the topology and re-establishes
 residency. After every cycle the decisions, the resident usage, the
-host mirrors and the encode arena's device twin are equal.
+host mirrors and the encode arena's device twin are equal. The script
+runs with fair sharing off and on (the admit order by DRF share).
 
 The cycle is the scheduler's: heads from the Manager, solve, then each
 admitted head assumed into the cache and released from the arena, and
@@ -118,17 +119,25 @@ def backlog(rs) -> dict:
             for (cq, fr), v in rs.device_backlog.items()}
 
 
+@pytest.mark.parametrize("fair", (False, True))
 @pytest.mark.parametrize("seed", range(3))
-def test_bound_solver_matches_jax(seed, monkeypatch):
+def test_bound_solver_matches_jax(seed, fair, monkeypatch):
     from kueue_tpu_torch.solver import kernel as tk
-    prologues = []
+    prologues, shares = [], []
     real = tk.apply_state_deltas_plain
+    real_share = tk.drf_share_plain
 
     def spy(*args):
         prologues.append(cycle)
         return real(*args)
 
+    def spy_share(*args):
+        out = real_share(*args)
+        shares.append(out)
+        return out
+
     monkeypatch.setattr(tk, "apply_state_deltas_plain", spy)
+    monkeypatch.setattr(tk, "drf_share_plain", spy_share)
     envs = [build("kueue_tpu", seed), build("kueue_tpu_torch", seed)]
     admitted = 0
     for cycle in range(CYCLES):
@@ -145,7 +154,8 @@ def test_bound_solver_matches_jax(seed, monkeypatch):
                         f"new{k}", "cq5", k, float(k), [(1, 2, False)]))
         heads = [env.queues.heads_nonblocking() for env in envs]
         assert [h.key for h in heads[0]] == [h.key for h in heads[1]]
-        decisions = [env.solver.solve(env.cache.snapshot(), h)
+        decisions = [env.solver.solve(env.cache.snapshot(), h,
+                                      fair_sharing=fair)
                      for env, h in zip(envs, heads)]
         assert normalize(decisions[1]) == normalize(decisions[0]), cycle
         counts = [apply(env, h, d, now, cycle == FAIL_CYCLE)
@@ -179,6 +189,9 @@ def test_bound_solver_matches_jax(seed, monkeypatch):
                                           got["mirror_cohort"])
     port = envs[1].solver
     assert prologues == [2, 5]  # the finishes reached the device
+    # with fair sharing every cycle computed the shares, some non-zero
+    assert len(shares) == (CYCLES if fair else 0)
+    assert not fair or any((s != 0).any() for s in shares)
     assert admitted > 0
     assert port.counters["resident_cycles"] == CYCLES
     assert port.counters["establishes"] == 2  # first cycle, new CQ
