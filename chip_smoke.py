@@ -39,6 +39,20 @@ versions:
    starts the cycle empty); then the same cycles on the CPU
    (device="cpu") must admit the same workloads and leave the same
    usage per CQ.
+5. scheduler preempt: the port's Scheduler with device preemption on
+   the JAX package's preemption-heavy configuration (bench.py
+   bench_preemption_reclaim: 2048 CQs, 256 child cohorts under 128
+   roots, one flavor of 8 units per CQ, 64,512 admitted victims, one
+   8-unit preemptor per CQ, every head in preempt mode): 1 warm-up and
+   3 timed cycles, each the first cycle of a fresh build, every one on
+   the device route with the work gate choosing the device and every
+   preempt-mode head solved by the K9 kernel (solve_preempt) after the
+   fit sync; its inputs in the first timed cycle are kept and held
+   against the plain version, as is a synthetic nested input (depth 3,
+   within-CQ, reclaim and threshold problems, padding); one traced
+   cycle; then the same scenario with device="cpu" (the plain K9) and
+   on the cpu-forced route (the CPU Preemptor) must evict the same
+   workloads with the same reasons and admit the same workloads.
 
 Every phase raises on failure; nothing is caught. The last lines are
 the card's name and power limit, one JSON line with the kernels'
@@ -86,24 +100,40 @@ REPLACES = {
     "deltas": "kueue_tpu/solver/kernel.py:765",
     "arena_scatter": "kueue_tpu/solver/kernel.py:863",
     "arena_gather": "kueue_tpu/solver/kernel.py:892",
+    "solve_preempt": "kueue_tpu/solver/preempt.py:598",
 }
 # the kernels each end-to-end phase must launch
 PHASE_KERNELS = {
     "unbound": ("avail", "phase_a", "order", "phase_b", "pack"),
     "bound_fill": ("arena_gather", "avail", "phase_a", "order", "phase_b",
                    "pack"),
-    "bound_churn": tuple(k for k in REPLACES if k != "drf_share"),
+    "bound_churn": tuple(k for k in REPLACES
+                         if k not in ("drf_share", "solve_preempt")),
     # the finishes free more than 512 (cq, resource) coords and replace
     # more than 512 arena rows each cycle: the state and the twin are
     # re-uploaded whole, so deltas and arena_scatter do not run here
     "scheduler_fair": ("arena_gather", "avail", "phase_a", "drf_share",
                        "order", "phase_b", "pack"),
+    # a fresh build's first cycle: the state and the twin upload whole
+    "scheduler_preempt": ("arena_gather", "avail", "phase_a", "order",
+                          "phase_b", "pack", "solve_preempt"),
 }
 # The fair-sharing benchmark configuration (bench.py bench_fair_sharing,
 # builders bench.py:107-214): every admission borrows, 1024 per cycle.
 FAIR = dict(num_cqs=2048, num_cohorts=256, nominal_units=2, cpu_units=4)
 FAIR_TIMED = 10
 FAIR_WAVES = 15         # cycles + 4, as the bench stages: 30,720 pending
+# The preemption-heavy configuration (bench.py bench_preemption_reclaim,
+# bench.py:1807-1850; sim/northstar.build_preempt_reclaim).
+PREEMPT = dict(num_roots=128, children_per_root=2, cqs_per_child=8,
+               victims_per_borrower=36)
+PREEMPT_TIMED = 3
+# K9's synthetic check: trees 3 deep (CQs attached at two depths),
+# within-CQ, reclaim and threshold problems, 124 padding rows
+PREEMPT_NESTED = dict(num_problems=900, max_candidates=120,
+                      max_local_cqs=12, depth=3, num_cqs=2048,
+                      num_leaf_cohorts=256, fanout=4, num_flavors=4,
+                      num_resources=2, table_rows=4096, seed=17)
 # the order kernel's check with non-zero shares: mixed values and ties,
 # negative shares (a root lending nothing) and NO_LIMIT (weight 0)
 MIXED_SHARES = (-2, -1, 0, 0, 125, 125, 333, 2**62)
@@ -170,19 +200,26 @@ class GcClock:
 
 def profiled_device_ms(fn, iters: int, kernel_name: str):
     """Mean device time per call of the CUDA kernels whose names start
-    with `<kernel_name>_`, from a torch.profiler trace of `iters` calls;
-    None when the trace holds no device time for them."""
+    with `<kernel_name>_`, from a torch.profiler trace of `iters` calls
+    (device activity only, then, if that trace kept no record of them,
+    host and device activity, as the traced cycles record); None when
+    neither holds device time for them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(device_us(e) for e in prof.key_averages()
-                if e.key.startswith(f"{kernel_name}_"))
-    return total / iters / 1e3 if total else None
+    for activities in ([ProfilerActivity.CUDA],
+                       [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profile(activities=activities) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(device_us(e) for e in prof.key_averages()
+                    if e.key.startswith(f"{kernel_name}_")
+                    and str(e.device_type).endswith("CUDA"))
+        if total:
+            return total / iters / 1e3
+    return None
 
 
 def compare(names, got, want) -> float:
@@ -911,6 +948,248 @@ def check_captured_share(captured: Captured, k) -> dict:
     return out
 
 
+PREEMPT_PHASES = ("heads", "snapshot", "nominate", "encode", "upload",
+                  "device", "fetch", "decode", "preempt-plan", "preempt",
+                  "decode-targets", "apply", "requeue")
+
+
+def preempt_env(device, samples=()):
+    """The preemption-heavy configuration, its Scheduler's solver on
+    `device` (None: no solver, the cpu-forced route); `samples` carry
+    the solver's measured sync floor across fresh builds, as the JAX
+    package's _run_preempt_pair does. Returns (scheduler, cache, queues,
+    client)."""
+    from kueue_tpu_torch.sim import northstar as ns
+    from kueue_tpu_torch.solver import BatchSolver
+    solver = None if device is None else BatchSolver(device=device)
+    env = ns.build_preempt_reclaim(**PREEMPT, solver=solver)
+    if solver is not None and samples:
+        solver._sync_samples = list(samples)
+    return env
+
+
+def preempt_expected() -> tuple:
+    """(preempt-mode heads, problems): every CQ's preemptor; a borrower's
+    gives one problem (its own CQ), a lender's two (the reclaim, then its
+    own CQ's, empty)."""
+    children = PREEMPT["num_roots"] * PREEMPT["children_per_root"]
+    cqs = children * PREEMPT["cqs_per_child"]
+    return cqs, (cqs - children) + 2 * children
+
+
+def cycle_outcome(client) -> tuple:
+    """What a cycle did: its evictions (workload, Preempted reason) in
+    issue order and the workloads it admitted."""
+    return (tuple(client.evictions),
+            tuple(sorted(wl.metadata.name for wl in client.new_applied)))
+
+
+def preempt_bytes(args, outs, usage) -> int:
+    """Bytes solve_preempt must move on these inputs: every problem array
+    and output once, each candidate-table row a valid candidate points
+    at, and each quota element the problems gather (nominal, guaranteed,
+    borrow limit and usage of a (CQ, flavor, resource); subtree,
+    guaranteed, borrow limit and usage of a (cohort, flavor, resource),
+    and the cohort's depth), once."""
+    import torch
+    (gq, gf, gr, gc, chain, req, frs, cidx, cql, tab_u, tab_p, ab, tha, th,
+     hc) = args
+    F, R = usage.shape[1:]
+    moved = nbytes(gq, gf, gr, gc, chain, req, frs, cidx, cql, ab, tha, th,
+                   hc, *outs)
+    rows = torch.unique(cidx[cql >= 0].long())
+    moved += int(rows.numel()) * (tab_u.shape[1] * 8 + 4)
+    vf = (gf >= 0)[:, None, :]
+    fr = gf.long().clamp_min(0)[:, None, :] * R + gr.long()[:, None, :]
+    for idx in (gq, gc):
+        coord = idx.long()[:, :, None] * (F * R) + fr
+        moved += int(torch.unique(coord[(idx >= 0)[:, :, None] & vf])
+                     .numel()) * 4 * 8
+    moved += int(torch.unique(gc[gc >= 0]).numel()) * 4
+    return moved
+
+
+def preempt_kernel_check(label: str, k, args: tuple, got, n_real: int,
+                         timed: bool) -> dict:
+    """solve_preempt's outputs `got` against the plain version on the
+    same card tensors (all three equal); with `timed`, the kernel's
+    device time (profiler), its time per call and the plain version's
+    (CUDA events), and its byte bound."""
+    import torch
+    want = k.solve_preempt_plain(*args)
+    compare(("targets", "feasible", "stats"), got, want)
+    stats = want[2][:n_real].cpu()
+    feasible = want[1][:n_real].cpu()
+    rounds = stats[:, 2]
+    row = {"max_abs_err": 0.0, "problems": n_real,
+           "shape_B_K_QL_RF_CL_DC": [args[3].shape[0], args[11].shape[1],
+                                     args[3].shape[1], args[4].shape[1],
+                                     args[6].shape[1], args[7].shape[2]],
+           "feasible": int(feasible.sum()),
+           "targets": int(want[0].sum()),
+           "filled_back": int(stats[:, 3].sum()),
+           "rounds_max": int(rounds.max()),
+           "rounds_mean": float(rounds.float().mean())}
+    if timed:
+        def run_kernel():
+            return k.solve_preempt(*args)
+
+        def run_plain():
+            return k.solve_preempt_plain(*args)
+        torch.cuda.synchronize()
+        row["call_ms"] = time_cuda(run_kernel, iters=10)
+        row["plain_ms"] = time_cuda(run_plain, iters=2, warmup=1)
+        kernel_ms = profiled_device_ms(run_kernel, 10, "solve_preempt")
+        row["ms"], row["ms_source"] = (kernel_ms, "profiler") \
+            if kernel_ms is not None else (row["call_ms"], "events")
+        row["bytes"] = preempt_bytes(args[3:], want, args[1])
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        # the fill-back rounds are dependent block-wide passes: one
+        # forward pass, then 1 + 2 (rounds - 1) fill-back evaluations
+        row["dependent_steps"] = 2 * row["rounds_max"]
+        row["library_ms"] = None
+    log(f"[kernels:solve_preempt:{label}] equal to plain: "
+        + json.dumps(row))
+    return row
+
+
+def scheduler_preempt_phase(device) -> dict:
+    """The port's Scheduler with device preemption on the preemption-
+    heavy configuration: each cycle is the first schedule() of a fresh
+    build (the build, outside the timed window), 1 warm-up and
+    PREEMPT_TIMED timed; every one must take the device route, the work
+    gate must choose the device and every preempt-mode head must be
+    solved there. solve_preempt's inputs in the first timed cycle are
+    kept and held against the plain version; then the same scenario with
+    device="cpu" and on the cpu-forced route must evict the same
+    workloads with the same reasons and admit the same workloads."""
+    import torch
+    from kueue_tpu_torch.solver import kernel, synth
+    phase = "scheduler_preempt"
+    heads_n, problems_n = preempt_expected()
+    keys = PREEMPT_PHASES + ("gc", "other", "cycle")
+    phases = {p: [] for p in keys}
+    outcomes, plans = [], []
+    evicted_timed = 0
+    samples: list = []
+    gc_clock = GcClock()
+    gc.callbacks.append(gc_clock)
+    t_phase = time.perf_counter()
+
+    def run_cycle(cycle: int, check_first: bool = True) -> dict:
+        t0 = time.perf_counter()
+        sched, cache, queues, client = preempt_env(device, samples)
+        pending = []
+        stage = sched._stage_preempt
+
+        def counted(entries, *a, **kw):
+            pending.append(len(entries))
+            return stage(entries, *a, **kw)
+        sched._stage_preempt = counted
+        t_build = time.perf_counter() - t0
+        gc.collect()
+        g0, t0 = gc_clock.total, time.perf_counter()
+        sched.schedule(timeout=0)
+        g1, t1 = gc_clock.total, time.perf_counter()
+        samples[:] = sched.solver._sync_samples
+        plan = sched.last_preempt_plan.get("minimal", {})
+        if sched.last_route != "device" or sched.last_preempt_gate != "device":
+            raise AssertionError(f"{phase} cycle {cycle}: route "
+                                 f"{sched.last_route!r}, preemption gate "
+                                 f"{sched.last_preempt_gate!r}")
+        if pending != [heads_n] or plan.get("problems") != problems_n:
+            raise AssertionError(f"{phase} cycle {cycle}: {pending} "
+                                 f"preempt-mode heads and {plan} problems, "
+                                 f"not {heads_n} and {problems_n}")
+        row = {**sched.last_phase_s, **sched.solver.last_phase_s,
+               "gc": g1 - g0, "cycle": t1 - t0}
+        row["other"] = row["cycle"] - sum(row[p] for p in PREEMPT_PHASES)
+        row["evicted"] = client.evicted
+        row["outcome"] = cycle_outcome(client)
+        row["plan"] = plan
+        log(f"[{phase}] cycle {cycle}"
+            f"{' (warm-up)' if cycle < E2E_WARMUP else ''}: build_s="
+            f"{t_build:.1f} evicted={client.evicted} admitted="
+            f"{client.admitted} plan={json.dumps(plan)} cycle_ms="
+            f"{row['cycle'] * 1e3:.1f} upload_bytes="
+            f"{sched.solver.last_upload_bytes} ms="
+            + json.dumps({p: round(row[p] * 1e3, 3) for p in keys
+                          if p != "cycle"}))
+        return row
+
+    captured = Captured(kernel, "solve_preempt")
+    kernel.reset_launch_counts()
+    for cycle in range(E2E_WARMUP + PREEMPT_TIMED):
+        if cycle == E2E_WARMUP:
+            with captured:
+                row = run_cycle(cycle)
+        else:
+            row = run_cycle(cycle)
+        if cycle < E2E_WARMUP:
+            continue
+        evicted_timed += row["evicted"]
+        outcomes.append(row["outcome"])
+        plans.append(row["plan"])
+        for p in keys:
+            phases[p].append(row[p])
+    launches = kernel.launch_counts()
+    for name in PHASE_KERNELS[phase]:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{phase} path")
+    if len(set(outcomes)) != 1 or not outcomes[0][0]:
+        raise AssertionError(f"{phase}: the fresh builds' cycles evicted "
+                             "differently, or nothing")
+    summary = {p: {"p50_ms": percentile(v, 50) * 1e3, "max_ms": max(v) * 1e3}
+               for p, v in phases.items()}
+    summary["evicted_per_cycle"] = evicted_timed / PREEMPT_TIMED
+    summary["evicted_per_s"] = evicted_timed / sum(phases["cycle"])
+    summary["admitted_per_cycle"] = len(outcomes[0][1])
+    summary["reasons"] = sorted({r for _, r in outcomes[0][0]})
+    summary["preempt_plan"] = plans[-1]
+    summary["launches"] = launches
+    if captured.args is None:
+        raise AssertionError("solve_preempt was not called in the captured "
+                             "cycle")
+    summary["kernel_rows"] = {"captured": preempt_kernel_check(
+        "captured", kernel, captured.args, captured.out, problems_n, True)}
+    topo, usage, cu, args = synth.synth_preempt_inputs(**PREEMPT_NESTED)
+    dev_args = (kernel.topo_to_device(topo, device),
+                *kernel.state_to_device(usage, cu, device),
+                *(torch.from_numpy(a).to(device) for a in args))
+    summary["kernel_rows"]["nested"] = preempt_kernel_check(
+        "nested", kernel, dev_args, kernel.solve_preempt(*dev_args),
+        PREEMPT_NESTED["num_problems"], True)
+    summary["traced_cycle"] = traced_cycle(
+        phase, run_cycle, E2E_WARMUP + PREEMPT_TIMED, kernel="solve_preempt")
+    gc.callbacks.remove(gc_clock)
+    # the same scenario on the CPU: the plain K9, then the CPU Preemptor
+    t_cpu = time.perf_counter()
+    for dev, route in (("cpu", "device"), (None, "cpu-forced")):
+        sched, cache, queues, client = preempt_env(dev)
+        sched.schedule(timeout=0)
+        if sched.last_route != route or (
+                dev is not None and sched.last_preempt_gate != "device"):
+            raise AssertionError(f"{phase}: the CPU run took the "
+                                 f"{sched.last_route!r} route")
+        if cycle_outcome(client) != outcomes[0]:
+            raise AssertionError(f"{phase}: the card evicted or admitted "
+                                 f"other workloads than the {route} route "
+                                 "on the CPU")
+        if dev is not None and sched.last_preempt_plan["minimal"] \
+                != plans[0]:
+            raise AssertionError(f"{phase}: the solve stats differ between "
+                                 "the card and the CPU")
+    summary["cpu_check_s"] = time.perf_counter() - t_cpu
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[{phase}] equal to the device=\"cpu\" and cpu-forced runs: "
+        f"{len(outcomes[0][0])} evictions ({', '.join(summary['reasons'])}),"
+        f" {len(outcomes[0][1])} admitted")
+    log(f"[{phase}] " + json.dumps(
+        {k: v for k, v in summary.items() if k != "kernel_rows"}))
+    return summary
+
+
 def traced_cycle(phase: str, run_cycle, cycle: int,
                  kernel: str = None) -> dict:
     """One more main-path cycle under torch.profiler (after the timed
@@ -979,8 +1258,15 @@ def main() -> int:
         t0 = time.perf_counter()
         kernel_phase(kind, device, results)
         log(f"[kernels:{kind}] wall {time.perf_counter() - t0:.1f} s")
-    e2e = {phase: scheduler_phase(device) if phase == "scheduler_fair"
+    runners = {"scheduler_fair": scheduler_phase,
+               "scheduler_preempt": scheduler_preempt_phase}
+    e2e = {phase: runners[phase](device) if phase in runners
            else e2e_phase(device, phase) for phase in PHASE_KERNELS}
+    # K9's rows: the main path's captured inputs and the synthetic nested
+    results["north_star"]["solve_preempt"] = \
+        e2e["scheduler_preempt"]["kernel_rows"]["captured"]
+    results["nested"]["solve_preempt"] = \
+        e2e["scheduler_preempt"]["kernel_rows"]["nested"]
 
     kernels = []
     for name in _build.KERNELS:
@@ -1001,12 +1287,17 @@ def main() -> int:
             "ms_source": row["ms_source"], "call_ms": row["call_ms"],
             "nested": {k: v for k, v in results["nested"][name].items()
                        if k in ("ms", "call_ms", "plain_ms", "library_ms",
-                                "bound_ms", "dependent_steps")},
-            # phase_b's real limit is its serial chain, which a byte or
-            # operation count does not capture
+                                "bound_ms", "dependent_steps",
+                                "rounds_max", "rounds_mean")},
+            # phase_b's and solve_preempt's real limit is a serial chain,
+            # which a byte or operation count does not capture
             **({"latency_bound": f"{row['dependent_steps']} dependent steps",
                 "dependent_steps": row["dependent_steps"]}
-               if name == "phase_b" else {})})
+               if name in ("phase_b", "solve_preempt") else {}),
+            **({"inputs": "the scheduler preempt phase's first timed cycle",
+                "rounds_max": row["rounds_max"],
+                "rounds_mean": row["rounds_mean"]}
+               if name == "solve_preempt" else {})})
     log(f"[wall] {time.perf_counter() - t_start:.1f} s, phases "
         + json.dumps({p: round(e2e[p]["wall_s"], 1) for p in e2e}))
     log(smi)

@@ -20,36 +20,47 @@ Cache and Manager, solves the cycle against its device-resident state
 with one device sync, and the heads it did not fit are nominated on
 the CPU against the pre-cycle snapshot before the device's admissions
 are accounted on it. With fair sharing on, the device orders the admits
-by DRF share (kernel.drf_share). Otherwise (route "cpu-forced") the CPU
+by DRF share (kernel.drf_share). The preempt-mode heads among them get
+their targets, still against the pre-cycle snapshot, from the CPU
+Preemptor or, where the JAX Scheduler's work gate picks the device, from
+the batched minimal-preemption solve (solver/candidates.py,
+solver/preempt.py, kernel.solve_preempt) launched once more against the
+usage the cycle's dispatch read. Otherwise (route "cpu-forced") the CPU
 path runs the whole cycle.
 
 Differences from the JAX Scheduler, on this synchronous path:
-- Preempt-mode entries on the device route take their targets from the
-  CPU Preemptor, the JAX Scheduler's branch when its preemption work
-  gate prefers the CPU (scheduler.py:2005-2011); the device preemption
-  problems come with the K9 kernel.
+- The JAX Scheduler predicts the non-fit heads before the sync with a
+  host-side router (its solver's `_route`) and runs their preemption
+  problems in the same device program as the fit solve. The port reads
+  the non-fit heads from the device's decisions after the sync, so the
+  device is dispatched even when no head fits, and K9 is a second
+  launch and sync against the same pre-cycle usage. The choices and the
+  targets are the same; the work gate is ported unchanged, so it still
+  counts the sync as shared when fit heads dispatch.
+- With fair sharing on, preempt-mode heads take their targets from the
+  CPU Preemptor (fair-sharing preemption on the device is not ported).
+- An encode or launch failure of the preemption solve propagates; the
+  JAX Scheduler hands the entries to the CPU Preemptor instead
+  (scheduler.py:2064-2068, :2084-2088).
 - Heads that may be partially admitted go to CPU nomination, the JAX
   branch taken when the batched partial admission gives no result
   (scheduler.py:2185-2191); their Pending message on failure is the CPU
   assigner's rather than the batched path's generic one.
 - A solver exception propagates instead of rerunning the cycle on the
   CPU: nothing hides a device fault.
-- No host-side router (the JAX solver's `_route`): the non-fit heads
-  are read from the device's decisions after the sync, not predicted
-  before it, so the device is dispatched even when no head fits. The
-  choices are the same; the router comes back when preemption problems
-  must be built before the sync.
-- Not ported: the speculative pipeline, adaptive routing (the route is
-  the JAX Scheduler's "always" one), the degradation ladder, breaker,
-  warm governor and watchdog, journeys, the flight recorder, the query
-  plane, aging, metrics, leader_check, cq_filter and MultiKueue
-  placements. At their defaults each is a no-op on the synchronous
-  path.
+- Not ported: the speculative pipeline (and its pipelined preemption
+  collect), adaptive routing (the route is the JAX Scheduler's "always"
+  one), the degradation ladder (and its deferred preemption), breaker,
+  warm governor and watchdog, journeys, the flight recorder (and its
+  preempt-plan annotation), the query plane, aging, metrics,
+  leader_check, cq_filter and MultiKueue placements. At their defaults
+  each is a no-op on the synchronous path.
 
 Each cycle's phase times (seconds) are in `last_phase_s`: heads,
-snapshot, nominate, apply and requeue here, and on the device route the
-solver's own (encode, upload, device, fetch, decode) in
-`solver.last_phase_s`.
+snapshot, nominate, preempt-plan, decode-targets, apply and requeue
+here, and on the device route the solver's own (encode, upload, device,
+fetch, decode, preempt) in `solver.last_phase_s`. The last device
+preemption solve's stats are in `last_preempt_plan`.
 """
 
 from __future__ import annotations
@@ -76,6 +87,8 @@ from kueue_tpu_torch.scheduler.preemption import (
     make_reclaim_oracle,
     parse_strategies,
 )
+from kueue_tpu_torch.solver import preempt as devpreempt
+from kueue_tpu_torch.solver.candidates import candidate_index
 from kueue_tpu_torch.utils.wait import KeepGoing, SlowDown, SpeedSignal
 
 # entry statuses (reference: scheduler.go:355-366)
@@ -85,7 +98,8 @@ SKIPPED = "skipped"
 ASSUMED = "assumed"
 
 # the scheduler's own phases of a cycle, timed in last_phase_s
-CYCLE_PHASES = ("heads", "snapshot", "nominate", "apply", "requeue")
+CYCLE_PHASES = ("heads", "snapshot", "nominate", "preempt-plan",
+                "decode-targets", "apply", "requeue")
 
 
 @dataclass
@@ -163,6 +177,19 @@ class Scheduler:
         # cycle is wide enough. Below this head count the cycle runs on the CPU path even with
         # a solver (0 = always solve).
         self.solver_min_heads = solver_min_heads
+        # The preemption work gate (kueue_tpu/scheduler/scheduler.py:
+        # 401-410, ported with its constants): the device preemptor saves
+        # about preempt_cand_us of CPU simulation per candidate, which
+        # must cover the marginal sync; solver_sync_floor_ms overrides the
+        # measured floor (solver.estimated_sync_ms(); 0 sends every
+        # preemption with candidates to the device, and a preempt_cand_us
+        # of 0 every one to the CPU Preemptor).
+        self.solver_sync_floor_ms: Optional[float] = None
+        self.preempt_cand_us = 8.0
+        # The last device preemption solve's stats (summed over problems)
+        # and the gate's last choice, "cpu" or "device".
+        self.last_preempt_plan: dict = {}
+        self.last_preempt_gate = ""
         self.cycle_counts: dict = {}  # route -> cycles
         self.last_route = ""
         self.last_phase_s = dict.fromkeys(CYCLE_PHASES, 0.0)
@@ -338,11 +365,11 @@ class Scheduler:
             plan, snapshot, fair_sharing=self.fair_sharing_enabled)
 
         # Entries the device did not fit get their CPU nomination (flavor
-        # assignment + preemption targets) before any admission is
-        # accounted. Device-NoFit shortcut: Phase A proved these entries
-        # can't fit, and a Never/Never preemption policy (with no partial
-        # admission possible) means the CPU assigner could only restate
-        # NoFit.
+        # assignment; preemption targets deferred) before any admission
+        # is accounted. Device-NoFit shortcut: Phase A proved these
+        # entries can't fit, and a Never/Never preemption policy (with no
+        # partial admission possible) means the CPU assigner could only
+        # restate NoFit.
         nofit_entries, rest = [], []
         for i, w in enumerate(valid_heads):
             if i in decisions:
@@ -358,10 +385,10 @@ class Scheduler:
         pending = [e for e in pre_entries if e.preemption_targets is None]
         for e in pending:
             e.preemption_targets = []
-        # Preempt-mode targets from the CPU Preemptor (the JAX
-        # Scheduler's branch when its work gate prefers the CPU).
-        self._cpu_preempt_targets(pending, snapshot)
         self._span("nominate", t_ph)
+        if pending:
+            self._stage_preempt(pending, snapshot, plan,
+                                fit_count=len(decisions))
 
         t_ph = _time.perf_counter()
         solver_entries = list(invalid_entries)
@@ -397,6 +424,100 @@ class Scheduler:
             solver_entries.append(e)
         self._span("apply", t_ph)
         return solver_entries, pre_entries, []
+
+    def _stage_preempt(self, pending: list, snapshot: Snapshot, plan,
+                       fit_count: int) -> None:
+        """Preemption targets of the preempt-mode entries, against the
+        pre-cycle snapshot: from K9 (solver.solve_preempt, against the
+        usage the cycle's dispatch read) and decode_targets when the work
+        gate picks the device (_device_preempt_batch), else from the CPU
+        Preemptor. With fair sharing the CPU Preemptor runs (fair-sharing
+        preemption on the device is not ported).
+
+        Timed in last_phase_s: "preempt-plan" (the gate, and the index,
+        the problems and their encode, or the CPU Preemptor), then on the
+        device route the solver's "preempt" and "decode-targets"."""
+        t_ph = _time.perf_counter()
+        found = None if self.fair_sharing_enabled else \
+            self._device_preempt_batch(pending, snapshot, plan, fit_count)
+        if found is None:
+            self.last_preempt_gate = "cpu"
+            self._cpu_preempt_targets(pending, snapshot)
+            self._span("preempt-plan", t_ph)
+            return
+        self.last_preempt_gate = "device"
+        batch, cq_by = found
+        self._span("preempt-plan", t_ph)
+        targets, feasible, stats = self.solver.solve_preempt(batch)
+        t_ph = _time.perf_counter()
+        self._note_preempt_stats(stats, batch)
+        by_entry = devpreempt.decode_targets(batch, targets, feasible,
+                                             snapshot, cq_by)
+        for i, e in enumerate(pending):
+            e.preemption_targets = by_entry.get(i, [])
+        self._retry_partial_admission(pending, snapshot)
+        self._span("decode-targets", t_ph)
+
+    def _device_preempt_batch(self, pending: list, snapshot: Snapshot,
+                              plan, fit_count: int):
+        """The JAX Scheduler's work gate (kueue_tpu/scheduler/
+        scheduler.py:1983-2062) and, where it picks the device, the
+        cycle's CandidateIndex, build_problems per entry and
+        encode_problems. Returns (PreemptionBatch, entry -> CQ name), or
+        None for the CPU Preemptor."""
+        # The device preemptor saves about preempt_cand_us per candidate,
+        # which must cover the marginal sync: zero when fit entries
+        # dispatch in the cycle anyway (the JAX package's fused execute;
+        # here K9 is a second launch all the same).
+        floor_ms = (self.solver_sync_floor_ms
+                    if self.solver_sync_floor_ms is not None
+                    else self.solver.estimated_sync_ms())
+        marginal_sync_us = 0.0 if fit_count > 0 else floor_ms * 1000.0
+        # Cheap pre-gate: an upper bound on the candidate count (the
+        # domains' workload totals, x2: up to two problems per entry).
+        sizes: dict = {}
+        bound = 0
+        for e in pending:
+            cq = snapshot.cluster_queues[e.info.cluster_queue]
+            key = cq.cohort.root().name if cq.cohort is not None else cq.name
+            if key not in sizes:
+                members = (cq.cohort.root().subtree_cqs()
+                           if cq.cohort is not None else [cq])
+                sizes[key] = sum(len(c.workloads) for c in members)
+            bound += 2 * sizes[key]
+        if bound * self.preempt_cand_us <= marginal_sync_us:
+            return None
+        cand_index = candidate_index(snapshot, self.ordering,
+                                     self.clock.now())
+        problems, requests_by, frs_by, cq_by = [], {}, {}, {}
+        for i, e in enumerate(pending):
+            requests_by[i] = e.assignment.total_requests_for(e.info)
+            frs_by[i] = fa.flavor_resources_need_preemption(e.assignment)
+            cq_by[i] = e.info.cluster_queue
+            problems.extend(devpreempt.build_problems(
+                i, e.info, requests_by[i], frs_by[i], snapshot,
+                self.preemptor, cand_index))
+        # The precise gate: the problems' candidate count.
+        total_cost_us = sum(p.num_candidates for p in problems) \
+            * self.preempt_cand_us
+        if not problems or total_cost_us <= marginal_sync_us:
+            return None
+        return devpreempt.encode_problems(problems, snapshot, plan.topo,
+                                          requests_by, cq_by, frs_by), cq_by
+
+    def _note_preempt_stats(self, stats, batch) -> None:
+        """The device solve's stats ([B,4]: candidate pool, prefix
+        scanned, fill-back rounds, filled back) summed into
+        last_preempt_plan, as kueue_tpu/scheduler/scheduler.py:1760 does
+        for its minimal solve. `problems` counts the batch's problems,
+        not the padded rows."""
+        self.last_preempt_plan = {"minimal": {
+            "problems": len(batch.problems),
+            "pool": int(stats[:, 0].sum()),
+            "scanned": int(stats[:, 1].sum()),
+            "fillback_rounds_max": int(stats[:, 2].max()),
+            "filled_back": int(stats[:, 3].sum()),
+        }}
 
     def _device_nofit_entry(self, w: wlpkg.Info,
                             snapshot: Snapshot) -> Optional[Entry]:

@@ -11,7 +11,9 @@ cpu units (1 unit = 1000 milli-cpu and 1 GiB).
 Two ways to drive a cycle:
 - the port's own Scheduler (`build_scheduler`, `SimClient`,
   `finish_applied`): the fair-sharing deployment of the JAX package's
-  benchmark (bench.py bench_fair_sharing, builders bench.py:107-214);
+  benchmark (bench.py bench_fair_sharing, builders bench.py:107-214),
+  and its preemption-heavy one (`build_preempt_reclaim`, bench.py
+  bench_preemption_reclaim, with `admit_victim`);
 - the solver by hand: heads from `Manager.heads_nonblocking` (one per
   CQ), `solve`, then `apply_decisions`: admitted heads are assumed into
   the cache and handed to `solver.release_workload`, the rest are
@@ -25,7 +27,12 @@ from collections import deque
 
 from kueue_tpu_torch.api import kueue as api
 from kueue_tpu_torch.api.corev1 import Container, PodSpec, PodTemplateSpec
-from kueue_tpu_torch.api.meta import FakeClock, LabelSelector, ObjectMeta
+from kueue_tpu_torch.api.meta import (
+    FakeClock,
+    LabelSelector,
+    ObjectMeta,
+    find_condition,
+)
 from kueue_tpu_torch.cache import Cache
 from kueue_tpu_torch.core import workload as wlpkg
 from kueue_tpu_torch.queue import Manager, RequeueReason
@@ -38,13 +45,17 @@ def make_flavor(name: str) -> api.ResourceFlavor:
 
 def make_cq(name: str, cohort: str, flavors: list, nominal_units: int,
             queueing_strategy: str = api.BEST_EFFORT_FIFO,
-            fair_weight: int = None) -> api.ClusterQueue:
+            fair_weight: int = None,
+            preemption: api.ClusterQueuePreemption = None) -> api.ClusterQueue:
     """fair_weight: the CQ's fair-sharing weight in milli-units (None
-    leaves the spec without one, which weighs 1000)."""
+    leaves the spec without one, which weighs 1000); preemption: the
+    CQ's preemption policy (None leaves the default, Never/Never)."""
     cq = api.ClusterQueue(metadata=ObjectMeta(name=name, uid=f"cq-{name}"))
     cq.spec.namespace_selector = LabelSelector()
     cq.spec.cohort = cohort
     cq.spec.queueing_strategy = queueing_strategy
+    if preemption is not None:
+        cq.spec.preemption = preemption
     if fair_weight is not None:
         cq.spec.fair_sharing = api.FairSharing(weight=fair_weight)
     cq.spec.resource_groups.append(api.ResourceGroup(
@@ -80,10 +91,12 @@ def make_workload(name: str, queue: str, cpu_units: int, priority: int = 0,
 def build_cluster(num_cqs: int, num_cohorts: int, flavors: list,
                   nominal_units: int,
                   queueing_strategy: str = api.BEST_EFFORT_FIFO,
-                  queues: Manager = None, fair_weights: tuple = None) -> tuple:
+                  queues: Manager = None, fair_weights: tuple = None,
+                  preemption: api.ClusterQueuePreemption = None) -> tuple:
     """cq{i} in cohort-{i % num_cohorts}, every flavor at nominal_units,
     fed by lq{i}; with fair_weights, cq{i} weighs
-    fair_weights[i % len(fair_weights)]. Returns (Cache, Manager)."""
+    fair_weights[i % len(fair_weights)]; every CQ takes `preemption`.
+    Returns (Cache, Manager)."""
     cache = Cache()
     queues = Manager() if queues is None else queues
     for f in flavors:
@@ -92,7 +105,7 @@ def build_cluster(num_cqs: int, num_cohorts: int, flavors: list,
         cq = make_cq(f"cq{i}", f"cohort-{i % num_cohorts}", flavors,
                      nominal_units, queueing_strategy,
                      fair_weights[i % len(fair_weights)]
-                     if fair_weights else None)
+                     if fair_weights else None, preemption)
         cache.add_cluster_queue(cq)
         queues.add_cluster_queue(cq)
         queues.add_local_queue(make_local_queue(f"lq{i}", f"cq{i}"))
@@ -188,17 +201,23 @@ def finish_admitted(cache: Cache, admitted: deque, count: int) -> int:
 
 class SimClient(SchedulerClient):
     """The sim's SchedulerClient (bench.py BenchClient): no store; counts
-    admission writes and evictions and keeps the admitted workloads
-    until `drain_applied`."""
+    admission writes and evictions, keeps the admitted workloads until
+    `drain_applied` and each eviction as (workload name, Preempted
+    reason) in `evictions`."""
 
     def __init__(self):
         self.admitted = 0
         self.evicted = 0
         self.new_applied: list = []  # admission writes since the drain
+        self.evictions: list = []
 
     def apply_admission(self, wl: api.Workload) -> None:
         if wlpkg.is_evicted(wl):
             self.evicted += 1
+            cond = find_condition(wl.status.conditions,
+                                  api.WORKLOAD_PREEMPTED)
+            self.evictions.append((wl.metadata.name,
+                                   cond.reason if cond else ""))
         else:
             self.admitted += 1
             self.new_applied.append(wl)
@@ -211,17 +230,19 @@ class SimClient(SchedulerClient):
 def build_scheduler(num_cqs: int, num_cohorts: int, flavors: list,
                     nominal_units: int, solver=None,
                     fair_sharing: bool = False,
-                    fair_weights: tuple = None) -> tuple:
+                    fair_weights: tuple = None,
+                    preemption: api.ClusterQueuePreemption = None) -> tuple:
     """The JAX package's benchmark environment (bench.py build_env) on
     the port: a FakeClock at 1000 s, the cluster of build_cluster and a
     Scheduler that takes the device route on every cycle when a solver
-    is given (solver_min_heads 0). fair_weights as in build_cluster.
-    Returns (Scheduler, Cache, Manager, SimClient)."""
+    is given (solver_min_heads 0). fair_weights and preemption as in
+    build_cluster. Returns (Scheduler, Cache, Manager, SimClient)."""
     clock = FakeClock(1000.0)
     cache, queues = build_cluster(num_cqs, num_cohorts, flavors,
                                   nominal_units,
                                   queues=Manager(clock=clock),
-                                  fair_weights=fair_weights)
+                                  fair_weights=fair_weights,
+                                  preemption=preemption)
     client = SimClient()
     sched = Scheduler(queues, cache, client, clock=clock, solver=solver,
                       solver_min_heads=0, fair_sharing_enabled=fair_sharing)
@@ -238,3 +259,75 @@ def finish_applied(cache: Cache, queues: Manager, client: SimClient) -> int:
         cache.delete_workload(wl)
         queues.queue_associated_inadmissible_workloads_after(wl)
     return len(done)
+
+
+def victim_workload(name: str, lq: str, cq: str, milli: int, priority: int,
+                    creation: float) -> api.Workload:
+    """A workload of `milli` milli-cpu and as many MiB of memory holding
+    quota in `cq` on flavor f0 since `creation` (bench.py _admit_victim,
+    bench.py:1518-1533)."""
+    wl = make_workload(name, lq, cpu_units=0, priority=priority,
+                       creation=creation)
+    wl.spec.pod_sets[0].template.spec.containers[0].requests = {
+        "cpu": milli, "memory": milli << 20}
+    admission = api.Admission(
+        cluster_queue=cq,
+        pod_set_assignments=[api.PodSetAssignment(
+            name="main", flavors={"cpu": "f0", "memory": "f0"},
+            resource_usage={"cpu": milli, "memory": milli << 20},
+            count=1)])
+    wlpkg.set_quota_reservation(wl, admission, creation)
+    return wl
+
+
+def admit_victim(cache: Cache, name: str, lq: str, cq: str, milli: int,
+                 priority: int, creation: float) -> api.Workload:
+    """victim_workload, added to the cache as an admitted workload."""
+    wl = victim_workload(name, lq, cq, milli, priority, creation)
+    cache.add_or_update_workload(wl)
+    return wl
+
+
+def reclaim_preemption() -> api.ClusterQueuePreemption:
+    """The reclaim configuration's policy: LowerPriority within the CQ,
+    reclaim from any borrower of the cohort tree."""
+    return api.ClusterQueuePreemption(
+        within_cluster_queue=api.PREEMPTION_LOWER_PRIORITY,
+        reclaim_within_cohort=api.PREEMPTION_ANY)
+
+
+def build_preempt_reclaim(num_roots: int = 128, children_per_root: int = 2,
+                          cqs_per_child: int = 8,
+                          victims_per_borrower: int = 36,
+                          solver=None) -> tuple:
+    """The JAX package's preemption-heavy benchmark configuration
+    (bench.py bench_preemption_reclaim, bench.py:1807-1850): hierarchical
+    cohorts, cq{i} in child cohort-(i % children) and child c under
+    root-(c // children_per_root); one flavor f0 of 8 units (cpu and
+    GiB) per CQ. cq0..cq{children-1}, one per child cohort, are idle
+    lenders; every other CQ holds `victims_per_borrower` admitted
+    priority-0 victims of 9 units in all (a unit over its nominal, so it
+    borrows). One 8-unit preemptor of priority 10 waits in every CQ, with
+    LowerPriority within the CQ and reclaimWithinCohort Any: a lender's
+    reclaims from its root's borrowers, a borrower's preempts within its
+    own CQ. Returns (Scheduler, Cache, Manager, SimClient)."""
+    num_children = num_roots * children_per_root
+    num_cqs = num_children * cqs_per_child
+    sched, cache, queues, client = build_scheduler(
+        num_cqs, num_children, ["f0"], 8, solver=solver,
+        preemption=reclaim_preemption())
+    for c in range(num_children):
+        cohort = api.Cohort(metadata=ObjectMeta(name=f"cohort-{c}",
+                                                uid=f"co-{c}"))
+        cohort.spec.parent = f"root-{c // children_per_root}"
+        cache.add_or_update_cohort(cohort)
+    victim_milli = 9000 // victims_per_borrower
+    for i in range(num_cqs):
+        if i >= num_children:
+            for v in range(victims_per_borrower):
+                admit_victim(cache, f"victim{i}-{v}", f"lq{i}", f"cq{i}",
+                             victim_milli, 0, float(v))
+        queues.add_or_update_workload(
+            make_workload(f"preemptor{i}", f"lq{i}", cpu_units=8,
+                          priority=10, creation=1000.0))
+    return sched, cache, queues, client

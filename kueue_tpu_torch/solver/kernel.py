@@ -1,11 +1,15 @@
 """The admission solve on the card: hand-written CUDA kernels, each with
 a plain PyTorch version beside it.
 
-Counterpart of kueue_tpu/solver/kernel.py's fit-mode programs: the
-unbound cycle `solve_cycle_fused_impl`, and the production cycles of a
-solver bound to its cache and queues, `solve_cycle_resident_impl` and
-`solve_cycle_resident_arena_impl`, fair sharing included, with
-preemption and MultiKueue columns left out. One fused cycle is:
+Counterpart of kueue_tpu/solver/kernel.py's programs: the unbound cycle
+`solve_cycle_fused_impl`, the production cycles of a solver bound to its
+cache and queues, `solve_cycle_resident_impl` and
+`solve_cycle_resident_arena_impl`, fair sharing included, and the
+minimal-preemption solve of kueue_tpu/solver/preempt.py
+(`solve_preempt`), alone or composed with the fit cycle against the same
+usage (`solve_cycle_with_preempt`, the `preempt_args` of the resident
+cycles); MultiKueue columns and fair-sharing preemption are left out.
+One fused cycle is:
 
 1. `avail`   - availability of every CQ, walked down its cohort chain.
 2. `phase_a` - flavor assignment for every head (vectorized over W).
@@ -777,13 +781,391 @@ def gather_arena(arena: dict, slots) -> tuple:
     return tuple(outs)
 
 
+# ---------------------------------------------------------------------------
+# solve_preempt: batched minimal preemption
+# ---------------------------------------------------------------------------
+#
+# Replaces kueue_tpu/solver/preempt.py:598 solve_preempt_impl (jit :758)
+# with make_problem_sim :307, _avail_cq0_prefix :425, _fits_prefix :468,
+# _own_cq_cumsum :481, _chain_flows_fwd :500 and _fillback_ok :539. Per
+# problem (solver/preempt.py encodes them; PREEMPT.md §2 of the JAX
+# package derives the closed forms): the do-mask of the dynamic
+# cq-still-borrowing skip as a per-CQ exclusive prefix sum, the
+# borrowWithinCohort threshold flip as a running OR, each candidate's
+# removal routed up the cohort tree by node depth, the fit check of every
+# candidate prefix at once, the first fitting prefix k*, then the
+# fill-back auction rounds squeezing a lower and an upper bound of the
+# returned set onto the reverse greedy's fixpoint. All against the usage
+# from before the cycle. Outputs: targets[B,K] bool, feasible[B] bool,
+# stats[B,4] int32 = (candidates, k*+1 or 0, fill-back rounds, returned).
+# Bound on the H100: latency — each problem is a chain of dependent block
+# scans (per-CQ and per-node prefix sums, the chain walk, then each
+# auction round); the bytes are the expanded candidate rows and the
+# gathered quota planes. Design (csrc/solve_preempt.cu): one thread block
+# per problem, threads over candidates in contiguous chunks, keyed prefix
+# sums as masked block scans, per-block scratch in device memory.
+
+PREEMPT_NOLIM = 2**61  # kueue_tpu/solver/preempt.py:317 (not NO_LIMIT)
+# problems the plain version solves at once (bounds its [b,CL,K,RF] temps)
+PREEMPT_PLAIN_CHUNK = 256
+
+
+def _rows_at(t, idx):
+    """t[b, idx[b, ...]] for a per-problem table t[b,N,...]."""
+    b = torch.arange(t.shape[0], device=t.device).view(
+        -1, *([1] * (idx.dim() - 1)))
+    return t[b, idx]
+
+
+def _own_cq_cumsum(cand_q, vals, QL: int, reverse: bool = False):
+    """Per-candidate exclusive same-CQ running sum of vals[b,K,RF]
+    (reverse: suffix sums); candidates with cand_q < 0 get 0."""
+    out = torch.zeros_like(vals)
+    for q in range(QL):
+        m = (cand_q == q)[:, :, None]
+        vm = torch.where(m, vals, 0)
+        cs = (vm.flip(1).cumsum(1).flip(1) if reverse else vm.cumsum(1))
+        out = torch.where(m, cs - vm, out)
+    return out
+
+
+def _avail_cq0_prefix(sim, has_cohort, u0row_k, cu_k):
+    """Availability of local CQ 0 (the preemptor's) for every prefix:
+    u0row_k[b,K,RF], cu_k[b,CL,K,RF] (resource_node.go:89-104)."""
+    chain0 = sim["chain"][:, 0, :]                           # [b,DC]
+    DC = chain0.shape[1]
+    lim = PREEMPT_NOLIM // 4
+    parent = torch.zeros_like(u0row_k)
+    started = torch.zeros(u0row_k.shape[0], dtype=torch.bool,
+                          device=u0row_k.device)
+    for d in range(DC - 1, -1, -1):
+        c = chain0[:, d]
+        ok = c >= 0
+        cs = c.clamp_min(0)
+        cuc = _rows_at(cu_k, cs[:, None])[:, 0]              # [b,K,RF]
+        sub = _rows_at(sim["c_subtree"], cs[:, None])        # [b,1,RF]
+        gua = _rows_at(sim["c_guar"], cs[:, None])
+        bl = _rows_at(sim["c_bl"], cs[:, None])
+        root_avail = sub - cuc
+        local = (gua - cuc).clamp_min(0)
+        cap = (sub - gua) - (cuc - gua).clamp_min(0) + bl.clamp_max(lim)
+        child = local + torch.minimum(parent, cap)
+        new = torch.where(started[:, None, None], child, root_avail)
+        parent = torch.where(ok[:, None, None], new, parent)
+        started = started | ok
+    nom0 = sim["nominal"][:, 0:1]                            # [b,1,RF]
+    guar0 = sim["guaranteed"][:, 0:1]
+    bl0 = sim["borrow_limit"][:, 0:1]
+    local0 = (guar0 - u0row_k).clamp_min(0)
+    cap0 = (nom0 - guar0) - (u0row_k - guar0).clamp_min(0) + \
+        bl0.clamp_max(lim)
+    with_cohort = local0 + torch.minimum(parent, cap0)
+    return torch.where(has_cohort[:, None, None], with_cohort,
+                       nom0 - u0row_k)
+
+
+def _fits_prefix(sim, has_cohort, req, u0row_k, cu_k, ab_k):
+    """workload_fits (preemption.go:576-585) for every prefix: [b,K]."""
+    nom0 = sim["nominal"][:, 0:1]
+    has_req = (req > 0)[:, None, :]
+    avail = _avail_cq0_prefix(sim, has_cohort, u0row_k, cu_k)
+    borrow_ok = ab_k | (~has_req | (u0row_k + req[:, None, :] <= nom0)).all(2)
+    return borrow_ok & (~has_req | (req[:, None, :] <= avail)).all(2)
+
+
+def _chain_flows_fwd(sim, cand_chain, dep_of_local, ed, delta0):
+    """IN[b,CL,K,RF]: arrivals at each local cohort over every candidate
+    prefix, each removal's marginal clamped against its node's running
+    state and routed up the tree by node depth, deepest first."""
+    CL = sim["c_guar"].shape[1]
+    DC = cand_chain.shape[2]
+    s0 = sim["cu0"] - sim["c_guar"]                          # [b,CL,RF]
+    IN = torch.zeros(delta0.shape[0], CL, *delta0.shape[1:],
+                     dtype=torch.int64, device=delta0.device)
+    flow = delta0
+    arange_cl = torch.arange(CL, device=delta0.device)
+    for dlt in range(DC - 1, -1, -1):
+        pos = ed - dlt
+        act = (pos >= 0) & (ed >= 0)
+        node = torch.gather(cand_chain, 2,
+                            pos.clamp(0, DC - 1)[:, :, None])[:, :, 0]
+        act = act & (node >= 0)
+        noh = (node[:, None, :] == arange_cl[None, :, None]) & act[:, None, :]
+        inm = torch.where(noh[..., None], flow[:, None], 0)  # [b,CL,K,RF]
+        cs = inm.cumsum(2)
+        excl = cs - inm
+        out = torch.minimum(inm, (s0[:, :, None, :] - excl).clamp_min(0))
+        IN = torch.where((dep_of_local == dlt)[:, :, None, None], cs, IN)
+        flow = torch.where(act[:, :, None],
+                           torch.where(noh[..., None], out, 0).sum(1), flow)
+    return IN
+
+
+def _fillback_ok(sim, cand_chain, dep_of_local, ed, elig, members, v,
+                 cand_q, q_safe, u_fwd, cu_fwd, guar_k, req, has_cohort,
+                 ab_fb, QL: int):
+    """One auction round: for every eligible candidate j, would the
+    reverse greedy take it back given that exactly `members` (the
+    candidates after it) came back before it? Returns ok[b,K]."""
+    CL = sim["c_guar"].shape[1]
+    DC = cand_chain.shape[2]
+    c_guar = sim["c_guar"]
+    arange_cl = torch.arange(CL, device=v.device)
+    mv = torch.where(members[:, :, None], v, 0)
+    rev_own = _own_cq_cumsum(cand_q, mv, QL, reverse=True)
+    t_pre = _rows_at(u_fwd, q_safe) + rev_own - guar_k       # [b,K,RF]
+    delta_add = (t_pre + v).clamp_min(0) - t_pre.clamp_min(0)
+    shape = (v.shape[0], CL) + tuple(v.shape[1:])
+    RIN = torch.zeros(shape, dtype=torch.int64, device=v.device)
+    OWN = torch.zeros(shape, dtype=torch.int64, device=v.device)
+    flow = delta_add
+    for dlt in range(DC - 1, -1, -1):
+        pos = ed - dlt
+        act = (pos >= 0) & (ed >= 0) & elig
+        node = torch.gather(cand_chain, 2,
+                            pos.clamp(0, DC - 1)[:, :, None])[:, :, 0]
+        act = act & (node >= 0)
+        noh = (node[:, None, :] == arange_cl[None, :, None]) & act[:, None, :]
+        inm = torch.where((noh & members[:, None, :])[..., None],
+                          flow[:, None], 0)
+        rcs = inm.flip(2).cumsum(2).flip(2)
+        rexcl = rcs - inm
+        RIN = torch.where((dep_of_local == dlt)[:, :, None, None], rexcl, RIN)
+        OWN = torch.where(noh[..., None], flow[:, None], OWN)
+        cu_pre = torch.where(noh[..., None],
+                             cu_fwd[:, :, None, :] + rexcl, 0).sum(1)
+        gguar = torch.where(noh[..., None], c_guar[:, :, None, :], 0).sum(1)
+        local_c = (gguar - cu_pre).clamp_min(0)
+        flow = torch.where(act[:, :, None], (flow - local_c).clamp_min(0),
+                           flow)
+    cu_hyp = cu_fwd[:, :, None, :] + RIN + OWN
+    in0 = (cand_q == 0)[:, :, None]
+    r0 = torch.where(members[:, :, None] & in0, v, 0)
+    r0_excl = r0.flip(1).cumsum(1).flip(1) - r0
+    u0row_hyp = u_fwd[:, 0:1] + r0_excl + torch.where(in0, v, 0)
+    ok = _fits_prefix(sim, has_cohort, req, u0row_hyp, cu_hyp,
+                      ab_fb[:, None])
+    return elig & ok
+
+
+def _solve_preempt_chunk(topo, usage, cohort_usage, gq, gf, gr, gc,
+                         chain_local, requests, frs_np, cand_idx, cand_ql,
+                         cand_usage_table, cand_prio_table, ab0, th_act, th,
+                         has_cohort):
+    dev = usage.device
+    b = gq.shape[0]
+    QL = gq.shape[1]
+    K = cand_ql.shape[1]
+    valid_fr = gf >= 0                                       # [b,RF]
+    gf_s = gf.clamp_min(0).long()[:, None, :]
+    gr_l = gr.long()[:, None, :]
+    q_s = gq.clamp_min(0).long()[:, :, None]                 # [b,QL,1]
+    c_s = gc.clamp_min(0).long()[:, :, None]                 # [b,CL,1]
+    valid_c = (gc >= 0)[:, :, None] & valid_fr[:, None, :]
+
+    def plane(t, fill=0):
+        return torch.where(valid_fr[:, None, :], t[q_s, gf_s, gr_l], fill)
+
+    def cplane(t, fill=0):
+        return torch.where(valid_c, t[c_s, gf_s, gr_l], fill)
+
+    sim = {"nominal": plane(topo["nominal"]),
+           "guaranteed": plane(topo["guaranteed"]),
+           "borrow_limit": plane(topo["borrow_limit"], PREEMPT_NOLIM),
+           "c_subtree": cplane(topo["cohort_subtree"]),
+           "c_guar": cplane(topo["cohort_guaranteed"]),
+           "c_bl": cplane(topo["cohort_borrow_limit"], PREEMPT_NOLIM),
+           "cu0": cplane(cohort_usage), "chain": chain_local.long()}
+    nominal, guaranteed = sim["nominal"], sim["guaranteed"]
+    u0, cu0 = plane(usage), sim["cu0"]
+
+    cand_q = cand_ql.long()                                  # [b,K]
+    idx = cand_idx.long()
+    cand_usage = cand_usage_table[idx]                       # [b,K,RF]
+    cand_prio = cand_prio_table[idx].long()                  # [b,K]
+    arange_k = torch.arange(K, device=dev)[None, :]
+    valid = cand_q >= 0
+    q_safe = cand_q.clamp_min(0)
+    in_cq = cand_q == 0
+    v = torch.where(valid[:, :, None], cand_usage, 0)
+    u0_k = _rows_at(u0, q_safe)
+    nom_k = _rows_at(nominal, q_safe)
+    guar_k = _rows_at(guaranteed, q_safe)
+
+    # the do-mask: the dynamic skip, closed form (the over-subtraction of
+    # skipped same-CQ candidates is exact: the condition is monotone)
+    own_all_excl = _own_cq_cumsum(cand_q, v, QL)
+    borrowing_before = (frs_np[:, None, :]
+                        & (u0_k - own_all_excl > nom_k)).any(2)
+    do = valid & (in_cq | borrowing_before)
+    # the borrowWithinCohort threshold flip, inclusive of the candidate's
+    at_or_above = th_act[:, None] & ~in_cq & (cand_prio >= th[:, None])
+    ab_k = ab0[:, None] & ~((do & at_or_above).long().cumsum(1) > 0)
+
+    own_rm_excl = _own_cq_cumsum(cand_q, torch.where(do[:, :, None], v, 0),
+                                 QL)
+    delta0 = torch.where(
+        do[:, :, None],
+        torch.minimum(v, (u0_k - guar_k - own_rm_excl).clamp_min(0)), 0)
+    cand_chain = _rows_at(sim["chain"], q_safe)              # [b,K,DC]
+    dep_of_local = torch.where(
+        gc >= 0, topo["cohort_depth"].long()[gc.clamp_min(0).long()], -1)
+    first = cand_chain[:, :, 0]
+    ed = torch.where((first >= 0) & do,
+                     torch.gather(dep_of_local, 1, first.clamp_min(0)), -1)
+    IN = _chain_flows_fwd(sim, cand_chain, dep_of_local, ed, delta0)
+    cu_k = cu0[:, :, None, :] - IN
+    v0 = torch.where((do & in_cq)[:, :, None], v, 0)
+    u0row_k = u0[:, 0:1] - v0.cumsum(1)
+
+    fit_k = _fits_prefix(sim, has_cohort, requests, u0row_k, cu_k, ab_k)
+    cond = do & fit_k
+    done = cond.any(1)
+    k_star = torch.where(done, torch.where(cond, arange_k, K).amin(1), 0)
+    targets_fwd = do & (arange_k <= k_star[:, None]) & done[:, None]
+    ab_fb = torch.where(done, torch.gather(ab_k, 1, k_star[:, None])[:, 0],
+                        ab0)
+
+    # the fill-back auction (fillBackWorkloads)
+    elig = targets_fwd & (arange_k != k_star[:, None])
+    removed = (do & (arange_k <= k_star[:, None]))[:, :, None]
+    u_fwd = u0 - torch.stack(
+        [torch.where(removed & (cand_q == q)[:, :, None], v, 0).sum(1)
+         for q in range(QL)], dim=1)
+    in_star = _rows_at(IN.transpose(1, 2), k_star[:, None])[:, 0]  # [b,CL,RF]
+    cu_fwd = torch.where(done[:, None, None], cu0 - in_star, cu0)
+    u_fwd = torch.where(done[:, None, None], u_fwd, u0)
+    ed_fb = torch.where(elig, ed, -1)
+
+    def ok_fn(members):
+        return _fillback_ok(sim, cand_chain, dep_of_local, ed_fb, elig,
+                            members, v, cand_q, q_safe, u_fwd, cu_fwd,
+                            guar_k, requests, has_cohort, ab_fb, QL)
+
+    hi = elig
+    lo = ok_fn(hi)
+    rounds = torch.ones(b, dtype=torch.int32, device=dev)
+    while True:
+        active = (lo != hi).any(1) & (rounds < K + 2)
+        if not bool(active.any()):
+            break
+        hi2 = ok_fn(lo)
+        lo2 = ok_fn(hi2)
+        lo = torch.where(active[:, None], lo2, lo)
+        hi = torch.where(active[:, None], hi2, hi)
+        rounds = rounds + active.to(torch.int32)
+    targets = targets_fwd & ~lo
+    stats = torch.stack([valid.sum(1).to(torch.int32),
+                         torch.where(done, k_star + 1, 0).to(torch.int32),
+                         rounds, lo.sum(1).to(torch.int32)], dim=1)
+    return targets, done, stats
+
+
+def solve_preempt_plain(topo, usage, cohort_usage, gq, gf, gr, gc,
+                        chain_local, requests, frs_np, cand_idx, cand_ql,
+                        cand_usage_table, cand_prio_table, allow_borrowing,
+                        threshold_active, threshold, has_cohort):
+    """The vmap of kueue_tpu/solver/preempt.py:598 written out as a batch
+    dimension, PREEMPT_PLAIN_CHUNK problems at a time; the fill-back
+    loop freezes each problem once its bounds meet, as the vmapped
+    while_loop does. Returns (targets[B,K] bool, feasible[B] bool,
+    stats[B,4] int32)."""
+    B, K = cand_ql.shape
+    dev = usage.device
+    targets = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    feasible = torch.zeros(B, dtype=torch.bool, device=dev)
+    stats = torch.zeros((B, 4), dtype=torch.int32, device=dev)
+    per_problem = (gq, gf, gr, gc, chain_local, requests, frs_np, cand_idx,
+                   cand_ql)
+    flags = (allow_borrowing, threshold_active, threshold, has_cohort)
+    for s in range(0, B, PREEMPT_PLAIN_CHUNK):
+        e = min(B, s + PREEMPT_PLAIN_CHUNK)
+        t, f, st = _solve_preempt_chunk(
+            topo, usage, cohort_usage, *(a[s:e] for a in per_problem),
+            cand_usage_table, cand_prio_table, *(a[s:e] for a in flags))
+        targets[s:e], feasible[s:e], stats[s:e] = t, f, st
+    return targets, feasible, stats
+
+
+# blocks per SM of solve_preempt's persistent grid
+PREEMPT_BLOCKS_PER_SM = 4
+
+
+def solve_preempt(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
+                  requests, frs_np, cand_idx, cand_ql, cand_usage_table,
+                  cand_prio_table, allow_borrowing, threshold_active,
+                  threshold, has_cohort):
+    if _is_cpu(usage):
+        return solve_preempt_plain(
+            topo, usage, cohort_usage, gq, gf, gr, gc, chain_local, requests,
+            frs_np, cand_idx, cand_ql, cand_usage_table, cand_prio_table,
+            allow_borrowing, threshold_active, threshold, has_cohort)
+    B, QL = gq.shape
+    RF = gf.shape[1]
+    CL = gc.shape[1]
+    K = cand_ql.shape[1]
+    DC = chain_local.shape[2]
+    if chain_local.shape[:2] != (B, QL) or cand_idx.shape != (B, K) \
+            or cand_usage_table.shape[1] != RF:
+        raise ValueError("solve_preempt: inconsistent problem shapes")
+    dev = usage.device
+    targets = torch.empty((B, K), dtype=torch.bool, device=dev)
+    feasible = torch.empty(B, dtype=torch.bool, device=dev)
+    stats = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    # a persistent grid: each block walks problems blockIdx, +grid, ...
+    # with its own scratch (candidate rows, flows and the per-chain-node
+    # prefix planes: (3 + 2 DC) x K x RF int64, plus the per-CQ and
+    # per-node rows and the per-candidate words)
+    grid = max(1, min(B, PREEMPT_BLOCKS_PER_SM
+                      * torch.cuda.get_device_properties(dev)
+                      .multi_processor_count))
+    wide = (3 + 2 * DC) * K * RF + (QL + CL) * RF
+    scratch64 = torch.empty(grid * wide, dtype=torch.int64, device=dev)
+    scratch32 = torch.empty(grid * (5 + DC) * K, dtype=torch.int32,
+                            device=dev)
+    _launch("solve_preempt", [
+        _ptr(topo["nominal"], torch.int64, "nominal"),
+        _ptr(topo["guaranteed"], torch.int64, "guaranteed"),
+        _ptr(topo["borrow_limit"], torch.int64, "borrow_limit"),
+        _ptr(topo["cohort_subtree"], torch.int64, "cohort_subtree"),
+        _ptr(topo["cohort_guaranteed"], torch.int64, "cohort_guaranteed"),
+        _ptr(topo["cohort_borrow_limit"], torch.int64, "cohort_borrow_limit"),
+        _ptr(topo["cohort_depth"], torch.int32, "cohort_depth"),
+        _ptr(usage, torch.int64, "usage"),
+        _ptr(cohort_usage, torch.int64, "cohort_usage"),
+        _ptr(gq, torch.int32, "gq"),
+        _ptr(gf, torch.int32, "gf"),
+        _ptr(gr, torch.int32, "gr"),
+        _ptr(gc, torch.int32, "gc"),
+        _ptr(chain_local, torch.int32, "chain_local"),
+        _ptr(requests, torch.int64, "requests"),
+        _ptr(frs_np, torch.bool, "frs_np"),
+        _ptr(cand_idx, torch.int32, "cand_idx"),
+        _ptr(cand_ql, torch.int16, "cand_ql"),
+        _ptr(cand_usage_table, torch.int64, "cand_usage"),
+        _ptr(cand_prio_table, torch.int32, "cand_prio"),
+        _ptr(allow_borrowing, torch.bool, "allow_borrowing"),
+        _ptr(threshold_active, torch.bool, "threshold_active"),
+        _ptr(threshold, torch.int64, "threshold"),
+        _ptr(has_cohort, torch.bool, "has_cohort"),
+        _ptr(scratch64, torch.int64, "scratch64"),
+        _ptr(scratch32, torch.int32, "scratch32"),
+        _ptr(targets, torch.bool, "targets"),
+        _ptr(feasible, torch.bool, "feasible"),
+        _ptr(stats, torch.int32, "stats"),
+    ], [B, K, QL, RF, CL, DC, usage.shape[1], usage.shape[2], grid], dev)
+    solve_preempt.launches += 1
+    return targets, feasible, stats
+
+
 # kernel name (solver/csrc/<name>.cu) -> its wrapper
 KERNEL_WRAPPERS = {"avail": avail, "phase_a": phase_a,
                    "drf_share": drf_share, "order": order_csr,
                    "phase_b": phase_b, "pack": pack,
                    "deltas": apply_state_deltas,
                    "arena_scatter": scatter_arena_rows,
-                   "arena_gather": gather_arena}
+                   "arena_gather": gather_arena,
+                   "solve_preempt": solve_preempt}
 reset_launch_counts()
 
 
@@ -825,38 +1207,70 @@ def solve_cycle_fused(topo, usage, cohort_usage, requests, podset_active,
     return out
 
 
+def solve_cycle_with_preempt(topo, usage, cohort_usage, requests,
+                             podset_active, wl_cq, priority, timestamp,
+                             eligible, solvable, preempt_args: tuple,
+                             num_podsets: int, max_rank: int = 0,
+                             fair_sharing: bool = False, start_rank=None,
+                             compact: bool = True) -> dict:
+    """The mixed admission and preemption cycle, the port of
+    kueue_tpu/solver/kernel.py:547 solve_cycle_with_preempt_impl with
+    cluster columns and fair-sharing preemption off: the fused fit cycle
+    plus solve_preempt on the same input usage. Preemption simulates
+    against the usage from before the cycle, as the reference's
+    nominate-time GetTargets does (scheduler.go:404-441): it never sees
+    the cycle's own admissions (phase_b writes copies), so the two are
+    independent. Adds preempt_targets, preempt_feasible, preempt_stats
+    to the fused cycle's outputs."""
+    out = solve_cycle_fused(topo, usage, cohort_usage, requests,
+                            podset_active, wl_cq, priority, timestamp,
+                            eligible, solvable, num_podsets=num_podsets,
+                            max_rank=max_rank, fair_sharing=fair_sharing,
+                            start_rank=start_rank, compact=compact)
+    (out["preempt_targets"], out["preempt_feasible"],
+     out["preempt_stats"]) = solve_preempt(topo, usage, cohort_usage,
+                                           *preempt_args)
+    return out
+
+
 def solve_cycle_resident(topo, usage, cohort_usage, deltas, requests,
                          podset_active, wl_cq, priority, timestamp, eligible,
                          solvable, num_podsets: int, max_rank: int = 0,
                          fair_sharing: bool = False, start_rank=None,
-                         compact: bool = True) -> dict:
+                         preempt_args=None, compact: bool = True) -> dict:
     """The device-resident cycle (kueue_tpu/solver/kernel.py:808
-    solve_cycle_resident_impl, fit mode): the sparse correction prologue,
-    applied IN PLACE to the resident usage/cohort_usage, then the fused
-    cycle, whose usage/cohort_usage outputs are the next cycle's resident
-    state. deltas: None or the tensors (dq, df, dr, dv, lvl_c, lvl_seg)."""
+    solve_cycle_resident_impl): the sparse correction prologue, applied
+    IN PLACE to the resident usage/cohort_usage, then the fused cycle
+    (with preempt_args, solve_cycle_with_preempt on the corrected usage),
+    whose usage/cohort_usage outputs are the next cycle's resident state.
+    deltas: None or the tensors (dq, df, dr, dv, lvl_c, lvl_seg)."""
     if deltas is not None:
         apply_state_deltas(topo, usage, cohort_usage, *deltas)
-    return solve_cycle_fused(topo, usage, cohort_usage, requests,
-                             podset_active, wl_cq, priority, timestamp,
-                             eligible, solvable, num_podsets=num_podsets,
-                             max_rank=max_rank, fair_sharing=fair_sharing,
-                             start_rank=start_rank, compact=compact)
+    kwargs = dict(num_podsets=num_podsets, max_rank=max_rank,
+                  fair_sharing=fair_sharing, start_rank=start_rank,
+                  compact=compact)
+    batch = (requests, podset_active, wl_cq, priority, timestamp, eligible,
+             solvable)
+    if preempt_args is None:
+        return solve_cycle_fused(topo, usage, cohort_usage, *batch, **kwargs)
+    return solve_cycle_with_preempt(topo, usage, cohort_usage, *batch,
+                                    preempt_args, **kwargs)
 
 
 def solve_cycle_resident_arena(topo, usage, cohort_usage, deltas, arena,
                                slots, num_podsets: int, max_rank: int = 0,
                                fair_sharing: bool = False, start_rank=None,
+                               preempt_args=None,
                                compact: bool = True) -> dict:
     """The arena-resident cycle (kueue_tpu/solver/kernel.py:909
-    solve_cycle_resident_arena_impl, fit mode): gather the heads' rows
-    from the device twin by slot (-1 = padding), then the resident
-    cycle."""
+    solve_cycle_resident_arena_impl): gather the heads' rows from the
+    device twin by slot (-1 = padding), then the resident cycle."""
     batch = gather_arena(arena, slots)
     return solve_cycle_resident(topo, usage, cohort_usage, deltas, *batch,
                                 num_podsets=num_podsets, max_rank=max_rank,
                                 fair_sharing=fair_sharing,
-                                start_rank=start_rank, compact=compact)
+                                start_rank=start_rank,
+                                preempt_args=preempt_args, compact=compact)
 
 
 def max_rank_bound(wl_cq, cq_cohort, cohort_root) -> int:

@@ -22,12 +22,20 @@ the Manager, `prepare`, `solve_prepared`, then for each admitted head
 with `note_unapplied`. With `fair_sharing` the admit order takes each
 head's DRF share (kernel.drf_share).
 
+Minimal preemption (solver/preempt.py): `solve_prepared(plan, snapshot,
+preempt_batch=...)` runs the fit cycle and the batch's K9 solve
+(kernel.solve_preempt) against the same usage from before the cycle and
+returns their targets beside the decisions; `solve_preempt(batch)` runs
+K9 alone, after the cycle's sync, against the usage the last dispatch
+read, which is how the Scheduler calls it (it builds the problems from
+the heads the device did not fit). `estimated_sync_ms()` is the
+launch-and-sync floor the Scheduler's preemption work gate weighs.
+
 Left out of these slices (the JAX package has them): the host-side
-router (`_route`, Plan.fit_pred: the exact fit bits before the sync,
-which the preemption slice needs to build its problems), the dispatch
-supervisor and watchdog, the background fetch pool, fault injection,
-the flight recorder, preemption batches, batched partial admission,
-MultiKueue cluster columns, and the multi-chip mesh.
+router (`_route`, Plan.fit_pred), the dispatch supervisor and watchdog,
+the background fetch pool, fault injection, the flight recorder,
+fair-sharing preemption batches, batched partial admission, MultiKueue
+cluster columns, and the multi-chip mesh.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from kueue_tpu_torch.core import workload as wlpkg
 from kueue_tpu_torch.core.resources import FlavorResource
 from kueue_tpu_torch.device import resolve
 from kueue_tpu_torch.scheduler import flavorassigner as fa
-from kueue_tpu_torch.solver import encode
+from kueue_tpu_torch.solver import encode, kernel
 from kueue_tpu_torch.solver.arena import WorkloadArena
 from kueue_tpu_torch.solver.kernel import (
     DECISION_KEYS,
@@ -53,8 +61,10 @@ from kueue_tpu_torch.solver.kernel import (
     solve_cycle_fused,
     solve_cycle_resident,
     solve_cycle_resident_arena,
+    solve_cycle_with_preempt,
     topo_to_device,
 )
+from kueue_tpu_torch.solver.preempt import preempt_args
 
 # The largest device backlog shipped as a delta prologue: a bigger
 # correction set re-uploads the mirror wholesale (the JAX package's
@@ -65,8 +75,12 @@ MAX_BACKLOG = 512
 DENSE_DECISION_KEYS = ("admitted", "fit", "chosen", "borrows",
                        "chosen_borrow")
 
-# the phases of one solve, timed per cycle (seconds) in last_phase_s
-PHASES = ("encode", "upload", "device", "fetch", "decode")
+# the phases of one solve, timed per cycle (seconds) in last_phase_s;
+# "preempt" is solve_preempt's upload, launch, sync and fetch
+PHASES = ("encode", "upload", "device", "fetch", "decode", "preempt")
+
+# the outputs of the preemption solve, in fetch order
+PREEMPT_KEYS = ("preempt_targets", "preempt_feasible", "preempt_stats")
 
 
 def unpack_decisions(fetched: dict, num_podsets: int,
@@ -155,6 +169,11 @@ class BatchSolver:
                          "establishes": 0}
         self.last_upload_bytes = 0
         self.last_phase_s = dict.fromkeys(PHASES, 0.0)
+        # the usage the last dispatch read (after its delta prologue):
+        # (topology, usage, cohort_usage) on the device, for solve_preempt
+        self._cycle_state = None
+        self._sync_samples: list = []  # recent launch-to-sync times (ms)
+        self._probe_sync_ms: Optional[float] = None  # estimated_sync_ms
 
     # --- binding to the control plane ---
 
@@ -202,6 +221,28 @@ class BatchSolver:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def estimated_sync_ms(self) -> float:
+        """The device's launch-and-sync floor (kueue_tpu/solver/
+        service.py:434): a trivial launch and sync, timed once, and the
+        minimum of it and the observed ones (a floor is a lower bound,
+        robust to outliers such as a first launch that builds the
+        kernels). The Scheduler's preemption work gate weighs it: device
+        work must save more than this to be sent."""
+        if self._probe_sync_ms is None:
+            probe = torch.zeros(1, dtype=torch.int64, device=self.device)
+            probe.add_(1)  # the first launch pays for the context
+            self._sync()
+            t0 = time.perf_counter()
+            probe.add_(1)
+            self._sync()
+            self._probe_sync_ms = (time.perf_counter() - t0) * 1e3
+        return min([self._probe_sync_ms, *self._sync_samples])
+
+    def _observe_sync(self, ms: float) -> None:
+        self._sync_samples.append(ms)
+        if len(self._sync_samples) > 16:
+            self._sync_samples.pop(0)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """A host array as a tensor on the solver's device that owns its
@@ -382,12 +423,16 @@ class BatchSolver:
 
     # --- the cycle ---
 
-    def dispatch(self, plan: Plan, fair_sharing: bool = False) -> tuple:
+    def dispatch(self, plan: Plan, fair_sharing: bool = False,
+                 preempt_batch=None) -> tuple:
         """Upload what the cycle needs and run it. Returns (device
         outputs, keys to fetch). Bound, the upload is the heads' slot
         indices, the arena's changed rows, the delta prologue and the
         flavor-resume ranks; unbound, the state and the whole batch.
-        fair_sharing orders the admits by DRF share (kernel.drf_share)."""
+        fair_sharing orders the admits by DRF share (kernel.drf_share);
+        a preempt_batch (solver/preempt.py) is solved in the same call
+        against the same usage (kernel.solve_cycle_with_preempt). The
+        usage the cycle read is kept for solve_preempt."""
         t0 = time.perf_counter()
         topo, batch, state = plan.topo, plan.batch, plan.state
         compact = topo.nominal.shape[1] <= MAX_COMPACT_FLAVORS
@@ -405,6 +450,10 @@ class BatchSolver:
                     batch.solvable)
         kwargs = dict(num_podsets=self.max_podsets, fair_sharing=fair_sharing,
                       start_rank=start_rank, compact=compact)
+        host_pargs = pargs = None
+        if preempt_batch is not None:
+            host_pargs = preempt_args(preempt_batch)
+            pargs = tuple(self._upload(a) for a in host_pargs)
         if plan.resident and rs is not None and rs.token == topo.token:
             if rs.usage_dev is None:
                 usage_in = self._upload(state.usage)
@@ -425,7 +474,7 @@ class BatchSolver:
                 t1 = time.perf_counter()
                 result = solve_cycle_resident_arena(
                     plan.topo_dev, usage_in, cohort_in, deltas, arena_dev,
-                    slots_dev, **kwargs)
+                    slots_dev, preempt_args=pargs, **kwargs)
             else:
                 dev = [self._upload(a) for a in batch_np]
                 up = sum(a.nbytes for a in batch_np)
@@ -433,7 +482,10 @@ class BatchSolver:
                 t1 = time.perf_counter()
                 result = solve_cycle_resident(
                     plan.topo_dev, usage_in, cohort_in, deltas, *dev,
-                    **kwargs)
+                    preempt_args=pargs, **kwargs)
+            # usage_in/cohort_in now hold the corrected pre-cycle usage
+            # (the prologue ran in place; phase_b wrote copies)
+            self._cycle_state = (plan.topo_dev, usage_in, cohort_in)
             rs.usage_dev = result["usage"]
             rs.cohort_dev = result["cohort_usage"]
             if plan.deltas is not None and plan.backlog_gen == rs.backlog_gen:
@@ -446,10 +498,18 @@ class BatchSolver:
             up = sum(a.nbytes for a in batch_np)
             self._sync()
             t1 = time.perf_counter()
-            result = solve_cycle_fused(plan.topo_dev, *dev, **kwargs)
+            if pargs is None:
+                result = solve_cycle_fused(plan.topo_dev, *dev, **kwargs)
+            else:
+                result = solve_cycle_with_preempt(plan.topo_dev, *dev, pargs,
+                                                  **kwargs)
+            self._cycle_state = (plan.topo_dev, dev[0], dev[1])
         self._sync()
         self.last_phase_s["upload"] = t1 - t0
         self.last_phase_s["device"] = time.perf_counter() - t1
+        self._observe_sync(self.last_phase_s["device"] * 1e3)
+        if pargs is not None:
+            up += sum(a.nbytes for a in host_pargs)
         if plan.start_rank is not None:
             up += plan.start_rank.nbytes
         if not plan.resident or establishing:
@@ -462,11 +522,16 @@ class BatchSolver:
         if plan.resident and establishing:
             self.counters["establishes"] += 1
         keys = DECISION_KEYS if compact else DENSE_DECISION_KEYS
+        if pargs is not None:
+            keys = keys + PREEMPT_KEYS
         return result, keys
 
     def collect(self, plan: Plan, result: dict, keys, snapshot: Snapshot):
         """Fetch the decisions only, unpack and decode them, and update
-        the residency bookkeeping."""
+        the residency bookkeeping. Returns (decisions, aux): aux holds the
+        preemption outputs when the cycle had a preempt batch
+        ({"preempt": (targets, feasible), "preempt_stats": stats}, as the
+        JAX package's collect returns them), else None."""
         t0 = time.perf_counter()
         fetched = {k: result[k].cpu().numpy() for k in keys}
         self.counters["fetch_bytes"] += sum(v.nbytes for v in fetched.values())
@@ -482,20 +547,52 @@ class BatchSolver:
                                        resident=resident_ok)
         self.last_phase_s["fetch"] = t1 - t0
         self.last_phase_s["decode"] = time.perf_counter() - t1
-        return decisions
+        aux = None
+        if "preempt_targets" in fetched:
+            aux = {"preempt": (fetched["preempt_targets"],
+                               fetched["preempt_feasible"]),
+                   "preempt_stats": fetched["preempt_stats"]}
+        return decisions, aux
 
     def solve_prepared(self, plan: Plan, snapshot: Snapshot,
                        preempt_batch=None, fair_sharing: bool = False,
                        fair_batch=None) -> tuple:
         """Dispatch the prepared cycle, sync once, decode
-        (kueue_tpu/solver/service.py:1219, single chip). Returns
-        (decisions, aux); aux is None until preemption batches are
-        ported, and passing one raises."""
-        if preempt_batch is not None or fair_batch is not None:
+        (kueue_tpu/solver/service.py:1219, single chip). A preempt_batch
+        is solved in the same dispatch against the same pre-cycle usage.
+        Returns (decisions, aux), aux as collect returns it. Fair-sharing
+        preemption batches are not ported and raise."""
+        if fair_batch is not None:
             raise NotImplementedError(
-                "preemption batches are not ported to the device yet")
-        result, keys = self.dispatch(plan, fair_sharing=fair_sharing)
-        return self.collect(plan, result, keys, snapshot), None
+                "fair-sharing preemption is not ported to the device yet")
+        result, keys = self.dispatch(plan, fair_sharing=fair_sharing,
+                                     preempt_batch=preempt_batch)
+        return self.collect(plan, result, keys, snapshot)
+
+    def solve_preempt(self, preempt_batch) -> tuple:
+        """K9 alone (kernel.solve_preempt) against the usage the last
+        dispatch read: the cycle's usage from before its admissions, never
+        the resident state Phase B left. Uploads the batch, launches,
+        syncs and fetches, timed as last_phase_s["preempt"]. Returns
+        numpy (targets[B,K], feasible[B], stats[B,4])."""
+        if self._cycle_state is None:
+            raise RuntimeError("solve_preempt needs a dispatched cycle")
+        t0 = time.perf_counter()
+        topo_dev, usage, cohort_usage = self._cycle_state
+        host = preempt_args(preempt_batch)
+        dev = [self._upload(a) for a in host]
+        t1 = time.perf_counter()
+        out = kernel.solve_preempt(topo_dev, usage, cohort_usage, *dev)
+        self._sync()
+        self._observe_sync((time.perf_counter() - t1) * 1e3)
+        targets, feasible, stats = (t.cpu().numpy() for t in out)
+        up = sum(a.nbytes for a in host)
+        self.last_upload_bytes += up
+        self.counters["upload_bytes"] += up
+        self.counters["fetch_bytes"] += targets.nbytes + feasible.nbytes + \
+            stats.nbytes
+        self.last_phase_s["preempt"] = time.perf_counter() - t0
+        return targets, feasible, stats
 
     def solve(self, snapshot: Snapshot, entries: list,
               fair_sharing: bool = False) -> dict:

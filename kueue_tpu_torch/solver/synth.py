@@ -81,11 +81,15 @@ def synth_nested_inputs(num_cqs: int = 64, num_leaf_cohorts: int = 8,
                         fanout: int = 2, depth: int = 3,
                         num_flavors: int = 8, num_resources: int = 2,
                         num_workloads: int = 64, num_podsets: int = 3,
-                        no_cohort_every: int = 0, seed: int = 0):
+                        no_cohort_every: int = 0, attach_up_every: int = 0,
+                        seed: int = 0):
     """Like synth_solver_inputs, with cohort trees `depth` levels deep
     (leaf cohorts first, `fanout` children per parent), lending and
     borrowing limits on some CQs and cohorts, TryNextFlavor on some CQs,
-    and every `no_cohort_every`-th CQ outside any cohort (0 = none).
+    every `no_cohort_every`-th CQ outside any cohort and every
+    `attach_up_every`-th CQ (from CQ 1) attached to its leaf cohort's
+    parent instead (0 = none), so that a node is shared by CQs at two
+    depths.
     Subtree quotas, guaranteed quotas and cohort usage follow the quota
     tree's rules (resource_node.go): a node's subtree is its children's
     subtree minus what they keep guaranteed, and usage bubbles past each
@@ -118,6 +122,10 @@ def synth_nested_inputs(num_cqs: int = 64, num_leaf_cohorts: int = 8,
     cq_cohort = topo["cq_cohort"].copy()
     if no_cohort_every:
         cq_cohort[::no_cohort_every] = -1
+    if attach_up_every:
+        for q in range(1, Q, attach_up_every):
+            if cq_cohort[q] >= 0 and parent[cq_cohort[q]] >= 0:
+                cq_cohort[q] = parent[cq_cohort[q]]
     nominal = topo["nominal"]
     guaranteed = np.where(rng.uniform(size=(Q, F, R)) < 0.3, nominal // 4,
                           0).astype(np.int64)
@@ -188,3 +196,128 @@ def synth_start_rank(wl: dict, num_flavors: int, seed: int = 0) -> np.ndarray:
     shape = wl["requests"].shape
     return np.where(rng.uniform(size=shape) < 0.3,
                     rng.integers(0, num_flavors, size=shape), 0).astype(np.int32)
+
+
+def synth_preempt_inputs(num_problems: int, max_candidates: int,
+                         max_local_cqs: int = 4, depth: int = 3,
+                         num_cqs: int = 64, num_leaf_cohorts: int = 8,
+                         fanout: int = 2, num_flavors: int = 4,
+                         num_resources: int = 2, table_rows: int = 64,
+                         seed: int = 0):
+    """Synthetic minimal-preemption problems for kernel.solve_preempt on a
+    synthetic cluster: returns (topo dict, usage, cohort_usage,
+    preempt_args). The cluster is synth_nested_inputs' (depth 1 is a
+    flat cohort forest) with every 5th CQ attached one level up (a node
+    shared by CQs at two depths), every 8th outside any cohort, and usage
+    between 30% and 140% of nominal, bubbled up the tree past each
+    level's guaranteed quota; the problems are synth_preempt_problems'."""
+    if depth > 1:
+        topo, _, _, _ = synth_nested_inputs(
+            num_cqs=num_cqs, num_leaf_cohorts=num_leaf_cohorts,
+            fanout=fanout, depth=depth, num_flavors=num_flavors,
+            num_resources=num_resources, num_workloads=8, num_podsets=1,
+            no_cohort_every=8, attach_up_every=5, seed=seed)
+    else:
+        topo, _, _, _ = synth_solver_inputs(
+            num_cqs=num_cqs, num_cohorts=num_leaf_cohorts,
+            num_flavors=num_flavors, num_resources=num_resources,
+            num_workloads=8, seed=seed)
+        topo["cq_cohort"][::8] = -1
+        topo["cq_chain"][::8] = -1
+    rng = np.random.default_rng(seed + 100)
+    nominal, guar = topo["nominal"], topo["guaranteed"]
+    Q, F, R = nominal.shape
+    C = topo["cohort_subtree"].shape[0]
+    usage = (nominal * rng.uniform(0.3, 1.4, size=(Q, F, R))).astype(np.int64)
+    parent = topo["cohort_parent"]
+    cusage = np.zeros((C, F, R), np.int64)
+    for q in range(Q):
+        if topo["cq_cohort"][q] >= 0:
+            cusage[topo["cq_cohort"][q]] += np.maximum(0, usage[q] - guar[q])
+    for c in range(C):  # children precede parents in index order
+        if parent[c] >= 0:
+            cusage[parent[c]] += np.maximum(
+                0, cusage[c] - topo["cohort_guaranteed"][c])
+    from kueue_tpu_torch.solver.preempt import preempt_args
+    batch = synth_preempt_problems(topo, num_problems, max_candidates,
+                                   max_local_cqs, table_rows, seed + 200)
+    return topo, usage, cusage, preempt_args(batch)
+
+
+def synth_preempt_problems(topo: dict, num_problems: int,
+                           max_candidates: int, max_local_cqs: int = 4,
+                           table_rows: int = 64, seed: int = 0):
+    """Synthetic minimal-preemption problems over an encoded topology (a
+    dict or a Topology), as a solver/preempt.PreemptionBatch (with no
+    problem objects) bucketed as
+    preempt.encode_problems buckets them, so rows past num_problems are
+    padding problems. The problems mix within-CQ ones (every candidate
+    in the preemptor's CQ), reclaims from other CQs of the preemptor's
+    root cohort and borrowWithinCohort threshold ones; each asks for
+    every resource of one flavor; some have no candidates or cannot
+    fit."""
+    from kueue_tpu_torch.solver.encode import _bucket
+    from kueue_tpu_torch.solver.preempt import PreemptionBatch, \
+        localize_cohorts
+    get = topo.get if isinstance(topo, dict) else \
+        (lambda name: getattr(topo, name))
+    nominal, cq_cohort = get("nominal"), get("cq_cohort")
+    Q, F, R = nominal.shape
+    rng = np.random.default_rng(seed)
+    root_of = np.where(cq_cohort >= 0,
+                       get("cohort_root")[np.maximum(cq_cohort, 0)],
+                       -1 - np.arange(Q))
+    B = _bucket(max(1, num_problems), 1)
+    K = _bucket(max(1, max_candidates))
+    RF = _bucket(R)
+    QL = _bucket(max_local_cqs, 1)
+    batch = PreemptionBatch()
+    batch.gq = np.full((B, QL), -1, np.int32)
+    batch.gf = np.full((B, RF), -1, np.int32)
+    batch.gr = np.zeros((B, RF), np.int32)
+    batch.requests = np.zeros((B, RF), np.int64)
+    batch.frs_np = np.zeros((B, RF), bool)
+    batch.cand_idx = np.zeros((B, K), np.int32)
+    batch.cand_ql = np.full((B, K), -1, np.int16)
+    batch.allow_borrowing = np.zeros(B, bool)
+    batch.threshold_active = np.zeros(B, bool)
+    batch.threshold = np.zeros(B, np.int64)
+    batch.has_cohort = np.zeros(B, bool)
+    unit = max(1, int(nominal.mean() // 8))
+    U = _bucket(table_rows, 1)
+    batch.cand_usage = np.zeros((U, RF), np.int64)
+    batch.cand_usage[1:, :R] = rng.integers(1, 7, size=(U - 1, R)) * unit
+    batch.cand_prio = np.zeros(U, np.int32)
+    batch.cand_prio[1:] = rng.integers(0, 10, size=U - 1)
+    for b in range(num_problems):
+        q0 = int(rng.integers(Q))
+        has_cohort = cq_cohort[q0] >= 0
+        kind = rng.choice(("within", "reclaim", "threshold")) \
+            if has_cohort else "within"
+        local = [q0]
+        if kind != "within":
+            peers = np.flatnonzero((root_of == root_of[q0])
+                                   & (np.arange(Q) != q0))
+            n = min(len(peers), int(rng.integers(1, max_local_cqs)))
+            local += [int(x) for x in rng.choice(peers, n, replace=False)]
+        batch.gq[b, :len(local)] = local
+        batch.gf[b, :R] = int(rng.integers(F))
+        batch.gr[b, :R] = np.arange(R)
+        batch.requests[b, :R] = rng.integers(1, 16, size=R) * unit
+        batch.requests[b, :R] *= rng.uniform(size=R) < 0.9
+        if rng.uniform() < 0.15:  # beyond what removing every candidate frees
+            batch.requests[b, :R] *= 64
+        batch.frs_np[b, :R] = rng.uniform(size=R) < 0.7
+        batch.frs_np[b, int(rng.integers(R))] = True
+        k = 0 if rng.uniform() < 0.1 else \
+            int(rng.integers(1, max_candidates + 1))
+        batch.cand_idx[b, :k] = rng.integers(1, U, size=k)
+        batch.cand_ql[b, :k] = 0 if kind == "within" else \
+            rng.integers(0, len(local), size=k)
+        batch.allow_borrowing[b] = kind == "threshold" or rng.uniform() < 0.5
+        if kind == "threshold":
+            batch.threshold_active[b] = True
+            batch.threshold[b] = int(rng.integers(0, 10))
+        batch.has_cohort[b] = has_cohort
+    localize_cohorts(batch, get("cq_chain"))
+    return batch

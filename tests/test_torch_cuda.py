@@ -18,6 +18,8 @@ from kueue_tpu_torch.sim import northstar as ns
 from kueue_tpu_torch.solver import BatchSolver, encode
 from kueue_tpu_torch.solver import kernel as tk
 from kueue_tpu_torch.solver.synth import (synth_deltas, synth_nested_inputs,
+                                          synth_preempt_inputs,
+                                          synth_preempt_problems,
                                           synth_solver_inputs,
                                           synth_start_rank)
 
@@ -208,9 +210,11 @@ def test_batch_solver_on_card_equals_cpu(cuda_device):
 @pytest.mark.parametrize("fair", (False, True))
 def test_bound_solver_on_card_equals_cpu(fair, cuda_device):
     """A short churn on a full cluster: finishes feed the delta prologue,
-    requeued heads keep their arena rows, new heads are scattered. Every
-    kernel of the bound cycle launches; drf_share only with fair
-    sharing."""
+    requeued heads keep their arena rows, new heads are scattered; each
+    cycle also carries a preemption batch over the cycle's topology,
+    solved in the same dispatch against the pre-cycle usage (K10's
+    preemption composition). Every kernel of the bound cycle launches,
+    solve_preempt included; drf_share only with fair sharing."""
     flavors = [f"f{i}" for i in range(4)]
     cache, queues = ns.build_cluster(32, 4, flavors, 10, api.STRICT_FIFO)
     admitted = deque()
@@ -229,10 +233,18 @@ def test_bound_solver_on_card_equals_cpu(fair, cuda_device):
         ns.finish_admitted(cache, admitted, 8)
         heads = queues.heads_nonblocking()
         snapshot = cache.snapshot()
-        got = solver.solve(snapshot, heads, fair_sharing=fair)
-        want = reference.solve(snapshot, heads, fair_sharing=fair)
+        plans = [s.prepare(snapshot, heads) for s in (solver, reference)]
+        batch = synth_preempt_problems(plans[0].topo, 12, 40, seed=cycle)
+        (got, got_pre), (want, want_pre) = (
+            s.solve_prepared(p, snapshot, preempt_batch=batch,
+                             fair_sharing=fair)
+            for s, p in zip((solver, reference), plans))
         assert {i: (a.pod_sets, ok) for i, (a, ok) in got.items()} == \
             {i: (a.pod_sets, ok) for i, (a, ok) in want.items()}
+        for a, b in zip((*got_pre["preempt"], got_pre["preempt_stats"]),
+                        (*want_pre["preempt"], want_pre["preempt_stats"])):
+            assert np.array_equal(a, b)
+        assert want_pre["preempt"][1].any()
         assert ns.apply_decisions(cache, queues, solver, heads, got,
                                   float(cycle), admitted) > 0
         rs = solver.resident
@@ -275,3 +287,57 @@ def test_scheduler_fair_on_card_equals_cpu(weights, cuda_device):
         assert rows[0] == rows[1], cycle
     assert runs[0][3].admitted == 4 * 16
     assert tk.launch_counts()["drf_share"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,max_candidates", ((1, 40), (2, 120), (3, 600)))
+def test_solve_preempt_on_card_equals_plain(depth, max_candidates,
+                                            cuda_device):
+    """K9 against its plain version on seeded batches: a flat cohort
+    forest and trees 2 and 3 deep (a node shared by CQs at two depths),
+    within-CQ, reclaim and threshold problems, problems with no
+    candidates or no fitting prefix, padding problems; at K = 2048 each
+    thread owns a chunk of 8 candidates. All three outputs equal."""
+    topo, usage, cu, args = synth_preempt_inputs(
+        200, max_candidates, max_local_cqs=6, depth=depth, seed=depth)
+    tt = tk.topo_to_device(topo, cuda_device)
+    state = tk.state_to_device(usage, cu, cuda_device)
+    dev_args = [torch.from_numpy(a).to(cuda_device) for a in args]
+    want = tk.solve_preempt_plain(tt, *state, *dev_args)
+    before = tk.launch_counts()["solve_preempt"]
+    got = tk.solve_preempt(tt, *state, *dev_args)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["solve_preempt"] == before + 1
+    for name, a, b in zip(("targets", "feasible", "stats"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    targets, feasible, stats = (t.cpu() for t in want)
+    assert feasible[:200].any() and not feasible[:200].all()
+    assert stats[:, 3].sum() > 0 and stats[:, 2].max() >= 2
+    assert targets.any()
+
+
+@pytest.mark.cuda
+def test_scheduler_preempt_on_card_equals_cpu(cuda_device):
+    """The port's Scheduler with device preemption on the reclaim
+    configuration at 2 roots x 2 children x 4 CQs x 6 victims, on the
+    card and on the CPU: the same evictions (workload, reason) and
+    admissions each cycle, the same solve stats, solve_preempt launched
+    on the card."""
+    runs = []
+    tk.reset_launch_counts()
+    for device in (cuda_device, "cpu"):
+        env = ns.build_preempt_reclaim(2, 2, 4, 6,
+                                       solver=BatchSolver(device=device))
+        env[0].solver_sync_floor_ms = 0.0
+        runs.append(env)
+    for cycle in range(3):
+        rows = []
+        for sched, cache, queues, client in runs:
+            sched.schedule(timeout=0)
+            assert sched.last_route == "device"
+            rows.append((list(client.evictions),
+                         sorted(wl.metadata.name for wl in client.new_applied),
+                         sched.last_preempt_plan))
+        assert rows[0] == rows[1], cycle
+    assert runs[0][3].evictions and runs[0][0].last_preempt_gate == "device"
+    assert tk.launch_counts()["solve_preempt"] == 2

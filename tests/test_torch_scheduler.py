@@ -7,8 +7,10 @@ same cycles on the same route:
 
 - "device": a BatchSolver (the port's on the CPU, its kernels' plain
   versions) and solver_min_heads=0, so every cycle takes the solve
-  stage; the JAX Scheduler's preemption work gate is pinned to the CPU
-  Preemptor, as the port's device route uses it;
+  stage; both Schedulers' preemption work gates are set alike: pinned
+  to the CPU Preemptor, or (device preemption) sending every
+  preempt-mode head with candidates to the batched solve, K9 (the JAX
+  package's on JAX-CPU, the port's plain version);
 - "cpu": a solver with the default solver_min_heads, which these narrow
   cycles stay under, so the whole cycle runs on the CPU path.
 
@@ -21,7 +23,13 @@ tests/test_solver.py (share before priority, weight scaling, zero
 weight last, ten seeded random cohorts), cases of tests/test_scheduler.py
 (basic admission, cohort borrowing, a LowerPriority preemption), a
 partial admission, and five cycles of the fair-sharing benchmark
-configuration at 16 ClusterQueues in 4 cohorts with completions.
+configuration at 16 ClusterQueues in 4 cohorts with completions; with
+device preemption on, the cases of tests/test_preempt_solver.py
+TestDevicePreemption and tests/test_preempt_batched.py (a node shared at
+two depths, fill-back), seeded random nested-cohort scenarios and the
+preemption-heavy reclaim configuration at 2 roots x 2 children x 4 CQs x
+6 victims, where both Schedulers must also report the same solve stats
+(last_preempt_plan).
 """
 
 import dataclasses
@@ -108,7 +116,8 @@ class Env:
     """A cache, a queue Manager and a Scheduler of one package, with a
     BatchSolver on the given route."""
 
-    def __init__(self, pkg: str, route: str, fair_sharing=False):
+    def __init__(self, pkg: str, route: str, fair_sharing=False,
+                 preempt="cpu"):
         def mod(name):
             return importlib.import_module(f"{pkg}.{name}")
         self.pkg = pkg
@@ -124,13 +133,7 @@ class Env:
             self.queues, self.cache, self.client, clock=self.clock,
             fair_sharing_enabled=fair_sharing, solver=solver,
             solver_min_heads=0 if route == "device" else 64)
-        if pkg == "kueue_tpu":
-            # the CPU Preemptor for every preempt-mode entry, and no
-            # watchdog deadline on the first compile
-            self.scheduler.preempt_cand_us = 0.0
-            self.scheduler.fair_cand_us = 0.0
-            self.scheduler.solver_sync_floor_ms = 0.0
-            self.scheduler.watchdog = None
+        set_preempt_gate(self.scheduler, pkg, preempt)
         self.requeues = []
         real = self.scheduler.requeue_and_update
 
@@ -143,6 +146,10 @@ class Env:
 
     def conv(self, obj):
         return obj if self.pkg == "kueue_tpu" else to_pkg(obj, self.pkg)
+
+    def add_cohort(self, name, parent=""):
+        from tests.wrappers import make_cohort
+        self.cache.add_or_update_cohort(self.conv(make_cohort(name, parent)))
 
     def add_flavor(self, name, labels=None, taints=None):
         self.cache.add_or_update_resource_flavor(
@@ -165,6 +172,20 @@ class Env:
 
     def cycle(self):
         return self.scheduler.schedule(timeout=0.01)
+
+
+def set_preempt_gate(sched, pkg: str, preempt: str) -> None:
+    """The preemption work gate, alike on both packages: "cpu" sends
+    every preempt-mode entry to the CPU Preemptor, "device" every one
+    with candidates to the batched solve (no sync floor to cover). The
+    JAX Scheduler also gets no fair-sharing device preemption and no
+    watchdog deadline on its first compile."""
+    sched.solver_sync_floor_ms = 0.0
+    if preempt == "cpu":
+        sched.preempt_cand_us = 0.0
+    if pkg == "kueue_tpu":
+        sched.fair_cand_us = 0.0
+        sched.watchdog = None
 
 
 def conditions(wl):
@@ -209,10 +230,14 @@ def observe(env, admissions_only=False) -> dict:
 
 
 def run_both(setup, workloads, route, fair_sharing=False, cycles=1,
-             between=None, admissions_only=False):
+             between=None, admissions_only=False, preempt="cpu",
+             envs_out=None):
     """The scenario on both packages; returns the two observations after
-    asserting they are equal, and the port's Env."""
-    envs = [Env(pkg, route, fair_sharing) for pkg in PKGS]
+    asserting they are equal, and the port's Env. envs_out, when given,
+    receives both Envs (JAX first)."""
+    envs = [Env(pkg, route, fair_sharing, preempt) for pkg in PKGS]
+    if envs_out is not None:
+        envs_out.extend(envs)
     for env in envs:
         setup(env)
         for w in workloads():
@@ -573,3 +598,328 @@ def test_fair_weights_change_the_admissions():
                    for w in (None, FAIR_WEIGHTS))
     assert [len(c) for c in same] == [len(c) for c in mixed] == [8, 8, 8]
     assert same != mixed
+
+
+# --- device preemption: K9 on both sides (tests/test_preempt_solver.py) ---
+
+def preempt_run(setup, workloads, cycles=1, between=None):
+    """run_both on the device route with device preemption on; both
+    Schedulers must have taken the device route for their preemptions
+    and report the same solve stats. Returns the observation."""
+    envs = []
+    got, _ = run_both(setup, workloads, "device", cycles=cycles,
+                      between=between, preempt="device", envs_out=envs)
+    jax_sched, port_sched = (e.scheduler for e in envs)
+    assert port_sched.last_preempt_gate == "device"
+    assert port_sched.last_preempt_plan
+    assert port_sched.last_preempt_plan == jax_sched.last_preempt_plan
+    assert jax_sched.preemption_fallbacks == 0
+    return got
+
+
+def preempted_reasons(got) -> dict:
+    return {k: [c[2] for c in conds if c[0] == japi.WORKLOAD_PREEMPTED]
+            for k, conds in got["evicted"].items()}
+
+
+def one_cq(nominal, within=japi.PREEMPTION_LOWER_PRIORITY):
+    def setup(env):
+        env.add_flavor("default")
+        env.add_cq(ClusterQueueWrapper("cq")
+                   .preemption(within_cluster_queue=within)
+                   .resource_group(flavor_quotas("default", cpu=nominal))
+                   .obj(), "lq")
+    return setup
+
+
+def with_existing(setup, existing):
+    def full(env):
+        setup(env)
+        for w in existing():
+            env.admit_existing(w)
+    return full
+
+
+def lenders_and_borrower(nominal_a="6", reclaim_a=japi.PREEMPTION_ANY,
+                         within_a=japi.PREEMPTION_NEVER, bwc=None):
+    def setup(env):
+        env.add_flavor("default")
+        env.add_cq(ClusterQueueWrapper("a").cohort("team")
+                   .preemption(within_cluster_queue=within_a,
+                               reclaim_within_cohort=reclaim_a,
+                               borrow_within_cohort=bwc)
+                   .resource_group(flavor_quotas("default", cpu=nominal_a))
+                   .obj(), "lq-a")
+        env.add_cq(ClusterQueueWrapper("b").cohort("team")
+                   .resource_group(flavor_quotas(
+                       "default", cpu="8" if bwc else "6")).obj(), "lq-b")
+    return setup
+
+
+def wl(name, queue, prio, cpu, reserve=None, now=0.0, creation=None):
+    w = WorkloadWrapper(name).queue(queue).priority(prio)
+    if creation is not None:
+        w = w.creation(creation)
+    w = w.pod_set(count=1, cpu=cpu)
+    if reserve is not None:
+        w = w.reserve(reserve, now=now)
+    return w.obj()
+
+
+PREEMPT_CASES = {
+    # name: (setup, existing, workloads, evicted)
+    "within_cq_priority": (
+        one_cq("10"), lambda: [wl("low", "lq", 1, "8", reserve="cq")],
+        lambda: [wl("high", "lq", 10, "8")], {"default/low"}),
+    "minimal_set": (
+        one_cq("9"),
+        lambda: [wl(f"low{i}", "lq", i, "3", reserve="cq", now=float(i))
+                 for i in range(3)],
+        lambda: [wl("high", "lq", 10, "4")], None),
+    "fill_back": (
+        one_cq("10"),
+        lambda: [wl("small", "lq", 1, "2", reserve="cq", now=1.0),
+                 wl("big", "lq", 2, "8", reserve="cq", now=2.0)],
+        lambda: [wl("high", "lq", 10, "8")], {"default/big"}),
+    "fill_back_auction": (
+        one_cq("14"),
+        lambda: [wl(f"small{i}", "lq", i, "2", reserve="cq", now=float(i))
+                 for i in range(3)]
+        + [wl("big", "lq", 5, "8", reserve="cq", now=9.0)],
+        lambda: [wl("high", "lq", 10, "8")], None),
+    "reclaim_within_cohort": (
+        lenders_and_borrower(),
+        lambda: [wl("borrower", "lq-b", 5, "10", reserve="b")],
+        lambda: [wl("claimant", "lq-a", 1, "6")], {"default/borrower"}),
+    "reclaim_skips_non_borrowing_cq": (
+        lenders_and_borrower(within_a=japi.PREEMPTION_LOWER_PRIORITY),
+        lambda: [wl("in-quota", "lq-b", 0, "5", reserve="b", now=1.0),
+                 wl("own-low", "lq-a", 0, "6", reserve="a", now=2.0)],
+        lambda: [wl("claimant", "lq-a", 9, "6")], {"default/own-low"}),
+    "borrow_within_cohort_threshold": (
+        lenders_and_borrower(nominal_a="4", bwc=japi.BorrowWithinCohort(
+            policy=japi.BORROW_WITHIN_COHORT_LOWER_PRIORITY,
+            max_priority_threshold=5)),
+        lambda: [wl("victim", "lq-b", 2, "10", reserve="b")],
+        lambda: [wl("preemptor", "lq-a", 10, "6")], {"default/victim"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREEMPT_CASES))
+def test_device_preemption(case):
+    """TestDevicePreemption's and TestFillbackAuctionStats' scenarios:
+    the port's Scheduler with K9 (plain) against the JAX Scheduler with
+    its device preemption on JAX-CPU."""
+    setup, existing, workloads, evicted = PREEMPT_CASES[case]
+    got = preempt_run(with_existing(setup, existing), workloads)
+    assert got["evicted"]
+    if evicted is not None:
+        assert set(got["evicted"]) == evicted
+    if case == "minimal_set":
+        assert len(got["evicted"]) == 2
+
+
+def nested_setup(env):
+    env.add_flavor("default")
+    env.add_cohort("root")
+    env.add_cohort("left", "root")
+    env.add_cohort("right", "root")
+    env.add_cq(ClusterQueueWrapper("a").cohort("left")
+               .preemption(reclaim_within_cohort=japi.PREEMPTION_ANY)
+               .resource_group(flavor_quotas("default", cpu="10")).obj(),
+               "lq-a")
+    env.add_cq(ClusterQueueWrapper("b").cohort("right")
+               .resource_group(flavor_quotas("default", cpu="10")).obj(),
+               "lq-b")
+    env.admit_existing(wl("borrower", "lq-b", 0, "14", reserve="b"))
+
+
+def shared_node_setup(env):
+    """tests/test_preempt_batched.py TestMultiDepthSharedNode: cq `top`
+    hangs off the root, `deep` off a child, so the root sits at chain
+    position 0 for one and 1 for the other."""
+    env.add_flavor("default")
+    env.add_cohort("root")
+    env.add_cohort("child", "root")
+    env.add_cq(ClusterQueueWrapper("top").cohort("root")
+               .preemption(reclaim_within_cohort=japi.PREEMPTION_ANY)
+               .resource_group(flavor_quotas("default", cpu="10")).obj(),
+               "lq-top")
+    env.add_cq(ClusterQueueWrapper("deep").cohort("child")
+               .preemption(reclaim_within_cohort=japi.PREEMPTION_ANY)
+               .resource_group(flavor_quotas("default", cpu="6")).obj(),
+               "lq-deep")
+    for i in range(4):
+        env.admit_existing(wl(f"v{i}", "lq-deep", 0, "3", reserve="deep",
+                              now=float(i)))
+
+
+@pytest.mark.parametrize("case", ("nested_tree_reclaim",
+                                  "shared_node_two_depths"))
+def test_device_preemption_nested(case):
+    if case == "nested_tree_reclaim":
+        got = preempt_run(nested_setup,
+                          lambda: [wl("claimant", "lq-a", 10, "10")])
+        assert set(got["evicted"]) == {"default/borrower"}
+    else:
+        got = preempt_run(shared_node_setup,
+                          lambda: [wl("claimant", "lq-top", 10, "10")])
+        assert got["evicted"]
+    assert all(r == [japi.IN_COHORT_RECLAMATION_REASON]
+               for r in preempted_reasons(got).values())
+
+
+def test_device_preemption_then_admission():
+    """The victim's eviction completes between cycles; the preemptor is
+    then admitted."""
+    def release(env, cycle):
+        if cycle == 1:
+            env.cache.delete_workload(env.conv(
+                wl("low", "lq", 1, "8", reserve="cq")))
+            env.queues.queue_inadmissible_workloads({"cq"})
+
+    envs = []
+    got, _ = run_both(
+        with_existing(one_cq("8"),
+                      lambda: [wl("low", "lq", 1, "8", reserve="cq")]),
+        lambda: [wl("high", "lq", 10, "8")], "device", cycles=2,
+        between=release, preempt="device", envs_out=envs)
+    assert set(got["evicted"]) == {"default/low"}
+    assert "default/high" in got["applied"]
+    for env in envs:
+        assert env.scheduler.last_preempt_plan["minimal"]["problems"] == 1
+
+
+def random_preempt_scenario(seed: int):
+    """tests/test_preempt_batched.py's randomized scenarios: nested
+    cohorts with CQs attached at different depths (or a flat one), cpu
+    and memory, borrowWithinCohort thresholds, victims of varied sizes.
+    Returns (setup, workloads)."""
+    rng = random.Random(7700 + seed)
+    policies = [japi.PREEMPTION_NEVER, japi.PREEMPTION_LOWER_PRIORITY,
+                japi.PREEMPTION_LOWER_OR_NEWER_EQUAL_PRIORITY]
+    reclaims = [japi.PREEMPTION_ANY, japi.PREEMPTION_LOWER_PRIORITY,
+                japi.PREEMPTION_NEVER]
+    n_cqs = rng.randint(3, 6)
+    deep = rng.random() < 0.6
+    cq_specs = []
+    for i in range(n_cqs):
+        cohort = (rng.choice(["root", "left", "right"]) if deep
+                  else rng.choice(["root", ""]))
+        bwc = None
+        if cohort and rng.random() < 0.35:
+            bwc = japi.BorrowWithinCohort(
+                policy=japi.BORROW_WITHIN_COHORT_LOWER_PRIORITY,
+                max_priority_threshold=rng.choice([None, 2, 5]))
+        cq_specs.append((f"cq{i}", cohort, rng.choice(["4", "8", "12"]),
+                         rng.choice(policies), rng.choice(reclaims), bwc))
+    existing = [(f"old{i}", f"cq{rng.randrange(n_cqs)}", rng.randint(0, 6),
+                 rng.choice(["1", "1", "2", "2", "3", "8", "10"]), float(i))
+                for i in range(rng.randint(2, 9))]
+    pending = [(f"new{i}", f"lq-cq{rng.randrange(n_cqs)}",
+                rng.randint(2, 10), rng.choice(["4", "7", "10"]),
+                float(100 + i)) for i in range(rng.randint(1, 4))]
+
+    def setup(env):
+        env.add_flavor("default")
+        if deep:
+            env.add_cohort("root")
+            env.add_cohort("left", "root")
+            env.add_cohort("right", "root")
+        for name, cohort, nominal, wcq, rwc, bwc in cq_specs:
+            w = ClusterQueueWrapper(name)
+            if cohort:
+                w = w.cohort(cohort)
+            env.add_cq(w.preemption(within_cluster_queue=wcq,
+                                    reclaim_within_cohort=rwc,
+                                    borrow_within_cohort=bwc)
+                       .resource_group(flavor_quotas(
+                           "default", cpu=nominal,
+                           memory=f"{int(nominal) * 2}Gi")).obj(),
+                       f"lq-{name}")
+        for n, cq, p, c, ts in existing:
+            env.admit_existing(WorkloadWrapper(n).queue(f"lq-{cq}")
+                               .priority(p).pod_set(count=1, cpu=c,
+                                                    memory=f"{c}Gi")
+                               .reserve(cq, now=ts).obj())
+
+    def workloads():
+        return [WorkloadWrapper(n).queue(q).priority(p).creation(ts)
+                .pod_set(count=1, cpu=c, memory=f"{c}Gi").obj()
+                for n, q, p, c, ts in pending]
+    return setup, workloads
+
+
+# seeds whose scenario has preempt-mode heads with candidates
+PREEMPT_SEEDS = (4, 5, 10, 16, 26, 30, 33, 35)
+
+
+@pytest.mark.parametrize("seed", PREEMPT_SEEDS)
+def test_device_preemption_random(seed):
+    """random_preempt_scenario, two cycles."""
+    setup, workloads = random_preempt_scenario(seed)
+    envs = []
+    run_both(setup, workloads, "device", cycles=2, preempt="device",
+             envs_out=envs)
+    jax_sched, port_sched = (e.scheduler for e in envs)
+    assert port_sched.last_preempt_plan
+    assert port_sched.last_preempt_plan == jax_sched.last_preempt_plan
+    assert jax_sched.preemption_fallbacks == 0
+
+
+def reclaim_env(pkg: str, route: str):
+    """The reclaim configuration (sim/northstar.build_preempt_reclaim) at
+    2 roots x 2 children x 4 CQs x 6 victims, with device preemption on;
+    the JAX side is built from the same objects converted."""
+    from kueue_tpu_torch.sim import northstar as ns
+    envs = Env(pkg, route, preempt="device")
+    num_children, num_cqs = 4, 16
+    envs.add_flavor("f0")
+    for c in range(num_children):
+        envs.add_cohort(f"cohort-{c}", f"root-{c // 2}")
+    for i in range(num_cqs):
+        cq = envs.conv(ns.make_cq(f"cq{i}", f"cohort-{i % num_children}",
+                                  ["f0"], 8,
+                                  preemption=ns.reclaim_preemption()))
+        envs.cache.add_cluster_queue(cq)
+        envs.queues.add_cluster_queue(cq)
+        envs.queues.add_local_queue(envs.conv(ns.make_local_queue(
+            f"lq{i}", f"cq{i}")))
+        envs.cq_names.append(f"cq{i}")
+    for i in range(num_cqs):
+        if i >= num_children:
+            for v in range(6):
+                envs.admit_existing(ns.victim_workload(
+                    f"victim{i}-{v}", f"lq{i}", f"cq{i}", 1500, 0, float(v)))
+        envs.submit(ns.make_workload(f"preemptor{i}", f"lq{i}", cpu_units=8,
+                                     priority=10, creation=1000.0))
+    return envs
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_reclaim_configuration(route):
+    """Three cycles: the first admits one lender's preemptor per root
+    (the roots have 10 units free), then the other lender of each root
+    reclaims from its root's borrowers (their most recently admitted
+    victims) and every borrower's own-CQ targets overlap those, so the
+    borrowers are skipped. Evictions, reasons, admissions and solve stats
+    equal on both Schedulers."""
+    envs = [reclaim_env(pkg, route) for pkg in PKGS]
+    for cycle in range(3):
+        for env in envs:
+            env.cycle()
+        assert envs[1].scheduler.last_route == (
+            "device" if route == "device" else "cpu-forced")
+    ref, got = (observe(env) for env in envs)
+    for k in ref:
+        assert got[k] == ref[k], k
+    assert len(got["applied"]) == 2
+    assert got["evicted"]
+    reasons = {r for rs in preempted_reasons(got).values() for r in rs}
+    assert reasons == {japi.IN_COHORT_RECLAMATION_REASON}
+    assert any(r[3] == "Workload has overlapping preemption targets with "
+               "another workload" for r in envs[1].requeues)
+    if route == "device":
+        plans = [env.scheduler.last_preempt_plan for env in envs]
+        assert plans[1] and plans[1] == plans[0]
+        assert plans[1]["minimal"]["problems"] == 14 + 2
