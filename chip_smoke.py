@@ -53,6 +53,24 @@ versions:
    cycle; then the same scenario with device="cpu" (the plain K9) and
    on the cpu-forced route (the CPU Preemptor) must evict the same
    workloads with the same reasons and admit the same workloads.
+6. scheduler fair preempt: the port's Scheduler with fair sharing and
+   device preemption on the JAX package's fair-sharing preemption
+   configuration (bench.py bench_fair_preemption at 2048 CQs in 256
+   cohorts: one flavor of 8 units per CQ, member 0 of each cohort idle
+   with one 8-unit preemptor, the other 7 each holding 12 admitted
+   victims, 21,504 in all): 1 warm-up and 3 timed cycles, each the
+   first cycle of a fresh build, every one on the device route with the
+   work gate choosing the device and 256 fair problems solved by the K11
+   kernel (solve_fair) after the fit sync, with one sync for the
+   preemption solves; its inputs in the first timed cycle are kept and
+   held against the plain version, as is a synthetic nested input
+   (depth 3, every strategy order, padding); one traced cycle; then the
+   same scenario with device="cpu" (the plain K11, the same solve stats)
+   and on the cpu-forced route (the CPU Preemptor) must evict the same
+   workloads with the same reasons and admit the same workloads. Last, a
+   cycle with a minimal and a fair problem (sim/northstar
+   build_mixed_preemption) must launch K9 and K11 after one sync and
+   evict as the CPU does.
 
 Every phase raises on failure; nothing is caught. The last lines are
 the card's name and power limit, one JSON line with the kernels'
@@ -101,6 +119,7 @@ REPLACES = {
     "arena_scatter": "kueue_tpu/solver/kernel.py:863",
     "arena_gather": "kueue_tpu/solver/kernel.py:892",
     "solve_preempt": "kueue_tpu/solver/preempt.py:598",
+    "solve_fair": "kueue_tpu/solver/fairpreempt.py:210",
 }
 # the kernels each end-to-end phase must launch
 PHASE_KERNELS = {
@@ -108,7 +127,8 @@ PHASE_KERNELS = {
     "bound_fill": ("arena_gather", "avail", "phase_a", "order", "phase_b",
                    "pack"),
     "bound_churn": tuple(k for k in REPLACES
-                         if k not in ("drf_share", "solve_preempt")),
+                         if k not in ("drf_share", "solve_preempt",
+                                      "solve_fair")),
     # the finishes free more than 512 (cq, resource) coords and replace
     # more than 512 arena rows each cycle: the state and the twin are
     # re-uploaded whole, so deltas and arena_scatter do not run here
@@ -117,6 +137,11 @@ PHASE_KERNELS = {
     # a fresh build's first cycle: the state and the twin upload whole
     "scheduler_preempt": ("arena_gather", "avail", "phase_a", "order",
                           "phase_b", "pack", "solve_preempt"),
+    # the same, with fair sharing: the DRF share orders the fit cycle and
+    # every preempt-mode head has cohort candidates (fair problems only)
+    "scheduler_fair_preempt": ("arena_gather", "avail", "phase_a",
+                               "drf_share", "order", "phase_b", "pack",
+                               "solve_fair"),
 }
 # The fair-sharing benchmark configuration (bench.py bench_fair_sharing,
 # builders bench.py:107-214): every admission borrows, 1024 per cycle.
@@ -134,6 +159,22 @@ PREEMPT_NESTED = dict(num_problems=900, max_candidates=120,
                       max_local_cqs=12, depth=3, num_cqs=2048,
                       num_leaf_cohorts=256, fanout=4, num_flavors=4,
                       num_resources=2, table_rows=4096, seed=17)
+# The fair-sharing preemption configuration (bench.py
+# bench_fair_preemption, bench.py:1727-1775; sim/northstar
+# build_fair_preemption) at the north star's 2048 CQs.
+FAIR_PREEMPT = dict(num_cqs=2048, num_cohorts=256, victims_per_cq=12)
+FAIR_PREEMPT_TIMED = 3
+# K11's synthetic check: trees 3 deep (CQs attached at two depths), two
+# flavors per problem, weight 0, roots lending nothing, thresholds, 124
+# padding rows, under every strategy order
+FAIR_NESTED = dict(num_problems=900, max_candidates=120, max_local_cqs=12,
+                   depth=3, num_cqs=2048, num_leaf_cohorts=256, fanout=4,
+                   num_flavors=4, num_resources=2, table_rows=4096, seed=19)
+FAIR_STRATS = ((True, True, False), (True, False, False),
+               (False, False, False), (False, True, True))
+# the shared-sync measurement: rounds of calls of each form, in turns
+SYNC_ROUNDS = 4
+SYNC_CALLS = 25
 # the order kernel's check with non-zero shares: mixed values and ties,
 # negative shares (a root lending nothing) and NO_LIMIT (weight 0)
 MIXED_SHARES = (-2, -1, 0, 0, 125, 125, 333, 2**62)
@@ -881,6 +922,7 @@ class Captured:
         self.module, self.name = module, name
         self.real = getattr(module, name)
         self.args = self.out = None
+        self.kwargs = {}
 
     @property
     def launches(self) -> int:
@@ -890,11 +932,12 @@ class Captured:
     def launches(self, n: int) -> None:
         self.real.launches = n
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kwargs):
         self.args = tuple({k: v.clone() for k, v in a.items()}
                           if isinstance(a, dict) else a.clone()
                           for a in args)
-        self.out = self.real(*args)
+        self.kwargs = dict(kwargs)
+        self.out = self.real(*args, **kwargs)
         return self.out
 
     def __enter__(self):
@@ -1190,6 +1233,320 @@ def scheduler_preempt_phase(device) -> dict:
     return summary
 
 
+def fair_preempt_env(device, samples=()):
+    """The fair-sharing preemption configuration, its Scheduler's solver
+    on `device` (None: no solver, the cpu-forced route); `samples` carry
+    the solver's measured sync floor across fresh builds. Returns
+    (scheduler, cache, queues, client)."""
+    from kueue_tpu_torch.sim import northstar as ns
+    from kueue_tpu_torch.solver import BatchSolver
+    solver = None if device is None else BatchSolver(device=device)
+    env = ns.build_fair_preemption(**FAIR_PREEMPT, solver=solver)
+    if solver is not None and samples:
+        solver._sync_samples = list(samples)
+    return env
+
+
+def count_preemption_syncs(solver, calls: list) -> None:
+    """Record (the solves run, syncs made) of each solve_preemptions of
+    `solver`."""
+    real = solver.solve_preemptions
+
+    def counted(*a, **kw):
+        before = solver.counters["syncs"]
+        aux = real(*a, **kw)
+        calls.append((sorted(aux or ()), solver.counters["syncs"] - before))
+        return aux
+    solver.solve_preemptions = counted
+
+
+def fair_bytes(args, outs, usage) -> int:
+    """Bytes solve_fair must move on these inputs: every problem array
+    and output once, each candidate-table row a valid candidate points
+    at, and each quota element the problems gather once: usage, nominal
+    and guaranteed of a (CQ, flavor, resource) (and the preemptor CQ's
+    borrow limit), usage, guaranteed, subtree and borrow limit of a
+    (cohort, flavor, resource)."""
+    import torch
+    (gq, gf, gr, gc, chain, req, frs, cidx, cql, tab_u, tab_p, tha, th, hc,
+     rank, count, order, base, floor_r, floor_a, weight, lend) = args
+    F, R = usage.shape[1:]
+    moved = nbytes(gq, gf, gr, gc, chain, req, frs, cidx, cql, tha, th, hc,
+                   rank, count, order, base, floor_r, floor_a, weight, lend,
+                   *outs)
+    rows = torch.unique(cidx[cql >= 0].long())
+    moved += int(rows.numel()) * (tab_u.shape[1] * 8 + 4)
+    vf = (gf >= 0)[:, None, :]
+    fr = gf.long().clamp_min(0)[:, None, :] * R + gr.long()[:, None, :]
+    for idx, words in ((gq, 3), (gq[:, :1], 1), (gc, 4)):
+        coord = idx.long()[:, :, None] * (F * R) + fr
+        moved += int(torch.unique(coord[(idx >= 0)[:, :, None] & vf])
+                     .numel()) * words * 8
+    return moved
+
+
+def fair_kernel_check(label: str, k, args: tuple, kwargs: dict, got,
+                      n_real: int, timed: bool) -> dict:
+    """solve_fair's outputs `got` against the plain version on the same
+    card tensors (all four equal); with `timed`, the kernel's device
+    time (profiler), its time per call and the plain version's (CUDA
+    events), its byte bound and its chain of dependent steps."""
+    import torch
+    want = k.solve_fair_plain(*args, **kwargs)
+    compare(("targets", "feasible", "reasons", "stats"), got, want)
+    stats = want[3][:n_real].cpu()
+    feasible = want[1][:n_real].cpu()
+    strat = kwargs["strat"]
+    QL = args[3].shape[1]
+    # the forward pops, the retry pass's QL steps (with a second
+    # strategy) and the fill-back iterations are one dependent chain
+    steps = int((stats[:, 1] + stats[:, 2]).max()) + (QL if strat[1] else 0)
+    row = {"max_abs_err": 0.0, "problems": n_real, "strat": list(strat),
+           "shape_B_K_QL_RF_CL_DC": [args[3].shape[0], args[11].shape[1],
+                                     QL, args[4].shape[1], args[6].shape[1],
+                                     args[7].shape[2]],
+           "feasible": int(feasible.sum()),
+           "targets": int(want[0].sum()),
+           "reasons": [int((want[2][want[0]] == c).sum()) for c in range(3)],
+           "pops_max": int(stats[:, 1].max()),
+           "pops_mean": float(stats[:, 1].float().mean()),
+           "fillback_max": int(stats[:, 2].max()),
+           "filled_back": int(stats[:, 3].sum()),
+           "dependent_steps": steps}
+    if timed:
+        def run_kernel():
+            return k.solve_fair(*args, **kwargs)
+
+        def run_plain():
+            return k.solve_fair_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        row["call_ms"] = time_cuda(run_kernel, iters=10)
+        row["plain_ms"] = time_cuda(run_plain, iters=2, warmup=1)
+        kernel_ms = profiled_device_ms(run_kernel, 10, "solve_fair")
+        row["ms"], row["ms_source"] = (kernel_ms, "profiler") \
+            if kernel_ms is not None else (row["call_ms"], "events")
+        row["bytes"] = fair_bytes(args[3:], want, args[1])
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        row["library_ms"] = None
+    log(f"[kernels:solve_fair:{label}] equal to plain: " + json.dumps(row))
+    return row
+
+
+def mixed_cycle_check(device) -> dict:
+    """A fair-sharing cycle with a minimal and a fair problem
+    (sim/northstar build_mixed_preemption) on the card and on the CPU:
+    K9 and K11 launched after one sync on the card, the same evictions
+    and solve stats on both. Then what the shared sync saves: the
+    cycle's two batches through solve_preemptions together (one upload,
+    one sync, one fetch) and each alone (two of each, as a second launch
+    would be), in turns, host clock per call."""
+    from kueue_tpu_torch.sim import northstar as ns
+    from kueue_tpu_torch.solver import BatchSolver, kernel
+    rows, calls, batches = [], [], []
+    before = kernel.launch_counts()
+    for dev in (device, "cpu"):
+        sched, cache, queues, client = ns.build_mixed_preemption(
+            solver=BatchSolver(device=dev))
+        sched.solver_sync_floor_ms = 0.0
+        real = sched.solver.solve_preemptions
+
+        def keep(*a, real=real):
+            batches.append(a)
+            return real(*a)
+        sched.solver.solve_preemptions = keep
+        count_preemption_syncs(sched.solver, calls)
+        sched.schedule(timeout=0)
+        rows.append((tuple(client.evictions), sched.last_preempt_plan))
+        if dev == device:
+            card_solver = sched.solver
+    after = kernel.launch_counts()
+    want = ["fair", "fair_stats", "preempt", "preempt_stats"]
+    if rows[0] != rows[1] or sorted(rows[0][1]) != ["fair", "minimal"] \
+            or calls != [(want, 1), (want, 1)] or not rows[0][0]:
+        raise AssertionError(f"mixed cycle: {rows} {calls}")
+    for name in ("solve_preempt", "solve_fair"):
+        if after[name] != before[name] + 1:
+            raise AssertionError(f"mixed cycle: {name} not launched once")
+    pb, fb, flags = batches[0]
+    shared, apart = [], []
+
+    def timed(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    for _ in range(SYNC_ROUNDS):
+        for _ in range(SYNC_CALLS):
+            shared.append(timed(lambda: card_solver.solve_preemptions(
+                pb, fb, flags)))
+        for _ in range(SYNC_CALLS):
+            apart.append(timed(lambda: (
+                card_solver.solve_preemptions(pb, None, flags),
+                card_solver.solve_preemptions(None, fb, flags))))
+    out = {"evictions": len(rows[0][0]), "plan": rows[0][1],
+           "syncs_for_k9_and_k11": calls[0][1],
+           "reasons": sorted({r for _, r in rows[0][0]}),
+           "one_sync_ms_p50": percentile(shared, 50),
+           "two_syncs_ms_p50": percentile(apart, 50),
+           "second_sync_ms_p50": percentile(apart, 50)
+           - percentile(shared, 50),
+           "calls": len(shared),
+           "estimated_sync_ms": card_solver.estimated_sync_ms()}
+    log("[scheduler_fair_preempt] mixed cycle: " + json.dumps(out))
+    return out
+
+
+def scheduler_fair_preempt_phase(device) -> dict:
+    """The port's Scheduler with fair sharing and device preemption on
+    the fair-sharing preemption configuration: each cycle is the first
+    schedule() of a fresh build (the build, outside the timed window), 1
+    warm-up and FAIR_PREEMPT_TIMED timed; every one must take the device
+    route, the work gate must choose the device, every preempt-mode head
+    must be a fair problem solved there and the preemption solves must
+    make one sync. solve_fair's inputs in the first timed cycle are kept
+    and held against the plain version; then the same scenario with
+    device="cpu" and on the cpu-forced route must evict the same
+    workloads with the same reasons and admit the same workloads."""
+    import torch
+    from kueue_tpu_torch.solver import kernel, synth
+    phase = "scheduler_fair_preempt"
+    heads_n = FAIR_PREEMPT["num_cohorts"]
+    keys = PREEMPT_PHASES + ("gc", "other", "cycle")
+    phases = {p: [] for p in keys}
+    outcomes, plans = [], []
+    evicted_timed = 0
+    samples: list = []
+    gc_clock = GcClock()
+    gc.callbacks.append(gc_clock)
+    t_phase = time.perf_counter()
+
+    def run_cycle(cycle: int, check_first: bool = True) -> dict:
+        t0 = time.perf_counter()
+        sched, cache, queues, client = fair_preempt_env(device, samples)
+        pending, calls = [], []
+        stage = sched._stage_preempt
+
+        def counted(entries, *a, **kw):
+            pending.append(len(entries))
+            return stage(entries, *a, **kw)
+        sched._stage_preempt = counted
+        count_preemption_syncs(sched.solver, calls)
+        t_build = time.perf_counter() - t0
+        gc.collect()
+        g0, t0 = gc_clock.total, time.perf_counter()
+        sched.schedule(timeout=0)
+        g1, t1 = gc_clock.total, time.perf_counter()
+        samples[:] = sched.solver._sync_samples
+        plan = sched.last_preempt_plan
+        if sched.last_route != "device" or sched.last_preempt_gate != "device":
+            raise AssertionError(f"{phase} cycle {cycle}: route "
+                                 f"{sched.last_route!r}, preemption gate "
+                                 f"{sched.last_preempt_gate!r}")
+        if pending != [heads_n] or set(plan) != {"fair"} \
+                or plan["fair"]["problems"] != heads_n:
+            raise AssertionError(f"{phase} cycle {cycle}: {pending} "
+                                 f"preempt-mode heads and {plan} problems, "
+                                 f"not {heads_n} fair ones")
+        if calls != [(["fair", "fair_stats"], 1)]:
+            raise AssertionError(f"{phase} cycle {cycle}: preemption solves "
+                                 f"and syncs {calls}")
+        row = {**sched.last_phase_s, **sched.solver.last_phase_s,
+               "gc": g1 - g0, "cycle": t1 - t0}
+        row["other"] = row["cycle"] - sum(row[p] for p in PREEMPT_PHASES)
+        row["evicted"] = client.evicted
+        row["outcome"] = cycle_outcome(client)
+        row["plan"] = plan["fair"]
+        log(f"[{phase}] cycle {cycle}"
+            f"{' (warm-up)' if cycle < E2E_WARMUP else ''}: build_s="
+            f"{t_build:.1f} evicted={client.evicted} admitted="
+            f"{client.admitted} plan={json.dumps(plan)} cycle_ms="
+            f"{row['cycle'] * 1e3:.1f} upload_bytes="
+            f"{sched.solver.last_upload_bytes} ms="
+            + json.dumps({p: round(row[p] * 1e3, 3) for p in keys
+                          if p != "cycle"}))
+        return row
+
+    captured = Captured(kernel, "solve_fair")
+    kernel.reset_launch_counts()
+    for cycle in range(E2E_WARMUP + FAIR_PREEMPT_TIMED):
+        if cycle == E2E_WARMUP:
+            with captured:
+                row = run_cycle(cycle)
+        else:
+            row = run_cycle(cycle)
+        if cycle < E2E_WARMUP:
+            continue
+        evicted_timed += row["evicted"]
+        outcomes.append(row["outcome"])
+        plans.append(row["plan"])
+        for p in keys:
+            phases[p].append(row[p])
+    launches = kernel.launch_counts()
+    for name in PHASE_KERNELS[phase]:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{phase} path")
+    if launches["solve_fair"] != E2E_WARMUP + FAIR_PREEMPT_TIMED:
+        raise AssertionError(f"{phase}: solve_fair launched "
+                             f"{launches['solve_fair']} times")
+    if len(set(outcomes)) != 1 or not outcomes[0][0]:
+        raise AssertionError(f"{phase}: the fresh builds' cycles evicted "
+                             "differently, or nothing")
+    summary = {p: {"p50_ms": percentile(v, 50) * 1e3, "max_ms": max(v) * 1e3}
+               for p, v in phases.items()}
+    summary["evicted_per_cycle"] = evicted_timed / FAIR_PREEMPT_TIMED
+    summary["evicted_per_s"] = evicted_timed / sum(phases["cycle"])
+    summary["admitted_per_cycle"] = len(outcomes[0][1])
+    summary["reasons"] = sorted({r for _, r in outcomes[0][0]})
+    summary["preempt_plan"] = plans[-1]
+    summary["launches"] = launches
+    if captured.args is None:
+        raise AssertionError("solve_fair was not called in the captured "
+                             "cycle")
+    summary["kernel_rows"] = {"captured": fair_kernel_check(
+        "captured", kernel, captured.args, captured.kwargs, captured.out,
+        heads_n, True)}
+    topo, usage, cu, args = synth.synth_fair_inputs(**FAIR_NESTED)
+    dev_args = (kernel.topo_to_device(topo, device),
+                *kernel.state_to_device(usage, cu, device),
+                *(torch.from_numpy(a).to(device) for a in args))
+    for strat in FAIR_STRATS:
+        kw = {"strat": strat}
+        summary["kernel_rows"][f"nested {strat}"] = fair_kernel_check(
+            f"nested {strat}", kernel, dev_args, kw,
+            kernel.solve_fair(*dev_args, **kw), FAIR_NESTED["num_problems"],
+            strat == FAIR_STRATS[0])
+    summary["kernel_rows"]["nested"] = \
+        summary["kernel_rows"][f"nested {FAIR_STRATS[0]}"]
+    summary["traced_cycle"] = traced_cycle(
+        phase, run_cycle, E2E_WARMUP + FAIR_PREEMPT_TIMED, kernel="solve_fair")
+    gc.callbacks.remove(gc_clock)
+    # the same scenario on the CPU: the plain K11, then the CPU Preemptor
+    t_cpu = time.perf_counter()
+    for dev, route in (("cpu", "device"), (None, "cpu-forced")):
+        sched, cache, queues, client = fair_preempt_env(dev)
+        sched.schedule(timeout=0)
+        if sched.last_route != route or (
+                dev is not None and sched.last_preempt_gate != "device"):
+            raise AssertionError(f"{phase}: the CPU run took the "
+                                 f"{sched.last_route!r} route")
+        if cycle_outcome(client) != outcomes[0]:
+            raise AssertionError(f"{phase}: the card evicted or admitted "
+                                 f"other workloads than the {route} route "
+                                 "on the CPU")
+        if dev is not None and sched.last_preempt_plan["fair"] != plans[0]:
+            raise AssertionError(f"{phase}: the solve stats differ between "
+                                 "the card and the CPU")
+    summary["cpu_check_s"] = time.perf_counter() - t_cpu
+    summary["mixed_cycle"] = mixed_cycle_check(device)
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[{phase}] equal to the device=\"cpu\" and cpu-forced runs: "
+        f"{len(outcomes[0][0])} evictions ({', '.join(summary['reasons'])}),"
+        f" {len(outcomes[0][1])} admitted")
+    log(f"[{phase}] " + json.dumps(
+        {k: v for k, v in summary.items() if k != "kernel_rows"}))
+    return summary
+
+
 def traced_cycle(phase: str, run_cycle, cycle: int,
                  kernel: str = None) -> dict:
     """One more main-path cycle under torch.profiler (after the timed
@@ -1259,7 +1616,8 @@ def main() -> int:
         kernel_phase(kind, device, results)
         log(f"[kernels:{kind}] wall {time.perf_counter() - t0:.1f} s")
     runners = {"scheduler_fair": scheduler_phase,
-               "scheduler_preempt": scheduler_preempt_phase}
+               "scheduler_preempt": scheduler_preempt_phase,
+               "scheduler_fair_preempt": scheduler_fair_preempt_phase}
     e2e = {phase: runners[phase](device) if phase in runners
            else e2e_phase(device, phase) for phase in PHASE_KERNELS}
     # K9's rows: the main path's captured inputs and the synthetic nested
@@ -1267,6 +1625,11 @@ def main() -> int:
         e2e["scheduler_preempt"]["kernel_rows"]["captured"]
     results["nested"]["solve_preempt"] = \
         e2e["scheduler_preempt"]["kernel_rows"]["nested"]
+    # K11's: the fair-preempt phase's captured inputs and the nested
+    results["north_star"]["solve_fair"] = \
+        e2e["scheduler_fair_preempt"]["kernel_rows"]["captured"]
+    results["nested"]["solve_fair"] = \
+        e2e["scheduler_fair_preempt"]["kernel_rows"]["nested"]
 
     kernels = []
     for name in _build.KERNELS:
@@ -1288,16 +1651,23 @@ def main() -> int:
             "nested": {k: v for k, v in results["nested"][name].items()
                        if k in ("ms", "call_ms", "plain_ms", "library_ms",
                                 "bound_ms", "dependent_steps",
-                                "rounds_max", "rounds_mean")},
-            # phase_b's and solve_preempt's real limit is a serial chain,
-            # which a byte or operation count does not capture
+                                "rounds_max", "rounds_mean", "pops_max",
+                                "fillback_max")},
+            # phase_b's, solve_preempt's and solve_fair's real limit is a
+            # serial chain, which a byte or operation count does not
+            # capture
             **({"latency_bound": f"{row['dependent_steps']} dependent steps",
                 "dependent_steps": row["dependent_steps"]}
-               if name in ("phase_b", "solve_preempt") else {}),
+               if name in ("phase_b", "solve_preempt", "solve_fair") else {}),
             **({"inputs": "the scheduler preempt phase's first timed cycle",
                 "rounds_max": row["rounds_max"],
                 "rounds_mean": row["rounds_mean"]}
-               if name == "solve_preempt" else {})})
+               if name == "solve_preempt" else {}),
+            **({"inputs": "the scheduler fair preempt phase's first timed "
+                          "cycle",
+                "pops_max": row["pops_max"], "pops_mean": row["pops_mean"],
+                "fillback_max": row["fillback_max"]}
+               if name == "solve_fair" else {})})
     log(f"[wall] {time.perf_counter() - t_start:.1f} s, phases "
         + json.dumps({p: round(e2e[p]["wall_s"], 1) for p in e2e}))
     log(smi)

@@ -23,22 +23,23 @@ are accounted on it. With fair sharing on, the device orders the admits
 by DRF share (kernel.drf_share). The preempt-mode heads among them get
 their targets, still against the pre-cycle snapshot, from the CPU
 Preemptor or, where the JAX Scheduler's work gate picks the device, from
-the batched minimal-preemption solve (solver/candidates.py,
-solver/preempt.py, kernel.solve_preempt) launched once more against the
-usage the cycle's dispatch read. Otherwise (route "cpu-forced") the CPU
-path runs the whole cycle.
+the batched solves (solver/candidates.py): minimal preemption
+(solver/preempt.py, kernel.solve_preempt, K9) and, with fair sharing on,
+fair-sharing preemption for the heads with candidates in their cohort
+(solver/fairpreempt.py, kernel.solve_fair, K11), both launched once more
+against the usage the cycle's dispatch read, with one sync for the two.
+Otherwise (route "cpu-forced") the CPU path runs the whole cycle.
 
 Differences from the JAX Scheduler, on this synchronous path:
 - The JAX Scheduler predicts the non-fit heads before the sync with a
   host-side router (its solver's `_route`) and runs their preemption
   problems in the same device program as the fit solve. The port reads
   the non-fit heads from the device's decisions after the sync, so the
-  device is dispatched even when no head fits, and K9 is a second
-  launch and sync against the same pre-cycle usage. The choices and the
-  targets are the same; the work gate is ported unchanged, so it still
-  counts the sync as shared when fit heads dispatch.
-- With fair sharing on, preempt-mode heads take their targets from the
-  CPU Preemptor (fair-sharing preemption on the device is not ported).
+  device is dispatched even when no head fits, and K9 and K11 are
+  launched after it, back to back, with one more sync for both, against
+  the same pre-cycle usage. The choices and the targets are the same;
+  the work gate is ported unchanged, so it still counts the sync as
+  shared when fit heads dispatch.
 - An encode or launch failure of the preemption solve propagates; the
   JAX Scheduler hands the entries to the CPU Preemptor instead
   (scheduler.py:2064-2068, :2084-2088).
@@ -60,7 +61,7 @@ Each cycle's phase times (seconds) are in `last_phase_s`: heads,
 snapshot, nominate, preempt-plan, decode-targets, apply and requeue
 here, and on the device route the solver's own (encode, upload, device,
 fetch, decode, preempt) in `solver.last_phase_s`. The last device
-preemption solve's stats are in `last_preempt_plan`.
+preemption solves' stats are in `last_preempt_plan`.
 """
 
 from __future__ import annotations
@@ -87,6 +88,7 @@ from kueue_tpu_torch.scheduler.preemption import (
     make_reclaim_oracle,
     parse_strategies,
 )
+from kueue_tpu_torch.solver import fairpreempt
 from kueue_tpu_torch.solver import preempt as devpreempt
 from kueue_tpu_torch.solver.candidates import candidate_index
 from kueue_tpu_torch.utils.wait import KeepGoing, SlowDown, SpeedSignal
@@ -185,9 +187,11 @@ class Scheduler:
         # preemption with candidates to the device, and a preempt_cand_us
         # of 0 every one to the CPU Preemptor).
         self.solver_sync_floor_ms: Optional[float] = None
-        self.preempt_cand_us = 8.0
-        # The last device preemption solve's stats (summed over problems)
-        # and the gate's last choice, "cpu" or "device".
+        self.preempt_cand_us = 8.0  # minimal preemptor: simulate/candidate
+        self.fair_cand_us = 3.0     # fairPreemptions: share compare/cand
+        # The last device preemption solves' stats (summed over problems,
+        # "minimal" for K9 and "fair" for K11) and the gate's last
+        # choice, "cpu" or "device".
         self.last_preempt_plan: dict = {}
         self.last_preempt_gate = ""
         self.cycle_counts: dict = {}  # route -> cycles
@@ -428,31 +432,39 @@ class Scheduler:
     def _stage_preempt(self, pending: list, snapshot: Snapshot, plan,
                        fit_count: int) -> None:
         """Preemption targets of the preempt-mode entries, against the
-        pre-cycle snapshot: from K9 (solver.solve_preempt, against the
-        usage the cycle's dispatch read) and decode_targets when the work
-        gate picks the device (_device_preempt_batch), else from the CPU
-        Preemptor. With fair sharing the CPU Preemptor runs (fair-sharing
-        preemption on the device is not ported).
+        pre-cycle snapshot. When the work gate picks the device
+        (_device_preempt_batch): K9 on the minimal problems and K11 on
+        the fair ones, launched back to back with one sync
+        (solver.solve_preemptions, against the usage the cycle's dispatch
+        read), then decode_targets and decode_fair_targets, the minimal
+        targets first (kueue_tpu/scheduler/scheduler.py:2092-2108); else
+        the CPU Preemptor.
 
         Timed in last_phase_s: "preempt-plan" (the gate, and the index,
         the problems and their encode, or the CPU Preemptor), then on the
         device route the solver's "preempt" and "decode-targets"."""
         t_ph = _time.perf_counter()
-        found = None if self.fair_sharing_enabled else \
-            self._device_preempt_batch(pending, snapshot, plan, fit_count)
+        found = self._device_preempt_batch(pending, snapshot, plan, fit_count)
         if found is None:
             self.last_preempt_gate = "cpu"
             self._cpu_preempt_targets(pending, snapshot)
             self._span("preempt-plan", t_ph)
             return
         self.last_preempt_gate = "device"
-        batch, cq_by = found
+        pbatch, fbatch, cq_by = found
         self._span("preempt-plan", t_ph)
-        targets, feasible, stats = self.solver.solve_preempt(batch)
+        aux = self.solver.solve_preemptions(
+            pbatch, fbatch, fairpreempt.strategy_flags(
+                self.preemptor.fs_strategies))
         t_ph = _time.perf_counter()
-        self._note_preempt_stats(stats, batch)
-        by_entry = devpreempt.decode_targets(batch, targets, feasible,
-                                             snapshot, cq_by)
+        self._note_preempt_stats(aux, pbatch, fbatch)
+        by_entry: dict = {}
+        if pbatch is not None:
+            by_entry.update(devpreempt.decode_targets(
+                pbatch, *aux["preempt"], snapshot, cq_by))
+        if fbatch is not None:
+            by_entry.update(fairpreempt.decode_fair_targets(
+                fbatch, *aux["fair"], snapshot, cq_by))
         for i, e in enumerate(pending):
             e.preemption_targets = by_entry.get(i, [])
         self._retry_partial_admission(pending, snapshot)
@@ -462,13 +474,17 @@ class Scheduler:
                               plan, fit_count: int):
         """The JAX Scheduler's work gate (kueue_tpu/scheduler/
         scheduler.py:1983-2062) and, where it picks the device, the
-        cycle's CandidateIndex, build_problems per entry and
-        encode_problems. Returns (PreemptionBatch, entry -> CQ name), or
-        None for the CPU Preemptor."""
-        # The device preemptor saves about preempt_cand_us per candidate,
-        # which must cover the marginal sync: zero when fit entries
-        # dispatch in the cycle anyway (the JAX package's fused execute;
-        # here K9 is a second launch all the same).
+        cycle's CandidateIndex, the problems of each entry (build_problems,
+        or under fair sharing build_fair_problems, which splits the
+        entries into minimal and fair problems) and their encode. Returns
+        (PreemptionBatch or None, FairBatch or None, entry -> CQ name),
+        or None for the CPU Preemptor."""
+        # The device preemptor saves about preempt_cand_us per candidate
+        # (fair_cand_us under fair sharing: fairPreemptions only compares
+        # share aggregates), which must cover the marginal sync: zero when
+        # fit entries dispatch in the cycle anyway (the JAX package's
+        # fused execute; here K9 and K11 are launched after it all the
+        # same).
         floor_ms = (self.solver_sync_floor_ms
                     if self.solver_sync_floor_ms is not None
                     else self.solver.estimated_sync_ms())
@@ -485,39 +501,65 @@ class Scheduler:
                            if cq.cohort is not None else [cq])
                 sizes[key] = sum(len(c.workloads) for c in members)
             bound += 2 * sizes[key]
-        if bound * self.preempt_cand_us <= marginal_sync_us:
+        per_cand_us = (self.fair_cand_us if self.fair_sharing_enabled
+                       else self.preempt_cand_us)
+        if bound * per_cand_us <= marginal_sync_us:
             return None
         cand_index = candidate_index(snapshot, self.ordering,
                                      self.clock.now())
-        problems, requests_by, frs_by, cq_by = [], {}, {}, {}
+        problems, fair_problems = [], []
+        requests_by, frs_by, cq_by = {}, {}, {}
         for i, e in enumerate(pending):
             requests_by[i] = e.assignment.total_requests_for(e.info)
             frs_by[i] = fa.flavor_resources_need_preemption(e.assignment)
             cq_by[i] = e.info.cluster_queue
-            problems.extend(devpreempt.build_problems(
-                i, e.info, requests_by[i], frs_by[i], snapshot,
-                self.preemptor, cand_index))
-        # The precise gate: the problems' candidate count.
-        total_cost_us = sum(p.num_candidates for p in problems) \
-            * self.preempt_cand_us
-        if not problems or total_cost_us <= marginal_sync_us:
+            if self.fair_sharing_enabled:
+                mins, fairs = fairpreempt.build_fair_problems(
+                    i, e.info, requests_by[i], frs_by[i], snapshot,
+                    self.preemptor, cand_index)
+                problems.extend(mins)
+                fair_problems.extend(fairs)
+            else:
+                problems.extend(devpreempt.build_problems(
+                    i, e.info, requests_by[i], frs_by[i], snapshot,
+                    self.preemptor, cand_index))
+        # The precise gate: the problems' candidate counts.
+        total_cost_us = (sum(p.num_candidates for p in problems)
+                         * self.preempt_cand_us
+                         + sum(p.num_candidates for p in fair_problems)
+                         * self.fair_cand_us)
+        if not (problems or fair_problems) \
+                or total_cost_us <= marginal_sync_us:
             return None
-        return devpreempt.encode_problems(problems, snapshot, plan.topo,
-                                          requests_by, cq_by, frs_by), cq_by
+        pbatch = devpreempt.encode_problems(
+            problems, snapshot, plan.topo, requests_by, cq_by,
+            frs_by) if problems else None
+        fbatch = fairpreempt.encode_fair_problems(
+            fair_problems, snapshot, plan.topo, requests_by, cq_by,
+            frs_by) if fair_problems else None
+        return pbatch, fbatch, cq_by
 
-    def _note_preempt_stats(self, stats, batch) -> None:
-        """The device solve's stats ([B,4]: candidate pool, prefix
-        scanned, fill-back rounds, filled back) summed into
-        last_preempt_plan, as kueue_tpu/scheduler/scheduler.py:1760 does
-        for its minimal solve. `problems` counts the batch's problems,
-        not the padded rows."""
-        self.last_preempt_plan = {"minimal": {
-            "problems": len(batch.problems),
-            "pool": int(stats[:, 0].sum()),
-            "scanned": int(stats[:, 1].sum()),
-            "fillback_rounds_max": int(stats[:, 2].max()),
-            "filled_back": int(stats[:, 3].sum()),
-        }}
+    def _note_preempt_stats(self, aux: dict, pbatch, fbatch) -> None:
+        """The device solves' stats ([B,4] each: candidate pool, prefix
+        scanned or heap pops, fill-back rounds or iterations, filled back)
+        summed into last_preempt_plan under "minimal" (K9) and "fair"
+        (K11), as kueue_tpu/scheduler/scheduler.py:1762-1790 does.
+        `problems` counts each batch's problems, not the padded rows."""
+        agg: dict = {}
+        for key, name, batch in (("preempt_stats", "minimal", pbatch),
+                                 ("fair_stats", "fair", fbatch)):
+            st = aux.get(key)
+            if st is None or len(st) == 0:
+                continue
+            agg[name] = {
+                "problems": len(batch.problems),
+                "pool": int(st[:, 0].sum()),
+                "scanned": int(st[:, 1].sum()),
+                "fillback_rounds_max": int(st[:, 2].max()),
+                "filled_back": int(st[:, 3].sum()),
+            }
+        if agg:
+            self.last_preempt_plan = agg
 
     def _device_nofit_entry(self, w: wlpkg.Info,
                             snapshot: Snapshot) -> Optional[Entry]:

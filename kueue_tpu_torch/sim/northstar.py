@@ -12,8 +12,10 @@ Two ways to drive a cycle:
 - the port's own Scheduler (`build_scheduler`, `SimClient`,
   `finish_applied`): the fair-sharing deployment of the JAX package's
   benchmark (bench.py bench_fair_sharing, builders bench.py:107-214),
-  and its preemption-heavy one (`build_preempt_reclaim`, bench.py
-  bench_preemption_reclaim, with `admit_victim`);
+  its preemption-heavy one (`build_preempt_reclaim`, bench.py
+  bench_preemption_reclaim, with `admit_victim`) and its fair-sharing
+  preemption one (`build_fair_preemption`, bench.py
+  bench_fair_preemption);
 - the solver by hand: heads from `Manager.heads_nonblocking` (one per
   CQ), `solve`, then `apply_decisions`: admitted heads are assumed into
   the cache and handed to `solver.release_workload`, the rest are
@@ -330,4 +332,82 @@ def build_preempt_reclaim(num_roots: int = 128, children_per_root: int = 2,
         queues.add_or_update_workload(
             make_workload(f"preemptor{i}", f"lq{i}", cpu_units=8,
                           priority=10, creation=1000.0))
+    return sched, cache, queues, client
+
+
+def build_fair_preemption(num_cqs: int = 2048, num_cohorts: int = 256,
+                          victims_per_cq: int = 12, solver=None) -> tuple:
+    """The JAX package's fair-sharing preemption benchmark configuration
+    (bench.py bench_fair_preemption, bench.py:1727-1775) with fair sharing
+    on: cq{i} in cohort-(i % num_cohorts), one flavor f0 of 8 units (cpu
+    and GiB) per CQ, LowerPriority within the CQ and reclaimWithinCohort
+    Any. Member 0 of each cohort (cq0 .. cq{num_cohorts - 1}) is idle and
+    holds one 8-unit preemptor of priority 10; each other member holds
+    `victims_per_cq` admitted priority-0 victims of (members * 8000 -
+    2000) // (members - 1) // victims_per_cq milli-cpu (and as many MiB),
+    so it borrows a little and the cohort has less than 8 units free:
+    each preemptor's fairPreemptions drains the borrowers share by share
+    until it fits. Returns (Scheduler, Cache, Manager, SimClient)."""
+    sched, cache, queues, client = build_scheduler(
+        num_cqs, num_cohorts, ["f0"], 8, solver=solver, fair_sharing=True,
+        preemption=reclaim_preemption())
+    members = num_cqs // num_cohorts
+    victim_milli = (members * 8000 - 2000) // (members - 1) // victims_per_cq
+    for i in range(num_cqs):
+        if i >= num_cohorts:
+            for v in range(victims_per_cq):
+                admit_victim(cache, f"victim{i}-{v}", f"lq{i}", f"cq{i}",
+                             victim_milli, 0, float(v))
+        else:
+            queues.add_or_update_workload(
+                make_workload(f"preemptor{i}", f"lq{i}", cpu_units=8,
+                              priority=10, creation=1000.0))
+    return sched, cache, queues, client
+
+
+def build_mixed_preemption(num_borrowers: int = 6, victims_per_cq: int = 12,
+                           solver=None) -> tuple:
+    """A fair-sharing cycle with both kinds of preemption problem: one
+    cohort of num_borrowers + 2 CQs of 8 units (cpu and GiB), fair
+    sharing on. cq0 is idle and its 8-unit preemptor of priority 10
+    reclaims from the borrowers cq1 .. cq{num_borrowers} (a fair
+    problem, K11); the last CQ may not borrow (borrowing limit 0) nor
+    reclaim (reclaimWithinCohort Never) and holds its nominal quota in
+    four priority-0 victims, and its 4-unit preemptor of priority 10 can
+    only preempt within its own CQ (a minimal problem, K9). The
+    borrowers hold `victims_per_cq` victims of what leaves 2 units of the
+    cohort free. Returns (Scheduler, Cache, Manager, SimClient)."""
+    clock = FakeClock(1000.0)
+    cache, queues = Cache(), Manager(clock=clock)
+    cache.add_or_update_resource_flavor(make_flavor("f0"))
+    own_only = api.ClusterQueuePreemption(
+        within_cluster_queue=api.PREEMPTION_LOWER_PRIORITY,
+        reclaim_within_cohort=api.PREEMPTION_NEVER)
+    last = num_borrowers + 1
+    for i in range(last + 1):
+        cq = make_cq(f"cq{i}", "cohort-0", ["f0"], 8,
+                     preemption=own_only if i == last
+                     else reclaim_preemption())
+        if i == last:
+            for quota in cq.spec.resource_groups[0].flavors[0].resources:
+                quota.borrowing_limit = 0
+        cache.add_cluster_queue(cq)
+        queues.add_cluster_queue(cq)
+        queues.add_local_queue(make_local_queue(f"lq{i}", f"cq{i}"))
+    milli = ((last + 1) * 8000 - 8000 - 2000) // num_borrowers \
+        // victims_per_cq
+    for i in range(1, last):
+        for v in range(victims_per_cq):
+            admit_victim(cache, f"victim{i}-{v}", f"lq{i}", f"cq{i}", milli,
+                         0, float(v))
+    for v in range(4):
+        admit_victim(cache, f"own{v}", f"lq{last}", f"cq{last}", 2000, 0,
+                     float(v))
+    queues.add_or_update_workload(make_workload(
+        "claimant", "lq0", cpu_units=8, priority=10, creation=1000.0))
+    queues.add_or_update_workload(make_workload(
+        "own-high", f"lq{last}", cpu_units=4, priority=10, creation=1001.0))
+    client = SimClient()
+    sched = Scheduler(queues, cache, client, clock=clock, solver=solver,
+                      solver_min_heads=0, fair_sharing_enabled=True)
     return sched, cache, queues, client

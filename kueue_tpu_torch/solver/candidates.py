@@ -1,8 +1,8 @@
 """Array-native preemption candidate discovery for the solver path.
 
-The port of kueue_tpu/solver/candidates.py (the minimal-preemption part;
-the fair-sharing views `share_view` and `all_frs` come with the
-fair-sharing preemption kernel). The reference discovers and orders
+The port of kueue_tpu/solver/candidates.py, with the fair-sharing views
+`all_frs` and `share_view` that solver/fairpreempt.py encodes for K11.
+The reference discovers and orders
 preemption candidates per preemptor (findCandidates +
 candidatesOrdering, preemption.go:488-614): an O(cohort workloads) scan
 and an O(K log K) sort per entry. This module builds, once per cycle per
@@ -18,7 +18,10 @@ candidates then come out as boolean masks and slices:
   FlavorResource set;
 - the problem encode (solver/preempt.py) reads deduplicated per-domain
   usage-row tables, so shipping a problem to the card touches no
-  per-candidate Python.
+  per-candidate Python;
+- fair-sharing problems (solver/fairpreempt.py) extend their slots to
+  every FlavorResource a domain candidate holds (`all_frs`) and ship the
+  per-CQ share constants of the slots (`share_view`).
 
 The CPU Preemptor (scheduler/preemption.py) keeps its own sequential
 discovery as the oracle the batched path is held to.
@@ -27,6 +30,7 @@ discovery as the oracle the batched path is held to.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
@@ -92,6 +96,72 @@ class DomainCandidates:
         self._rows_views: dict = {}
         self._uses_masks: dict = {}
         self._borrowing_masks: dict = {}
+        self._all_frs: Optional[frozenset] = None
+        self._share_views: dict = {}
+
+    def all_frs(self) -> frozenset:
+        """The FlavorResources any candidate of the domain holds: the slot
+        extension of a fair problem (a removal moves every one of them,
+        and each feeds dominantResourceShare)."""
+        if self._all_frs is None:
+            out: set = set()
+            for info in self.infos:
+                out.update(info.flavor_resource_keys())
+            self._all_frs = frozenset(out)
+        return self._all_frs
+
+    def share_view(self, slots: tuple) -> dict:
+        """Per-CQ DRF-share constants for the slot order `slots`
+        (dominantResourceShare, clusterqueue.go:503-564, decomposed):
+        borrowing on FlavorResources outside the slots does not move
+        during a fair scan, so it ships as a per-(CQ, slot) constant on
+        the slot's resource (`base_other`) and, for resources with no
+        slot, as a ratio floor (`floor_ratio`, -1 for none) with its
+        borrowing bit (`floor_any`); with each CQ's fair `weight` and the
+        root cohort's `lendable` per slot."""
+        view = self._share_views.get(slots)
+        if view is not None:
+            return view
+        Qd = len(self.cq_snaps)
+        RF = max(1, len(slots))
+        base = np.zeros((Qd, RF), np.int64)
+        floor_ratio = np.full(Qd, -1, np.int64)
+        floor_any = np.zeros(Qd, bool)
+        weight = np.asarray([cq.fair_weight for cq in self.cq_snaps],
+                            np.int64)
+        root = (self.cq_snaps[0].cohort.root()
+                if self.cq_snaps and self.cq_snaps[0].cohort is not None
+                else None)
+        lendable_map = (root.resource_node.calculate_lendable()
+                        if root is not None else {})
+        lendable = np.asarray(
+            [lendable_map.get(fr.resource, 0) for fr in slots] or [0],
+            np.int64)
+        slot_set = set(slots)
+        slot_resources = {fr.resource for fr in slots}
+        for qi, cq in enumerate(self.cq_snaps):
+            extra: dict = {}
+            for fr, used in cq.resource_node.usage.items():
+                b = used - cq.quota_for(fr).nominal
+                if b <= 0 or fr in slot_set:
+                    continue
+                extra[fr.resource] = extra.get(fr.resource, 0) + b
+            for r, b in extra.items():
+                if r in slot_resources:
+                    for i, fr in enumerate(slots):
+                        if fr.resource == r:
+                            base[qi, i] = b
+                else:
+                    floor_any[qi] = True
+                    lr = lendable_map.get(r, 0)
+                    if lr > 0:
+                        floor_ratio[qi] = max(floor_ratio[qi],
+                                              b * 1000 // lr)
+        view = {"base_other": base, "floor_ratio": floor_ratio,
+                "floor_any": floor_any, "weight": weight,
+                "lendable": lendable}
+        self._share_views[slots] = view
+        return view
 
     def uses_mask(self, frs: frozenset) -> np.ndarray:
         """[N] bool — workloadUsesResources per candidate."""

@@ -8,6 +8,13 @@
 
 __device__ __forceinline__ long long kq_max0(long long v) { return v > 0 ? v : 0; }
 
+// floor(a / b) for int64, b != 0: JAX's //, where C's / truncates toward
+// zero (-1000 // 3000 is -1, -1000 / 3000 is 0).
+__device__ __forceinline__ long long kq_floordiv(long long a, long long b) {
+  const long long q = a / b, r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? q - 1 : q;
+}
+
 // One level of the availability walk (reference: resource_node.go:89-104;
 // kueue_tpu/solver/kernel.py:39 _avail_level): the guaranteed remainder
 // plus the parent's availability, capped by the borrow limit.

@@ -25,12 +25,6 @@
 
 #define KQ_DRF_WARPS 8
 
-// floor(a / b) for int64, b != 0
-__device__ __forceinline__ long long kq_floordiv(long long a, long long b) {
-  const long long q = a / b, r = a % b;
-  return (r != 0 && ((r < 0) != (b < 0))) ? q - 1 : q;
-}
-
 __device__ __forceinline__ long long kq_warp_sum(long long v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;

@@ -6,10 +6,12 @@ Counterpart of kueue_tpu/solver/kernel.py's programs: the unbound cycle
 cache and queues, `solve_cycle_resident_impl` and
 `solve_cycle_resident_arena_impl`, fair sharing included, and the
 minimal-preemption solve of kueue_tpu/solver/preempt.py
-(`solve_preempt`), alone or composed with the fit cycle against the same
-usage (`solve_cycle_with_preempt`, the `preempt_args` of the resident
-cycles); MultiKueue columns and fair-sharing preemption are left out.
-One fused cycle is:
+(`solve_preempt`) and the fair-sharing preemption solve of
+kueue_tpu/solver/fairpreempt.py (`solve_fair`), alone, back to back
+(`solve_preemptions`) or composed with the fit cycle against the same
+usage (`solve_cycle_with_preempt`, the `preempt_args` and
+`fair_preempt_args` of the resident cycles); MultiKueue columns are left
+out. One fused cycle is:
 
 1. `avail`   - availability of every CQ, walked down its cohort chain.
 2. `phase_a` - flavor assignment for every head (vectorized over W).
@@ -1158,6 +1160,457 @@ def solve_preempt(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
     return targets, feasible, stats
 
 
+# ---------------------------------------------------------------------------
+# solve_fair: batched fair-sharing preemption
+# ---------------------------------------------------------------------------
+#
+# Replaces kueue_tpu/solver/fairpreempt.py:210 solve_fair_impl with
+# make_problem_sim's fits, remove_usage and add_usage
+# (kueue_tpu/solver/preempt.py:307-421). Per problem (solver/fairpreempt.py
+# encodes them), fairPreemptions (preemption.go:312-437): pop the eligible
+# local CQ of the largest share (ties: its first candidate's position,
+# then the lowest slot), take its next candidate by rank, remove it when
+# it is the preemptor's own, under the borrowWithinCohort threshold, or
+# when the first strategy holds, and update that CQ's share; stop when the
+# preemptor fits. Then the retry pass with the second strategy (shares
+# fixed at its entry, each CQ's first refused candidate), then fill-back
+# in reverse removal order, skipping the last removal. All against the
+# usage from before the cycle. Outputs: targets[B,K] bool, feasible[B]
+# bool, reasons[B,K] int8 (0 own CQ, 1 strategy, 2 threshold only),
+# stats[B,4] int32 = (candidates, pops, fill-back iterations, filled
+# back). Bound on the H100: latency — each problem is a chain of
+# dependent pops, each a reduction over its CQs and a walk of a cohort
+# chain; the bytes are small. Design (csrc/solve_fair.cu): one warp per
+# problem, a (CQ, rank) -> candidate table in per-warp scratch, lanes
+# over the CQs for the pick and over the slots for the shares, the usage
+# updates and the fit.
+
+# the share of a CQ of fair weight 0 (kueue_tpu/solver/fairpreempt.py:54)
+MAXSHARE = 2**62
+# "no first candidate" in cq_order, and the retry pass's empty rank
+FAIR_NONE = 2**30
+
+
+def _share_rows(u, nom, base, floor, fany, weight, lendable, valid_fr,
+                same_res):
+    """dominantResourceShare (clusterqueue.go:503-564) of each row:
+    u/nom/base [b,N,RF], floor/fany/weight [b,N] -> [b,N] int64. Both
+    divisions floor, as JAX's //: the ratio is -1 where nothing is lent
+    or borrowed, so drs can be -1."""
+    borrow_fr = torch.where(valid_fr[:, None, :], (u - nom).clamp_min(0), 0)
+    borrow_res = torch.where(same_res[:, None, :, :], borrow_fr[:, :, None, :],
+                             0).sum(3) + base
+    lend = lendable[:, None, :]
+    ratio = torch.where((borrow_res > 0) & (lend > 0),
+                        torch.div(borrow_res * 1000, lend.clamp_min(1),
+                                  rounding_mode="floor"), -1)
+    drs = torch.maximum(ratio.amax(2), floor)
+    any_b = (borrow_res > 0).any(2) | fany
+    share = torch.where(any_b, torch.div(drs * 1000, weight.clamp_min(1),
+                                         rounding_mode="floor"), 0)
+    return torch.where(weight == 0, MAXSHARE, share)
+
+
+class _FairSim:
+    """make_problem_sim (kueue_tpu/solver/preempt.py:307) for a chunk of
+    problems: the quota planes gathered on the problems' slots, and the
+    fit check and the usage bubbling of the reference's resource_node
+    math (resource_node.go:89-143), each for one CQ row per problem."""
+
+    def __init__(self, topo, usage, cohort_usage, gq, gf, gr, gc,
+                 chain_local, requests, has_cohort):
+        self.valid_fr = gf >= 0                              # [b,RF]
+        gf_s = gf.clamp_min(0).long()[:, None, :]
+        gr_l = gr.long()[:, None, :]
+        q_s = gq.clamp_min(0).long()[:, :, None]
+        c_s = gc.clamp_min(0).long()[:, :, None]
+        valid_c = (gc >= 0)[:, :, None] & self.valid_fr[:, None, :]
+
+        def plane(t, fill=0):
+            return torch.where(self.valid_fr[:, None, :], t[q_s, gf_s, gr_l],
+                               fill)
+
+        def cplane(t, fill=0):
+            return torch.where(valid_c, t[c_s, gf_s, gr_l], fill)
+
+        self.sim = {"nominal": plane(topo["nominal"]),
+                    "guaranteed": plane(topo["guaranteed"]),
+                    "borrow_limit": plane(topo["borrow_limit"],
+                                          PREEMPT_NOLIM),
+                    "c_subtree": cplane(topo["cohort_subtree"]),
+                    "c_guar": cplane(topo["cohort_guaranteed"]),
+                    "c_bl": cplane(topo["cohort_borrow_limit"],
+                                   PREEMPT_NOLIM),
+                    "chain": chain_local.long()}
+        self.u0 = plane(usage)
+        self.cu0 = cplane(cohort_usage)
+        self.req = requests
+        self.has_cohort = has_cohort
+        self.ar = torch.arange(gq.shape[0], device=gq.device)
+        self.CL = gc.shape[1]
+
+    def fits(self, u, cu):
+        """workload_fits with borrowing allowed (preemption.go:576-585):
+        the preemptor's request within CQ 0's availability. [b]."""
+        avail = _avail_cq0_prefix(self.sim, self.has_cohort, u[:, 0:1],
+                                  cu[:, :, None, :])[:, 0]
+        return ((self.req <= 0) | (self.req <= avail)).all(1)
+
+    def _chain(self, q):
+        return self.sim["chain"][self.ar, q]                 # [b,DC]
+
+    def _cl_oh(self, c):
+        return (torch.arange(self.CL, device=c.device)[None, :]
+                == c[:, None]) & (c >= 0)[:, None]           # [b,CL]
+
+    def remove_usage(self, u, cu, q, val):
+        """removeUsage (resource_node.go:133-143) of val[b,RF] from CQ
+        q[b], bubbled up its chain while any part of it is above
+        guaranteed quota."""
+        guar_q = self.sim["guaranteed"][self.ar, q]
+        stored = u[self.ar, q] - guar_q
+        q_oh = torch.arange(u.shape[1], device=q.device)[None, :] == q[:, None]
+        u = u - torch.where(q_oh[:, :, None], val[:, None, :], 0)
+        delta = torch.minimum(val, stored.clamp_min(0))
+        chain = self._chain(q)
+        for d in range(chain.shape[1]):
+            c = chain[:, d]
+            oh = self._cl_oh(c)
+            cs = c.clamp_min(0)
+            ok = (c >= 0) & (delta > 0).any(1)
+            stored_c = torch.where(
+                (c >= 0)[:, None],
+                cu[self.ar, cs] - self.sim["c_guar"][self.ar, cs], 0)
+            dd = torch.where(ok[:, None], delta, 0)
+            cu = cu - torch.where(oh[:, :, None], dd[:, None, :], 0)
+            delta = torch.minimum(dd, stored_c.clamp_min(0))
+        return u, cu
+
+    def add_usage(self, u, cu, q, val):
+        """addUsage (resource_node.go:121-131) of val[b,RF] to CQ q[b]:
+        what exceeds the CQ's unused guaranteed quota climbs the chain,
+        each level taking what its own unused guaranteed quota holds."""
+        guar_q = self.sim["guaranteed"][self.ar, q]
+        local_avail = (guar_q - u[self.ar, q]).clamp_min(0)
+        q_oh = torch.arange(u.shape[1], device=q.device)[None, :] == q[:, None]
+        u = u + torch.where(q_oh[:, :, None], val[:, None, :], 0)
+        delta = (val - local_avail).clamp_min(0)
+        chain = self._chain(q)
+        for d in range(chain.shape[1]):
+            c = chain[:, d]
+            oh = self._cl_oh(c)
+            cs = c.clamp_min(0)
+            ok = (c >= 0)[:, None]
+            local_c = torch.where(
+                ok, (self.sim["c_guar"][self.ar, cs] - cu[self.ar, cs])
+                .clamp_min(0), 0)
+            dd = torch.where(ok, delta, 0)
+            cu = cu + torch.where(oh[:, :, None], dd[:, None, :], 0)
+            delta = torch.where(ok, (dd - local_c).clamp_min(0), delta)
+        return u, cu
+
+
+def _solve_fair_chunk(topo, usage, cohort_usage, gq, gf, gr, gc,
+                      chain_local, requests, frs_np, cand_idx, cand_ql,
+                      cand_usage_table, cand_prio_table, th_act, th,
+                      has_cohort, cand_rank, cq_count, cq_order, base_other,
+                      floor_ratio, floor_any, weight, lendable, strat):
+    s0_s2a, has_retry, s1_s2a = strat
+    dev = usage.device
+    b, QL = gq.shape
+    K = cand_ql.shape[1]
+    fs = _FairSim(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
+                  requests, has_cohort)
+    ar = fs.ar
+    nominal = fs.sim["nominal"]
+    valid_fr = fs.valid_fr
+    same_res = (gr[:, :, None] == gr[:, None, :]) & valid_fr[:, :, None]         & valid_fr[:, None, :]                               # [b,RF,RF]
+    valid_q = gq >= 0
+    count = cq_count.long()
+    order = cq_order.long()
+    cand_q = cand_ql.long()
+    rank = cand_rank.long()
+    idx = cand_idx.long()
+    cand_usage = cand_usage_table[idx]                       # [b,K,RF]
+    cand_prio = cand_prio_table[idx].long()                  # [b,K]
+    arange_ql = torch.arange(QL, device=dev)[None, :]
+
+    def share_of(rows, q):
+        """The share of local CQ q[b] with usage row rows[b,RF]."""
+        return _share_rows(rows[:, None], nominal[ar, q][:, None],
+                           base_other[ar, q][:, None],
+                           floor_ratio[ar, q][:, None],
+                           floor_any[ar, q][:, None],
+                           weight[ar, q][:, None], lendable, valid_fr,
+                           same_res)[:, 0]
+
+    def shares(u):
+        return _share_rows(u, nominal, base_other, floor_ratio, floor_any,
+                           weight, lendable, valid_fr, same_res)
+
+    zero_q = torch.zeros(b, dtype=torch.long, device=dev)
+
+    def nominated_share(u):
+        """The preemptor CQ's share with its request added
+        (dominant_resource_share_with, m=1)."""
+        return share_of(u[:, 0] + requests, zero_q)
+
+    def pick_cq(sh, elig):
+        """The max-share eligible CQ; ties to the lowest cq_order, then
+        the lowest slot; slot 0 when none is eligible."""
+        m = torch.where(elig, sh, -MAXSHARE).amax(1)
+        tie = torch.where(elig & (sh == m[:, None]), order, FAIR_NONE)
+        first = torch.where(tie == tie.amin(1)[:, None], arange_ql, QL)
+        return first.amin(1), elig.any(1)
+
+    def row_of(k_oh, t):
+        return torch.where(k_oh[:, :, None], t, 0).sum(1)
+
+    # the forward DRF-heap loop; a problem freezes once it is done, its
+    # heap is empty or it popped K times (the vmapped while_loop)
+    u, cu = fs.u0, fs.cu0
+    pos = torch.zeros((b, QL), dtype=torch.long, device=dev)
+    active = torch.ones((b, QL), dtype=torch.bool, device=dev)
+    retry = torch.zeros((b, K), dtype=torch.bool, device=dev)
+    targets = torch.zeros((b, K), dtype=torch.bool, device=dev)
+    reason = torch.zeros((b, K), dtype=torch.int8, device=dev)
+    step_of = torch.full((b, K), -1, dtype=torch.long, device=dev)
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    sh = shares(u)
+    nom_share = nominated_share(u)
+    t = torch.zeros(b, dtype=torch.long, device=dev)
+    while True:
+        elig = active & valid_q & (pos < count)
+        run = ~done & elig.any(1) & (t < K)
+        if not bool(run.any()):
+            break
+        qstar, any_elig = pick_cq(sh, elig)
+        any_elig &= ~done
+        q_oh = arange_ql == qstar[:, None]
+        k_oh = (cand_q == qstar[:, None]) & (rank == pos[ar, qstar][:, None])
+        k_valid = k_oh.any(1) & any_elig
+        cand_u = row_of(k_oh, cand_usage)
+        cand_p = torch.where(k_oh, cand_prio, 0).sum(1)
+        own = qstar == 0
+        new_cand_share = share_of(u[ar, qstar] - cand_u, qstar)
+        if s0_s2a:      # LessThanOrEqualToFinalShare (S2-a)
+            strat_ok = nom_share <= new_cand_share
+        else:           # LessThanInitialShare (S2-b)
+            strat_ok = nom_share < sh[ar, qstar]
+        passed = own | (th_act & (cand_p < th)) | strat_ok
+        do = k_valid & passed
+        u2, cu2 = fs.remove_usage(u, cu, qstar,
+                                  torch.where(do[:, None], cand_u, 0))
+        sh2 = torch.where(q_oh & do[:, None], new_cand_share[:, None], sh)
+        nom2 = torch.where(own & do, nominated_share(u2), nom_share)
+        sel = k_oh & do[:, None]
+        code = torch.where(own, 0, torch.where(strat_ok, 1, 2)).to(torch.int8)
+        reason2 = torch.where(sel, code[:, None], reason)
+        step2 = torch.where(sel, t[:, None], step_of)
+        retry2 = retry | (k_oh & (k_valid & ~passed)[:, None])
+        pos2 = pos + (q_oh & k_valid[:, None]).long()
+        exhausted = pos2[ar, qstar] >= count[ar, qstar]
+        borrowing = (frs_np & (u2[ar, qstar] > nominal[ar, qstar])).any(1)
+        keep = torch.where(own | ~do, ~exhausted, ~exhausted & borrowing)
+        active2 = torch.where(q_oh & k_valid[:, None], keep[:, None], active)
+        done2 = done | (do & fs.fits(u2, cu2))
+        r1, r2, r3 = run[:, None], run[:, None, None], run
+        u, cu = torch.where(r2, u2, u), torch.where(r2, cu2, cu)
+        sh, nom_share = torch.where(r1, sh2, sh), torch.where(r3, nom2,
+                                                               nom_share)
+        targets = torch.where(r1, targets | sel, targets)
+        reason, step_of = torch.where(r1, reason2, reason),             torch.where(r1, step2, step_of)
+        retry, pos = torch.where(r1, retry2, retry), torch.where(r1, pos2, pos)
+        active, done = torch.where(r1, active2, active),             torch.where(r3, done2, done)
+        t = t + run.long()
+    pops = t
+
+    # the retry pass: the second strategy, each CQ's first refused
+    # candidate, shares fixed at the pass's entry (preemption.go:412-431)
+    if has_retry:
+        sh_r = shares(u)
+        nom_r = nominated_share(u)
+        min_rank = torch.where(retry[:, :, None]
+                               & (cand_q[:, :, None] == arange_ql[:, None, :]),
+                               rank[:, :, None], FAIR_NONE).amin(1)  # [b,QL]
+        has_retry_q = min_rank < FAIR_NONE
+        processed = torch.zeros((b, QL), dtype=torch.bool, device=dev)
+        for step in range(QL):
+            elig = has_retry_q & ~processed & valid_q
+            if not bool((elig.any(1) & ~done).any()):
+                break  # every later step leaves every problem as it is
+            qstar, any_elig = pick_cq(sh_r, elig)
+            any_elig &= ~done
+            k_oh = retry & (cand_q == qstar[:, None])                 & (rank == min_rank[ar, qstar][:, None])
+            if s1_s2a:
+                strat_ok = nom_r <= 0
+            else:
+                strat_ok = nom_r < sh_r[ar, qstar]
+            do = any_elig & strat_ok & k_oh.any(1)
+            u, cu = fs.remove_usage(u, cu, qstar, torch.where(
+                do[:, None], row_of(k_oh, cand_usage), 0))
+            sel = k_oh & do[:, None]
+            targets = targets | sel
+            reason = torch.where(sel, 1, reason).to(torch.int8)
+            step_of = torch.where(sel, K + step, step_of)
+            processed = processed | ((arange_ql == qstar[:, None])
+                                     & any_elig[:, None])
+            done = done | (do & fs.fits(u, cu))
+
+    # no fit: no targets (preemption.go:433-436)
+    feasible = done
+    targets = targets & feasible[:, None]
+
+    # fill-back in reverse removal order, skipping the fit-maker
+    # (fill_back_workloads, preemption.go:445-457)
+    last_step = torch.where(targets, step_of, -1).amax(1)
+    s = last_step
+    kept = torch.zeros((b, K), dtype=torch.bool, device=dev)
+    fb_iters = torch.zeros(b, dtype=torch.long, device=dev)
+    while bool((s >= 0).any()):
+        run = s >= 0
+        k_oh = targets & (step_of == s[:, None])
+        consider = k_oh.any(1) & (s != last_step) & run
+        cand_u = torch.where(consider[:, None], row_of(k_oh, cand_usage), 0)
+        qstar = torch.where(k_oh, cand_q, 0).sum(1)
+        u2, cu2 = fs.add_usage(u, cu, qstar, cand_u)
+        keep_back = consider & fs.fits(u2, cu2)
+        u = torch.where(keep_back[:, None, None], u2, u)
+        cu = torch.where(keep_back[:, None, None], cu2, cu)
+        kept = kept | (k_oh & keep_back[:, None])
+        s_next = torch.where(targets & (step_of < s[:, None]), step_of,
+                             -1).amax(1)
+        s = torch.where(run, s_next, s)
+        fb_iters = fb_iters + run.long()
+    targets = targets & ~kept
+    stats = torch.stack([(cand_q >= 0).sum(1), pops, fb_iters,
+                         kept.sum(1)], dim=1).to(torch.int32)
+    return targets, feasible, reason, stats
+
+
+def solve_fair_plain(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
+                     requests, frs_np, cand_idx, cand_ql, cand_usage_table,
+                     cand_prio_table, threshold_active, threshold,
+                     has_cohort, cand_rank, cq_count, cq_order, base_other,
+                     floor_ratio, floor_any, weight, lendable,
+                     strat: tuple):
+    """The vmap of kueue_tpu/solver/fairpreempt.py:210 written out as a
+    batch dimension, PREEMPT_PLAIN_CHUNK problems at a time; each
+    problem's forward loop and fill-back freeze once it has converged, as
+    the vmapped while_loops do. strat = (strategy 0 is S2-a, a retry pass
+    exists, strategy 1 is S2-a) (fairpreempt.strategy_flags). Returns
+    (targets[B,K] bool, feasible[B] bool, reasons[B,K] int8, stats[B,4]
+    int32)."""
+    B, K = cand_ql.shape
+    dev = usage.device
+    targets = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    feasible = torch.zeros(B, dtype=torch.bool, device=dev)
+    reasons = torch.zeros((B, K), dtype=torch.int8, device=dev)
+    stats = torch.zeros((B, 4), dtype=torch.int32, device=dev)
+    per_problem = (gq, gf, gr, gc, chain_local, requests, frs_np, cand_idx,
+                   cand_ql)
+    rest = (threshold_active, threshold, has_cohort, cand_rank, cq_count,
+            cq_order, base_other, floor_ratio, floor_any, weight, lendable)
+    for s in range(0, B, PREEMPT_PLAIN_CHUNK):
+        e = min(B, s + PREEMPT_PLAIN_CHUNK)
+        out = _solve_fair_chunk(
+            topo, usage, cohort_usage, *(a[s:e] for a in per_problem),
+            cand_usage_table, cand_prio_table, *(a[s:e] for a in rest),
+            tuple(strat))
+        targets[s:e], feasible[s:e], reasons[s:e], stats[s:e] = out
+    return targets, feasible, reasons, stats
+
+
+# most warps of solve_fair's persistent grid, per SM
+FAIR_WARPS_PER_SM = 32
+
+
+def fair_scratch_words(QL: int, RF: int, CL: int, DC: int, K: int) -> tuple:
+    """Per-warp scratch of solve_fair: (int64 words, int32 words). int64:
+    the usage, nominal and guaranteed rows of the local CQs, the usage,
+    guaranteed, subtree and borrow-limit rows of the local cohorts, the
+    shares, a delta row and the fill-back's saved rows; int32: each CQ's
+    pop position, heap flag, first refused candidate and table start, the
+    (CQ, rank) -> candidate table and the removal log."""
+    return (3 * QL * RF + 4 * CL * RF + QL + RF + (1 + DC) * RF,
+            4 * QL + 1 + 2 * K)
+
+
+def solve_fair(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
+               requests, frs_np, cand_idx, cand_ql, cand_usage_table,
+               cand_prio_table, threshold_active, threshold, has_cohort,
+               cand_rank, cq_count, cq_order, base_other, floor_ratio,
+               floor_any, weight, lendable, strat: tuple):
+    args = (gq, gf, gr, gc, chain_local, requests, frs_np, cand_idx,
+            cand_ql, cand_usage_table, cand_prio_table, threshold_active,
+            threshold, has_cohort, cand_rank, cq_count, cq_order,
+            base_other, floor_ratio, floor_any, weight, lendable)
+    if _is_cpu(usage):
+        return solve_fair_plain(topo, usage, cohort_usage, *args, strat)
+    B, QL = gq.shape
+    RF = gf.shape[1]
+    CL = gc.shape[1]
+    K = cand_ql.shape[1]
+    DC = chain_local.shape[2]
+    if chain_local.shape[:2] != (B, QL) or cand_idx.shape != (B, K) \
+            or cand_rank.shape != (B, K) or base_other.shape != (B, QL, RF) \
+            or cand_usage_table.shape[1] != RF or lendable.shape != (B, RF):
+        raise ValueError("solve_fair: inconsistent problem shapes")
+    s0, has_retry, s1 = (int(bool(x)) for x in strat)
+    dev = usage.device
+    # the outputs' defaults: what a padding problem or candidate keeps
+    targets = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    feasible = torch.zeros(B, dtype=torch.bool, device=dev)
+    reasons = torch.zeros((B, K), dtype=torch.int8, device=dev)
+    stats = torch.zeros((B, 4), dtype=torch.int32, device=dev)
+    warps = max(1, min(B, FAIR_WARPS_PER_SM * torch.cuda.get_device_properties(
+        dev).multi_processor_count))
+    w64, w32 = fair_scratch_words(QL, RF, CL, DC, K)
+    scratch64 = torch.empty(warps * w64, dtype=torch.int64, device=dev)
+    scratch32 = torch.empty(warps * w32, dtype=torch.int32, device=dev)
+    _launch("solve_fair", [
+        _ptr(topo["nominal"], torch.int64, "nominal"),
+        _ptr(topo["guaranteed"], torch.int64, "guaranteed"),
+        _ptr(topo["borrow_limit"], torch.int64, "borrow_limit"),
+        _ptr(topo["cohort_subtree"], torch.int64, "cohort_subtree"),
+        _ptr(topo["cohort_guaranteed"], torch.int64, "cohort_guaranteed"),
+        _ptr(topo["cohort_borrow_limit"], torch.int64, "cohort_borrow_limit"),
+        _ptr(usage, torch.int64, "usage"),
+        _ptr(cohort_usage, torch.int64, "cohort_usage"),
+        _ptr(gq, torch.int32, "gq"),
+        _ptr(gf, torch.int32, "gf"),
+        _ptr(gr, torch.int32, "gr"),
+        _ptr(gc, torch.int32, "gc"),
+        _ptr(chain_local, torch.int32, "chain_local"),
+        _ptr(requests, torch.int64, "requests"),
+        _ptr(frs_np, torch.bool, "frs_np"),
+        _ptr(cand_idx, torch.int32, "cand_idx"),
+        _ptr(cand_ql, torch.int16, "cand_ql"),
+        _ptr(cand_usage_table, torch.int64, "cand_usage"),
+        _ptr(cand_prio_table, torch.int32, "cand_prio"),
+        _ptr(threshold_active, torch.bool, "threshold_active"),
+        _ptr(threshold, torch.int64, "threshold"),
+        _ptr(has_cohort, torch.bool, "has_cohort"),
+        _ptr(cand_rank, torch.int32, "cand_rank"),
+        _ptr(cq_count, torch.int32, "cq_count"),
+        _ptr(cq_order, torch.int32, "cq_order"),
+        _ptr(base_other, torch.int64, "base_other"),
+        _ptr(floor_ratio, torch.int64, "floor_ratio"),
+        _ptr(floor_any, torch.bool, "floor_any"),
+        _ptr(weight, torch.int64, "weight"),
+        _ptr(lendable, torch.int64, "lendable"),
+        _ptr(scratch64, torch.int64, "scratch64"),
+        _ptr(scratch32, torch.int32, "scratch32"),
+        _ptr(targets, torch.bool, "targets"),
+        _ptr(feasible, torch.bool, "feasible"),
+        _ptr(reasons, torch.int8, "reasons"),
+        _ptr(stats, torch.int32, "stats"),
+    ], [B, K, QL, RF, CL, DC, usage.shape[1], usage.shape[2], warps, s0,
+        has_retry, s1], dev)
+    solve_fair.launches += 1
+    return targets, feasible, reasons, stats
+
+
 # kernel name (solver/csrc/<name>.cu) -> its wrapper
 KERNEL_WRAPPERS = {"avail": avail, "phase_a": phase_a,
                    "drf_share": drf_share, "order": order_csr,
@@ -1165,7 +1618,7 @@ KERNEL_WRAPPERS = {"avail": avail, "phase_a": phase_a,
                    "deltas": apply_state_deltas,
                    "arena_scatter": scatter_arena_rows,
                    "arena_gather": gather_arena,
-                   "solve_preempt": solve_preempt}
+                   "solve_preempt": solve_preempt, "solve_fair": solve_fair}
 reset_launch_counts()
 
 
@@ -1207,29 +1660,53 @@ def solve_cycle_fused(topo, usage, cohort_usage, requests, podset_active,
     return out
 
 
+def solve_preemptions(topo, usage, cohort_usage, preempt_args=None,
+                      fair_preempt_args=None, fs_strategies: tuple = ()):
+    """K9 on preempt_args and K11 on fair_preempt_args (each when given),
+    launched back to back against the same usage, with no sync between
+    them. Returns the dict of their outputs (preempt_targets,
+    preempt_feasible, preempt_stats; fair_targets, fair_feasible,
+    fair_reasons, fair_stats)."""
+    out = {}
+    if preempt_args is not None:
+        (out["preempt_targets"], out["preempt_feasible"],
+         out["preempt_stats"]) = solve_preempt(topo, usage, cohort_usage,
+                                               *preempt_args)
+    if fair_preempt_args is not None:
+        (out["fair_targets"], out["fair_feasible"], out["fair_reasons"],
+         out["fair_stats"]) = solve_fair(topo, usage, cohort_usage,
+                                         *fair_preempt_args,
+                                         strat=fs_strategies)
+    return out
+
+
 def solve_cycle_with_preempt(topo, usage, cohort_usage, requests,
                              podset_active, wl_cq, priority, timestamp,
-                             eligible, solvable, preempt_args: tuple,
+                             eligible, solvable, preempt_args,
                              num_podsets: int, max_rank: int = 0,
                              fair_sharing: bool = False, start_rank=None,
+                             fair_preempt_args=None,
+                             fs_strategies: tuple = (),
                              compact: bool = True) -> dict:
     """The mixed admission and preemption cycle, the port of
     kueue_tpu/solver/kernel.py:547 solve_cycle_with_preempt_impl with
-    cluster columns and fair-sharing preemption off: the fused fit cycle
-    plus solve_preempt on the same input usage. Preemption simulates
-    against the usage from before the cycle, as the reference's
-    nominate-time GetTargets does (scheduler.go:404-441): it never sees
-    the cycle's own admissions (phase_b writes copies), so the two are
-    independent. Adds preempt_targets, preempt_feasible, preempt_stats
-    to the fused cycle's outputs."""
+    cluster columns off: the fused fit cycle plus solve_preempt on
+    preempt_args and solve_fair on fair_preempt_args (either may be None;
+    fs_strategies are fairpreempt.strategy_flags), on the same input
+    usage. Preemption simulates against the usage from before the cycle,
+    as the reference's nominate-time GetTargets does
+    (scheduler.go:404-441): it never sees the cycle's own admissions
+    (phase_b writes copies), so they are independent. Adds
+    preempt_targets, preempt_feasible, preempt_stats and fair_targets,
+    fair_feasible, fair_reasons, fair_stats to the fused cycle's
+    outputs."""
     out = solve_cycle_fused(topo, usage, cohort_usage, requests,
                             podset_active, wl_cq, priority, timestamp,
                             eligible, solvable, num_podsets=num_podsets,
                             max_rank=max_rank, fair_sharing=fair_sharing,
                             start_rank=start_rank, compact=compact)
-    (out["preempt_targets"], out["preempt_feasible"],
-     out["preempt_stats"]) = solve_preempt(topo, usage, cohort_usage,
-                                           *preempt_args)
+    out.update(solve_preemptions(topo, usage, cohort_usage, preempt_args,
+                                 fair_preempt_args, fs_strategies))
     return out
 
 
@@ -1237,13 +1714,16 @@ def solve_cycle_resident(topo, usage, cohort_usage, deltas, requests,
                          podset_active, wl_cq, priority, timestamp, eligible,
                          solvable, num_podsets: int, max_rank: int = 0,
                          fair_sharing: bool = False, start_rank=None,
-                         preempt_args=None, compact: bool = True) -> dict:
+                         preempt_args=None, fair_preempt_args=None,
+                         fs_strategies: tuple = (),
+                         compact: bool = True) -> dict:
     """The device-resident cycle (kueue_tpu/solver/kernel.py:808
     solve_cycle_resident_impl): the sparse correction prologue, applied
     IN PLACE to the resident usage/cohort_usage, then the fused cycle
-    (with preempt_args, solve_cycle_with_preempt on the corrected usage),
-    whose usage/cohort_usage outputs are the next cycle's resident state.
-    deltas: None or the tensors (dq, df, dr, dv, lvl_c, lvl_seg)."""
+    (with preempt_args or fair_preempt_args, solve_cycle_with_preempt on
+    the corrected usage), whose usage/cohort_usage outputs are the next
+    cycle's resident state. deltas: None or the tensors (dq, df, dr, dv,
+    lvl_c, lvl_seg)."""
     if deltas is not None:
         apply_state_deltas(topo, usage, cohort_usage, *deltas)
     kwargs = dict(num_podsets=num_podsets, max_rank=max_rank,
@@ -1251,16 +1731,19 @@ def solve_cycle_resident(topo, usage, cohort_usage, deltas, requests,
                   compact=compact)
     batch = (requests, podset_active, wl_cq, priority, timestamp, eligible,
              solvable)
-    if preempt_args is None:
+    if preempt_args is None and fair_preempt_args is None:
         return solve_cycle_fused(topo, usage, cohort_usage, *batch, **kwargs)
     return solve_cycle_with_preempt(topo, usage, cohort_usage, *batch,
-                                    preempt_args, **kwargs)
+                                    preempt_args,
+                                    fair_preempt_args=fair_preempt_args,
+                                    fs_strategies=fs_strategies, **kwargs)
 
 
 def solve_cycle_resident_arena(topo, usage, cohort_usage, deltas, arena,
                                slots, num_podsets: int, max_rank: int = 0,
                                fair_sharing: bool = False, start_rank=None,
-                               preempt_args=None,
+                               preempt_args=None, fair_preempt_args=None,
+                               fs_strategies: tuple = (),
                                compact: bool = True) -> dict:
     """The arena-resident cycle (kueue_tpu/solver/kernel.py:909
     solve_cycle_resident_arena_impl): gather the heads' rows from the
@@ -1270,7 +1753,9 @@ def solve_cycle_resident_arena(topo, usage, cohort_usage, deltas, arena,
                                 num_podsets=num_podsets, max_rank=max_rank,
                                 fair_sharing=fair_sharing,
                                 start_rank=start_rank,
-                                preempt_args=preempt_args, compact=compact)
+                                preempt_args=preempt_args,
+                                fair_preempt_args=fair_preempt_args,
+                                fs_strategies=fs_strategies, compact=compact)
 
 
 def max_rank_bound(wl_cq, cq_cohort, cohort_root) -> int:

@@ -18,6 +18,10 @@ then fill back in reverse; pkg/scheduler/preemption/preemption.go:
   their Preempted reasons, the first feasible problem of each head
   winning.
 
+Fair-sharing preemption (solver/fairpreempt.py, the K11 kernel) builds on
+this module's problem layout: its problems carry extra slots
+(`extra_frs`), which encode_problems adds to the request's.
+
 The CPU Preemptor (scheduler/preemption.py) is the oracle the batched
 path is held to.
 """
@@ -136,7 +140,9 @@ def encode_problems(problems: list, snapshot, topo, requests_by_entry: dict,
     buckets it (B, K, QL, CL, RF and the table's U), so both packages
     encode a cycle to arrays of the same shapes."""
     B = _bucket(max(1, len(problems)), 1)
-    RF = _bucket(max(max((len(frozenset(requests_by_entry[p.entry_idx]))
+    # fair problems (solver/fairpreempt.py) extend their slots past the
+    # request's FlavorResources: extra_frs, the ones a removal moves
+    RF = _bucket(max(max((len(_slot_frs(p, requests_by_entry))
                           for p in problems), default=1), 1))
     K = _bucket(max(max((p.num_candidates for p in problems), default=1), 1))
 
@@ -171,7 +177,7 @@ def encode_problems(problems: list, snapshot, topo, requests_by_entry: dict,
         frs_np = frs_np_by_entry[ei]
         preemptor_cq = wl_cq_by_entry[ei]
         domain = p.domain
-        req_frs = frozenset(requests)
+        req_frs = _slot_frs(p, requests_by_entry)
         rows = domain.rows_view(req_frs)
 
         for i, fr in enumerate(rows.slots):
@@ -236,6 +242,13 @@ def encode_problems(problems: list, snapshot, topo, requests_by_entry: dict,
     batch.cand_prio = np.concatenate(table_prio)
     localize_cohorts(batch, topo.cq_chain)
     return batch
+
+
+def _slot_frs(problem, requests_by_entry: dict) -> frozenset:
+    """The FlavorResources a problem's slots carry: its entry's request,
+    plus a fair problem's extra_frs."""
+    return frozenset(requests_by_entry[problem.entry_idx]) | \
+        getattr(problem, "extra_frs", frozenset())
 
 
 def localize_cohorts(batch: PreemptionBatch, cq_chain: np.ndarray) -> None:

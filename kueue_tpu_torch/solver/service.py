@@ -22,20 +22,25 @@ the Manager, `prepare`, `solve_prepared`, then for each admitted head
 with `note_unapplied`. With `fair_sharing` the admit order takes each
 head's DRF share (kernel.drf_share).
 
-Minimal preemption (solver/preempt.py): `solve_prepared(plan, snapshot,
-preempt_batch=...)` runs the fit cycle and the batch's K9 solve
-(kernel.solve_preempt) against the same usage from before the cycle and
-returns their targets beside the decisions; `solve_preempt(batch)` runs
-K9 alone, after the cycle's sync, against the usage the last dispatch
-read, which is how the Scheduler calls it (it builds the problems from
-the heads the device did not fit). `estimated_sync_ms()` is the
-launch-and-sync floor the Scheduler's preemption work gate weighs.
+Preemption (solver/preempt.py, minimal, K9; solver/fairpreempt.py,
+fair sharing, K11): `solve_prepared(plan, snapshot, preempt_batch=...,
+fair_batch=..., fs_flags=...)` runs the fit cycle and the batches'
+solves (kernel.solve_preempt, kernel.solve_fair) against the same usage
+from before the cycle and returns their targets beside the decisions;
+`solve_preemptions(preempt_batch, fair_batch, fs_flags)` launches K9 and
+K11 back to back after the cycle's sync, against the usage the last
+dispatch read, with one sync and one fetch for both, which is how the
+Scheduler calls them (it builds the problems from the heads the device
+did not fit); `solve_preempt(batch)` is its K9-only form.
+`estimated_sync_ms()` is the launch-and-sync floor the Scheduler's
+preemption work gate weighs; `counters["syncs"]` counts the solver's
+syncs.
 
 Left out of these slices (the JAX package has them): the host-side
 router (`_route`, Plan.fit_pred), the dispatch supervisor and watchdog,
 the background fetch pool, fault injection, the flight recorder,
-fair-sharing preemption batches, batched partial admission, MultiKueue
-cluster columns, and the multi-chip mesh.
+batched partial admission, MultiKueue cluster columns, and the
+multi-chip mesh.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from kueue_tpu_torch.device import resolve
 from kueue_tpu_torch.scheduler import flavorassigner as fa
 from kueue_tpu_torch.solver import encode, kernel
 from kueue_tpu_torch.solver.arena import WorkloadArena
+from kueue_tpu_torch.solver.fairpreempt import fair_args
 from kueue_tpu_torch.solver.kernel import (
     DECISION_KEYS,
     MAX_COMPACT_FLAVORS,
@@ -76,11 +82,30 @@ DENSE_DECISION_KEYS = ("admitted", "fit", "chosen", "borrows",
                        "chosen_borrow")
 
 # the phases of one solve, timed per cycle (seconds) in last_phase_s;
-# "preempt" is solve_preempt's upload, launch, sync and fetch
+# "preempt" is solve_preemptions' upload, launches, sync and fetch
 PHASES = ("encode", "upload", "device", "fetch", "decode", "preempt")
 
-# the outputs of the preemption solve, in fetch order
+# the outputs of the preemption solves, in fetch order
 PREEMPT_KEYS = ("preempt_targets", "preempt_feasible", "preempt_stats")
+FAIR_KEYS = ("fair_targets", "fair_feasible", "fair_reasons", "fair_stats")
+
+
+def preempt_aux(fetched: dict) -> Optional[dict]:
+    """The preemption outputs of a fetch in the JAX package's aux form
+    (kueue_tpu/solver/service.py:1709-1719): {"preempt": (targets,
+    feasible), "preempt_stats": stats, "fair": (targets, feasible,
+    reasons), "fair_stats": stats}, each half only when its solve ran;
+    None when neither did."""
+    aux = {}
+    if "preempt_targets" in fetched:
+        aux["preempt"] = (fetched["preempt_targets"],
+                          fetched["preempt_feasible"])
+        aux["preempt_stats"] = fetched["preempt_stats"]
+    if "fair_targets" in fetched:
+        aux["fair"] = (fetched["fair_targets"], fetched["fair_feasible"],
+                       fetched["fair_reasons"])
+        aux["fair_stats"] = fetched["fair_stats"]
+    return aux or None
 
 
 def unpack_decisions(fetched: dict, num_podsets: int,
@@ -166,11 +191,12 @@ class BatchSolver:
         self._arena = WorkloadArena(max_podsets)
         self.counters = {"dispatches": 0, "collects": 0, "upload_bytes": 0,
                          "fetch_bytes": 0, "resident_cycles": 0,
-                         "establishes": 0}
+                         "establishes": 0, "syncs": 0}
         self.last_upload_bytes = 0
         self.last_phase_s = dict.fromkeys(PHASES, 0.0)
         # the usage the last dispatch read (after its delta prologue):
-        # (topology, usage, cohort_usage) on the device, for solve_preempt
+        # (topology, usage, cohort_usage) on the device, for
+        # solve_preemptions
         self._cycle_state = None
         self._sync_samples: list = []  # recent launch-to-sync times (ms)
         self._probe_sync_ms: Optional[float] = None  # estimated_sync_ms
@@ -219,6 +245,9 @@ class BatchSolver:
         return self._resident
 
     def _sync(self) -> None:
+        """Wait for the device (counted in counters["syncs"], also on
+        the CPU, where there is nothing to wait for)."""
+        self.counters["syncs"] += 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -424,15 +453,18 @@ class BatchSolver:
     # --- the cycle ---
 
     def dispatch(self, plan: Plan, fair_sharing: bool = False,
-                 preempt_batch=None) -> tuple:
+                 preempt_batch=None, fair_batch=None,
+                 fs_flags: tuple = ()) -> tuple:
         """Upload what the cycle needs and run it. Returns (device
         outputs, keys to fetch). Bound, the upload is the heads' slot
         indices, the arena's changed rows, the delta prologue and the
         flavor-resume ranks; unbound, the state and the whole batch.
         fair_sharing orders the admits by DRF share (kernel.drf_share);
-        a preempt_batch (solver/preempt.py) is solved in the same call
-        against the same usage (kernel.solve_cycle_with_preempt). The
-        usage the cycle read is kept for solve_preempt."""
+        a preempt_batch (solver/preempt.py) and a fair_batch
+        (solver/fairpreempt.py, solved with the strategy flags fs_flags)
+        are solved in the same call against the same usage
+        (kernel.solve_cycle_with_preempt). The usage the cycle read is
+        kept for solve_preemptions."""
         t0 = time.perf_counter()
         topo, batch, state = plan.topo, plan.batch, plan.state
         compact = topo.nominal.shape[1] <= MAX_COMPACT_FLAVORS
@@ -450,10 +482,15 @@ class BatchSolver:
                     batch.solvable)
         kwargs = dict(num_podsets=self.max_podsets, fair_sharing=fair_sharing,
                       start_rank=start_rank, compact=compact)
-        host_pargs = pargs = None
+        host_pargs = pargs = host_fargs = fargs = None
         if preempt_batch is not None:
             host_pargs = preempt_args(preempt_batch)
             pargs = tuple(self._upload(a) for a in host_pargs)
+        if fair_batch is not None:
+            host_fargs = fair_args(fair_batch)
+            fargs = tuple(self._upload(a) for a in host_fargs)
+            kwargs.update(fair_preempt_args=fargs,
+                          fs_strategies=tuple(fs_flags))
         if plan.resident and rs is not None and rs.token == topo.token:
             if rs.usage_dev is None:
                 usage_in = self._upload(state.usage)
@@ -498,7 +535,7 @@ class BatchSolver:
             up = sum(a.nbytes for a in batch_np)
             self._sync()
             t1 = time.perf_counter()
-            if pargs is None:
+            if pargs is None and fargs is None:
                 result = solve_cycle_fused(plan.topo_dev, *dev, **kwargs)
             else:
                 result = solve_cycle_with_preempt(plan.topo_dev, *dev, pargs,
@@ -508,8 +545,9 @@ class BatchSolver:
         self.last_phase_s["upload"] = t1 - t0
         self.last_phase_s["device"] = time.perf_counter() - t1
         self._observe_sync(self.last_phase_s["device"] * 1e3)
-        if pargs is not None:
-            up += sum(a.nbytes for a in host_pargs)
+        for host in (host_pargs, host_fargs):
+            if host is not None:
+                up += sum(a.nbytes for a in host)
         if plan.start_rank is not None:
             up += plan.start_rank.nbytes
         if not plan.resident or establishing:
@@ -524,14 +562,15 @@ class BatchSolver:
         keys = DECISION_KEYS if compact else DENSE_DECISION_KEYS
         if pargs is not None:
             keys = keys + PREEMPT_KEYS
+        if fargs is not None:
+            keys = keys + FAIR_KEYS
         return result, keys
 
     def collect(self, plan: Plan, result: dict, keys, snapshot: Snapshot):
         """Fetch the decisions only, unpack and decode them, and update
         the residency bookkeeping. Returns (decisions, aux): aux holds the
-        preemption outputs when the cycle had a preempt batch
-        ({"preempt": (targets, feasible), "preempt_stats": stats}, as the
-        JAX package's collect returns them), else None."""
+        preemption outputs when the cycle had preemption batches
+        (preempt_aux), else None."""
         t0 = time.perf_counter()
         fetched = {k: result[k].cpu().numpy() for k in keys}
         self.counters["fetch_bytes"] += sum(v.nbytes for v in fetched.values())
@@ -547,52 +586,79 @@ class BatchSolver:
                                        resident=resident_ok)
         self.last_phase_s["fetch"] = t1 - t0
         self.last_phase_s["decode"] = time.perf_counter() - t1
-        aux = None
-        if "preempt_targets" in fetched:
-            aux = {"preempt": (fetched["preempt_targets"],
-                               fetched["preempt_feasible"]),
-                   "preempt_stats": fetched["preempt_stats"]}
-        return decisions, aux
+        return decisions, preempt_aux(fetched)
 
     def solve_prepared(self, plan: Plan, snapshot: Snapshot,
                        preempt_batch=None, fair_sharing: bool = False,
-                       fair_batch=None) -> tuple:
+                       fair_batch=None, fs_flags: tuple = ()) -> tuple:
         """Dispatch the prepared cycle, sync once, decode
         (kueue_tpu/solver/service.py:1219, single chip). A preempt_batch
-        is solved in the same dispatch against the same pre-cycle usage.
-        Returns (decisions, aux), aux as collect returns it. Fair-sharing
-        preemption batches are not ported and raise."""
-        if fair_batch is not None:
-            raise NotImplementedError(
-                "fair-sharing preemption is not ported to the device yet")
+        and a fair_batch (with its strategy flags fs_flags) are solved in
+        the same dispatch against the same pre-cycle usage. Returns
+        (decisions, aux), aux as collect returns it."""
         result, keys = self.dispatch(plan, fair_sharing=fair_sharing,
-                                     preempt_batch=preempt_batch)
+                                     preempt_batch=preempt_batch,
+                                     fair_batch=fair_batch,
+                                     fs_flags=fs_flags)
         return self.collect(plan, result, keys, snapshot)
 
-    def solve_preempt(self, preempt_batch) -> tuple:
-        """K9 alone (kernel.solve_preempt) against the usage the last
-        dispatch read: the cycle's usage from before its admissions, never
-        the resident state Phase B left. Uploads the batch, launches,
-        syncs and fetches, timed as last_phase_s["preempt"]. Returns
-        numpy (targets[B,K], feasible[B], stats[B,4])."""
+    def _fetch(self, result: dict, keys) -> dict:
+        """The outputs `keys` in one device-to-host copy: their bytes side
+        by side in one buffer on the device, split again on the host."""
+        ts = [result[k] for k in keys]
+        flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in ts])
+        host = flat.cpu().numpy()
+        out, off = {}, 0
+        for k, t in zip(keys, ts):
+            n = t.numel() * t.element_size()
+            dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+            out[k] = host[off:off + n].view(dtype).reshape(tuple(t.shape))
+            off += n
+        return out
+
+    def solve_preemptions(self, preempt_batch=None, fair_batch=None,
+                          fs_flags: tuple = ()) -> Optional[dict]:
+        """K9 on preempt_batch and K11 on fair_batch (with the strategy
+        flags fs_flags, fairpreempt.strategy_flags), launched back to back
+        (kernel.solve_preemptions) against the usage the last dispatch
+        read: the cycle's usage from before its admissions, never the
+        resident state Phase B left. One upload of both batches, one sync
+        and one fetch for both, timed as last_phase_s["preempt"]. Returns
+        the aux dict of preempt_aux (numpy), None with no batch."""
+        if preempt_batch is None and fair_batch is None:
+            return None
         if self._cycle_state is None:
-            raise RuntimeError("solve_preempt needs a dispatched cycle")
+            raise RuntimeError("solve_preemptions needs a dispatched cycle")
         t0 = time.perf_counter()
         topo_dev, usage, cohort_usage = self._cycle_state
-        host = preempt_args(preempt_batch)
-        dev = [self._upload(a) for a in host]
+        host_p = None if preempt_batch is None else preempt_args(
+            preempt_batch)
+        host_f = None if fair_batch is None else fair_args(fair_batch)
+        dev_p = None if host_p is None else \
+            tuple(self._upload(a) for a in host_p)
+        dev_f = None if host_f is None else \
+            tuple(self._upload(a) for a in host_f)
         t1 = time.perf_counter()
-        out = kernel.solve_preempt(topo_dev, usage, cohort_usage, *dev)
+        out = kernel.solve_preemptions(topo_dev, usage, cohort_usage, dev_p,
+                                       dev_f, tuple(fs_flags))
         self._sync()
         self._observe_sync((time.perf_counter() - t1) * 1e3)
-        targets, feasible, stats = (t.cpu().numpy() for t in out)
-        up = sum(a.nbytes for a in host)
+        fetched = self._fetch(out, [k for k in PREEMPT_KEYS + FAIR_KEYS
+                                    if k in out])
+        up = sum(a.nbytes for host in (host_p, host_f) if host is not None
+                 for a in host)
         self.last_upload_bytes += up
         self.counters["upload_bytes"] += up
-        self.counters["fetch_bytes"] += targets.nbytes + feasible.nbytes + \
-            stats.nbytes
+        self.counters["fetch_bytes"] += sum(v.nbytes
+                                            for v in fetched.values())
         self.last_phase_s["preempt"] = time.perf_counter() - t0
-        return targets, feasible, stats
+        return preempt_aux(fetched)
+
+    def solve_preempt(self, preempt_batch) -> tuple:
+        """K9 alone through solve_preemptions. Returns numpy
+        (targets[B,K], feasible[B], stats[B,4])."""
+        aux = self.solve_preemptions(preempt_batch)
+        return (*aux["preempt"], aux["preempt_stats"])
 
     def solve(self, snapshot: Snapshot, entries: list,
               fair_sharing: bool = False) -> dict:

@@ -211,6 +211,20 @@ def synth_preempt_inputs(num_problems: int, max_candidates: int,
     shared by CQs at two depths), every 8th outside any cohort, and usage
     between 30% and 140% of nominal, bubbled up the tree past each
     level's guaranteed quota; the problems are synth_preempt_problems'."""
+    topo, usage, cusage = synth_preempt_cluster(
+        depth, num_cqs, num_leaf_cohorts, fanout, num_flavors,
+        num_resources, seed)
+    from kueue_tpu_torch.solver.preempt import preempt_args
+    batch = synth_preempt_problems(topo, num_problems, max_candidates,
+                                   max_local_cqs, table_rows, seed + 200)
+    return topo, usage, cusage, preempt_args(batch)
+
+
+def synth_preempt_cluster(depth: int, num_cqs: int, num_leaf_cohorts: int,
+                          fanout: int, num_flavors: int, num_resources: int,
+                          seed: int):
+    """The cluster of synth_preempt_inputs: (topo dict, usage,
+    cohort_usage)."""
     if depth > 1:
         topo, _, _, _ = synth_nested_inputs(
             num_cqs=num_cqs, num_leaf_cohorts=num_leaf_cohorts,
@@ -238,10 +252,145 @@ def synth_preempt_inputs(num_problems: int, max_candidates: int,
         if parent[c] >= 0:
             cusage[parent[c]] += np.maximum(
                 0, cusage[c] - topo["cohort_guaranteed"][c])
-    from kueue_tpu_torch.solver.preempt import preempt_args
-    batch = synth_preempt_problems(topo, num_problems, max_candidates,
-                                   max_local_cqs, table_rows, seed + 200)
-    return topo, usage, cusage, preempt_args(batch)
+    return topo, usage, cusage
+
+
+def synth_fair_inputs(num_problems: int, max_candidates: int,
+                      max_local_cqs: int = 4, depth: int = 3,
+                      num_cqs: int = 64, num_leaf_cohorts: int = 8,
+                      fanout: int = 2, num_flavors: int = 4,
+                      num_resources: int = 2, table_rows: int = 64,
+                      seed: int = 0):
+    """Synthetic fair-sharing preemption problems for kernel.solve_fair on
+    synth_preempt_inputs' cluster (a flat forest at depth 1; at depth 2
+    and 3 trees with every 5th CQ attached one level up, a node shared
+    at two depths; every 8th CQ outside any cohort): returns (topo dict,
+    usage, cohort_usage, fair_args)."""
+    topo, usage, cusage = synth_preempt_cluster(
+        depth, num_cqs, num_leaf_cohorts, fanout, num_flavors,
+        num_resources, seed)
+    from kueue_tpu_torch.solver.fairpreempt import fair_args
+    batch = synth_fair_problems(topo, num_problems, max_candidates,
+                                max_local_cqs, table_rows, seed + 300)
+    return topo, usage, cusage, fair_args(batch)
+
+
+def synth_fair_problems(topo: dict, num_problems: int, max_candidates: int,
+                        max_local_cqs: int = 4, table_rows: int = 64,
+                        seed: int = 0):
+    """Synthetic fair-sharing preemption problems over an encoded topology
+    (a dict or a Topology), as a solver/fairpreempt.FairBatch (with no
+    problem objects) bucketed as encode_fair_problems buckets them, so
+    rows past num_problems are padding problems. Each problem's slots are
+    every resource of two flavors (so a share sums two slots per
+    resource); the preemptor asks for one flavor's; its candidates sit in
+    its own CQ and in CQs of its root cohort (a problem of a CQ outside
+    any cohort keeps them in its own); ranks, counts and first positions
+    as the encode derives them. The share constants mix borrowing outside
+    the slots (base_other, floor_ratio, floor_any), weights 0, 500, 1000
+    and 3000, and roots lending nothing in a resource; a third of the
+    problems have a borrowWithinCohort threshold."""
+    from kueue_tpu_torch.solver.encode import _bucket
+    from kueue_tpu_torch.solver.fairpreempt import FairBatch
+    from kueue_tpu_torch.solver.preempt import localize_cohorts
+    get = topo.get if isinstance(topo, dict) else \
+        (lambda name: getattr(topo, name))
+    nominal, cq_cohort = get("nominal"), get("cq_cohort")
+    Q, F, R = nominal.shape
+    rng = np.random.default_rng(seed)
+    root_of = np.where(cq_cohort >= 0,
+                       get("cohort_root")[np.maximum(cq_cohort, 0)],
+                       -1 - np.arange(Q))
+    B = _bucket(max(1, num_problems), 1)
+    K = _bucket(max(1, max_candidates))
+    NS = 2 * R if F > 1 else R
+    RF = _bucket(NS)
+    QL = _bucket(max_local_cqs, 1)
+    b_ = FairBatch()
+    b_.gq = np.full((B, QL), -1, np.int32)
+    b_.gf = np.full((B, RF), -1, np.int32)
+    b_.gr = np.zeros((B, RF), np.int32)
+    b_.requests = np.zeros((B, RF), np.int64)
+    b_.frs_np = np.zeros((B, RF), bool)
+    b_.cand_idx = np.zeros((B, K), np.int32)
+    b_.cand_ql = np.full((B, K), -1, np.int16)
+    b_.allow_borrowing = np.ones(B, bool)
+    b_.threshold_active = np.zeros(B, bool)
+    b_.threshold = np.zeros(B, np.int64)
+    b_.has_cohort = np.zeros(B, bool)
+    b_.cand_rank = np.full((B, K), -1, np.int32)
+    b_.cq_count = np.zeros((B, QL), np.int32)
+    b_.cq_order = np.full((B, QL), 2**30, np.int32)
+    b_.base_other = np.zeros((B, QL, RF), np.int64)
+    b_.floor_ratio = np.full((B, QL), -1, np.int64)
+    b_.floor_any = np.zeros((B, QL), bool)
+    b_.weight = np.full((B, QL), 1000, np.int64)
+    b_.lendable = np.zeros((B, RF), np.int64)
+    unit = max(1, int(nominal.mean() // 8))
+    U = _bucket(table_rows, 1)
+    b_.cand_usage = np.zeros((U, RF), np.int64)
+    b_.cand_usage[1:, :NS] = rng.integers(0, 5, size=(U - 1, NS)) * unit
+    b_.cand_prio = np.zeros(U, np.int32)
+    b_.cand_prio[1:] = rng.integers(0, 10, size=U - 1)
+    for b in range(num_problems):
+        q0 = int(rng.integers(Q))
+        has_cohort = cq_cohort[q0] >= 0
+        local = [q0]
+        if has_cohort:
+            peers = np.flatnonzero((root_of == root_of[q0])
+                                   & (np.arange(Q) != q0))
+            n = min(len(peers), int(rng.integers(1, max_local_cqs)))
+            local += [int(x) for x in rng.choice(peers, n, replace=False)]
+        b_.gq[b, :len(local)] = local
+        flavors = sorted(rng.choice(F, 2, replace=False)) if F > 1 else [0]
+        # the slots in FlavorResource order: (flavor, resource) sorted
+        slots = [(f, r) for f in flavors for r in range(R)]
+        for i, (f, r) in enumerate(slots):
+            b_.gf[b, i], b_.gr[b, i] = f, r
+        asked = int(rng.integers(len(flavors)))
+        for i, (f, r) in enumerate(slots):
+            if f == flavors[asked]:
+                b_.requests[b, i] = int(rng.integers(1, 12)) * unit \
+                    * (rng.uniform() < 0.9)
+                b_.frs_np[b, i] = rng.uniform() < 0.8
+        if rng.uniform() < 0.1:  # beyond what removing every candidate frees
+            b_.requests[b] *= 64
+        k = 0 if rng.uniform() < 0.08 else \
+            int(rng.integers(1, max_candidates + 1))
+        b_.cand_idx[b, :k] = rng.integers(1, U, size=k)
+        own_share = rng.uniform(0.1, 0.5)
+        b_.cand_ql[b, :k] = np.where(
+            (rng.uniform(size=k) < own_share) | (len(local) == 1), 0,
+            rng.integers(1, max(2, len(local)), size=k))
+        q = b_.cand_ql[b, :k].astype(np.int64)
+        for lq in range(len(local)):
+            pos = np.flatnonzero(q == lq)
+            b_.cand_rank[b, pos] = np.arange(len(pos))
+            b_.cq_count[b, lq] = len(pos)
+            if len(pos):
+                b_.cq_order[b, lq] = pos[0]
+        if rng.uniform() < 0.35:
+            b_.threshold_active[b] = True
+            b_.threshold[b] = int(rng.integers(0, 10))
+        b_.has_cohort[b] = has_cohort
+        # share constants, the same on every slot of a resource
+        lend_r = np.where(rng.uniform(size=R) < 0.15, 0,
+                          rng.integers(1, 40, size=R) * 8 * unit)
+        for i, (f, r) in enumerate(slots):
+            b_.lendable[b, i] = lend_r[r]
+        for lq in range(len(local)):
+            b_.weight[b, lq] = rng.choice([0, 500, 1000, 1000, 3000]) \
+                if rng.uniform() < 0.5 else 1000
+            if rng.uniform() < 0.25:
+                extra = rng.integers(0, 3, size=R) * unit
+                for i, (f, r) in enumerate(slots):
+                    b_.base_other[b, lq, i] = extra[r]
+            if rng.uniform() < 0.2:
+                b_.floor_any[b, lq] = True
+                b_.floor_ratio[b, lq] = -1 if rng.uniform() < 0.3 else \
+                    int(rng.integers(0, 1500))
+    localize_cohorts(b_, get("cq_chain"))
+    return b_
 
 
 def synth_preempt_problems(topo: dict, num_problems: int,

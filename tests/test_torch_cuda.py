@@ -17,7 +17,11 @@ from kueue_tpu_torch.api import kueue as api
 from kueue_tpu_torch.sim import northstar as ns
 from kueue_tpu_torch.solver import BatchSolver, encode
 from kueue_tpu_torch.solver import kernel as tk
-from kueue_tpu_torch.solver.synth import (synth_deltas, synth_nested_inputs,
+from kueue_tpu_torch.solver.fairpreempt import strategy_flags
+from kueue_tpu_torch.scheduler.preemption import parse_strategies
+from kueue_tpu_torch.solver.synth import (synth_deltas, synth_fair_inputs,
+                                          synth_fair_problems,
+                                          synth_nested_inputs,
                                           synth_preempt_inputs,
                                           synth_preempt_problems,
                                           synth_solver_inputs,
@@ -211,10 +215,11 @@ def test_batch_solver_on_card_equals_cpu(cuda_device):
 def test_bound_solver_on_card_equals_cpu(fair, cuda_device):
     """A short churn on a full cluster: finishes feed the delta prologue,
     requeued heads keep their arena rows, new heads are scattered; each
-    cycle also carries a preemption batch over the cycle's topology,
-    solved in the same dispatch against the pre-cycle usage (K10's
-    preemption composition). Every kernel of the bound cycle launches,
-    solve_preempt included; drf_share only with fair sharing."""
+    cycle also carries a preemption batch over the cycle's topology, and
+    with fair sharing a fair-sharing preemption batch too, solved in the
+    same dispatch against the pre-cycle usage (K10's preemption
+    composition). Every kernel of the bound cycle launches, solve_preempt
+    included; drf_share and solve_fair only with fair sharing."""
     flavors = [f"f{i}" for i in range(4)]
     cache, queues = ns.build_cluster(32, 4, flavors, 10, api.STRICT_FIFO)
     admitted = deque()
@@ -235,15 +240,23 @@ def test_bound_solver_on_card_equals_cpu(fair, cuda_device):
         snapshot = cache.snapshot()
         plans = [s.prepare(snapshot, heads) for s in (solver, reference)]
         batch = synth_preempt_problems(plans[0].topo, 12, 40, seed=cycle)
+        fair_batch = synth_fair_problems(plans[0].topo, 12, 40, seed=cycle) \
+            if fair else None
         (got, got_pre), (want, want_pre) = (
             s.solve_prepared(p, snapshot, preempt_batch=batch,
-                             fair_sharing=fair)
+                             fair_sharing=fair, fair_batch=fair_batch,
+                             fs_flags=strategy_flags(parse_strategies(None)))
             for s, p in zip((solver, reference), plans))
         assert {i: (a.pod_sets, ok) for i, (a, ok) in got.items()} == \
             {i: (a.pod_sets, ok) for i, (a, ok) in want.items()}
-        for a, b in zip((*got_pre["preempt"], got_pre["preempt_stats"]),
-                        (*want_pre["preempt"], want_pre["preempt_stats"])):
-            assert np.array_equal(a, b)
+        assert set(got_pre) == set(want_pre)
+        for key in ("preempt", "preempt_stats", "fair", "fair_stats"):
+            if key not in want_pre:
+                continue
+            pair = (got_pre[key], want_pre[key])
+            for a, b in zip(*(p if isinstance(p, tuple) else (p,)
+                              for p in pair)):
+                assert np.array_equal(a, b), key
         assert want_pre["preempt"][1].any()
         assert ns.apply_decisions(cache, queues, solver, heads, got,
                                   float(cycle), admitted) > 0
@@ -252,8 +265,10 @@ def test_bound_solver_on_card_equals_cpu(fair, cuda_device):
         assert np.array_equal(rs.usage_dev.cpu().numpy(), truth.usage)
         assert np.array_equal(rs.cohort_dev.cpu().numpy(), truth.cohort_usage)
     launched = tk.launch_counts()
-    assert all(n > 0 for name, n in launched.items() if name != "drf_share")
+    assert all(n > 0 for name, n in launched.items()
+               if name not in ("drf_share", "solve_fair"))
     assert (launched["drf_share"] > 0) == fair
+    assert (launched["solve_fair"] > 0) == fair
 
 
 @pytest.mark.cuda
@@ -341,3 +356,79 @@ def test_scheduler_preempt_on_card_equals_cpu(cuda_device):
         assert rows[0] == rows[1], cycle
     assert runs[0][3].evictions and runs[0][0].last_preempt_gate == "device"
     assert tk.launch_counts()["solve_preempt"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", (1, 2, 3))
+def test_solve_fair_on_card_equals_plain(depth, cuda_device):
+    """K11 against its plain version on seeded batches (a flat cohort
+    forest, trees 2 and 3 deep with a node shared at two depths; weight
+    0, roots lending nothing, borrowing outside the slots, thresholds,
+    padding problems), under every strategy order. All four outputs
+    equal, padding untouched."""
+    topo, usage, cu, args = synth_fair_inputs(
+        200, 120, max_local_cqs=8, depth=depth, num_flavors=3, seed=depth)
+    tt = tk.topo_to_device(topo, cuda_device)
+    state = tk.state_to_device(usage, cu, cuda_device)
+    dev_args = [torch.from_numpy(a).to(cuda_device) for a in args]
+    for strat in ((True, True, False), (True, False, False),
+                  (False, False, False), (False, True, True)):
+        want = tk.solve_fair_plain(tt, *state, *dev_args, strat=strat)
+        before = tk.launch_counts()["solve_fair"]
+        got = tk.solve_fair(tt, *state, *dev_args, strat=strat)
+        torch.cuda.synchronize()
+        assert tk.launch_counts()["solve_fair"] == before + 1
+        for name, a, b in zip(("targets", "feasible", "reasons", "stats"),
+                              got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, strat)
+        targets, feasible, reasons, stats = (t.cpu() for t in want)
+        assert feasible[:200].any() and not feasible[:200].all()
+        assert not targets[200:].any() and not stats[200:].any()
+        assert stats[:, 1].max() > 1
+
+
+def preemptions_syncs(solver, calls: list) -> None:
+    """Record (the solves run, syncs made) of each solve_preemptions."""
+    real = solver.solve_preemptions
+
+    def counted(*a, **kw):
+        before = solver.counters["syncs"]
+        aux = real(*a, **kw)
+        calls.append((sorted(aux or ()), solver.counters["syncs"] - before))
+        return aux
+    solver.solve_preemptions = counted
+
+
+@pytest.mark.cuda
+def test_scheduler_fair_preempt_on_card_equals_cpu(cuda_device):
+    """The port's Scheduler with fair sharing and device preemption on
+    the fair-sharing preemption configuration at 32 CQs in 4 cohorts,
+    and on a cycle with a minimal and a fair problem, on the card and
+    on the CPU: the same evictions (workload, reason) and admissions and
+    the same solve stats; solve_fair launched on the card; K9 and K11
+    of the mixed cycle after one sync."""
+    tk.reset_launch_counts()
+    for build, kinds in ((lambda s: ns.build_fair_preemption(32, 4, solver=s),
+                          ["fair"]),
+                         (lambda s: ns.build_mixed_preemption(solver=s),
+                          ["fair", "minimal"])):
+        rows, calls = [], []
+        for device in (cuda_device, "cpu"):
+            sched, cache, queues, client = build(BatchSolver(device=device))
+            sched.solver_sync_floor_ms = 0.0
+            preemptions_syncs(sched.solver, calls)
+            sched.schedule(timeout=0)
+            assert sched.last_route == "device"
+            assert sched.last_preempt_gate == "device"
+            assert sorted(sched.last_preempt_plan) == kinds
+            rows.append((list(client.evictions),
+                         sorted(wl.metadata.name for wl in client.new_applied),
+                         sched.last_preempt_plan))
+        assert rows[0] == rows[1]
+        assert rows[0][0]
+        solves = sorted({"fair": "fair", "minimal": "preempt"}[k]
+                        for k in kinds)
+        want = sorted(solves + [f"{k}_stats" for k in solves])
+        assert calls == [(want, 1), (want, 1)]
+    assert tk.launch_counts()["solve_fair"] == 2
+    assert tk.launch_counts()["solve_preempt"] == 1

@@ -39,6 +39,7 @@ from kueue_tpu_torch.core.resources import FlavorResource as TorchFR
 from kueue_tpu_torch.scheduler import flavorassigner as tfa
 from kueue_tpu_torch.solver import candidates as tcand
 from kueue_tpu_torch.solver import encode as tenc
+from kueue_tpu_torch.solver import fairpreempt as tfp
 from kueue_tpu_torch.solver import kernel as tk
 from kueue_tpu_torch.solver import preempt as tpre
 from kueue_tpu_torch.solver.service import BatchSolver
@@ -319,7 +320,9 @@ def test_solve_preempt_reads_the_pre_cycle_usage():
 def test_solve_prepared_with_preempt_batch(bound):
     """solve_prepared(preempt_batch=...) solves the batch in the cycle's
     own dispatch (the arena cycle when bound, solve_cycle_with_preempt
-    when not), against the same pre-cycle usage as solve_preempt."""
+    when not), against the same pre-cycle usage as solve_preempt; with
+    fair_batch=... (the same preemptor as a fair problem) it returns the
+    fair aux too, equal to solve_preemptions after the dispatch."""
     setup = with_existing(one_cq("10"), lambda: [
         wl("v1", "lq", 0, "3", reserve="cq", now=1.0),
         wl("v2", "lq", 0, "3", reserve="cq", now=2.0)])
@@ -346,8 +349,23 @@ def test_solve_prepared_with_preempt_batch(bound):
     assert_same(feasible, again[1])
     assert_same(aux["preempt_stats"], again[2])
     assert targets[0].sum() == 1 and feasible[0]
-    with pytest.raises(NotImplementedError):
-        solver.solve_prepared(plan, snap, fair_batch=object())
+    fair = tfp.encode_fair_problems(
+        [tfp.FairProblem(0, probs[0].domain, probs[0].sel,
+                         extra_frs=probs[0].domain.all_frs())],
+        snap, plan.topo, {0: {fr: 7000}}, {0: "cq"}, {0: {fr}})
+    flags = tfp.strategy_flags(env.scheduler.preemptor.fs_strategies)
+    _, aux = solver.solve_prepared(plan, snap, preempt_batch=batch,
+                                   fair_batch=fair, fs_flags=flags)
+    assert set(aux) == {"preempt", "preempt_stats", "fair", "fair_stats"}
+    again = solver.solve_preemptions(batch, fair, flags)
+    for k in aux:
+        for a, b in zip(aux[k] if k in ("preempt", "fair") else (aux[k],),
+                        again[k] if k in ("preempt", "fair")
+                        else (again[k],)):
+            assert_same(a, b, k)
+    fair_targets, fair_feasible, reasons = aux["fair"]
+    assert fair_feasible[0] and fair_targets[0].sum() >= 1
+    assert (reasons[0][fair_targets[0]] == 0).all()  # all in its own CQ
 
 
 def test_estimated_sync_floor():

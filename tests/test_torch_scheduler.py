@@ -29,7 +29,15 @@ TestDevicePreemption and tests/test_preempt_batched.py (a node shared at
 two depths, fill-back), seeded random nested-cohort scenarios and the
 preemption-heavy reclaim configuration at 2 roots x 2 children x 4 CQs x
 6 victims, where both Schedulers must also report the same solve stats
-(last_preempt_plan).
+(last_preempt_plan); with fair sharing and device preemption on (K11,
+and K9 for the heads whose candidates are all in their own CQ), the
+cases of tests/test_preempt_solver.py TestFairSharingThroughSolverPath
+and TestFairPreemptionsOnDevice (every strategy order, the retry pass,
+the borrowWithinCohort threshold, eight seeded random cohorts, a
+max-share preemptor with no candidate of its own), the fair-sharing
+preemption configuration at 16 CQs in 2 cohorts and a cycle with both
+kinds of problem; each of these is also held against the port's own CPU
+Preemptor (the same evictions, Preempted reasons and admissions).
 """
 
 import dataclasses
@@ -117,7 +125,7 @@ class Env:
     BatchSolver on the given route."""
 
     def __init__(self, pkg: str, route: str, fair_sharing=False,
-                 preempt="cpu"):
+                 preempt="cpu", fs_strategies=None):
         def mod(name):
             return importlib.import_module(f"{pkg}.{name}")
         self.pkg = pkg
@@ -132,6 +140,7 @@ class Env:
         self.scheduler = mod("scheduler.scheduler").Scheduler(
             self.queues, self.cache, self.client, clock=self.clock,
             fair_sharing_enabled=fair_sharing, solver=solver,
+            fs_preemption_strategies=fs_strategies,
             solver_min_heads=0 if route == "device" else 64)
         set_preempt_gate(self.scheduler, pkg, preempt)
         self.requeues = []
@@ -177,14 +186,14 @@ class Env:
 def set_preempt_gate(sched, pkg: str, preempt: str) -> None:
     """The preemption work gate, alike on both packages: "cpu" sends
     every preempt-mode entry to the CPU Preemptor, "device" every one
-    with candidates to the batched solve (no sync floor to cover). The
-    JAX Scheduler also gets no fair-sharing device preemption and no
-    watchdog deadline on its first compile."""
+    with candidates to the batched solves (no sync floor to cover), with
+    fair sharing on too. The JAX Scheduler also gets no watchdog deadline
+    on its first compile."""
     sched.solver_sync_floor_ms = 0.0
     if preempt == "cpu":
         sched.preempt_cand_us = 0.0
-    if pkg == "kueue_tpu":
         sched.fair_cand_us = 0.0
+    if pkg == "kueue_tpu":
         sched.watchdog = None
 
 
@@ -231,11 +240,12 @@ def observe(env, admissions_only=False) -> dict:
 
 def run_both(setup, workloads, route, fair_sharing=False, cycles=1,
              between=None, admissions_only=False, preempt="cpu",
-             envs_out=None):
+             envs_out=None, fs_strategies=None):
     """The scenario on both packages; returns the two observations after
     asserting they are equal, and the port's Env. envs_out, when given,
     receives both Envs (JAX first)."""
-    envs = [Env(pkg, route, fair_sharing, preempt) for pkg in PKGS]
+    envs = [Env(pkg, route, fair_sharing, preempt, fs_strategies)
+            for pkg in PKGS]
     if envs_out is not None:
         envs_out.extend(envs)
     for env in envs:
@@ -923,3 +933,365 @@ def test_reclaim_configuration(route):
         plans = [env.scheduler.last_preempt_plan for env in envs]
         assert plans[1] and plans[1] == plans[0]
         assert plans[1]["minimal"]["problems"] == 14 + 2
+
+
+# --- fair-sharing preemption: K11 (and K9) on both sides
+# (tests/test_preempt_solver.py TestFairSharingThroughSolverPath and
+# TestFairPreemptionsOnDevice) ---
+
+def fair_cohort(num_cqs=4, quota="4", bwc=None, names=None):
+    """cq0.. (or `names`) in cohort "all", LowerPriority within the CQ,
+    reclaimWithinCohort Any, borrowWithinCohort policy `bwc`."""
+    def setup(env):
+        env.add_flavor("default")
+        for name in names or [f"cq{i}" for i in range(num_cqs)]:
+            env.add_cq(fair_cohort_cq(name, quota, bwc), f"lq-{name}")
+    return setup
+
+
+def cpu_workloads(specs, reserve=False):
+    """(name, cq, priority, creation, cpu) -> workloads queued to lq-<cq>,
+    holding quota in <cq> when `reserve`."""
+    out = []
+    for name, cq, prio, ts, cpu in specs:
+        w = (WorkloadWrapper(name).queue(f"lq-{cq}").priority(prio)
+             .creation(ts).pod_set(count=1, cpu=cpu))
+        if reserve:
+            w = w.reserve(cq)
+        out.append(w.obj())
+    return out
+
+
+def port_cpu_preemptor(setup, workloads, cycles, strategies=None) -> dict:
+    """The scenario on the port alone, device route with the work gate
+    pinned to the CPU Preemptor."""
+    env = Env("kueue_tpu_torch", "device", True, "cpu", strategies)
+    setup(env)
+    for w in workloads():
+        env.submit(w)
+    for _ in range(cycles):
+        env.cycle()
+    assert env.scheduler.last_preempt_gate in ("", "cpu")
+    return observe(env)
+
+
+def fair_preempt_run(setup, workloads, cycles=1, strategies=None,
+                     require_device=True):
+    """run_both with fair sharing and device preemption on: both
+    Schedulers report the same solve stats, the JAX one with no CPU
+    fallback; then the port's device route against its own CPU
+    Preemptor: the same evictions (with their Preempted reasons) and
+    admissions. Returns (observation, the port's Scheduler)."""
+    envs = []
+    got, _ = run_both(setup, workloads, "device", fair_sharing=True,
+                      cycles=cycles, preempt="device", envs_out=envs,
+                      fs_strategies=strategies)
+    jax_sched, port_sched = (e.scheduler for e in envs)
+    assert jax_sched.preemption_fallbacks == 0
+    assert port_sched.last_preempt_plan == jax_sched.last_preempt_plan
+    if require_device:
+        assert port_sched.last_preempt_gate == "device"
+        assert port_sched.last_preempt_plan
+    cpu = port_cpu_preemptor(setup, workloads, cycles, strategies)
+    assert cpu["evicted"] == got["evicted"]
+    assert cpu["applied"] == got["applied"]
+    return got, port_sched
+
+
+def test_fair_preemption_differential():
+    """c is furthest under nominal and b borrows the most: fair sharing
+    reclaims from b (preemption_test.go:1532-1546)."""
+    setup = with_existing(fair_cohort(names=("a", "b", "c"), quota="3"),
+                          lambda: cpu_workloads(
+                              [(f"a{i}", "a", 0, float(i), "1")
+                               for i in range(3)]
+                              + [(f"b{i}", "b", 0, float(i), "1")
+                                 for i in range(5)]
+                              + [("c0", "c", 0, 0.0, "1")], reserve=True))
+    got, sched = fair_preempt_run(setup, lambda: cpu_workloads(
+        [("c_incoming", "c", 0, 100.0, "1")]))
+    assert got["evicted"]
+    assert all(r == [japi.IN_COHORT_FAIR_SHARING_REASON]
+               for r in preempted_reasons(got).values())
+    assert set(sched.last_preempt_plan) == {"fair"}
+
+
+def uneven_borrowers():
+    counts = {0: 2, 1: 7, 2: 5, 3: 1}  # cq1 borrows most
+    return cpu_workloads([(f"w{q}-{i}", f"cq{q}", 0, float(i), "1")
+                          for q, n in counts.items() for i in range(n)],
+                         reserve=True)
+
+
+FAIR_STRATEGIES = (None, ["LessThanOrEqualToFinalShare"],
+                   ["LessThanInitialShare"],
+                   ["LessThanInitialShare", "LessThanOrEqualToFinalShare"])
+
+
+@pytest.mark.parametrize("strategies", FAIR_STRATEGIES,
+                         ids=("default", "s2a", "s2b", "reversed"))
+def test_fair_strategy_orders(strategies):
+    """Uneven borrowing in the cohort; the incoming workload's CQ is
+    under nominal, so fair sharing reclaims from the heaviest borrower
+    first, under every strategy order."""
+    got, _ = fair_preempt_run(
+        with_existing(fair_cohort(), uneven_borrowers),
+        lambda: cpu_workloads([("inc", "cq3", 5, 100.0, "2")]),
+        strategies=strategies)
+    assert got["evicted"]
+
+
+def test_fair_retry_pass():
+    """Every CQ a little over nominal and a large ask from cq0: S2-a
+    refuses every candidate of the other CQs and only the S2-b retry
+    pass finds a target set (the fill-back then walks it), where S2-a
+    alone finds none. (The cohort is over its capacity, so the entry is
+    then skipped as no longer fitting, on every route.)"""
+    setup = with_existing(fair_cohort(quota="4"), lambda: cpu_workloads(
+        [(f"w{q}-{i}", f"cq{q}", 0, float(i), "1")
+         for q in range(4) for i in range(5)], reserve=True))
+
+    def workloads():
+        return cpu_workloads([("big", "cq0", 50, 100.0, "4")])
+    _, sched = fair_preempt_run(setup, workloads)
+    assert sched.last_preempt_plan["fair"]["fillback_rounds_max"] > 0
+    _, alone = fair_preempt_run(setup, workloads,
+                                strategies=["LessThanOrEqualToFinalShare"])
+    assert alone.last_preempt_plan["fair"]["fillback_rounds_max"] == 0
+
+
+def test_fair_borrow_within_cohort_threshold():
+    """Victims below the borrowWithinCohort threshold are preemptable
+    whatever the strategy says (InCohortReclaimWhileBorrowing)."""
+    existing = lambda: cpu_workloads(  # noqa: E731
+        [("w0-0", "cq0", 0, 0.0, "1")]
+        + [(f"w1-{i}", "cq1", -5, float(i), "1") for i in range(6)],
+        reserve=True)
+    got, _ = fair_preempt_run(
+        with_existing(fair_cohort(num_cqs=2, quota="4",
+                                  bwc=japi.BORROW_WITHIN_COHORT_LOWER_PRIORITY),
+                      existing),
+        lambda: cpu_workloads([("inc", "cq0", 10, 100.0, "3")]))
+    assert got["evicted"]
+
+
+def random_fair_scenario(seed: int):
+    """TestFairPreemptionsOnDevice.test_random_fair_differential's
+    scenario of seed `seed`: (setup, workloads, strategies)."""
+    rng = random.Random(1000 + seed)
+    n_cqs = rng.randint(2, 5)
+    quota = rng.choice(["2", "3", "4"])
+    strategies = rng.choice([None, ["LessThanOrEqualToFinalShare"],
+                             ["LessThanInitialShare"]])
+    victims = []
+    for qi in range(n_cqs):
+        for i in range(rng.randint(0, 6)):
+            victims.append((f"w{qi}-{i}", f"cq{qi}", rng.randint(-2, 4),
+                            float(i), str(rng.choice([1, 1, 2]))))
+    incoming = []
+    for j in range(rng.randint(1, 3)):
+        incoming.append((f"inc{j}", f"cq{rng.randrange(n_cqs)}",
+                         rng.randint(3, 8), 100.0 + j,
+                         str(rng.choice([1, 2, 3]))))
+    setup = with_existing(fair_cohort(num_cqs=n_cqs, quota=quota),
+                          lambda: cpu_workloads(victims, reserve=True))
+    return setup, lambda: cpu_workloads(incoming), strategies
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_fair_preemption_random(seed):
+    """random_fair_scenario, two cycles."""
+    setup, workloads, strategies = random_fair_scenario(seed)
+    fair_preempt_run(setup, workloads, cycles=2, strategies=strategies,
+                     require_device=False)
+
+
+@pytest.mark.parametrize("case", ("as_in_the_jax_tests", "peer_borrows"))
+def test_fair_zero_own_candidate_max_share_preemptor(case):
+    """The preemptor's CQ is the top borrower but has no candidate of its
+    own (within_cluster_queue Never); the low-priority workloads sit in
+    a lower-share peer under the borrowWithinCohort threshold. As in the
+    JAX package's test, the peer does not borrow, so there are no
+    candidates and both Schedulers keep to the CPU Preemptor; with a
+    third, idle CQ in the cohort and the peer borrowing, the device
+    scan must skip the candidate-less max-share CQ (it is never popped)
+    and take the peer's."""
+    peer = case == "peer_borrows"
+
+    def setup(env):
+        env.add_flavor("default")
+        for name in ("a", "b", "c") if peer else ("a", "b"):
+            env.add_cq(
+                ClusterQueueWrapper(name).cohort("all")
+                .preemption(
+                    within_cluster_queue=japi.PREEMPTION_NEVER,
+                    reclaim_within_cohort=japi.PREEMPTION_ANY,
+                    borrow_within_cohort=japi.BorrowWithinCohort(
+                        policy=japi.BORROW_WITHIN_COHORT_LOWER_PRIORITY))
+                .resource_group(flavor_quotas("default", cpu="4")).obj(),
+                f"lq-{name}")
+        for w in cpu_workloads([(f"a{i}", "a", 50, float(i), "1")
+                                for i in range(6)]
+                               + [(f"b{i}", "b", -10, float(i), "1")
+                                  for i in range(5 if peer else 2)],
+                               reserve=True):
+            env.admit_existing(w)
+
+    got, sched = fair_preempt_run(setup, lambda: cpu_workloads(
+        [("inc", "a", 5, 100.0, "2" if peer else "1")]),
+        require_device=peer)
+    if peer:
+        assert sched.last_preempt_plan["fair"]["problems"] == 1
+        assert set(preempted_reasons(got)) and all(
+            r == [japi.IN_COHORT_RECLAIM_WHILE_BORROWING_REASON]
+            for r in preempted_reasons(got).values())
+    else:
+        assert not got["evicted"] and sched.last_preempt_gate == "cpu"
+
+
+def fair_preemption_env(pkg: str, preempt: str = "device"):
+    """sim/northstar.build_fair_preemption's configuration at 16 CQs in 2
+    cohorts (8 members, 7 borrowers of 12 victims each), built into an
+    Env of either package from the same objects."""
+    from kueue_tpu_torch.sim import northstar as ns
+    env = Env(pkg, "device", fair_sharing=True, preempt=preempt)
+    num_cqs, num_cohorts, victims = 16, 2, 12
+    members = num_cqs // num_cohorts
+    milli = (members * 8000 - 2000) // (members - 1) // victims
+    env.add_flavor("f0")
+    for i in range(num_cqs):
+        cq = env.conv(ns.make_cq(f"cq{i}", f"cohort-{i % num_cohorts}",
+                                 ["f0"], 8,
+                                 preemption=ns.reclaim_preemption()))
+        env.cache.add_cluster_queue(cq)
+        env.queues.add_cluster_queue(cq)
+        env.queues.add_local_queue(env.conv(ns.make_local_queue(
+            f"lq{i}", f"cq{i}")))
+        env.cq_names.append(f"cq{i}")
+        if i >= num_cohorts:
+            for v in range(victims):
+                env.admit_existing(ns.victim_workload(
+                    f"victim{i}-{v}", f"lq{i}", f"cq{i}", milli, 0,
+                    float(v)))
+        else:
+            env.submit(ns.make_workload(f"preemptor{i}", f"lq{i}",
+                                        cpu_units=8, priority=10,
+                                        creation=1000.0))
+    return env
+
+
+def test_fair_preemption_configuration():
+    """Two cycles of the fair-sharing preemption configuration: each
+    cohort's preemptor drains the borrowers share by share (every
+    reason InCohortFairSharing); the port's build_fair_preemption builds
+    the same cluster and evicts the same."""
+    from kueue_tpu_torch.sim import northstar as ns
+    from kueue_tpu_torch.solver import BatchSolver
+    envs = [fair_preemption_env(pkg) for pkg in PKGS]
+    for _ in range(2):
+        for env in envs:
+            env.cycle()
+    ref, got = (observe(env) for env in envs)
+    for k in ref:
+        assert got[k] == ref[k], k
+    plans = [env.scheduler.last_preempt_plan for env in envs]
+    assert plans[1] == plans[0]
+    assert plans[1]["fair"]["problems"] == 2
+    assert plans[1]["fair"]["pool"] == 2 * 7 * 12
+    reasons = {r for rs in preempted_reasons(got).values() for r in rs}
+    assert reasons == {japi.IN_COHORT_FAIR_SHARING_REASON}
+    cpu_env = fair_preemption_env("kueue_tpu_torch", preempt="cpu")
+    for _ in range(2):
+        cpu_env.cycle()
+    cpu = observe(cpu_env)
+    assert cpu["evicted"] == got["evicted"]
+    assert cpu["applied"] == got["applied"]
+    # northstar.build_fair_preemption gives the same first cycle
+    sched, cache, queues, client = ns.build_fair_preemption(
+        16, 2, solver=BatchSolver(device="cpu"))
+    sched.solver_sync_floor_ms = 0.0
+    sched.schedule(timeout=0)
+    first = fair_preemption_env("kueue_tpu_torch")
+    first.cycle()
+    assert [k for k, _ in client.evictions] == [
+        key.split("/")[1] for key in first.client.evicted]
+    assert sched.last_preempt_plan == first.scheduler.last_preempt_plan
+
+
+def mixed_setup(env):
+    """One cohort, fair sharing: `own`'s preemptor has only candidates of
+    its own CQ (reclaimWithinCohort Never: a minimal problem, K9);
+    `claim`'s preemptor reclaims from the borrowing `lender` (a fair
+    problem, K11)."""
+    env.add_flavor("default")
+    env.add_cq(ClusterQueueWrapper("own").cohort("all")
+               .preemption(within_cluster_queue=japi.PREEMPTION_LOWER_PRIORITY,
+                           reclaim_within_cohort=japi.PREEMPTION_NEVER)
+               .resource_group(flavor_quotas("default", cpu="4")).obj(),
+               "lq-own")
+    env.add_cq(fair_cohort_cq("claim"), "lq-claim")
+    env.add_cq(fair_cohort_cq("lender"), "lq-lender")
+    for w in cpu_workloads([("own-low", "own", 0, 1.0, "3")]
+                           + [(f"l{i}", "lender", 0, float(i), "2")
+                              for i in range(4)], reserve=True):
+        env.admit_existing(w)
+
+
+def fair_cohort_cq(name, quota="4", bwc=None):
+    return (ClusterQueueWrapper(name).cohort("all")
+            .preemption(within_cluster_queue=japi.PREEMPTION_LOWER_PRIORITY,
+                        reclaim_within_cohort=japi.PREEMPTION_ANY,
+                        borrow_within_cohort=(japi.BorrowWithinCohort(
+                            policy=bwc) if bwc else None))
+            .resource_group(flavor_quotas("default", cpu=quota)).obj())
+
+
+def test_fair_and_minimal_in_one_cycle():
+    """A cycle with both kinds of problem: K9 and K11 run after the fit
+    sync with one more sync for both, and the targets equal the JAX
+    Scheduler's (minimal first, then fair) and the CPU Preemptor's."""
+    envs = []
+    syncs = []
+
+    def workloads():
+        return cpu_workloads([("own-high", "own", 10, 100.0, "3"),
+                              ("claimant", "claim", 5, 101.0, "4")])
+    real = BatchSolverSyncs.wrap(syncs)
+    try:
+        got, sched = fair_preempt_run(mixed_setup, workloads)
+    finally:
+        BatchSolverSyncs.unwrap(real)
+    assert set(sched.last_preempt_plan) == {"minimal", "fair"}
+    assert sched.last_preempt_plan["minimal"]["problems"] == 1
+    assert sched.last_preempt_plan["fair"]["problems"] == 1
+    reasons = preempted_reasons(got)
+    assert reasons["default/own-low"] == [japi.IN_CLUSTER_QUEUE_REASON]
+    assert any(r == [japi.IN_COHORT_RECLAMATION_REASON]
+               or r == [japi.IN_COHORT_FAIR_SHARING_REASON]
+               for k, r in reasons.items() if k != "default/own-low")
+    # the device route's solve_preemptions: one sync for K9 and K11
+    assert syncs and all(n == 1 for n in syncs)
+
+
+class BatchSolverSyncs:
+    """Records, for each solve_preemptions call of the port's
+    BatchSolver, how many syncs it made."""
+
+    @staticmethod
+    def wrap(out: list):
+        from kueue_tpu_torch.solver.service import BatchSolver
+        real = BatchSolver.solve_preemptions
+
+        def counted(self, *a, **kw):
+            before = self.counters["syncs"]
+            aux = real(self, *a, **kw)
+            if aux and "preempt" in aux and "fair" in aux:
+                out.append(self.counters["syncs"] - before)
+            return aux
+        BatchSolver.solve_preemptions = counted
+        return real
+
+    @staticmethod
+    def unwrap(real) -> None:
+        from kueue_tpu_torch.solver.service import BatchSolver
+        BatchSolver.solve_preemptions = real
