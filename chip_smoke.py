@@ -71,6 +71,21 @@ versions:
    cycle with a minimal and a fair problem (sim/northstar
    build_mixed_preemption) must launch K9 and K11 after one sync and
    evict as the CPU does.
+7. scheduler multikueue: the port's Scheduler on a MultiKueue manager
+   cluster (sim/northstar build_multikueue: the north star's 2048 CQs in
+   256 cohorts, 32 flavors of 40 units, 51,200 pending 40-unit
+   workloads, the MultiKueue check on every even CQ, five worker
+   clusters w0..w4 bucketed to 8 columns, w2 lost, w1 lost from the
+   sixth timed cycle on): 1 + 10 cycles, each on the device route with
+   cluster_cols launched once in the bound cycle, the placements handed
+   to on_placement never on a lost cluster and on at least three; its
+   inputs in the first timed cycle are kept and held against the plain
+   version and the host oracle (encode.place_remote_dicts walked in the
+   global admit order, on the columns cut to the flavors and resources
+   the topology knows), as is a synthetic batch (8 clusters, 32 flavors,
+   2 resources, 2048 rows); one traced cycle; then the same cycles with
+   device="cpu" must admit the same workloads and place them on the
+   same clusters in the same order.
 
 Every phase raises on failure; nothing is caught. The last lines are
 the card's name and power limit, one JSON line with the kernels'
@@ -81,6 +96,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -120,6 +136,7 @@ REPLACES = {
     "arena_gather": "kueue_tpu/solver/kernel.py:892",
     "solve_preempt": "kueue_tpu/solver/preempt.py:598",
     "solve_fair": "kueue_tpu/solver/fairpreempt.py:210",
+    "cluster_cols": "kueue_tpu/solver/kernel.py:614",
 }
 # the kernels each end-to-end phase must launch
 PHASE_KERNELS = {
@@ -128,7 +145,7 @@ PHASE_KERNELS = {
                    "pack"),
     "bound_churn": tuple(k for k in REPLACES
                          if k not in ("drf_share", "solve_preempt",
-                                      "solve_fair")),
+                                      "solve_fair", "cluster_cols")),
     # the finishes free more than 512 (cq, resource) coords and replace
     # more than 512 arena rows each cycle: the state and the twin are
     # re-uploaded whole, so deltas and arena_scatter do not run here
@@ -142,6 +159,10 @@ PHASE_KERNELS = {
     "scheduler_fair_preempt": ("arena_gather", "avail", "phase_a",
                                "drf_share", "order", "phase_b", "pack",
                                "solve_fair"),
+    # the cluster columns ride the bound cycle (the finishes re-upload
+    # the state and the twin whole, as in the fair phase)
+    "scheduler_multikueue": ("arena_gather", "avail", "phase_a", "order",
+                             "phase_b", "pack", "cluster_cols"),
 }
 # The fair-sharing benchmark configuration (bench.py bench_fair_sharing,
 # builders bench.py:107-214): every admission borrows, 1024 per cycle.
@@ -178,6 +199,19 @@ SYNC_CALLS = 25
 # the order kernel's check with non-zero shares: mixed values and ties,
 # negative shares (a root lending nothing) and NO_LIMIT (weight 0)
 MIXED_SHARES = (-2, -1, 0, 0, 125, 125, 333, 2**62)
+# The MultiKueue manager cluster (sim/northstar build_multikueue) on the
+# north star: w1 is lost from the sixth timed cycle on.
+MK = dict(num_cqs=2048, num_cohorts=256, num_flavors=32, nominal_units=40,
+          cpu_units=40, waves=25)
+MK_TIMED = 10
+MK_LOST = ("w1", E2E_WARMUP + 5)
+# K12's synthetic check: lost clusters, partial offers, capacity that runs
+# out mid-scan
+MK_SYNTH = dict(num_clusters=8, num_flavors=32, num_resources=2,
+                num_workloads=2048, num_podsets=4, num_cqs=2048, seed=23)
+# collect's copy per key against one copy of all keys: calls of each, in
+# turns
+FETCH_REPS = 200
 
 
 def log(msg: str) -> None:
@@ -222,6 +256,38 @@ def device_us(event, self_only: bool = False) -> float:
     prefix = "self_" if self_only else ""
     value = getattr(event, f"{prefix}device_time_total", None)
     return value if value is not None else getattr(event, f"{prefix}cuda_time_total")
+
+
+@contextlib.contextmanager
+def fetch_timing(solver, out: dict):
+    """Within the block, solver.collect keeps the arguments it is called
+    with. After it, on the block's first decision outputs (the device
+    tensors collect fetched), collect's copy per key (each array by its
+    own .cpu()) and the one copy of solver._fetch are timed in turns,
+    FETCH_REPS calls of each; `out` gets their p50 and the bytes."""
+    calls, real = [], solver.collect
+
+    def record(plan, result, keys, snapshot):
+        calls.append((result, tuple(keys)))
+        return real(plan, result, keys, snapshot)
+    solver.collect = record
+    try:
+        yield
+    finally:
+        del solver.collect
+    result, keys = calls[0]
+    ways = {"one_copy": lambda: solver._fetch(result, keys),
+            "per_key": lambda: {k: result[k].cpu().numpy() for k in keys}}
+    times = {w: [] for w in ways}
+    for i in range(FETCH_REPS):
+        for w in (ways if i % 2 else reversed(list(ways))):
+            t0 = time.perf_counter()
+            ways[w]()
+            times[w].append(time.perf_counter() - t0)
+    out.update({f"{w}_p50_ms": percentile(v, 50) * 1e3
+                for w, v in times.items()}, keys=list(keys),
+               bytes=sum(result[k].numel() * result[k].element_size()
+                         for k in keys))
 
 
 class GcClock:
@@ -510,9 +576,9 @@ def kernel_phase(kind: str, device, results: dict) -> None:
     rows["order"] = (
         compare(("offsets", "members"), k.order_csr(*o_args), ref_o),
         lambda: k.order_csr(*o_args), lambda: k.order_csr_plain(*o_args),
-        order_bytes(*o_args, ref_o), "plain")
+        order_bytes(*o_args, ref_o[:2]), "plain")
 
-    offsets, members = ref_o
+    offsets, members, _ = ref_o
     b_args = (topo, usage, cu, asg, fit, wl["wl_cq"], offsets, members)
     ref_b = k.phase_b_plain(*b_args)
     steps = int((offsets[1:] - offsets[:-1]).max().item())
@@ -740,9 +806,12 @@ def e2e_phase(device, phase: str) -> dict:
         row["admitted"] = n
         return row
 
+    fetch = {}
     kernel.reset_launch_counts()
     for cycle in range(E2E_WARMUP + timed):
-        row = run_cycle(cycle)
+        with fetch_timing(solver, fetch) if cycle == E2E_WARMUP \
+                else contextlib.nullcontext():
+            row = run_cycle(cycle)
         if cycle < E2E_WARMUP:
             continue
         admitted_timed += row["admitted"]
@@ -762,6 +831,7 @@ def e2e_phase(device, phase: str) -> dict:
     summary["admitted_timed"] = admitted_timed
     summary["launches"] = launches
     summary["counters"] = dict(solver.counters)
+    summary["fetch_timing"] = fetch
     arena = solver.arena
     summary["arena"] = {"cap": arena.cap, "full_uploads": arena.full_uploads,
                         "row_uploads": arena.row_uploads,
@@ -1547,6 +1617,263 @@ def scheduler_fair_preempt_phase(device) -> dict:
     return summary
 
 
+def mk_env(device):
+    """The MultiKueue cell, its Scheduler's solver on `device`. Returns
+    (scheduler, cache, queues, client, remote capacity)."""
+    from kueue_tpu_torch.sim import northstar as ns
+    from kueue_tpu_torch.solver import BatchSolver
+    return ns.build_multikueue(**MK, solver=BatchSolver(device=device))
+
+
+def mk_lose(remote, cycle: int) -> None:
+    if cycle >= MK_LOST[1]:
+        remote.lost.add(MK_LOST[0])
+
+
+def cluster_bytes(args, out) -> int:
+    """Bytes cluster_cols must move on these inputs: the columns and the
+    order once, the admitted flags, the CQ of each admitted row and the
+    check flag of each such CQ, the podset flags of the rows that take
+    part and the requests of their active podsets only, mk_cluster
+    written once."""
+    import torch
+    ccap, coffer, cactive, mk_cq, requests, podset_active, wl_cq, order, \
+        admitted = args
+    _, P, R = requests.shape
+    q = wl_cq[admitted].long()
+    rows = admitted.nonzero().squeeze(1)[mk_cq[q]]
+    active = int(podset_active[rows].sum())
+    return nbytes(ccap, coffer, cactive, order, admitted, out) + \
+        4 * int(q.numel()) + int(torch.unique(q).numel()) + \
+        int(rows.numel()) * P + active * R * 8
+
+
+def cluster_kernel_check(label: str, k, args: tuple, got, cols: tuple,
+                         resources: list, timed: bool) -> dict:
+    """cluster_cols' output `got` against the plain version on the same
+    card tensors and against the host oracle (synth.cluster_oracle: the
+    rows walked in the global admit order through place_remote_dicts on
+    `cols`); with `timed`, the kernel's device time (profiler), its time
+    per call and the plain version's (CUDA events), its byte bound and
+    its chain of dependent steps (one per placed row)."""
+    import numpy as np
+    import torch
+    from kueue_tpu_torch.solver import synth
+    want = k.score_cluster_columns_plain(*args)
+    compare(("mk_cluster",), (got,), (want,))
+    host = [a.cpu().numpy() for a in args]
+    oracle = synth.cluster_oracle(cols, resources, host[4], host[5], host[6],
+                                  host[7], host[8], host[3])
+    mkc = got.cpu().numpy()
+    if not np.array_equal(mkc, oracle):
+        bad = int((mkc != oracle).sum())
+        raise AssertionError(f"cluster_cols ({label}) differs from the host "
+                             f"oracle on {bad} rows")
+    part = host[8] & host[3][host[6]]
+    placed = int((mkc >= 0).sum())
+    row = {"max_abs_err": 0.0, "rows": int(part.sum()), "placed": placed,
+           "unplaced": int(part.sum()) - placed,
+           "shape_K_F_R_W_P": [*args[0].shape, *args[4].shape[:2]],
+           "active_clusters": int(host[2].sum()),
+           "by_column": np.bincount(mkc[mkc >= 0],
+                                    minlength=args[0].shape[0]).tolist(),
+           "dependent_steps": placed, "oracle_equal": True}
+    if timed:
+        def run_kernel():
+            return k.score_cluster_columns(*args)
+
+        def run_plain():
+            return k.score_cluster_columns_plain(*args)
+        torch.cuda.synchronize()
+        row["call_ms"] = time_cuda(run_kernel, iters=20)
+        row["plain_ms"] = time_cuda(run_plain, iters=2, warmup=1)
+        kernel_ms = profiled_device_ms(run_kernel, 20, "cluster_cols")
+        row["ms"], row["ms_source"] = (kernel_ms, "profiler") \
+            if kernel_ms is not None else (row["call_ms"], "events")
+        row["bytes"] = cluster_bytes(args, got)
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        # no one PyTorch call runs the sequential scan
+        row["library_ms"] = None
+    log(f"[kernels:cluster_cols:{label}] equal to plain and to the host "
+        "oracle: " + json.dumps(row))
+    return row
+
+
+def scheduler_multikueue_phase(device) -> dict:
+    """The port's Scheduler on the MultiKueue cell, cycle after cycle, on
+    the card: before each cycle the last cycle's admissions finish (their
+    remote capacity credited back), outside the timed window with the
+    check of the resident state and a full collection; the cycle is one
+    schedule() call, which must take the device route and launch
+    cluster_cols once. Placements (on_placement) never land on a lost
+    cluster and land on at least three. cluster_cols' inputs in the first
+    timed cycle are kept and held against the plain version and the host
+    oracle, as is a synthetic batch; then the same cycles with
+    device="cpu" must admit the same workloads and make the same
+    placements in the same order."""
+    from collections import Counter
+
+    import torch
+    from kueue_tpu_torch.sim import northstar as ns
+    from kueue_tpu_torch.solver import encode, kernel, synth
+    phase = "scheduler_multikueue"
+    t_phase = time.perf_counter()
+    sched, cache, queues, client, remote = mk_env(device)
+    solver = sched.solver
+    snap = cache.snapshot()
+    topo = encode.encode_topology(snap)
+    mk_cqs = {n for n, cq in snap.cluster_queues.items()
+              if ns.MK_CHECK in cq.admission_checks}
+    log(f"[{phase}] cluster: {MK['num_cqs']} CQs ({len(mk_cqs)} with "
+        f"{ns.MK_CHECK}), {MK['num_cohorts']} cohorts, {MK['num_flavors']} "
+        f"flavors x {MK['nominal_units']} units; {queues.pending_total()} "
+        f"pending staged; clusters {sorted(remote.free)} (lost "
+        f"{sorted(remote.lost)}; {MK_LOST[0]} from cycle {MK_LOST[1]}) in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    keys = SCHED_PHASES + ("gc", "other", "cycle")
+    phases = {p: [] for p in keys}
+    records, cols_by_cycle, rows_mk = [], {}, []
+    admitted_timed = 0
+    wrapper = kernel.KERNEL_WRAPPERS["cluster_cols"]
+    gc_clock = GcClock()
+    gc.callbacks.append(gc_clock)
+
+    def run_cycle(cycle: int, check_first: bool = True) -> dict:
+        if check_first and cycle > 0:
+            check_resident(solver, cache, topo)
+        mk_lose(remote, cycle)
+        t0 = time.perf_counter()
+        finished = ns.finish_applied(cache, queues, client, remote)
+        t_finish = time.perf_counter() - t0
+        gc.collect()
+        start, lost = len(remote.placements), set(remote.lost)
+        cols_by_cycle[cycle] = remote.capacity_columns()[0]
+        before, k_before = client.admitted, wrapper.launches
+        g0, t0 = gc_clock.total, time.perf_counter()
+        sched.schedule(timeout=0)
+        g1, t1 = gc_clock.total, time.perf_counter()
+        if sched.last_route != "device":
+            raise AssertionError(f"{phase} cycle {cycle} took the "
+                                 f"{sched.last_route!r} route")
+        placements = tuple(remote.placements[start:])
+        on_lost = [c for _, c in placements if c in lost]
+        if on_lost:
+            raise AssertionError(f"{phase} cycle {cycle}: placements on "
+                                 f"lost clusters {sorted(set(on_lost))}")
+        records.append((cycle_record(client, cache), placements))
+        mk_admitted = sum(1 for wl in client.new_applied
+                          if wl.status.admission.cluster_queue in mk_cqs)
+        row = {**sched.last_phase_s, **solver.last_phase_s,
+               "gc": g1 - g0, "cycle": t1 - t0}
+        row["other"] = row["cycle"] - sum(row[p] for p in SCHED_PHASES)
+        row["admitted"] = client.admitted - before
+        mk = {"launches": wrapper.launches - k_before,
+              "mk_admitted": mk_admitted,
+              "device_placed": len(solver.last_placements),
+              "unplaced": mk_admitted - len(solver.last_placements),
+              "placements": len(placements),
+              "by_cluster": dict(sorted(Counter(
+                  c for _, c in placements).items())),
+              "upload_bytes": solver.last_upload_bytes}
+        row["mk"] = mk
+        log(f"[{phase}] cycle {cycle}"
+            f"{' (warm-up)' if cycle < E2E_WARMUP else ''}: finished="
+            f"{finished} (finish_ms={t_finish * 1e3:.1f}) admitted="
+            f"{row['admitted']} lost={sorted(lost)} mk={json.dumps(mk)} "
+            f"pending={queues.pending_total()} cycle_ms="
+            f"{row['cycle'] * 1e3:.1f} ms="
+            + json.dumps({p: round(row[p] * 1e3, 3) for p in keys
+                          if p != "cycle"}))
+        return row
+
+    captured = Captured(kernel, "score_cluster_columns")
+    fetch = {}
+    kernel.reset_launch_counts()
+    for cycle in range(E2E_WARMUP + MK_TIMED):
+        if cycle == E2E_WARMUP:
+            with captured, fetch_timing(solver, fetch):
+                row = run_cycle(cycle)
+        else:
+            row = run_cycle(cycle)
+        mk = row["mk"]
+        if mk["launches"] != 1:
+            raise AssertionError(f"{phase} cycle {cycle}: cluster_cols "
+                                 f"launched {mk['launches']} times")
+        if len(mk["by_cluster"]) < 3:
+            raise AssertionError(f"{phase} cycle {cycle}: placements on "
+                                 f"{sorted(mk['by_cluster'])} only")
+        if mk["unplaced"] < 0.05 * mk["mk_admitted"]:
+            raise AssertionError(f"{phase} cycle {cycle}: {mk['unplaced']} "
+                                 f"of {mk['mk_admitted']} rows unplaced, "
+                                 "under 5%")
+        if cycle < E2E_WARMUP:
+            continue
+        rows_mk.append(mk)
+        admitted_timed += row["admitted"]
+        for p in keys:
+            phases[p].append(row[p])
+    launches = kernel.launch_counts()
+    for name in PHASE_KERNELS[phase]:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{phase} path")
+    summary = {p: {"p50_ms": percentile(v, 50) * 1e3, "max_ms": max(v) * 1e3}
+               for p, v in phases.items()}
+    summary["admitted_per_s"] = admitted_timed / sum(phases["cycle"])
+    summary["admitted_timed"] = admitted_timed
+    for name in ("upload_bytes", "mk_admitted", "device_placed", "unplaced",
+                 "placements"):
+        summary[name] = {"p50": percentile([m[name] for m in rows_mk], 50),
+                         "min": min(m[name] for m in rows_mk),
+                         "max": max(m[name] for m in rows_mk)}
+    summary["by_cluster_total"] = dict(sorted(sum(
+        (Counter(m["by_cluster"]) for m in rows_mk), Counter()).items()))
+    summary["launches"] = launches
+    summary["counters"] = dict(solver.counters)
+    summary["fetch_timing"] = fetch
+    if captured.args is None:
+        raise AssertionError("cluster_cols was not called in the captured "
+                             "cycle")
+    cut = synth.known_columns(cols_by_cycle[E2E_WARMUP], topo.flavor_index,
+                              topo.resource_index)
+    summary["kernel_rows"] = {"captured": cluster_kernel_check(
+        "captured", kernel, captured.args, captured.out, cut, topo.resources,
+        True)}
+    cols, _, resources, args = synth.synth_cluster_inputs(**MK_SYNTH)
+    dev_args = tuple(torch.from_numpy(a).to(device) for a in args)
+    summary["kernel_rows"]["synthetic"] = cluster_kernel_check(
+        "synthetic", kernel, dev_args, kernel.score_cluster_columns(*dev_args),
+        cols, resources, True)
+    check_resident(solver, cache, topo)
+    summary["traced_cycle"] = traced_cycle(
+        phase, run_cycle, E2E_WARMUP + MK_TIMED, kernel="cluster_cols")
+    check_resident(solver, cache, topo)
+    gc.callbacks.remove(gc_clock)
+    # the same cycles on the CPU: the plain cluster_cols, the same flush
+    t_cpu = time.perf_counter()
+    c_sched, c_cache, c_queues, c_client, c_remote = mk_env("cpu")
+    for cycle, want in enumerate(records):
+        mk_lose(c_remote, cycle)
+        ns.finish_applied(c_cache, c_queues, c_client, c_remote)
+        start = len(c_remote.placements)
+        c_sched.schedule(timeout=0)
+        got = (cycle_record(c_client, c_cache),
+               tuple(c_remote.placements[start:]))
+        if got[0] != want[0]:
+            raise AssertionError(f"{phase} cycle {cycle}: the card admitted "
+                                 "other workloads than the CPU")
+        if got[1] != want[1]:
+            raise AssertionError(f"{phase} cycle {cycle}: the card placed "
+                                 "other workloads or clusters than the CPU")
+    summary["cpu_check_s"] = time.perf_counter() - t_cpu
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[{phase}] equal to the CPU run: {len(records)} cycles, "
+        f"{client.admitted} admitted, {len(remote.placements)} placements")
+    log(f"[{phase}] " + json.dumps(
+        {k: v for k, v in summary.items() if k != "kernel_rows"}))
+    return summary
+
+
 def traced_cycle(phase: str, run_cycle, cycle: int,
                  kernel: str = None) -> dict:
     """One more main-path cycle under torch.profiler (after the timed
@@ -1617,9 +1944,16 @@ def main() -> int:
         log(f"[kernels:{kind}] wall {time.perf_counter() - t0:.1f} s")
     runners = {"scheduler_fair": scheduler_phase,
                "scheduler_preempt": scheduler_preempt_phase,
-               "scheduler_fair_preempt": scheduler_fair_preempt_phase}
+               "scheduler_fair_preempt": scheduler_fair_preempt_phase,
+               "scheduler_multikueue": scheduler_multikueue_phase}
     e2e = {phase: runners[phase](device) if phase in runners
            else e2e_phase(device, phase) for phase in PHASE_KERNELS}
+    for phase, summary in e2e.items():
+        # the cluster columns ride only the MultiKueue cell's cycles
+        if phase != "scheduler_multikueue" \
+                and summary["launches"]["cluster_cols"]:
+            raise AssertionError(f"cluster_cols launched on the {phase} "
+                                 "path")
     # K9's rows: the main path's captured inputs and the synthetic nested
     results["north_star"]["solve_preempt"] = \
         e2e["scheduler_preempt"]["kernel_rows"]["captured"]
@@ -1630,6 +1964,11 @@ def main() -> int:
         e2e["scheduler_fair_preempt"]["kernel_rows"]["captured"]
     results["nested"]["solve_fair"] = \
         e2e["scheduler_fair_preempt"]["kernel_rows"]["nested"]
+    # K12's: the MultiKueue phase's captured inputs and the synthetic batch
+    results["north_star"]["cluster_cols"] = \
+        e2e["scheduler_multikueue"]["kernel_rows"]["captured"]
+    results["nested"]["cluster_cols"] = \
+        e2e["scheduler_multikueue"]["kernel_rows"]["synthetic"]
 
     kernels = []
     for name in _build.KERNELS:
@@ -1653,12 +1992,18 @@ def main() -> int:
                                 "bound_ms", "dependent_steps",
                                 "rounds_max", "rounds_mean", "pops_max",
                                 "fillback_max")},
-            # phase_b's, solve_preempt's and solve_fair's real limit is a
-            # serial chain, which a byte or operation count does not
-            # capture
+            # phase_b's, solve_preempt's, solve_fair's and cluster_cols'
+            # real limit is a serial chain, which a byte or operation
+            # count does not capture
             **({"latency_bound": f"{row['dependent_steps']} dependent steps",
                 "dependent_steps": row["dependent_steps"]}
-               if name in ("phase_b", "solve_preempt", "solve_fair") else {}),
+               if name in ("phase_b", "solve_preempt", "solve_fair",
+                           "cluster_cols") else {}),
+            **({"inputs": "the scheduler multikueue phase's first timed "
+                          "cycle",
+                "rows": row["rows"], "placed": row["placed"],
+                "unplaced": row["unplaced"]}
+               if name == "cluster_cols" else {}),
             **({"inputs": "the scheduler preempt phase's first timed cycle",
                 "rounds_max": row["rounds_max"],
                 "rounds_mean": row["rounds_mean"]}

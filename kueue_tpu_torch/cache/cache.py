@@ -8,8 +8,9 @@ Snapshots for lock-free scheduling cycles.
 The port keeps the full-rebuild path only (the JAX package's
 Cache(incremental_snapshots=False)) with the usage journal its solver
 consumes: no incremental snapshot maintainer (and so no snapshot
-consumer of the journal), no light snapshots, no handout recycling, no
-remote-cluster columns.
+consumer of the journal), no light snapshots, no handout recycling.
+Each snapshot carries the MultiKueue remote-cluster capacity columns of
+`remote_capacity_source` when one is set (`_stamp_remote`).
 """
 
 from __future__ import annotations
@@ -89,6 +90,11 @@ class Cache:
         self._journal_cap = 200_000
         self._journal_cursors: dict = {}  # consumer -> consumed-up-to seq
         self._journal_overflowed: set = set()  # consumers that lost entries
+        # MultiKueue remote-cluster capacity source: a callable returning
+        # (columns tuple, MultiKueue check-name frozenset), stamped on
+        # every snapshot (Snapshot.remote_clusters, mk_check_names) so the
+        # solver scores cross-cluster placement inside the fused solve.
+        self.remote_capacity_source = None
 
     def _new_cohort(self, name: str) -> CohortCache:
         cohort = CohortCache(name)
@@ -526,9 +532,31 @@ class Cache:
 
     def snapshot(self) -> Snapshot:
         """A full deep-cloned snapshot (the JAX package's
-        incremental_snapshots=False path)."""
+        incremental_snapshots=False path), stamped with the remote-cluster
+        columns."""
         with self._lock:
-            return self._build_snapshot()
+            snap = self._build_snapshot()
+        # Outside the cache lock: the capacity source reads other state
+        # (the remote clusters' caches), whose locks must never be taken
+        # under this one.
+        return self._stamp_remote(snap)
+
+    def _stamp_remote(self, snap: Snapshot) -> Snapshot:
+        """Attach the current remote-cluster capacity columns (the full
+        branch of kueue_tpu/cache/cache.py:714; the port has no light
+        snapshots). Called without the cache lock held."""
+        src = self.remote_capacity_source
+        if src is None:
+            return snap
+        try:
+            cols, checks = src()
+        except Exception:  # noqa: BLE001 — capacity is advisory
+            # A torn read during remote churn stamps "no columns this
+            # cycle" rather than failing the cycle.
+            cols, checks = (), frozenset()
+        snap.remote_clusters = cols
+        snap.mk_check_names = checks
+        return snap
 
     def _build_snapshot(self) -> Snapshot:
         """From-scratch snapshot construction: a deep clone of every

@@ -165,6 +165,15 @@ class Snapshot:
     # The cache's usage-journal position when the snapshot was taken:
     # the solver drains the journal up to here before each cycle.
     journal_seq: int = 0
+    # MultiKueue remote-cluster capacity columns: an ordered tuple of
+    # (cluster_name, {(flavor, resource): available}, active), stamped
+    # by Cache.snapshot() from its remote_capacity_source. A lost
+    # cluster stamps active=False, so its columns take no placement on
+    # the next cycle. The source rebuilds the tuple on change.
+    remote_clusters: tuple = ()
+    # the AdmissionCheck names the MultiKueue controller owns: the
+    # encoder marks the CQs that carry one as routing through the columns
+    mk_check_names: frozenset = frozenset()
 
     def remove_workload(self, wl: wlpkg.Info) -> None:
         """Simulate removal (reference: snapshot.go:39)."""

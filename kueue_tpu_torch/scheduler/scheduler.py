@@ -54,8 +54,17 @@ Differences from the JAX Scheduler, on this synchronous path:
   one), the degradation ladder (and its deferred preemption), breaker,
   warm governor and watchdog, journeys, the flight recorder (and its
   preempt-plan annotation), the query plane, aging, metrics,
-  leader_check, cq_filter and MultiKueue placements. At their defaults
-  each is a no-op on the synchronous path.
+  leader_check and cq_filter. At their defaults each is a no-op on the
+  synchronous path.
+
+MultiKueue placements: with `on_placement` set (a callable taking the
+workload key and a cluster name), every admitted head whose CQ carries a
+MultiKueue check gets a remote cluster at admission time. One flush per
+cycle, at the end of the apply stage (`_flush_mk_placements`): the rows
+the device placed are pinned to the fused solve's mk_cluster choice
+(`solver.last_placements`), and the rest run the sequential oracle
+(encode.place_remote_dicts) against the snapshot's capacity columns,
+continuing from the pinned rows' consumption.
 
 Each cycle's phase times (seconds) are in `last_phase_s`: heads,
 snapshot, nominate, preempt-plan, decode-targets, apply and requeue
@@ -72,6 +81,7 @@ from typing import Optional
 
 from kueue_tpu_torch import features
 from kueue_tpu_torch.api import kueue as api
+from kueue_tpu_torch.api.corev1 import RESOURCE_PODS
 from kueue_tpu_torch.api.meta import REAL_CLOCK, Clock
 from kueue_tpu_torch.cache import Cache, Snapshot
 from kueue_tpu_torch.cache.snapshot import ClusterQueueSnapshot
@@ -88,6 +98,7 @@ from kueue_tpu_torch.scheduler.preemption import (
     make_reclaim_oracle,
     parse_strategies,
 )
+from kueue_tpu_torch.solver import encode as solver_encode
 from kueue_tpu_torch.solver import fairpreempt
 from kueue_tpu_torch.solver import preempt as devpreempt
 from kueue_tpu_torch.solver.candidates import candidate_index
@@ -203,6 +214,11 @@ class Scheduler:
             fs_strategies=parse_strategies(fs_preemption_strategies),
             clock=clock,
             apply_preemption=self._apply_preemption)
+        # MultiKueue placement sink (kueue_tpu/scheduler/scheduler.py:333):
+        # on_placement(workload key, cluster name) for every admitted head
+        # of a CQ with a MultiKueue check, resolved by the cycle's flush.
+        self.on_placement = None
+        self._mk_admits: list = []  # (Info, cq snapshot) this cycle
 
     # --- the cycle ---
 
@@ -317,6 +333,9 @@ class Scheduler:
                 self.admit(e, cq)
             except Exception as exc:  # noqa: BLE001 — cache/API races surface here
                 e.inadmissible_msg = f"Failed to admit workload: {exc}"
+        # one flush for the cycle: the device stage's admissions came
+        # first, so the oracle continues from their placements
+        self._flush_mk_placements(snapshot)
         self._span("apply", t_ph)
 
     def _stage_requeue(self, nom: stages.NominatedCycle) -> stages.AppliedCycle:
@@ -751,6 +770,10 @@ class Scheduler:
         self.cache.assume_workload(new_wl, info=wlpkg.Info.from_assignment(
             new_wl, e.info.cluster_queue, e.assignment))
         e.status = ASSUMED
+        if self.on_placement is not None:
+            # the admit ORDER matters: the oracle's accounting is
+            # sequential; the flush keeps the MultiKueue CQs' rows
+            self._mk_admits.append((e.info, cq))
 
         def apply():
             try:
@@ -774,6 +797,36 @@ class Scheduler:
                                   f"since reservation was 0s")
 
         apply()
+
+    def _flush_mk_placements(self, snapshot: Snapshot) -> None:
+        """Resolve the cycle's MultiKueue placements and hand them to
+        on_placement (kueue_tpu/scheduler/scheduler.py:2422). Rows the
+        device placed are pinned to its mk_cluster choice; the others
+        run the sequential oracle against the snapshot's capacity
+        columns, continuing from the pinned rows' consumption."""
+        admits, self._mk_admits = self._mk_admits, []
+        if self.on_placement is None or not admits:
+            return
+        cols = snapshot.remote_clusters
+        checks = snapshot.mk_check_names
+        if not cols or not checks:
+            return
+        device = getattr(self.solver, "last_placements", None) or {}
+        mk, reqs, pinned = [], [], []
+        for info, cq in admits:
+            if checks.isdisjoint(cq.admission_checks):
+                continue
+            covers_pods = any(RESOURCE_PODS in rg.covered_resources
+                              for rg in cq.resource_groups)
+            mk.append(info)
+            reqs.append(wlpkg.mk_request_vector(info, covers_pods))
+            pinned.append(device.get(info.key))
+        if not mk:
+            return
+        placed = solver_encode.place_remote_dicts(cols, reqs, pinned=pinned)
+        for info, cluster in zip(mk, placed):
+            if cluster is not None:
+                self.on_placement(info.key, cluster)
 
     def _apply_preemption(self, wl: api.Workload, preempting_cq: str,
                           reason: str, message: str) -> None:

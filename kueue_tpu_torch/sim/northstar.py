@@ -13,9 +13,12 @@ Two ways to drive a cycle:
   `finish_applied`): the fair-sharing deployment of the JAX package's
   benchmark (bench.py bench_fair_sharing, builders bench.py:107-214),
   its preemption-heavy one (`build_preempt_reclaim`, bench.py
-  bench_preemption_reclaim, with `admit_victim`) and its fair-sharing
+  bench_preemption_reclaim, with `admit_victim`), its fair-sharing
   preemption one (`build_fair_preemption`, bench.py
-  bench_fair_preemption);
+  bench_fair_preemption) and a MultiKueue manager cluster placing its
+  admissions on a fleet of worker clusters (`build_multikueue`, with
+  `RemoteCapacity` standing in for the MultiKueue controller's capacity
+  columns);
 - the solver by hand: heads from `Manager.heads_nonblocking` (one per
   CQ), `solve`, then `apply_decisions`: admitted heads are assumed into
   the cache and handed to `solver.release_workload`, the rest are
@@ -30,6 +33,7 @@ from collections import deque
 from kueue_tpu_torch.api import kueue as api
 from kueue_tpu_torch.api.corev1 import Container, PodSpec, PodTemplateSpec
 from kueue_tpu_torch.api.meta import (
+    Condition,
     FakeClock,
     LabelSelector,
     ObjectMeta,
@@ -39,6 +43,7 @@ from kueue_tpu_torch.cache import Cache
 from kueue_tpu_torch.core import workload as wlpkg
 from kueue_tpu_torch.queue import Manager, RequeueReason
 from kueue_tpu_torch.scheduler.scheduler import Scheduler, SchedulerClient
+from kueue_tpu_torch.solver import encode
 
 
 def make_flavor(name: str) -> api.ResourceFlavor:
@@ -48,14 +53,17 @@ def make_flavor(name: str) -> api.ResourceFlavor:
 def make_cq(name: str, cohort: str, flavors: list, nominal_units: int,
             queueing_strategy: str = api.BEST_EFFORT_FIFO,
             fair_weight: int = None,
-            preemption: api.ClusterQueuePreemption = None) -> api.ClusterQueue:
+            preemption: api.ClusterQueuePreemption = None,
+            admission_checks: tuple = ()) -> api.ClusterQueue:
     """fair_weight: the CQ's fair-sharing weight in milli-units (None
     leaves the spec without one, which weighs 1000); preemption: the
-    CQ's preemption policy (None leaves the default, Never/Never)."""
+    CQ's preemption policy (None leaves the default, Never/Never);
+    admission_checks: the names of the AdmissionChecks it carries."""
     cq = api.ClusterQueue(metadata=ObjectMeta(name=name, uid=f"cq-{name}"))
     cq.spec.namespace_selector = LabelSelector()
     cq.spec.cohort = cohort
     cq.spec.queueing_strategy = queueing_strategy
+    cq.spec.admission_checks = list(admission_checks)
     if preemption is not None:
         cq.spec.preemption = preemption
     if fair_weight is not None:
@@ -94,10 +102,12 @@ def build_cluster(num_cqs: int, num_cohorts: int, flavors: list,
                   nominal_units: int,
                   queueing_strategy: str = api.BEST_EFFORT_FIFO,
                   queues: Manager = None, fair_weights: tuple = None,
-                  preemption: api.ClusterQueuePreemption = None) -> tuple:
+                  preemption: api.ClusterQueuePreemption = None,
+                  cq_checks=None) -> tuple:
     """cq{i} in cohort-{i % num_cohorts}, every flavor at nominal_units,
     fed by lq{i}; with fair_weights, cq{i} weighs
-    fair_weights[i % len(fair_weights)]; every CQ takes `preemption`.
+    fair_weights[i % len(fair_weights)]; every CQ takes `preemption`;
+    with cq_checks, cq{i} carries the AdmissionChecks cq_checks(i).
     Returns (Cache, Manager)."""
     cache = Cache()
     queues = Manager() if queues is None else queues
@@ -107,7 +117,8 @@ def build_cluster(num_cqs: int, num_cohorts: int, flavors: list,
         cq = make_cq(f"cq{i}", f"cohort-{i % num_cohorts}", flavors,
                      nominal_units, queueing_strategy,
                      fair_weights[i % len(fair_weights)]
-                     if fair_weights else None, preemption)
+                     if fair_weights else None, preemption,
+                     cq_checks(i) if cq_checks else ())
         cache.add_cluster_queue(cq)
         queues.add_cluster_queue(cq)
         queues.add_local_queue(make_local_queue(f"lq{i}", f"cq{i}"))
@@ -233,33 +244,40 @@ def build_scheduler(num_cqs: int, num_cohorts: int, flavors: list,
                     nominal_units: int, solver=None,
                     fair_sharing: bool = False,
                     fair_weights: tuple = None,
-                    preemption: api.ClusterQueuePreemption = None) -> tuple:
+                    preemption: api.ClusterQueuePreemption = None,
+                    cq_checks=None) -> tuple:
     """The JAX package's benchmark environment (bench.py build_env) on
     the port: a FakeClock at 1000 s, the cluster of build_cluster and a
     Scheduler that takes the device route on every cycle when a solver
-    is given (solver_min_heads 0). fair_weights and preemption as in
-    build_cluster. Returns (Scheduler, Cache, Manager, SimClient)."""
+    is given (solver_min_heads 0). fair_weights, preemption and
+    cq_checks as in build_cluster. Returns (Scheduler, Cache, Manager,
+    SimClient)."""
     clock = FakeClock(1000.0)
     cache, queues = build_cluster(num_cqs, num_cohorts, flavors,
                                   nominal_units,
                                   queues=Manager(clock=clock),
                                   fair_weights=fair_weights,
-                                  preemption=preemption)
+                                  preemption=preemption,
+                                  cq_checks=cq_checks)
     client = SimClient()
     sched = Scheduler(queues, cache, client, clock=clock, solver=solver,
                       solver_min_heads=0, fair_sharing_enabled=fair_sharing)
     return sched, cache, queues, client
 
 
-def finish_applied(cache: Cache, queues: Manager, client: SimClient) -> int:
+def finish_applied(cache: Cache, queues: Manager, client: SimClient,
+                   remote: "RemoteCapacity" = None) -> int:
     """The admissions since the last call finish: their quota is
     released, and each cohort's parked inadmissible workloads are queued
-    again, as the workload controller does on delete (manager.go:381).
-    Returns the number finished."""
+    again, as the workload controller does on delete (manager.go:381);
+    with a MultiKueue fleet, the remote capacity each held is credited
+    back. Returns the number finished."""
     done = client.drain_applied()
     for wl in done:
         cache.delete_workload(wl)
         queues.queue_associated_inadmissible_workloads_after(wl)
+        if remote is not None:
+            remote.release(wlpkg.key(wl))
     return len(done)
 
 
@@ -411,3 +429,108 @@ def build_mixed_preemption(num_borrowers: int = 6, victims_per_cq: int = 12,
     sched = Scheduler(queues, cache, client, clock=clock, solver=solver,
                       solver_min_heads=0, fair_sharing_enabled=True)
     return sched, cache, queues, client
+
+
+# --- MultiKueue: a manager cluster placing admissions on worker clusters ---
+
+MK_CHECK = "mk-check"
+MK_CONTROLLER = "kueue.x-k8s.io/multikueue"
+
+
+def mk_admission_check(name: str = MK_CHECK) -> api.AdmissionCheck:
+    """An active AdmissionCheck owned by the MultiKueue controller."""
+    ac = api.AdmissionCheck(metadata=ObjectMeta(name=name, uid=f"ac-{name}"))
+    ac.spec.controller_name = MK_CONTROLLER
+    ac.status.conditions.append(Condition(
+        type=api.ADMISSION_CHECK_ACTIVE, status="True", reason="Active"))
+    return ac
+
+
+class RemoteCapacity:
+    """The worker clusters of a MultiKueue fleet, standing in for
+    MultiKueueController.capacity_columns
+    (kueue_tpu/controller/admissionchecks/multikueue.py:224-280):
+    `capacity_columns` (a Cache's remote_capacity_source) stamps each
+    cluster's free capacity {(flavor, resource): quantity} in sorted-name
+    order, a lost cluster as active=False with no capacity; `place` (a
+    Scheduler's on_placement sink) debits the workload's request
+    (request_of(key)) from its cluster by the shared placement rule
+    (encode.consume_remote_dicts), and `release` credits it back when the
+    workload finishes. So capacity moves from cycle to cycle.
+    `placements` keeps every (key, cluster) the sink received."""
+
+    def __init__(self, clusters: dict, request_of):
+        self.free = {name: dict(caps) for name, caps in clusters.items()}
+        self.request_of = request_of
+        self.lost: set = set()
+        self.held: dict = {}  # key -> (cluster, {(flavor, resource): debit})
+        self.placements: list = []
+
+    def capacity_columns(self) -> tuple:
+        cols = tuple((name, {} if name in self.lost else dict(self.free[name]),
+                      name not in self.lost) for name in sorted(self.free))
+        return cols, frozenset({MK_CHECK})
+
+    def place(self, key: str, cluster: str) -> None:
+        self.placements.append((key, cluster))
+        caps = self.free[cluster]
+        ((_, left, _),) = encode.consume_remote_dicts(
+            ((cluster, caps, True),), [self.request_of(key)], [cluster])
+        self.held[key] = (cluster, {fr: caps[fr] - v for fr, v in left.items()
+                                    if caps[fr] != v})
+        self.free[cluster] = left
+
+    def release(self, key: str) -> None:
+        cluster, debit = self.held.pop(key, (None, {}))
+        for fr, v in debit.items():
+            self.free[cluster][fr] += v
+
+
+def multikueue_fleet(flavors: list, cpu_units: int) -> dict:
+    """Five worker clusters w0..w4 in slots of one cpu_units workload
+    (cpu and GiB): w0 offers the first four flavors, 32 slots each; w1
+    and w2 every flavor, 11 slots each; w3 every flavor, 11 slots each,
+    and a flavor unknown to the manager (`remote-only`, 4 slots); w4 the
+    last flavor, 64 slots, and the one before it with cpu only (a partial
+    offer that never fits)."""
+    cpu, mem = cpu_units * 1000, cpu_units << 30
+
+    def slots(fl, n, resources=("cpu", "memory")):
+        per = {"cpu": cpu, "memory": mem}
+        return {(f, r): n * per[r] for f in fl for r in resources}
+
+    return {
+        "w0": slots(flavors[:4], 32),
+        "w1": slots(flavors, 11),
+        "w2": slots(flavors, 11),
+        "w3": {**slots(flavors, 11), **slots(["remote-only"], 4)},
+        "w4": {**slots(flavors[-1:], 64),
+               **slots(flavors[-2:-1], 64, ("cpu",))},
+    }
+
+
+def build_multikueue(num_cqs: int = 2048, num_cohorts: int = 256,
+                     num_flavors: int = 32, nominal_units: int = 40,
+                     cpu_units: int = 40, waves: int = 25, solver=None,
+                     fleet: dict = None) -> tuple:
+    """A MultiKueue manager cluster on the north star: build_scheduler's
+    cluster (flavors f0..f{num_flavors-1}), `waves` waves of cpu_units
+    workloads staged (stage_waves), the MultiKueue AdmissionCheck
+    `mk-check` on every even CQ, and a RemoteCapacity over `fleet`
+    (multikueue_fleet by default) with w2 lost, wired to
+    cache.remote_capacity_source and sched.on_placement. Returns
+    (Scheduler, Cache, Manager, SimClient, RemoteCapacity)."""
+    flavors = [f"f{i}" for i in range(num_flavors)]
+    sched, cache, queues, client = build_scheduler(
+        num_cqs, num_cohorts, flavors, nominal_units, solver=solver,
+        cq_checks=lambda i: (MK_CHECK,) if i % 2 == 0 else ())
+    cache.add_or_update_admission_check(mk_admission_check())
+    stage_waves(queues, waves, num_cqs, cpu_units)
+    request = {"cpu": cpu_units * 1000, "memory": cpu_units << 30}
+    remote = RemoteCapacity(
+        fleet if fleet is not None else multikueue_fleet(flavors, cpu_units),
+        lambda key: request)
+    remote.lost.add("w2")
+    cache.remote_capacity_source = remote.capacity_columns
+    sched.on_placement = remote.place
+    return sched, cache, queues, client, remote

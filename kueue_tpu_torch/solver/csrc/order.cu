@@ -5,7 +5,11 @@
 // are domain d's workloads in admit order. That is one stable sort on the
 // composite key (domain, ~fit, borrows, share, -priority, timestamp,
 // index), computed as a counting rank: the rank of workload i is the
-// number of workloads whose key is smaller, and members[rank] = i.
+// number of workloads whose key is smaller, and members[rank] = i. When
+// asked (order != null), the same tile loop also counts the rank without
+// the domain key and writes the global admit order, order[rank2] = i: the
+// JAX lexsort across all domains, which the MultiKueue scan
+// (cluster_cols) walks because remote capacity is shared by every domain.
 //
 // Bound on the H100: latency. The bytes are a few KB; the W^2 key
 // comparisons (4M at W = 2048) are the work. Design: one warp per
@@ -56,10 +60,9 @@ __device__ __forceinline__ int kq_cmp_ts(double a, double b) {
   return a < b ? -1 : (b < a ? 1 : 0);
 }
 
-// composite key of (a, ia) below that of (b, ib)
-__device__ __forceinline__ bool kq_key_less(const OrderKey& a, int ia,
-                                            const OrderKey& b, int ib) {
-  if (a.dom != b.dom) return a.dom < b.dom;
+// global admit key of (a, ia) below that of (b, ib): no domain
+__device__ __forceinline__ bool kq_order_less(const OrderKey& a, int ia,
+                                              const OrderKey& b, int ib) {
   if (a.nfit != b.nfit) return a.nfit < b.nfit;
   if (a.borrows != b.borrows) return a.borrows < b.borrows;
   if (a.share != b.share) return a.share < b.share;
@@ -69,13 +72,21 @@ __device__ __forceinline__ bool kq_key_less(const OrderKey& a, int ia,
   return ia < ib;
 }
 
+// composite key of (a, ia) below that of (b, ib): the domain first
+__device__ __forceinline__ bool kq_key_less(const OrderKey& a, int ia,
+                                            const OrderKey& b, int ib) {
+  if (a.dom != b.dom) return a.dom < b.dom;
+  return kq_order_less(a, ia, b, ib);
+}
+
 __global__ void order_rank_kernel(
     const int* __restrict__ cq_cohort, const int* __restrict__ cohort_root,
     const unsigned char* __restrict__ fit,
     const unsigned char* __restrict__ borrows,
     const long long* __restrict__ share, const long long* __restrict__ priority,
     const double* __restrict__ timestamp, const int* __restrict__ wl_cq,
-    int* __restrict__ members, int* __restrict__ sorted_dom, int W, int C) {
+    int* __restrict__ members, int* __restrict__ sorted_dom,
+    int* __restrict__ order, int W, int C) {
   __shared__ OrderKey tile[ORDER_TILE];
   const int lane = threadIdx.x & 31;
   const int me = blockIdx.x * ORDER_WARPS + (threadIdx.x >> 5);
@@ -84,7 +95,7 @@ __global__ void order_rank_kernel(
   if (active)
     mine = kq_order_key(me, C, cq_cohort, cohort_root, fit, borrows, share,
                         priority, timestamp, wl_cq);
-  int count = 0;
+  int count = 0, count2 = 0;
   for (int base = 0; base < W; base += ORDER_TILE) {
     const int j = base + threadIdx.x;
     __syncthreads();
@@ -95,15 +106,20 @@ __global__ void order_rank_kernel(
     __syncthreads();
     const int n = min(ORDER_TILE, W - base);
     if (active)
-      for (int t = lane; t < n; t += 32)
+      for (int t = lane; t < n; t += 32) {
         count += kq_key_less(tile[t], base + t, mine, me) ? 1 : 0;
+        if (order) count2 += kq_order_less(tile[t], base + t, mine, me) ? 1 : 0;
+      }
   }
   if (!active) return;
-  for (int o = 16; o > 0; o >>= 1)
+  for (int o = 16; o > 0; o >>= 1) {
     count += __shfl_down_sync(0xffffffffu, count, o);
+    count2 += __shfl_down_sync(0xffffffffu, count2, o);
+  }
   if (lane == 0) {
     members[count] = me;
     sorted_dom[count] = mine.dom;
+    if (order) order[count2] = me;
   }
 }
 
@@ -129,7 +145,7 @@ extern "C" int order_launch(const void* cq_cohort, const void* cohort_root,
                             const void* share, const void* priority,
                             const void* timestamp, const void* wl_cq,
                             void* offsets, void* members, void* sorted_dom,
-                            long long W, long long C, long long D,
+                            void* order, long long W, long long C, long long D,
                             void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (W > 0) {
@@ -139,7 +155,7 @@ extern "C" int order_launch(const void* cq_cohort, const void* cohort_root,
         (const unsigned char*)fit, (const unsigned char*)borrows,
         (const long long*)share, (const long long*)priority,
         (const double*)timestamp, (const int*)wl_cq, (int*)members,
-        (int*)sorted_dom, (int)W, (int)C);
+        (int*)sorted_dom, (int*)order, (int)W, (int)C);
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }

@@ -14,8 +14,9 @@ flattened into [Q,F,R] / [C,F,R] integer tensors; taint/affinity
 eligibility (string matching) is computed host-side into a [W,P,F] mask
 so the device program is pure integer arithmetic.
 
-The port's copy leaves out the MultiKueue cluster columns; the module
-stays numpy on the host.
+MultiKueue's remote clusters become [K,F,R] capacity columns of the same
+solve (encode_cluster_columns), with the sequential host oracle
+place_remote_dicts beside them. The module stays numpy on the host.
 """
 
 from __future__ import annotations
@@ -466,6 +467,157 @@ def encode_workloads(entries: list, snapshot: Snapshot, topo: Topology,
     fill_start_ranks(batch.start_rank, entries, batch.solvable, snapshot,
                      topo, P)
     return batch
+
+
+# ---------------------------------------------------------------------------
+# MultiKueue remote clusters as flavor-capacity columns
+# ---------------------------------------------------------------------------
+#
+# The port of kueue_tpu/solver/encode.py:486-622. Snapshot.remote_clusters
+# carries each worker cluster's available capacity as {(flavor, resource):
+# quantity}; the encoder folds it into [K,F,R] tensors in the LOCAL
+# topology's flavor and resource index space (capacity on a flavor or a
+# resource unknown locally cannot be scored and is ignored).
+# kernel.score_cluster_columns scores the columns inside the fused solve;
+# place_remote_dicts is the sequential host oracle with the same
+# placement rule, which the Scheduler runs for the rows the device did
+# not place.
+
+
+@dataclass
+class ClusterColumns:
+    """Encoded remote-cluster capacity columns for one cycle."""
+
+    names: tuple = ()                 # K_real cluster names, column order
+    ccap: np.ndarray = None           # [K,F,R] int64 available capacity
+    coffer: np.ndarray = None         # [K,F,R] bool: (f,r) offered
+    cactive: np.ndarray = None        # [K] bool: reachable
+    mk_cq: np.ndarray = None          # [Q] bool: CQ has a MultiKueue check
+
+
+def encode_cluster_columns(snapshot: Snapshot,
+                           topo: Topology) -> Optional[ClusterColumns]:
+    """Snapshot remote-cluster capacities -> column tensors, or None when
+    the snapshot carries no remote clusters or no CQ carries a MultiKueue
+    check. K is bucketed (factor 2, like the other topology dims);
+    padding columns are inactive and offer nothing. Capacity is clamped
+    at 0."""
+    remotes = snapshot.remote_clusters
+    if not remotes:
+        return None
+    Q, F, R = topo.nominal.shape
+    K = _bucket(len(remotes), 1, factor=2)
+    cols = ClusterColumns(names=tuple(name for name, _, _ in remotes))
+    cols.ccap = np.zeros((K, F, R), np.int64)
+    cols.coffer = np.zeros((K, F, R), bool)
+    cols.cactive = np.zeros(K, bool)
+    for ki, (_name, caps, active) in enumerate(remotes):
+        cols.cactive[ki] = bool(active)
+        for (fname, rname), avail in caps.items():
+            fi = topo.flavor_index.get(fname)
+            ri = topo.resource_index.get(rname)
+            if fi is None or ri is None:
+                continue
+            cols.coffer[ki, fi, ri] = True
+            cols.ccap[ki, fi, ri] = max(int(avail), 0)
+    mk_checks = snapshot.mk_check_names
+    cols.mk_cq = np.zeros(Q, bool)
+    if mk_checks:
+        for qname, cq in snapshot.cluster_queues.items():
+            if not mk_checks.isdisjoint(cq.admission_checks):
+                cols.mk_cq[topo.cq_index[qname]] = True
+    if not cols.mk_cq.any():
+        return None  # no CQ routes through the columns this cycle
+    return cols
+
+
+def cluster_args_device(cols: ClusterColumns) -> tuple:
+    """The kernel-facing (ccap, coffer, cactive, mk_cq) tuple."""
+    return (cols.ccap, cols.coffer, cols.cactive, cols.mk_cq)
+
+
+def consume_remote_dicts(remote_clusters: tuple, requests: list,
+                         pinned: list) -> tuple:
+    """Debit already-decided (pinned) placements from the capacity columns
+    and return the REMAINING columns tuple: a capacity source prices
+    placements the remote has not reserved yet with it, so consecutive
+    cycles do not place again onto capacity the remote read cannot see."""
+    remaining = [dict(caps) for _, caps, _ in remote_clusters]
+    by_name = {c[0]: i for i, c in enumerate(remote_clusters)}
+    for req, cluster in zip(requests, pinned):
+        ki = by_name.get(cluster)
+        if ki is None:
+            continue
+        caps = remaining[ki]
+        flavors: dict = {}
+        for (fname, rname), avail in caps.items():
+            flavors.setdefault(fname, {})[rname] = avail
+        req = {r: v for r, v in req.items() if v > 0}
+        for fname in sorted(flavors):
+            rem = flavors[fname]
+            if all(r in rem and rem[r] >= v for r, v in req.items()) \
+                    and any(r in rem for r in req):
+                for r, v in req.items():
+                    caps[(fname, r)] -= v
+                break
+    return tuple((name, remaining[i], active)
+                 for i, (name, _caps, active) in enumerate(remote_clusters))
+
+
+def place_remote_dicts(remote_clusters: tuple, requests: list,
+                       pinned: Optional[list] = None) -> list:
+    """The sequential placement oracle in name space: for each
+    per-workload request dict {resource: quantity} (in admission order),
+    pick the FIRST active cluster (column order) with ONE flavor whose
+    remaining capacity covers every requested resource, and consume it.
+    ``pinned[i]`` (a cluster name) forces workload i's choice: the
+    Scheduler pins the rows the device placed, so the host continuation
+    accounts from the same remaining capacity. Returns a cluster name or
+    None per workload. kernel.score_cluster_columns is its batched twin."""
+    remaining = []
+    for name, caps, active in remote_clusters:
+        flavors: dict = {}
+        for (fname, rname), avail in caps.items():
+            flavors.setdefault(fname, {})[rname] = max(int(avail), 0)
+        remaining.append((name, flavors, bool(active)))
+    out: list = []
+
+    def fit_flavor(flavors: dict, req: dict) -> Optional[str]:
+        # sorted: the kernel scans flavors in topology index order, which
+        # encode_topology builds from sorted names; the oracle must
+        # consume the same flavor or later placements would diverge.
+        for fname in sorted(flavors):
+            rem = flavors[fname]
+            if all(r in rem and rem[r] >= v for r, v in req.items() if v > 0):
+                if any(r in rem for r, v in req.items() if v > 0):
+                    return fname
+        return None
+
+    for i, req in enumerate(requests):
+        req = {r: v for r, v in req.items() if v > 0}
+        chosen = None
+        want = pinned[i] if pinned is not None else None
+        for name, flavors, active in remaining:
+            if not active or not req:
+                continue
+            if want is not None and name != want:
+                continue
+            f = fit_flavor(flavors, req)
+            if f is not None:
+                chosen = name
+                for r, v in req.items():
+                    flavors[f][r] -= v
+                break
+            if want is not None:
+                # Pinned but no longer fits on the host: honor the pin
+                # anyway (the device already consumed this capacity in
+                # its own accounting) without debiting twice.
+                chosen = name
+                break
+        if chosen is None and want is not None:
+            chosen = want  # pinned to a cluster outside the column set
+        out.append(chosen)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -10,17 +10,22 @@ minimal-preemption solve of kueue_tpu/solver/preempt.py
 kueue_tpu/solver/fairpreempt.py (`solve_fair`), alone, back to back
 (`solve_preemptions`) or composed with the fit cycle against the same
 usage (`solve_cycle_with_preempt`, the `preempt_args` and
-`fair_preempt_args` of the resident cycles); MultiKueue columns are left
-out. One fused cycle is:
+`fair_preempt_args` of the resident cycles), and MultiKueue's remote
+cluster columns, scored inside the cycle (`cluster_args`). One fused
+cycle is:
 
 1. `avail`   - availability of every CQ, walked down its cohort chain.
 2. `phase_a` - flavor assignment for every head (vectorized over W).
    With fair sharing on, `drf_share` then gives each head its dominant
    resource share, the admit order's third key.
-3. `order_csr` - the admit order and the conflict-domain CSR of it.
+3. `order_csr` - the admit order and the conflict-domain CSR of it
+   (with cluster columns, also the global admit order).
 4. `phase_b` - the order-dependent admit with intra-cycle accounting,
    one thread block per conflict domain, reading the CSR.
-5. `pack`    - the compact decision wire format.
+5. `score_cluster_columns` - with cluster columns, the remote cluster
+   each admitted MultiKueue head is placed on (`mk_cluster`), scanned in
+   the global admit order.
+6. `pack`    - the compact decision wire format (`mk_cluster` passes).
 
 The resident cycle first applies the journal's sparse usage corrections
 to the usage that stays on the card (`apply_state_deltas`); the arena
@@ -393,7 +398,10 @@ def drf_share(topo, usage, asg_usage, wl_cq):
 # with shuffles) and writes members[rank] = i and its domain at the same
 # rank; a second kernel on the stream gives one thread to each domain
 # boundary d, whose lower bound in the sorted domains is offsets[d].
-# O(W^2) comparisons, no atomics.
+# O(W^2) comparisons, no atomics. With with_order (cluster columns on)
+# the same loop also counts the rank without the domain key and writes
+# the global admit order (the lexsort itself), which score_cluster_columns
+# scans.
 
 def admit_order(fit, borrows, priority, timestamp, share=None):
     """Stable lexsort on (timestamp, -priority, share, borrows, ~fit), the
@@ -434,17 +442,21 @@ def domain_csr(topo, wl_cq, order):
 
 
 def order_csr_plain(topo, fit, borrows, priority, timestamp, wl_cq,
-                    share=None):
+                    share=None, with_order: bool = False):
     """The torch chain: five stable sorts, a stable sort by domain, a
-    histogram and a scan. Returns (offsets[D+1] int32, members[W] int32)."""
+    histogram and a scan. Returns (offsets[D+1] int32, members[W] int32,
+    order[W] int32): order is the global admit order with with_order,
+    else None."""
     order = admit_order(fit, borrows, priority, timestamp, share)
-    return domain_csr(topo, wl_cq, order)
+    offsets, members = domain_csr(topo, wl_cq, order)
+    return offsets, members, order.to(torch.int32) if with_order else None
 
 
-def order_csr(topo, fit, borrows, priority, timestamp, wl_cq, share=None):
+def order_csr(topo, fit, borrows, priority, timestamp, wl_cq, share=None,
+              with_order: bool = False):
     if _is_cpu(fit):
         return order_csr_plain(topo, fit, borrows, priority, timestamp,
-                               wl_cq, share)
+                               wl_cq, share, with_order)
     W = fit.shape[0]
     C = topo["cohort_subtree"].shape[0]
     D = C + topo["cq_cohort"].shape[0]
@@ -452,6 +464,8 @@ def order_csr(topo, fit, borrows, priority, timestamp, wl_cq, share=None):
     offsets = torch.empty(D + 1, dtype=torch.int32, device=dev)
     members = torch.empty(W, dtype=torch.int32, device=dev)
     sorted_dom = torch.empty(W, dtype=torch.int32, device=dev)  # scratch
+    order = torch.empty(W, dtype=torch.int32, device=dev) if with_order \
+        else None
     _launch("order", [
         _ptr(topo["cq_cohort"], torch.int32, "cq_cohort"),
         _ptr(topo["cohort_root"], torch.int32, "cohort_root"),
@@ -464,9 +478,10 @@ def order_csr(topo, fit, borrows, priority, timestamp, wl_cq, share=None):
         _ptr(offsets, torch.int32, "offsets"),
         _ptr(members, torch.int32, "members"),
         _ptr(sorted_dom, torch.int32, "sorted_dom"),
+        0 if order is None else _ptr(order, torch.int32, "order"),
     ], [W, C, D], dev)
     order_csr.launches += 1
-    return offsets, members
+    return offsets, members, order
 
 
 # ---------------------------------------------------------------------------
@@ -1611,6 +1626,87 @@ def solve_fair(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
     return targets, feasible, reasons, stats
 
 
+# ---------------------------------------------------------------------------
+# score_cluster_columns: MultiKueue placement in the admit order
+# ---------------------------------------------------------------------------
+#
+# Replaces kueue_tpu/solver/kernel.py:614 score_cluster_columns_impl.
+# Remote worker clusters are capacity columns ccap [K,F,R] (coffer: the
+# (flavor, resource) pairs a cluster offers; cactive: the reachable
+# clusters; mk_cq: the CQs that carry a MultiKueue check). Walking the
+# cycle's global admit order, each admitted row of such a CQ takes the
+# first active cluster k with a flavor f whose remaining column covers
+# its total request (the sum over active podsets) in every requested
+# resource, offering at least one; the first such f is debited for later
+# rows. Output mk_cluster [W] int32, -1 where nothing was placed. The
+# host twin is encode.place_remote_dicts. Bound on the H100: latency —
+# one dependent step per row that takes part, over a few KB. Design: one
+# warp, the remaining capacity in shared memory with lane l owning the
+# columns k*F + f = l (mod 32), a ballot per 32 rows of the order, and a
+# warp min for the first fitting column (csrc/cluster_cols.cu).
+
+def score_cluster_columns_plain(ccap, coffer, cactive, mk_cq, requests,
+                                podset_active, wl_cq, order, admitted):
+    """The JAX scan, step by step over the rows that take part (admitted,
+    of a MultiKueue CQ) in admit order: one masked fit test over [K,F,R]
+    and one debit each. Returns mk_cluster [W] int32."""
+    W = requests.shape[0]
+    K, F, R = ccap.shape
+    treq = torch.where(podset_active[:, :, None], requests, 0).sum(1)
+    mk = mk_cq[wl_cq.long()] & admitted
+    order = order.long()
+    rem = ccap.clone().reshape(K * F, R)
+    offer = coffer.reshape(K * F, R)
+    active = cactive.repeat_interleave(F)
+    out = torch.full((W,), -1, dtype=torch.int32, device=requests.device)
+    for w in order[mk[order]].tolist():
+        req = treq[w]
+        has = req > 0
+        fit = (((req <= rem) & offer) | ~has).all(1) & \
+            (offer & has).any(1) & active                      # [K*F]
+        c = torch.argmax(fit.to(torch.int32))
+        place = fit[c]
+        rem[c] -= torch.where(place, req, 0)
+        out[w] = torch.where(place, c // F, -1).to(torch.int32)
+    return out
+
+
+# dynamic shared memory the kernel may take: R int64 remaining amounts
+# and a 32-bit offer mask a column
+MAX_CLUSTER_SMEM = 232448
+
+
+def score_cluster_columns(ccap, coffer, cactive, mk_cq, requests,
+                          podset_active, wl_cq, order, admitted):
+    if _is_cpu(requests):
+        return score_cluster_columns_plain(ccap, coffer, cactive, mk_cq,
+                                           requests, podset_active, wl_cq,
+                                           order, admitted)
+    W, P, R = requests.shape
+    K, F, _ = ccap.shape
+    if R > MAX_RESOURCES:
+        raise ValueError(f"cluster_cols takes at most {MAX_RESOURCES} "
+                         f"resources, got {R}")
+    if K * F * (R * 8 + 4) > MAX_CLUSTER_SMEM:
+        raise ValueError(f"cluster_cols: {K}x{F}x{R} columns exceed the "
+                         "shared memory of one block")
+    out = torch.empty(W, dtype=torch.int32, device=requests.device)
+    _launch("cluster_cols", [
+        _ptr(ccap, torch.int64, "ccap"),
+        _ptr(coffer, torch.bool, "coffer"),
+        _ptr(cactive, torch.bool, "cactive"),
+        _ptr(mk_cq, torch.bool, "mk_cq"),
+        _ptr(requests, torch.int64, "requests"),
+        _ptr(podset_active, torch.bool, "podset_active"),
+        _ptr(wl_cq, torch.int32, "wl_cq"),
+        _ptr(order, torch.int32, "order"),
+        _ptr(admitted, torch.bool, "admitted"),
+        _ptr(out, torch.int32, "mk_cluster"),
+    ], [W, P, R, K, F], requests.device)
+    score_cluster_columns.launches += 1
+    return out
+
+
 # kernel name (solver/csrc/<name>.cu) -> its wrapper
 KERNEL_WRAPPERS = {"avail": avail, "phase_a": phase_a,
                    "drf_share": drf_share, "order": order_csr,
@@ -1618,7 +1714,8 @@ KERNEL_WRAPPERS = {"avail": avail, "phase_a": phase_a,
                    "deltas": apply_state_deltas,
                    "arena_scatter": scatter_arena_rows,
                    "arena_gather": gather_arena,
-                   "solve_preempt": solve_preempt, "solve_fair": solve_fair}
+                   "solve_preempt": solve_preempt, "solve_fair": solve_fair,
+                   "cluster_cols": score_cluster_columns}
 reset_launch_counts()
 
 
@@ -1630,15 +1727,18 @@ def solve_cycle_fused(topo, usage, cohort_usage, requests, podset_active,
                       wl_cq, priority, timestamp, eligible, solvable,
                       num_podsets: int, max_rank: int = 0,
                       fair_sharing: bool = False, start_rank=None,
-                      compact: bool = True) -> dict:
+                      compact: bool = True, cluster_args=None) -> dict:
     """One fit-mode admission cycle, the port of
-    kueue_tpu/solver/kernel.py:476 solve_cycle_fused_impl with cluster
-    columns off. With fair_sharing the admit order takes each head's DRF
-    share (drf_share) as its third key; without, the share is 0. Returns
+    kueue_tpu/solver/kernel.py:476 solve_cycle_fused_impl. With
+    fair_sharing the admit order takes each head's DRF share (drf_share)
+    as its third key; without, the share is 0. Returns
     admitted/chosen/borrows/chosen_borrow/fit/usage/cohort_usage, or
     dec_pr/dec_bits in place of the five decision arrays when compact.
-    max_rank is taken for signature parity and unused: the CSR of the
-    order needs no per-domain bound."""
+    With cluster_args (ccap, coffer, cactive, mk_cq tensors,
+    encode.cluster_args_device), also mk_cluster [W] int32: each admitted
+    MultiKueue head's remote cluster column (score_cluster_columns), -1
+    for none. max_rank is taken for signature parity and unused: the CSR
+    of the order needs no per-domain bound."""
     del max_rank
     avail_q = avail(topo, usage, cohort_usage)
     fit, borrows, chosen, chosen_borrow, asg_usage = phase_a(
@@ -1646,11 +1746,15 @@ def solve_cycle_fused(topo, usage, cohort_usage, requests, podset_active,
         solvable, num_podsets, start_rank)
     share = drf_share(topo, usage, asg_usage, wl_cq) if fair_sharing \
         else None
-    offsets, members = order_csr(topo, fit, borrows, priority, timestamp,
-                                 wl_cq, share)
+    offsets, members, order = order_csr(
+        topo, fit, borrows, priority, timestamp, wl_cq, share,
+        with_order=cluster_args is not None)
     admitted, usage_out, cohort_out = phase_b(
         topo, usage, cohort_usage, asg_usage, fit, wl_cq, offsets, members)
     out = {"usage": usage_out, "cohort_usage": cohort_out}
+    if cluster_args is not None:
+        out["mk_cluster"] = score_cluster_columns(
+            *cluster_args, requests, podset_active, wl_cq, order, admitted)
     if compact:
         out["dec_pr"], out["dec_bits"] = pack(chosen, chosen_borrow, fit,
                                               admitted, borrows)
@@ -1687,10 +1791,11 @@ def solve_cycle_with_preempt(topo, usage, cohort_usage, requests,
                              fair_sharing: bool = False, start_rank=None,
                              fair_preempt_args=None,
                              fs_strategies: tuple = (),
-                             compact: bool = True) -> dict:
+                             compact: bool = True,
+                             cluster_args=None) -> dict:
     """The mixed admission and preemption cycle, the port of
-    kueue_tpu/solver/kernel.py:547 solve_cycle_with_preempt_impl with
-    cluster columns off: the fused fit cycle plus solve_preempt on
+    kueue_tpu/solver/kernel.py:547 solve_cycle_with_preempt_impl: the
+    fused fit cycle (with its cluster_args) plus solve_preempt on
     preempt_args and solve_fair on fair_preempt_args (either may be None;
     fs_strategies are fairpreempt.strategy_flags), on the same input
     usage. Preemption simulates against the usage from before the cycle,
@@ -1704,7 +1809,8 @@ def solve_cycle_with_preempt(topo, usage, cohort_usage, requests,
                             podset_active, wl_cq, priority, timestamp,
                             eligible, solvable, num_podsets=num_podsets,
                             max_rank=max_rank, fair_sharing=fair_sharing,
-                            start_rank=start_rank, compact=compact)
+                            start_rank=start_rank, compact=compact,
+                            cluster_args=cluster_args)
     out.update(solve_preemptions(topo, usage, cohort_usage, preempt_args,
                                  fair_preempt_args, fs_strategies))
     return out
@@ -1716,7 +1822,7 @@ def solve_cycle_resident(topo, usage, cohort_usage, deltas, requests,
                          fair_sharing: bool = False, start_rank=None,
                          preempt_args=None, fair_preempt_args=None,
                          fs_strategies: tuple = (),
-                         compact: bool = True) -> dict:
+                         compact: bool = True, cluster_args=None) -> dict:
     """The device-resident cycle (kueue_tpu/solver/kernel.py:808
     solve_cycle_resident_impl): the sparse correction prologue, applied
     IN PLACE to the resident usage/cohort_usage, then the fused cycle
@@ -1728,7 +1834,7 @@ def solve_cycle_resident(topo, usage, cohort_usage, deltas, requests,
         apply_state_deltas(topo, usage, cohort_usage, *deltas)
     kwargs = dict(num_podsets=num_podsets, max_rank=max_rank,
                   fair_sharing=fair_sharing, start_rank=start_rank,
-                  compact=compact)
+                  compact=compact, cluster_args=cluster_args)
     batch = (requests, podset_active, wl_cq, priority, timestamp, eligible,
              solvable)
     if preempt_args is None and fair_preempt_args is None:
@@ -1744,10 +1850,13 @@ def solve_cycle_resident_arena(topo, usage, cohort_usage, deltas, arena,
                                fair_sharing: bool = False, start_rank=None,
                                preempt_args=None, fair_preempt_args=None,
                                fs_strategies: tuple = (),
-                               compact: bool = True) -> dict:
+                               compact: bool = True,
+                               cluster_args=None) -> dict:
     """The arena-resident cycle (kueue_tpu/solver/kernel.py:909
     solve_cycle_resident_arena_impl): gather the heads' rows from the
-    device twin by slot (-1 = padding), then the resident cycle."""
+    device twin by slot (-1 = padding), then the resident cycle, whose
+    cluster scan reads the gathered rows (padding is never admitted, so
+    it never places)."""
     batch = gather_arena(arena, slots)
     return solve_cycle_resident(topo, usage, cohort_usage, deltas, *batch,
                                 num_podsets=num_podsets, max_rank=max_rank,
@@ -1755,7 +1864,8 @@ def solve_cycle_resident_arena(topo, usage, cohort_usage, deltas, arena,
                                 start_rank=start_rank,
                                 preempt_args=preempt_args,
                                 fair_preempt_args=fair_preempt_args,
-                                fs_strategies=fs_strategies, compact=compact)
+                                fs_strategies=fs_strategies, compact=compact,
+                                cluster_args=cluster_args)
 
 
 def max_rank_bound(wl_cq, cq_cohort, cohort_root) -> int:

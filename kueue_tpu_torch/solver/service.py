@@ -36,11 +36,17 @@ did not fit); `solve_preempt(batch)` is its K9-only form.
 preemption work gate weighs; `counters["syncs"]` counts the solver's
 syncs.
 
+MultiKueue: when the snapshot carries remote-cluster capacity columns
+and a CQ routes through them (encode.encode_cluster_columns), the
+columns ride the cycle's upload, the fused cycle scores them
+(kernel.score_cluster_columns) and `mk_cluster` is fetched with the
+decisions; `last_placements` maps each admitted head the device placed to
+its cluster's name.
+
 Left out of these slices (the JAX package has them): the host-side
 router (`_route`, Plan.fit_pred), the dispatch supervisor and watchdog,
 the background fetch pool, fault injection, the flight recorder,
-batched partial admission, MultiKueue cluster columns, and the
-multi-chip mesh.
+batched partial admission, and the multi-chip mesh.
 """
 
 from __future__ import annotations
@@ -143,6 +149,7 @@ class Plan:
         self.resident = False   # dispatch on the device-resident state
         self.rs = None          # the ResidentState the plan was built on
         self.backlog_gen = 0
+        self.cluster = None     # encode.ClusterColumns or None
 
 
 class ResidentState:
@@ -194,6 +201,9 @@ class BatchSolver:
                          "establishes": 0, "syncs": 0}
         self.last_upload_bytes = 0
         self.last_phase_s = dict.fromkeys(PHASES, 0.0)
+        # workload key -> remote cluster name, for the admitted heads the
+        # last decode's mk_cluster placed (reset on every decode)
+        self.last_placements: dict = {}
         # the usage the last dispatch read (after its delta prologue):
         # (topology, usage, cohort_usage) on the device, for
         # solve_preemptions
@@ -312,11 +322,13 @@ class BatchSolver:
         else:
             batch = encode.encode_workloads(entries, snapshot, topo,
                                             max_podsets=self.max_podsets)
+        cluster = encode.encode_cluster_columns(snapshot, topo)
         self.last_phase_s["encode"] = time.perf_counter() - t0
         if not batch.solvable.any():
             return None
         start_rank = batch.start_rank if batch.start_rank.any() else None
         plan = Plan(topo, topo_dev, state, batch, start_rank)
+        plan.cluster = cluster
         plan.slots = slots
         plan.deltas = deltas
         plan.resident = resident
@@ -480,8 +492,14 @@ class BatchSolver:
         batch_np = (batch.requests, batch.podset_active, batch.wl_cq,
                     batch.priority, batch.timestamp, batch.eligible,
                     batch.solvable)
+        # MultiKueue capacity columns ride the same cycle
+        # (kernel.score_cluster_columns)
+        host_cargs = None if plan.cluster is None else \
+            encode.cluster_args_device(plan.cluster)
         kwargs = dict(num_podsets=self.max_podsets, fair_sharing=fair_sharing,
-                      start_rank=start_rank, compact=compact)
+                      start_rank=start_rank, compact=compact,
+                      cluster_args=None if host_cargs is None else
+                      tuple(self._upload(a) for a in host_cargs))
         host_pargs = pargs = host_fargs = fargs = None
         if preempt_batch is not None:
             host_pargs = preempt_args(preempt_batch)
@@ -545,7 +563,7 @@ class BatchSolver:
         self.last_phase_s["upload"] = t1 - t0
         self.last_phase_s["device"] = time.perf_counter() - t1
         self._observe_sync(self.last_phase_s["device"] * 1e3)
-        for host in (host_pargs, host_fargs):
+        for host in (host_pargs, host_fargs, host_cargs):
             if host is not None:
                 up += sum(a.nbytes for a in host)
         if plan.start_rank is not None:
@@ -560,6 +578,8 @@ class BatchSolver:
         if plan.resident and establishing:
             self.counters["establishes"] += 1
         keys = DECISION_KEYS if compact else DENSE_DECISION_KEYS
+        if plan.cluster is not None:
+            keys = keys + ("mk_cluster",)
         if pargs is not None:
             keys = keys + PREEMPT_KEYS
         if fargs is not None:
@@ -572,6 +592,8 @@ class BatchSolver:
         preemption outputs when the cycle had preemption batches
         (preempt_aux), else None."""
         t0 = time.perf_counter()
+        # a copy per key: on the H100 it beats _fetch's one copy of the
+        # two or three decision arrays (chip_smoke's fetch_timing)
         fetched = {k: result[k].cpu().numpy() for k in keys}
         self.counters["fetch_bytes"] += sum(v.nbytes for v in fetched.values())
         self.counters["collects"] += 1
@@ -581,9 +603,10 @@ class BatchSolver:
         # Mirror/pending updates only apply when the plan's ResidentState
         # is still the live one (not invalidated+re-established since).
         resident_ok = plan.resident and plan.rs is self._resident
-        decisions = self._decode_batch(plan.batch.infos, snapshot, plan.topo,
-                                       plan.batch, fetched,
-                                       resident=resident_ok)
+        decisions = self._decode_batch(
+            plan.batch.infos, snapshot, plan.topo, plan.batch, fetched,
+            resident=resident_ok,
+            cluster_names=plan.cluster.names if plan.cluster else None)
         self.last_phase_s["fetch"] = t1 - t0
         self.last_phase_s["decode"] = time.perf_counter() - t1
         return decisions, preempt_aux(fetched)
@@ -604,12 +627,16 @@ class BatchSolver:
 
     def _fetch(self, result: dict, keys) -> dict:
         """The outputs `keys` in one device-to-host copy: their bytes side
-        by side in one buffer on the device, split again on the host."""
-        ts = [result[k] for k in keys]
-        flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in ts])
-        host = flat.cpu().numpy()
+        by side in one buffer on the device, the widest type first, so
+        that every array starts aligned for its type with no padding (an
+        array's byte length is a multiple of its element size), split
+        again on the host."""
+        ts = sorted(((k, result[k]) for k in keys),
+                    key=lambda kt: -kt[1].element_size())
+        host = torch.cat([t.reshape(-1).view(torch.uint8)
+                          for _, t in ts]).cpu().numpy()
         out, off = {}, 0
-        for k, t in zip(keys, ts):
+        for k, t in ts:
             n = t.numel() * t.element_size()
             dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
             out[k] = host[off:off + n].view(dtype).reshape(tuple(t.shape))
@@ -675,18 +702,26 @@ class BatchSolver:
 
     def _decode_batch(self, entries: list, snapshot: Snapshot,
                       topo: encode.Topology, batch, fetched: dict,
-                      resident: bool = False) -> dict:
+                      resident: bool = False,
+                      cluster_names: Optional[tuple] = None) -> dict:
         """Decisions into the scheduler's Assignment form, with the
         LastTriedFlavorIdx resume state exactly as the CPU assigner
         stores it (reference: flavorassigner.go:289-324): the rank where
         the search ended, -1 when the list was exhausted (chosen == last
         flavor, or a TryNextFlavor CQ settling for a borrowing fit after
-        scanning the whole list)."""
+        scanning the whole list). With cluster columns, last_placements
+        gets each admitted head's mk_cluster choice by name."""
         n = batch.n
+        # reset on every decode, so that a cycle without columns never
+        # hands a stale map to the Scheduler's placement flush
+        self.last_placements = {}
         fit = np.asarray(fetched["fit"])[:n]
         idx = np.flatnonzero(fit)
         if idx.size == 0:
             return {}
+        mkc = fetched.get("mk_cluster")
+        mk_l = (np.asarray(mkc)[:n][idx].tolist()
+                if mkc is not None and cluster_names else None)
         admitted = np.asarray(fetched["admitted"])[:n][idx]     # [M]
         chosen = np.asarray(fetched["chosen"])[:n][idx]          # [M,P,R]
         borrows = np.asarray(fetched["borrows"])[:n][idx]        # [M]
@@ -764,6 +799,10 @@ class BatchSolver:
                     count=psr.count))
                 assignment.last_state.last_tried_flavor_idx.append(flavor_idx)
             was_admitted = bool(admitted_l[row])
+            if mk_l is not None and was_admitted:
+                ki = mk_l[row]
+                if 0 <= ki < len(cluster_names):
+                    self.last_placements[info.key] = cluster_names[ki]
             if rs is not None and was_admitted:
                 # The device's phase B applied this usage; track it until
                 # the assume write confirms it through the journal, and

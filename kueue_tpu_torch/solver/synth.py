@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from kueue_tpu_torch.solver.encode import deltas_from_coords
+from kueue_tpu_torch.solver.encode import deltas_from_coords, place_remote_dicts
 
 
 def synth_solver_inputs(num_cqs: int = 256, num_cohorts: int = 32,
@@ -470,3 +470,73 @@ def synth_preempt_problems(topo: dict, num_problems: int,
         batch.has_cohort[b] = has_cohort
     localize_cohorts(batch, get("cq_chain"))
     return batch
+
+
+def synth_cluster_inputs(num_clusters: int = 8, num_flavors: int = 32,
+                         num_resources: int = 2, num_workloads: int = 2048,
+                         num_podsets: int = 4, num_cqs: int = 64,
+                         max_capacity: int = 64, seed: int = 0) -> tuple:
+    """MultiKueue columns and an admitted batch for score_cluster_columns:
+    a quarter of the clusters lost, 70% of the (flavor, resource) cells
+    offered, capacity below max_capacity per cell, a few rows' requests
+    (so it runs out mid-scan), a share of the rows not admitted or of a CQ without the
+    MultiKueue check, requests left in inactive podsets (which must not
+    count), and a random admit order. Flavor names are "f0".."f{F-1}" in
+    sorted order (f10 before f2), the order of a topology's index.
+    Returns (cols, flavors, resources, args): cols the name-space form
+    place_remote_dicts takes, args the kernel's (ccap, coffer, cactive,
+    mk_cq, requests, podset_active, wl_cq, order, admitted) numpy arrays."""
+    rng = np.random.default_rng(seed)
+    K, F, R, W, P, Q = (num_clusters, num_flavors, num_resources,
+                        num_workloads, num_podsets, num_cqs)
+    flavors = sorted(f"f{i}" for i in range(F))
+    resources = sorted(f"r{i}" for i in range(R))
+    cactive = rng.random(K) < 0.75
+    cactive[0] = True
+    coffer = rng.random((K, F, R)) < 0.7
+    ccap = np.where(coffer, rng.integers(0, max_capacity, size=(K, F, R)),
+                    0).astype(np.int64)
+    requests = rng.integers(0, 12, size=(W, P, R)).astype(np.int64)
+    requests[rng.random(W) < 0.05] = 0            # rows that request nothing
+    podset_active = rng.random((W, P)) < 0.6
+    podset_active[:, 0] = True
+    wl_cq = rng.integers(0, Q, size=W).astype(np.int32)
+    mk_cq = rng.random(Q) < 0.6
+    admitted = rng.random(W) < 0.7
+    order = rng.permutation(W).astype(np.int32)
+    cols = tuple(
+        (f"w{k}", {(flavors[f], resources[r]): int(ccap[k, f, r])
+                   for f in range(F) for r in range(R) if coffer[k, f, r]},
+         bool(cactive[k])) for k in range(K))
+    return cols, flavors, resources, (ccap, coffer, cactive, mk_cq, requests,
+                                      podset_active, wl_cq, order, admitted)
+
+
+def cluster_oracle(cols: tuple, resources: list, requests, podset_active,
+                   wl_cq, order, admitted, mk_cq) -> np.ndarray:
+    """score_cluster_columns' result by the host oracle: the admitted rows
+    of MultiKueue CQs, walked in `order`, each with its total request over
+    the active podsets, through encode.place_remote_dicts on `cols`.
+    Returns mk_cluster [W] int32 (the column index, -1 for none)."""
+    requests, podset_active = np.asarray(requests), np.asarray(podset_active)
+    wl_cq, order = np.asarray(wl_cq), np.asarray(order)
+    admitted, mk_cq = np.asarray(admitted), np.asarray(mk_cq)
+    treq = np.where(podset_active[:, :, None], requests, 0).sum(1)
+    seq = [w for w in order.tolist() if mk_cq[wl_cq[w]] and admitted[w]]
+    reqs = [{r: int(treq[w, ri]) for ri, r in enumerate(resources)}
+            for w in seq]
+    index = {c[0]: i for i, c in enumerate(cols)}
+    out = np.full(len(wl_cq), -1, np.int32)
+    for w, name in zip(seq, place_remote_dicts(cols, reqs)):
+        if name is not None:
+            out[w] = index[name]
+    return out
+
+
+def known_columns(cols: tuple, flavor_index: dict,
+                  resource_index: dict) -> tuple:
+    """The columns cut to what encode_cluster_columns sees: only the
+    (flavor, resource) cells the local topology knows."""
+    return tuple((name, {(f, r): v for (f, r), v in caps.items()
+                         if f in flavor_index and r in resource_index},
+                  active) for name, caps, active in cols)

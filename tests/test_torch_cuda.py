@@ -19,7 +19,9 @@ from kueue_tpu_torch.solver import BatchSolver, encode
 from kueue_tpu_torch.solver import kernel as tk
 from kueue_tpu_torch.solver.fairpreempt import strategy_flags
 from kueue_tpu_torch.scheduler.preemption import parse_strategies
-from kueue_tpu_torch.solver.synth import (synth_deltas, synth_fair_inputs,
+from kueue_tpu_torch.solver.synth import (cluster_oracle,
+                                          synth_cluster_inputs,
+                                          synth_deltas, synth_fair_inputs,
                                           synth_fair_problems,
                                           synth_nested_inputs,
                                           synth_preempt_inputs,
@@ -116,7 +118,8 @@ def test_order_deltas_arena_on_card_equal_plain(kind, cuda_device):
     for n in (W, W - 5):  # W - 5: a ragged last warp and block
         want = tk.order_csr(host_topo, *(a[:n] for a in args))
         got = tk.order_csr(card_topo, *(a[:n].to(cuda_device) for a in args))
-        for a, b in zip(got, want):
+        assert got[2] is None and want[2] is None
+        for a, b in zip(got[:2], want[:2]):
             assert torch.equal(a.cpu(), b)
 
     deltas = [torch.from_numpy(a) for a in synth_deltas(topo, usage, 100,
@@ -181,7 +184,8 @@ def test_drf_share_and_shared_order_on_card_equal_plain(kind, cuda_device):
             args = (fit[:n], borrows[:n], prio[:n], ts[:n], wl_cq[:n], share)
             ref = tk.order_csr(host_topo, *args)
             out = tk.order_csr(card_topo, *(x.to(cuda_device) for x in args))
-            for x, y in zip(out, ref):
+            assert out[2] is None
+            for x, y in zip(out[:2], ref[:2]):
                 assert torch.equal(x.cpu(), y)
     floor_topo = {k: v.clone() for k, v in card_topo.items()}
     floor_topo["fair_weight"][:] = 3000
@@ -219,7 +223,8 @@ def test_bound_solver_on_card_equals_cpu(fair, cuda_device):
     with fair sharing a fair-sharing preemption batch too, solved in the
     same dispatch against the pre-cycle usage (K10's preemption
     composition). Every kernel of the bound cycle launches, solve_preempt
-    included; drf_share and solve_fair only with fair sharing."""
+    included; drf_share and solve_fair only with fair sharing, and
+    cluster_cols never (the snapshots carry no cluster columns)."""
     flavors = [f"f{i}" for i in range(4)]
     cache, queues = ns.build_cluster(32, 4, flavors, 10, api.STRICT_FIFO)
     admitted = deque()
@@ -266,9 +271,10 @@ def test_bound_solver_on_card_equals_cpu(fair, cuda_device):
         assert np.array_equal(rs.cohort_dev.cpu().numpy(), truth.cohort_usage)
     launched = tk.launch_counts()
     assert all(n > 0 for name, n in launched.items()
-               if name not in ("drf_share", "solve_fair"))
+               if name not in ("drf_share", "solve_fair", "cluster_cols"))
     assert (launched["drf_share"] > 0) == fair
     assert (launched["solve_fair"] > 0) == fair
+    assert launched["cluster_cols"] == 0  # no cluster columns here
 
 
 @pytest.mark.cuda
@@ -432,3 +438,94 @@ def test_scheduler_fair_preempt_on_card_equals_cpu(cuda_device):
         assert calls == [(want, 1), (want, 1)]
     assert tk.launch_counts()["solve_fair"] == 2
     assert tk.launch_counts()["solve_preempt"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ((8, 32, 2, 2048, 4), (3, 5, 3, 97, 2),
+                                   (16, 126, 4, 1024, 3)))
+def test_cluster_cols_on_card_equals_plain_and_oracle(shape, cuda_device):
+    """K12 on K clusters, F flavors, R resources, W rows, P podsets: equal
+    to its plain version and to the host oracle walked in the admit order.
+    (3, 5, 3, 97, 2): fewer columns than lanes and a ragged last warp;
+    (16, 126, 4, ...): 72 KB of shared memory, above the default 48."""
+    K, F, R, W, P = shape
+    for seed in (0, 1):
+        cols, _, resources, args = synth_cluster_inputs(
+            num_clusters=K, num_flavors=F, num_resources=R, num_workloads=W,
+            num_podsets=P, seed=seed)
+        host = [torch.from_numpy(a) for a in args]
+        want = tk.score_cluster_columns(*host)
+        before = tk.score_cluster_columns.launches
+        got = tk.score_cluster_columns(*(t.to(cuda_device) for t in host))
+        torch.cuda.synchronize()
+        assert tk.score_cluster_columns.launches == before + 1
+        assert torch.equal(got.cpu(), want)
+        oracle = cluster_oracle(cols, resources, args[4], args[5], args[6],
+                                args[7], args[8], args[3])
+        np.testing.assert_array_equal(got.cpu().numpy(), oracle)
+        assert (oracle >= 0).any() and (oracle[args[8]] == -1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ("flat", "nested"))
+def test_global_order_on_card_equals_plain(kind, cuda_device):
+    """order_csr's global admit order (with_order) with ties, NaN
+    timestamps and shares with negatives and NO_LIMIT."""
+    topo, usage, cu, wl = inputs(kind)
+    rng = np.random.default_rng(8)
+    W = wl["wl_cq"].shape[0]
+    ts = rng.integers(0, 4, size=W).astype(np.float64)
+    ts[rng.random(W) < 0.1] = np.nan
+    share = rng.choice(np.array([-2, -1, 0, 0, 125, 333, tk.NO_LIMIT],
+                                np.int64), size=W)
+    host_topo = tk.topo_to_device(topo, "cpu")
+    card_topo = {k: v.to(cuda_device) for k, v in host_topo.items()}
+    args = [torch.from_numpy(a) for a in (
+        rng.uniform(size=W) < 0.7, rng.uniform(size=W) < 0.3,
+        rng.integers(0, 3, size=W).astype(np.int64), ts, wl["wl_cq"], share)]
+    for n in (W, W - 5):
+        want = tk.order_csr(host_topo, *(a[:n] for a in args),
+                            with_order=True)
+        got = tk.order_csr(card_topo, *(a[:n].to(cuda_device) for a in args),
+                           with_order=True)
+        assert len(got) == 3
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_scheduler_multikueue_on_card_equals_cpu(cuda_device):
+    """The MultiKueue cell at 64 CQs: each cycle the bound cycle on the
+    card launches cluster_cols once, and the placements (on_placement, in
+    order) and admissions equal the same cycles with device="cpu", also
+    after a cluster is lost."""
+    def run(device):
+        sched, cache, queues, client, remote = ns.build_multikueue(
+            num_cqs=64, num_cohorts=8, num_flavors=8, waves=6,
+            solver=BatchSolver(device=device),
+            fleet={"w0": {("f0", "cpu"): 400_000,
+                          ("f0", "memory"): 400 << 30},
+                   "w1": {(f, r): 200_000 if r == "cpu" else 200 << 30
+                          for f in ("f1", "f10", "f2") for r in
+                          ("cpu", "memory")},
+                   "w2": {("f7", "cpu"): 10**9}})
+        out = []
+        for cycle in range(4):
+            if cycle == 2:
+                remote.lost.add("w1")
+            ns.finish_applied(cache, queues, client, remote)
+            start = len(remote.placements)
+            before = tk.score_cluster_columns.launches
+            sched.schedule(timeout=0)
+            assert sched.last_route == "device"
+            launched = tk.score_cluster_columns.launches - before
+            out.append((tuple(wl.metadata.name for wl in client.new_applied),
+                        tuple(remote.placements[start:]), launched))
+        return out
+
+    got, want = run(cuda_device), run("cpu")
+    assert [g[:2] for g in got] == [w[:2] for w in want]
+    assert all(g[2] == 1 for g in got)
+    clusters = {c for g in got for _, c in g[1]}
+    assert {"w0", "w1"} <= clusters and "w2" not in clusters
+    assert all(c != "w1" for g in got[2:] for _, c in g[1])

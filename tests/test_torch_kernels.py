@@ -331,9 +331,10 @@ def test_order_csr_with_shares(kind, seed, variant, monkeypatch):
         rng = np.random.default_rng(seed)
         share = t(rng.choice(np.array([-2, -1, 0, 0, 125, 125, 333,
                                        tk.NO_LIMIT], np.int64), size=W))
-    offsets, members = tk.order_csr(tt, fit, borrows, t(wl["priority"]),
-                                    t(wl["timestamp"]), t(wl["wl_cq"]),
-                                    share)
+    offsets, members, order = tk.order_csr(
+        tt, fit, borrows, t(wl["priority"]), t(wl["timestamp"]),
+        t(wl["wl_cq"]), share)
+    assert order is None
     offsets, members = offsets.numpy(), members.numpy()
     if variant == "drf":
         grid, jfit, jborrows = fused_order_grid(topo, usage, cu, wl,
@@ -365,9 +366,9 @@ def test_order_csr_matches_fused_grid(kind, seed, variant, monkeypatch):
     if variant == "ties_padding":
         wl = with_ties_and_padding(wl, seed)
     grid, fit, borrows = fused_order_grid(topo, usage, cu, wl, monkeypatch)
-    offsets, members = tk.order_csr(torch_topo(topo), t(fit), t(borrows),
-                                    t(wl["priority"]), t(wl["timestamp"]),
-                                    t(wl["wl_cq"]))
+    offsets, members, _ = tk.order_csr(torch_topo(topo), t(fit), t(borrows),
+                                       t(wl["priority"]), t(wl["timestamp"]),
+                                       t(wl["wl_cq"]))
     offsets, members = offsets.numpy(), members.numpy()
     D = grid.shape[1]
     assert offsets.shape == (D + 1,) and members.shape == (len(fit),)
