@@ -86,6 +86,24 @@ versions:
    2 resources, 2048 rows); one traced cycle; then the same cycles with
    device="cpu" must admit the same workloads and place them on the
    same clusters in the same order.
+8. scheduler sharded: the sharded cycle (kueue_tpu_torch/parallel/mesh.py,
+   K13) under the port's Scheduler, BatchSolver(mesh=make_mesh()): world
+   size 1 over NCCL on the one card. (a) the north star's fill (2048 CQs
+   in 256 cohorts, 32 flavors of 40 units, 51,200 pending): 1 + 10
+   cycles; (b) the preemption reclaim configuration: 1 warm-up and 1
+   timed fresh build, every preempt-mode head solved by K9 over its
+   problem slots (solve_preempt_sharded); (c) the MultiKueue cell: 1 + 3
+   cycles, K12 after the combine. Each launches its kernels, mesh_combine
+   included, and equals the same builds on the single-device route
+   (BatchSolver(device="cuda")): admissions and usage per CQ, evictions
+   and reasons, placements. Then each rank's body of a 4-way plan in
+   turn, on the card: on (a)'s first timed cycle, phase_a on the rank's
+   slice, phase_b on its columns and the combine's pack, the four
+   buffers summed and unpacked; on (b)'s K9 batch, K9 on each rank's
+   slots, the outputs summed. Both must equal the single-device cycle and
+   K9, and phase_b with columns, K9 with slots and mesh_combine their
+   plain versions on the same tensors. The process group is destroyed at
+   the end of the phase.
 
 Every phase raises on failure; nothing is caught. The last lines are
 the card's name and power limit, one JSON line with the kernels'
@@ -137,6 +155,7 @@ REPLACES = {
     "solve_preempt": "kueue_tpu/solver/preempt.py:598",
     "solve_fair": "kueue_tpu/solver/fairpreempt.py:210",
     "cluster_cols": "kueue_tpu/solver/kernel.py:614",
+    "mesh_combine": "kueue_tpu/parallel/mesh.py:320",
 }
 # the kernels each end-to-end phase must launch
 PHASE_KERNELS = {
@@ -145,7 +164,8 @@ PHASE_KERNELS = {
                    "pack"),
     "bound_churn": tuple(k for k in REPLACES
                          if k not in ("drf_share", "solve_preempt",
-                                      "solve_fair", "cluster_cols")),
+                                      "solve_fair", "cluster_cols",
+                                      "mesh_combine")),
     # the finishes free more than 512 (cq, resource) coords and replace
     # more than 512 arena rows each cycle: the state and the twin are
     # re-uploaded whole, so deltas and arena_scatter do not run here
@@ -164,6 +184,20 @@ PHASE_KERNELS = {
     "scheduler_multikueue": ("arena_gather", "avail", "phase_a", "order",
                              "phase_b", "pack", "cluster_cols"),
 }
+# The sharded cycle's sub-phases and the kernels each must launch: under a
+# mesh the cycle is unbound (no arena twin, no resident state), K9 runs over
+# its problem slots and K12 after the combine.
+SHARDED_KERNELS = {
+    "fill": ("avail", "phase_a", "order", "phase_b", "mesh_combine", "pack"),
+    "preempt": ("avail", "phase_a", "order", "phase_b", "mesh_combine",
+                "pack", "solve_preempt"),
+    "multikueue": ("avail", "phase_a", "order", "phase_b", "mesh_combine",
+                   "pack", "cluster_cols"),
+}
+PHASE_KERNELS["scheduler_sharded"] = SHARDED_KERNELS["preempt"] + (
+    "cluster_cols",)
+SHARDED_TIMED = {"fill": 10, "preempt": 1, "multikueue": 3}
+SHARDED_RANKS = 4  # the rank check's plan, each rank's body run in turn
 # The fair-sharing benchmark configuration (bench.py bench_fair_sharing,
 # builders bench.py:107-214): every admission borrows, 1024 per cycle.
 FAIR = dict(num_cqs=2048, num_cohorts=256, nominal_units=2, cpu_units=4)
@@ -434,6 +468,18 @@ def drf_share_bytes(topo, asg, wl_cq) -> int:
         8 * wl_cq.shape[0]
 
 
+def combine_bytes(admitted, usage, usage_out, cohort_usage,
+                  cohort_out) -> int:
+    """Bytes mesh_combine's two entries must move: pack reads the admitted
+    flags and the four usage arrays and writes the int64 buffer; unpack
+    reads the buffer (after the all-reduce) and the two pre-cycle usage
+    arrays and writes the flags and the two usage arrays."""
+    buf = (admitted.numel() + usage.numel() + cohort_usage.numel()) * 8
+    state = nbytes(usage, cohort_usage)
+    return (nbytes(admitted) + 2 * state + buf) + \
+        (buf + state + nbytes(admitted) + state)
+
+
 def deltas_bytes(deltas) -> int:
     """Bytes the delta prologue must move: the coord arrays once, and for
     each real (q,f,r) and cohort coord its usage element read and written
@@ -595,6 +641,26 @@ def kernel_phase(kind: str, device, results: dict) -> None:
         compare(("dec_pr", "dec_bits"), k.pack(*p_args), ref_p),
         lambda: k.pack(*p_args), lambda: k.pack_plain(*p_args),
         nbytes(*p_args, *ref_p), None)
+
+    # the combine of a world-size-1 mesh on this cycle's Phase B outputs:
+    # pack, (the all-reduce), unpack
+    c_args = (ref_b[0], usage, ref_b[1], cu, ref_b[2])
+    ref_c = k.combine_pack_plain(*c_args)
+    got_c = k.combine_pack(*c_args)
+
+    def combine():
+        return k.combine_unpack(k.combine_pack(*c_args), usage, cu)
+
+    def combine_plain():
+        return k.combine_unpack_plain(k.combine_pack_plain(*c_args), usage, cu)
+    # the plain version is the torch chain the kernel replaces (two
+    # subtracts, a cast and a cat; two adds and a compare): the row's
+    # library time as well
+    rows["mesh_combine"] = (
+        compare(("buf", "admitted", "usage", "cohort_usage"),
+                (got_c, *k.combine_unpack(got_c, usage, cu)),
+                (ref_c, *k.combine_unpack_plain(ref_c, usage, cu))),
+        combine, combine_plain, combine_bytes(*c_args), "plain")
 
     # in place: each version on its own copy of the resident state
     deltas = inp["deltas"]
@@ -982,8 +1048,9 @@ def scheduler_phase(device) -> dict:
 
 
 class Captured:
-    """Within the block, `module.name` keeps the arguments (cloned before
-    the call) and the result of its last call, and calls through. The
+    """Within the block, `module.name` keeps the arguments (tensors and
+    dicts of them cloned before the call, the rest as they are) and the
+    result of its last call, and calls through. The
     wrapper bumps its launch count on its own module-level name, which
     is this object inside the block: `launches` reads and writes the
     registered wrapper's count, so the count stays where it was."""
@@ -1004,7 +1071,8 @@ class Captured:
 
     def __call__(self, *args, **kwargs):
         self.args = tuple({k: v.clone() for k, v in a.items()}
-                          if isinstance(a, dict) else a.clone()
+                          if isinstance(a, dict) else
+                          a.clone() if hasattr(a, "clone") else a
                           for a in args)
         self.kwargs = dict(kwargs)
         self.out = self.real(*args, **kwargs)
@@ -1734,7 +1802,7 @@ def scheduler_multikueue_phase(device) -> dict:
     phases = {p: [] for p in keys}
     records, cols_by_cycle, rows_mk = [], {}, []
     admitted_timed = 0
-    wrapper = kernel.KERNEL_WRAPPERS["cluster_cols"]
+    wrapper = kernel.KERNEL_WRAPPERS["cluster_cols"][0]
     gc_clock = GcClock()
     gc.callbacks.append(gc_clock)
 
@@ -1874,12 +1942,375 @@ def scheduler_multikueue_phase(device) -> dict:
     return summary
 
 
+def sharded_env(kind: str, solver):
+    """The sharded phase's cells, the Scheduler's solver `solver`:
+    (scheduler, cache, queues, client, remote capacity or None)."""
+    from kueue_tpu_torch.sim import northstar as ns
+    if kind == "fill":
+        env = ns.build_scheduler(
+            NORTH_STAR["num_cqs"], NORTH_STAR["num_cohorts"],
+            [f"f{i}" for i in range(NORTH_STAR["num_flavors"])],
+            NOMINAL_UNITS, solver=solver)
+        ns.stage_waves(env[2], E2E_WAVES, NORTH_STAR["num_cqs"],
+                       NOMINAL_UNITS)
+        return env + (None,)
+    if kind == "preempt":
+        return ns.build_preempt_reclaim(**PREEMPT, solver=solver) + (None,)
+    return ns.build_multikueue(**MK, solver=solver)
+
+
+def sharded_step(kind: str, env, cycle: int, mesh=None,
+                 log_rows: bool = False, capture=None) -> dict:
+    """One cycle of the sharded phase's cell `kind` on `env` (fill,
+    multikueue: the last cycle's admissions finish first, outside the
+    timed window). It must take the device route (preempt: every
+    preempt-mode head solved on the device). Returns its record
+    (admissions and usage per CQ; evictions and the solve stats;
+    admissions and placements) and, with log_rows, its phase times.
+    `capture` (a Captured) is entered around the schedule() call."""
+    from kueue_tpu_torch.sim import northstar as ns
+    heads_n, problems_n = preempt_expected()
+    keys = (PREEMPT_PHASES if kind == "preempt" else SCHED_PHASES) + (
+        "plan",)
+    sched, cache, queues, client, remote = env
+    pending = []
+    if kind == "preempt":
+        stage = sched._stage_preempt
+
+        def counted(entries, *a, **kw):
+            pending.append(len(entries))
+            return stage(entries, *a, **kw)
+        sched._stage_preempt = counted
+    ns.finish_applied(cache, queues, client, remote)
+    start = 0 if remote is None else len(remote.placements)
+    gc.collect()
+    before = 0 if mesh is None else mesh.collectives
+    with capture or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        sched.schedule(timeout=0)
+        t1 = time.perf_counter()
+    if sched.last_route != "device":
+        raise AssertionError(f"sharded {kind} cycle {cycle} took the "
+                             f"{sched.last_route!r} route")
+    if kind == "preempt":
+        plan = sched.last_preempt_plan.get("minimal", {})
+        if sched.last_preempt_gate != "device" or pending != [heads_n] \
+                or plan.get("problems") != problems_n:
+            raise AssertionError(
+                f"sharded preempt cycle {cycle}: gate "
+                f"{sched.last_preempt_gate!r}, {pending} preempt-mode "
+                f"heads, {plan}")
+        record = (cycle_outcome(client), plan)
+    elif kind == "fill":
+        record = (cycle_record(client, cache), usage_by_cq(cache))
+    else:
+        record = (cycle_record(client, cache),
+                  tuple(remote.placements[start:]))
+    row = {"record": record}
+    if log_rows:
+        solver = sched.solver
+        row.update({**sched.last_phase_s, **solver.last_phase_s,
+                    "cycle": t1 - t0,
+                    "upload_bytes": solver.last_upload_bytes})
+        row["other"] = row["cycle"] - sum(row[p] for p in keys)
+        dplan = solver.last_domain_plan
+        row["mesh"] = {"collectives": mesh.collectives - before,
+                       "occupied": dplan.occupied, "d_cols": dplan.d_cols,
+                       "imbalance": dplan.imbalance,
+                       "fingerprint": dplan.fingerprint}
+        log(f"[scheduler_sharded:{kind}] cycle {cycle}"
+            f"{' (warm-up)' if cycle < E2E_WARMUP else ''}: admitted="
+            f"{client.admitted} evicted={client.evicted} cycle_ms="
+            f"{row['cycle'] * 1e3:.1f} upload_bytes="
+            f"{solver.last_upload_bytes} mesh={json.dumps(row['mesh'])} ms="
+            + json.dumps({p: round(row[p] * 1e3, 3)
+                          for p in keys + ("other",)}))
+    return row
+
+
+def sharded_cycles(kind: str, make_solver, cycles: int, mesh=None,
+                   log_rows: bool = False, capture=None) -> tuple:
+    """`cycles` sharded_step cycles of the cell `kind` on the solvers
+    `make_solver()` gives: one environment stepped cycle after cycle, or
+    (preempt) a fresh build's first cycle each; `capture` is entered for
+    the first timed cycle. Returns (rows, the last environment)."""
+    env, rows = None, []
+    for cycle in range(cycles):
+        if env is None or kind == "preempt":
+            env = None
+            gc.collect()
+            env = sharded_env(kind, make_solver())
+        rows.append(sharded_step(kind, env, cycle, mesh, log_rows,
+                                 capture if cycle == E2E_WARMUP else None))
+    return rows, env
+
+
+def sharded_cycle_check(captured, k) -> dict:
+    """Each rank's body of a SHARDED_RANKS-way plan, in turn on the card,
+    on the inputs of the captured world-size-1 cycle: phase_a on the
+    rank's slice, phase_b on its columns, the combine's pack; the
+    buffers summed and unpacked must equal the single-device cycle
+    (solve_cycle_fused) and the main path's own usage outputs; each
+    rank's phase_b and pack, and the unpack, equal to their plain
+    versions on the same tensors. Then phase_b over the world-size-1
+    plan's columns and over rank 0's of the 4-way plan, and the combine,
+    timed against their plain versions."""
+    import numpy as np
+    import torch
+    from kueue_tpu_torch.parallel.domains import plan_domains
+    if captured.args is None:
+        raise AssertionError("solve_cycle_sharded was not called in the "
+                             "captured cycle")
+    _, topo, usage, cu, *batch = captured.args
+    kw = captured.kwargs
+    requests, podset_active, wl_cq, priority, timestamp, eligible, \
+        solvable = batch
+    P, fair, sr = kw["num_podsets"], kw["fair_sharing"], kw["start_rank"]
+    n, W = SHARDED_RANKS, requests.shape[0]
+    want = k.solve_cycle_fused(topo, usage, cu, *batch, num_podsets=P,
+                               fair_sharing=fair, start_rank=sr,
+                               compact=False)
+    host = {name: topo[name].cpu().numpy()
+            for name in ("cq_cohort", "cohort_root", "offered")}
+    plan = plan_domains(wl_cq.cpu().numpy(), host["cq_cohort"],
+                        host["cohort_root"], host["offered"], n)
+    avail_q = k.avail(topo, usage, cu)
+    w_local = -(-W // n)
+    if w_local * n != W:
+        raise AssertionError(f"W={W} does not split into {n} slices")
+    parts = []
+    for r in range(n):
+        rows = slice(r * w_local, (r + 1) * w_local)
+        parts.append(k.phase_a(
+            topo, avail_q, usage, requests[rows], podset_active[rows],
+            wl_cq[rows], eligible[rows], solvable[rows], P,
+            None if sr is None else sr[rows]))
+    fit, borrows, chosen, chosen_borrow, asg = (
+        torch.cat([p[i] for p in parts]) for i in range(5))
+    share = k.drf_share(topo, usage, asg, wl_cq) if fair else None
+    offsets, members, _ = k.order_csr(topo, fit, borrows, priority,
+                                      timestamp, wl_cq, share)
+    D = offsets.shape[0] - 1
+
+    def columns(row):
+        return torch.from_numpy(np.where(row >= 0, row, D).astype(
+            np.int32)).to(usage.device)
+    b_args = (topo, usage, cu, asg, fit, wl_cq, offsets, members)
+    bufs, per_rank = [], []
+    for r in range(n):
+        cols = columns(plan.columns[r])
+        got = k.phase_b(*b_args, cols)
+        compare((f"rank {r} admitted", f"rank {r} usage",
+                 f"rank {r} cohort_usage"), got, k.phase_b_plain(*b_args,
+                                                                  cols))
+        buf = k.combine_pack(got[0], usage, got[1], cu, got[2])
+        compare((f"rank {r} buffer",), (buf,), (k.combine_pack_plain(
+            got[0], usage, got[1], cu, got[2]),))
+        bufs.append(buf)
+        per_rank.append({"columns": int((plan.columns[r] >= 0).sum()),
+                         "admitted": int(got[0].sum())})
+    total = torch.stack(bufs).sum(0)
+    merged = k.combine_unpack(total, usage, cu)
+    compare(("unpack admitted", "unpack usage", "unpack cohort_usage"),
+            merged, k.combine_unpack_plain(total, usage, cu))
+    compare(("fit", "borrows", "chosen", "chosen_borrow", "admitted",
+             "usage", "cohort_usage"),
+            (fit, borrows, chosen, chosen_borrow, *merged),
+            tuple(want[key] for key in ("fit", "borrows", "chosen",
+                                        "chosen_borrow", "admitted", "usage",
+                                        "cohort_usage")))
+    compare(("main path usage", "main path cohort_usage"),
+            (captured.out["usage"], captured.out["cohort_usage"]),
+            (want["usage"], want["cohort_usage"]))
+    out = {"ranks": n, "W": W, "occupied": plan.occupied,
+           "d_cols": plan.d_cols, "imbalance": plan.imbalance,
+           "per_rank": per_rank, "admitted": int(merged[0].sum()),
+           "max_abs_err": 0.0}
+    # the column variant's times: the world-size-1 plan (every occupied
+    # domain) and rank 0's of the 4-way plan
+    for label, row in (("cols_ws1", kw["plan"].columns[0]),
+                       (f"cols_{n}way_rank0", plan.columns[0])):
+        cols = columns(row)
+        torch.cuda.synchronize()
+        ms = profiled_device_ms(lambda: k.phase_b(*b_args, cols), 20,
+                                "phase_b")
+        out[f"phase_b_{label}"] = {
+            "blocks": int(cols.numel()), "ms": ms,
+            "call_ms": time_cuda(lambda: k.phase_b(*b_args, cols), 20),
+            "plain_ms": time_cuda(lambda: k.phase_b_plain(*b_args, cols), 3,
+                                  warmup=1)}
+    log("[scheduler_sharded] 4-way rank check of the fill cycle: equal to "
+        "the single-device cycle: " + json.dumps(out))
+    return out
+
+
+def sharded_preempt_check(captured, k) -> dict:
+    """K9 on each rank's slots of a SHARDED_RANKS-way problem plan, in turn
+    on the card, on the captured world-size-1 K9 batch: each equal to the
+    plain version with the same slots, their sum equal to one
+    single-device launch and to the main path's outputs; rank 0's slots
+    timed against the plain version."""
+    import torch
+    from kueue_tpu_torch.parallel.domains import plan_problems
+    if captured.args is None:
+        raise AssertionError("solve_preempt_sharded was not called in the "
+                             "captured cycle")
+    _, topo, usage, cu, pargs, weights = captured.args
+    whole = k.solve_preempt(topo, usage, cu, *pargs)
+    compare(("main path targets", "main path feasible", "main path stats"),
+            captured.out, whole)
+    n = SHARDED_RANKS
+    perm, _, b_local = plan_problems(weights, n)
+    B = pargs[7].shape[0]
+    sums = [torch.zeros_like(t) for t in whole]
+    slots0, per_rank = None, []
+    for r in range(n):
+        mine = perm[r * b_local:(r + 1) * b_local].astype("int32")
+        slots = torch.from_numpy(mine).to(usage.device)
+        slots0 = slots if r == 0 else slots0
+        got = k.solve_preempt(topo, usage, cu, *pargs, slots=slots)
+        compare((f"rank {r} targets", f"rank {r} feasible",
+                 f"rank {r} stats"), got,
+                k.solve_preempt_plain(topo, usage, cu, *pargs, slots=slots))
+        for acc, part in zip(sums, got):
+            acc += part
+        per_rank.append({"slots": int((mine < B).sum()),
+                         "weight": int(weights[mine[mine < B]].sum())})
+    compare(("summed targets", "summed feasible", "summed stats"), sums,
+            whole)
+    # the world-size-1 plan's slots: every problem, in the plan's order
+    perm1, _, _ = plan_problems(weights, 1)
+    slots1 = torch.from_numpy(perm1.astype("int32")).to(usage.device)
+    compare(("ws1 targets", "ws1 feasible", "ws1 stats"),
+            k.solve_preempt(topo, usage, cu, *pargs, slots=slots1), whole)
+    torch.cuda.synchronize()
+    out = {"ranks": n, "B": B, "b_local": b_local, "per_rank": per_rank,
+           "max_abs_err": 0.0,
+           "slots_ws1": {
+               "ms": profiled_device_ms(lambda: k.solve_preempt(
+                   topo, usage, cu, *pargs, slots=slots1), 5,
+                   "solve_preempt"),
+               "call_ms": time_cuda(lambda: k.solve_preempt(
+                   topo, usage, cu, *pargs, slots=slots1), 5)},
+           "slots_rank0": {
+               "ms": profiled_device_ms(lambda: k.solve_preempt(
+                   topo, usage, cu, *pargs, slots=slots0), 5,
+                   "solve_preempt"),
+               "call_ms": time_cuda(lambda: k.solve_preempt(
+                   topo, usage, cu, *pargs, slots=slots0), 5),
+               "plain_ms": time_cuda(lambda: k.solve_preempt_plain(
+                   topo, usage, cu, *pargs, slots=slots0), 1, warmup=1)}}
+    log("[scheduler_sharded] 4-way rank check of K9: equal to the "
+        "single-device K9: " + json.dumps(out))
+    return out
+
+
+def scheduler_sharded_phase(device) -> dict:
+    """The sharded cycle under the port's Scheduler at world size 1 over
+    NCCL: the fill, preempt and multikueue cells (a warm-up, then
+    SHARDED_TIMED cycles), each launching SHARDED_KERNELS and equal to
+    the same cells on the single-device route; the 4-way rank checks on
+    the fill's and the preempt cell's first timed cycle. The mesh's
+    process group is destroyed at the end."""
+    from kueue_tpu_torch.parallel import mesh as meshpkg
+    from kueue_tpu_torch.solver import BatchSolver, kernel
+    t_phase = time.perf_counter()
+    mesh = meshpkg.make_mesh(device)
+    summary = {"mesh": {"rank": mesh.rank, "size": mesh.size,
+                        "backend": "nccl", "device": str(mesh.device)},
+               "launches": dict.fromkeys(kernel.launch_counts(), 0)}
+    captures = {"fill": Captured(meshpkg, "solve_cycle_sharded"),
+                "preempt": Captured(meshpkg, "solve_preempt_sharded")}
+    try:
+        for kind, want in SHARDED_KERNELS.items():
+            t_sub = time.perf_counter()
+            cycles = E2E_WARMUP + SHARDED_TIMED[kind]
+            kernel.reset_launch_counts()
+            rows, env = sharded_cycles(kind, lambda: BatchSolver(mesh=mesh),
+                                       cycles, mesh, log_rows=True,
+                                       capture=captures.get(kind))
+            launches = kernel.launch_counts()
+            exact = {"mesh_combine": 2 * cycles}
+            exact.update({"solve_preempt": cycles} if kind == "preempt"
+                         else {"cluster_cols": cycles}
+                         if kind == "multikueue" else {})
+            for name in want:
+                if launches[name] <= 0 or launches[name] != exact.get(
+                        name, launches[name]):
+                    raise AssertionError(f"sharded {kind}: {name} launched "
+                                         f"{launches[name]} times in "
+                                         f"{cycles} cycles")
+            for name, count in launches.items():
+                summary["launches"][name] += count
+            trace = None
+            if kind == "fill":
+                # one more cycle under the profiler, outside the count;
+                # its record is checked with the others
+                def traced_step(cycle, check_first, kind=kind, env=env):
+                    rows.append(sharded_step(kind, env, cycle, mesh, True))
+                    return rows[-1]
+                trace = traced_cycle("scheduler_sharded", traced_step,
+                                     cycles, kernel="mesh_combine",
+                                     kernels=want)
+            env = None
+            # the same cells on the single-device route (a fresh build's
+            # first cycle is the same every time: one does)
+            t_ref = time.perf_counter()
+            ref, _ = sharded_cycles(kind, lambda: BatchSolver(device=device),
+                                    1 if kind == "preempt" else len(rows))
+            for cycle, row in enumerate(rows):
+                if row["record"] != ref[min(cycle, len(ref) - 1)]["record"]:
+                    raise AssertionError(
+                        f"sharded {kind} cycle {cycle}: the mesh route "
+                        "admitted, evicted or placed other workloads than "
+                        "the single-device route")
+            timed = rows[E2E_WARMUP:cycles]
+            keys = (PREEMPT_PHASES if kind == "preempt" else SCHED_PHASES) \
+                + ("plan", "other", "cycle")
+            sub = {p: {"p50_ms": percentile([r[p] for r in timed], 50) * 1e3,
+                       "max_ms": max(r[p] for r in timed) * 1e3}
+                   for p in keys}
+            sub["mesh"] = timed[-1]["mesh"]
+            sub["launches"] = launches
+            sub["upload_bytes"] = timed[-1]["upload_bytes"]
+            if trace is not None:
+                sub["traced_cycle"] = trace
+            sub["ref_check_s"] = time.perf_counter() - t_ref
+            if kind == "fill":
+                sub["admitted_per_cycle"] = [len(r["record"][0])
+                                             for r in timed]
+                sub["rank_check"] = sharded_cycle_check(captures[kind],
+                                                        kernel)
+            elif kind == "preempt":
+                outcome, plan = timed[0]["record"]
+                sub.update(evicted_per_cycle=len(outcome[0]),
+                           admitted_per_cycle=len(outcome[1]),
+                           reasons=sorted({r for _, r in outcome[0]}),
+                           preempt_plan=plan)
+                sub["rank_check"] = sharded_preempt_check(captures[kind],
+                                                          kernel)
+            else:
+                sub["admitted_per_cycle"] = [len(r["record"][0])
+                                             for r in timed]
+                sub["placements_per_cycle"] = [len(r["record"][1])
+                                               for r in timed]
+            sub["wall_s"] = time.perf_counter() - t_sub
+            log(f"[scheduler_sharded:{kind}] equal to the single-device "
+                f"route; " + json.dumps(sub))
+            summary[kind] = sub
+    finally:
+        mesh.close()
+    summary["wall_s"] = time.perf_counter() - t_phase
+    return summary
+
+
 def traced_cycle(phase: str, run_cycle, cycle: int,
-                 kernel: str = None) -> dict:
+                 kernel: str = None, kernels: tuple = None) -> dict:
     """One more main-path cycle under torch.profiler (after the timed
     ones, outside the launch count, its resident-state check made before
     the trace starts): device busy time by kernel, the card's idle
-    share of the cycle's wall time, and `kernel`'s device time."""
+    share of the cycle's wall time, and `kernel`'s device time. The
+    trace should hold `kernels` (default: the phase's)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1900,7 +2331,7 @@ def traced_cycle(phase: str, run_cycle, cycle: int,
     # the phase's kernels that launched in the cycle but of which the
     # trace kept no record (the busy time then reads low)
     out["missing_from_trace"] = [
-        name for name in PHASE_KERNELS[phase]
+        name for name in (kernels or PHASE_KERNELS[phase])
         if not any(k.startswith(f"{name}_") for k, _ in rows)]
     log(f"[trace:{phase}] " + json.dumps(out))
     return out
@@ -1945,14 +2376,20 @@ def main() -> int:
     runners = {"scheduler_fair": scheduler_phase,
                "scheduler_preempt": scheduler_preempt_phase,
                "scheduler_fair_preempt": scheduler_fair_preempt_phase,
-               "scheduler_multikueue": scheduler_multikueue_phase}
+               "scheduler_multikueue": scheduler_multikueue_phase,
+               "scheduler_sharded": scheduler_sharded_phase}
     e2e = {phase: runners[phase](device) if phase in runners
            else e2e_phase(device, phase) for phase in PHASE_KERNELS}
     for phase, summary in e2e.items():
-        # the cluster columns ride only the MultiKueue cell's cycles
-        if phase != "scheduler_multikueue" \
+        # the cluster columns ride only the MultiKueue cells' cycles, the
+        # combine only the mesh's
+        if phase not in ("scheduler_multikueue", "scheduler_sharded") \
                 and summary["launches"]["cluster_cols"]:
             raise AssertionError(f"cluster_cols launched on the {phase} "
+                                 "path")
+        if phase != "scheduler_sharded" \
+                and summary["launches"]["mesh_combine"]:
+            raise AssertionError(f"mesh_combine launched on the {phase} "
                                  "path")
     # K9's rows: the main path's captured inputs and the synthetic nested
     results["north_star"]["solve_preempt"] = \
@@ -1970,6 +2407,7 @@ def main() -> int:
     results["nested"]["cluster_cols"] = \
         e2e["scheduler_multikueue"]["kernel_rows"]["synthetic"]
 
+    sharded = e2e["scheduler_sharded"]
     kernels = []
     for name in _build.KERNELS:
         row = results["north_star"][name]
@@ -2012,7 +2450,17 @@ def main() -> int:
                           "cycle",
                 "pops_max": row["pops_max"], "pops_mean": row["pops_mean"],
                 "fillback_max": row["fillback_max"]}
-               if name == "solve_fair" else {})})
+               if name == "solve_fair" else {}),
+            # the sharded cycle's variants, on its captured inputs
+            **({"sharded": {k: v for k, v in sharded["fill"]["rank_check"]
+                            .items() if k.startswith("phase_b_")}}
+               if name == "phase_b" else {}),
+            **({"sharded": {k: v for k, v in sharded["preempt"]
+                            ["rank_check"].items() if k.startswith("slots")}}
+               if name == "solve_preempt" else {}),
+            **({"entries": ["pack", "unpack"],
+                "inputs": "the north-star kernel inputs' Phase B outputs"}
+               if name == "mesh_combine" else {})})
     log(f"[wall] {time.perf_counter() - t_start:.1f} s, phases "
         + json.dumps({p: round(e2e[p]["wall_s"], 1) for p in e2e}))
     log(smi)

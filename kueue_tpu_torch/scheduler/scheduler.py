@@ -39,7 +39,8 @@ Differences from the JAX Scheduler, on this synchronous path:
   launched after it, back to back, with one more sync for both, against
   the same pre-cycle usage. The choices and the targets are the same;
   the work gate is ported unchanged, so it still counts the sync as
-  shared when fit heads dispatch.
+  shared when fit heads dispatch (never under a mesh, as the JAX
+  Scheduler's).
 - An encode or launch failure of the preemption solve propagates; the
   JAX Scheduler hands the entries to the CPU Preemptor instead
   (scheduler.py:2064-2068, :2084-2088).
@@ -56,6 +57,14 @@ Differences from the JAX Scheduler, on this synchronous path:
   preempt-plan annotation), the query plane, aging, metrics,
   leader_check and cq_filter. At their defaults each is a no-op on the
   synchronous path.
+
+With a mesh solver (`BatchSolver(mesh=...)`, the sharded cycle of
+parallel/mesh.py) the Scheduler takes the JAX Scheduler's two mesh
+routes (kueue_tpu/scheduler/scheduler.py:1952-1957, :1988): under fair
+sharing the CPU Preemptor picks every preempt-mode head's targets at
+nomination (the sharded solve carries only minimal preemption), and the
+preemption work gate never counts the sync as shared with the fit
+heads.
 
 MultiKueue placements: with `on_placement` set (a callable taking the
 workload key and a cluster name), every admitted head whose CQ carries a
@@ -402,9 +411,15 @@ class Scheduler:
                 nofit_entries.append(e)
             else:
                 rest.append(w)  # preemption or partial admission: CPU
+        # Preempt-mode targets are deferred to the batched solves, except
+        # under a mesh with fair sharing: the sharded solve carries only
+        # minimal preemption (kueue_tpu/scheduler/scheduler.py:1952-1957),
+        # so the CPU Preemptor picks them here.
+        defer = not (self.fair_sharing_enabled
+                     and self.solver.mesh is not None)
         t_ph = _time.perf_counter()
         pre_entries = nofit_entries + self.nominate(rest, snapshot,
-                                                    defer_preemption=True)
+                                                    defer_preemption=defer)
         pending = [e for e in pre_entries if e.preemption_targets is None]
         for e in pending:
             e.preemption_targets = []
@@ -503,11 +518,12 @@ class Scheduler:
         # share aggregates), which must cover the marginal sync: zero when
         # fit entries dispatch in the cycle anyway (the JAX package's
         # fused execute; here K9 and K11 are launched after it all the
-        # same).
+        # same), but never shared under a mesh (:1988).
         floor_ms = (self.solver_sync_floor_ms
                     if self.solver_sync_floor_ms is not None
                     else self.solver.estimated_sync_ms())
-        marginal_sync_us = 0.0 if fit_count > 0 else floor_ms * 1000.0
+        shares = fit_count > 0 and self.solver.mesh is None
+        marginal_sync_us = 0.0 if shares else floor_ms * 1000.0
         # Cheap pre-gate: an upper bound on the candidate count (the
         # domains' workload totals, x2: up to two problems per entry).
         sizes: dict = {}

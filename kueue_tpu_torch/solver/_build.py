@@ -1,10 +1,10 @@
 """Build and load the hand-written CUDA kernels of the solver.
 
 Each `csrc/<name>.cu` compiles with `nvcc` for Hopper (`sm_90a`) into a
-shared library with a plain `extern "C"` entry `<name>_launch`, loaded
-with ctypes: every pointer and the stream pass as `c_void_p`, every
-size as `c_longlong`, and the entry returns `cudaGetLastError()` after
-the launch. The libraries go to `_build/` beside this module (listed in
+shared library with plain `extern "C"` entries (`<name>_launch`, or for
+a file with two, `<name>_<entry>_launch`), loaded with ctypes: every
+pointer and the stream pass as `c_void_p`, every size as `c_longlong`,
+and the entry returns `cudaGetLastError()` after the launch. The libraries go to `_build/` beside this module (listed in
 .gitignore), named by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads as it is. All missing
 libraries build at once, one `nvcc` process per source. Nothing builds
@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("avail", "phase_a", "drf_share", "order", "phase_b", "pack",
            "deltas", "arena_scatter", "arena_gather", "solve_preempt",
-           "solve_fair", "cluster_cols")
+           "solve_fair", "cluster_cols", "mesh_combine")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -85,20 +85,22 @@ def build_all(names=KERNELS) -> float:
     return time.perf_counter() - t0
 
 
-def entry(name: str, n_ptrs: int, n_ints: int):
-    """The ctypes function `<name>_launch`, building the libraries first
-    if needed. Arguments: n_ptrs pointers, n_ints sizes, the stream."""
-    fn = _entries.get(name)
+def entry(name: str, n_ptrs: int, n_ints: int, symbol: str = None):
+    """The ctypes function `symbol` (default `<name>_launch`) of kernel
+    `name`'s library, building the libraries first if needed. Arguments:
+    n_ptrs pointers, n_ints sizes, the stream."""
+    symbol = symbol or f"{name}_launch"
+    fn = _entries.get(symbol)
     if fn is not None:
         return fn
     with _lock:
-        fn = _entries.get(name)
+        fn = _entries.get(symbol)
         if fn is None:
             build_all()
             lib = ctypes.CDLL(str(library_path(name)))
-            fn = getattr(lib, f"{name}_launch")
+            fn = getattr(lib, symbol)
             fn.argtypes = ([ctypes.c_void_p] * n_ptrs
                            + [ctypes.c_longlong] * n_ints + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
-            _entries[name] = fn
+            _entries[symbol] = fn
     return fn

@@ -8,6 +8,12 @@
 // decides still_fits, and an admitted workload's usage is added to its
 // CQ and bubbled up its cohort chain past each level's guaranteed quota.
 // Every thread only touches its own (f, r) column of usage/cohort_usage.
+//
+// With a column list (the sharded cycle, kueue_tpu/parallel/mesh.py:314
+// grid[:, my_cols]), block b walks domain cols[b] only; a padding lane
+// holds the sentinel D (or -1) and returns before it reads offsets, which
+// has D + 1 entries. Domains outside the list keep their usage and admit
+// nothing.
 #include "common.cuh"
 
 __global__ void phase_b_kernel(
@@ -21,9 +27,10 @@ __global__ void phase_b_kernel(
     long long* usage, long long* cohort_usage,
     const long long* __restrict__ asg, const unsigned char* __restrict__ fit,
     const int* __restrict__ wl_cq, const int* __restrict__ offsets,
-    const int* __restrict__ members, unsigned char* __restrict__ admitted,
-    int FR, int DC) {
-  const int d = blockIdx.x;
+    const int* __restrict__ members, const int* __restrict__ cols,
+    unsigned char* __restrict__ admitted, int D, int FR, int DC) {
+  const int d = cols ? cols[blockIdx.x] : (int)blockIdx.x;
+  if (d < 0 || d >= D) return;  // a padding lane: uniform over the block
   const int beg = offsets[d], end = offsets[d + 1];
   for (int i = beg; i < end; ++i) {
     const int w = members[i];
@@ -71,19 +78,20 @@ extern "C" int phase_b_launch(
     const void* cohort_subtree, const void* cohort_guaranteed,
     const void* cohort_borrow_limit, void* usage, void* cohort_usage,
     const void* asg, const void* fit, const void* wl_cq, const void* offsets,
-    const void* members, void* admitted, long long D, long long FR,
-    long long DC, void* stream) {
-  if (D > 0 && FR > 0) {
+    const void* members, const void* cols, void* admitted, long long D,
+    long long n_blocks, long long FR, long long DC, void* stream) {
+  if (n_blocks > 0 && FR > 0) {
     long long threads = (FR + 31) / 32 * 32;
     if (threads > 256) threads = 256;
-    phase_b_kernel<<<(unsigned)D, (unsigned)threads, 0, (cudaStream_t)stream>>>(
+    phase_b_kernel<<<(unsigned)n_blocks, (unsigned)threads, 0, (cudaStream_t)stream>>>(
         (const int*)cq_cohort, (const int*)cq_chain, (const long long*)nominal,
         (const long long*)guaranteed, (const long long*)borrow_limit,
         (const long long*)cohort_subtree, (const long long*)cohort_guaranteed,
         (const long long*)cohort_borrow_limit, (long long*)usage,
         (long long*)cohort_usage, (const long long*)asg,
         (const unsigned char*)fit, (const int*)wl_cq, (const int*)offsets,
-        (const int*)members, (unsigned char*)admitted, (int)FR, (int)DC);
+        (const int*)members, (const int*)cols, (unsigned char*)admitted,
+        (int)D, (int)FR, (int)DC);
   }
   return (int)cudaGetLastError();
 }

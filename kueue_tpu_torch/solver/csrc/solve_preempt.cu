@@ -37,6 +37,12 @@
 // candidate holds. Per-block scratch in device memory: the candidate
 // rows, the flows, and for each chain depth the arrivals and (for the
 // preemptor's own chain) the prefix planes, all [K, RF] int64.
+//
+// With problem slots (the sharded solve, kueue_tpu/parallel/mesh.py:335
+// solve over the planner's problem axis), the grid walks slots[0..n) in
+// place of problems 0..B: slot s solves problem slots[s] from the full
+// arguments and writes its outputs at that problem's row; a padding slot
+// (B or -1) writes nothing. Scratch stays the block's own.
 #include <climits>
 #include "common.cuh"
 
@@ -327,8 +333,9 @@ __global__ void solve_preempt_kernel(
     const long long* __restrict__ threshold,
     const unsigned char* __restrict__ has_cohort, long long* scratch64,
     int* scratch32, unsigned char* __restrict__ targets,
-    unsigned char* __restrict__ feasible, int* __restrict__ stats, int B,
-    int K, int QL, int RF, int CL, int DC, int F, int R) {
+    unsigned char* __restrict__ feasible, int* __restrict__ stats,
+    const int* __restrict__ slots, int n_slots, int B, int K, int QL, int RF,
+    int CL, int DC, int F, int R) {
   __shared__ int s_kstar;
   __shared__ int s_abk;
   const int T = blockDim.x;
@@ -353,7 +360,9 @@ __global__ void solve_preempt_kernel(
   s.CUR = s.FLAGS + K;
   s.NODE = s.CUR + K;
 
-  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+  for (int slot = blockIdx.x; slot < n_slots; slot += gridDim.x) {
+    const int b = slots ? slots[slot] : slot;
+    if (b < 0 || b >= B) continue;  // a padding slot: uniform over the block
     Prob p;
     p.nominal = nominal; p.guaranteed = guaranteed;
     p.borrow_limit = borrow_limit; p.usage = usage;
@@ -636,10 +645,11 @@ extern "C" int solve_preempt_launch(
     const void* cand_ql, const void* cand_usage, const void* cand_prio,
     const void* allow_borrowing, const void* threshold_active,
     const void* threshold, const void* has_cohort, void* scratch64,
-    void* scratch32, void* targets, void* feasible, void* stats, long long B,
-    long long K, long long QL, long long RF, long long CL, long long DC,
-    long long F, long long R, long long grid, void* stream) {
-  if (B > 0 && K > 0) {
+    void* scratch32, void* targets, void* feasible, void* stats,
+    const void* slots, long long n_slots, long long B, long long K,
+    long long QL, long long RF, long long CL, long long DC, long long F,
+    long long R, long long grid, void* stream) {
+  if (n_slots > 0 && K > 0) {
     long long threads = (K + 31) / 32 * 32;
     if (threads > 256) threads = 256;
     solve_preempt_kernel<<<(unsigned)grid, (unsigned)threads, 0,
@@ -657,8 +667,8 @@ extern "C" int solve_preempt_launch(
         (const unsigned char*)threshold_active, (const long long*)threshold,
         (const unsigned char*)has_cohort, (long long*)scratch64,
         (int*)scratch32, (unsigned char*)targets, (unsigned char*)feasible,
-        (int*)stats, (int)B, (int)K, (int)QL, (int)RF, (int)CL, (int)DC,
-        (int)F, (int)R);
+        (int*)stats, (const int*)slots, (int)n_slots, (int)B, (int)K,
+        (int)QL, (int)RF, (int)CL, (int)DC, (int)F, (int)R);
   }
   return (int)cudaGetLastError();
 }

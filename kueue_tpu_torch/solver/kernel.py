@@ -27,15 +27,22 @@ cycle is:
    the global admit order.
 6. `pack`    - the compact decision wire format (`mk_cluster` passes).
 
+The sharded cycle (kueue_tpu_torch/parallel/mesh.py) runs the same
+kernels on each rank: `phase_b` over the rank's planner columns (`cols`),
+`solve_preempt` over its problem slots (`slots`), and `combine_pack` /
+`combine_unpack` (csrc/mesh_combine.cu) around the all-reduce that joins
+the ranks' admissions and usage deltas.
+
 The resident cycle first applies the journal's sparse usage corrections
 to the usage that stays on the card (`apply_state_deltas`); the arena
 cycle first gathers the heads' rows from the device twin of the encode
 arena (`gather_arena`), which `scatter_arena_rows` keeps current.
 
-Each kernel has a wrapper, a plain PyTorch version in this module and a
-launch counter (`<wrapper>.launches`, a plain int bumped once per
-launch). A wrapper runs the plain version only for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises. All quantities are
+Each kernel has a wrapper (mesh_combine two, one per entry), a plain
+PyTorch version in this module and a launch counter
+(`<wrapper>.launches`, a plain int bumped once per launch). A wrapper
+runs the plain version only for tensors on the CPU; for CUDA tensors it
+launches the kernel or raises. All quantities are
 int64 (memory is in bytes) and decisions are bits, so the kernels and
 the plain versions agree exactly.
 """
@@ -89,13 +96,16 @@ def state_to_device(usage, cohort_usage, device) -> tuple:
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS.values():
-        fn.launches = 0
+    for fns in KERNEL_WRAPPERS.values():
+        for fn in fns:
+            fn.launches = 0
 
 
 def launch_counts() -> dict:
-    """{kernel name (its csrc/<name>.cu): launches since the reset}."""
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    """{kernel name (its csrc/<name>.cu): launches of its wrappers since
+    the reset}."""
+    return {name: sum(fn.launches for fn in fns)
+            for name, fns in KERNEL_WRAPPERS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -120,8 +130,9 @@ def _ptr(t: torch.Tensor, dtype: torch.dtype, name: str) -> int:
     return t.data_ptr()
 
 
-def _launch(name: str, ptrs: list, ints: list, device) -> None:
-    fn = _build.entry(name, len(ptrs), len(ints))
+def _launch(name: str, ptrs: list, ints: list, device,
+            symbol: str = None) -> None:
+    fn = _build.entry(name, len(ptrs), len(ints), symbol)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(*[ctypes.c_void_p(p) for p in ptrs],
             *[ctypes.c_longlong(i) for i in ints], ctypes.c_void_p(stream))
@@ -499,17 +510,33 @@ def order_csr(topo, fit, borrows, priority, timestamp, wl_cq, share=None,
 # per (f,r) (each thread only ever touches its own (f,r) column) and
 # __syncthreads_and for still_fits. The TPU's dense [L,D] grid is not
 # built: the kernel reads the CSR from order_csr. usage/cohort_usage
-# are updated in place on copies of the inputs.
+# are updated in place on copies of the inputs. With `cols` (the sharded
+# cycle's planner columns, kueue_tpu/parallel/mesh.py:314-318), the
+# launch has one block per column and walks only those domains; a
+# padding column (D or -1) is a no-op.
+
+def _selected(counts, cols):
+    """counts[D] with the domains outside cols (int [d_cols]; entries
+    outside [0, D) are padding) set to 0."""
+    D = counts.shape[0]
+    c = cols.long()
+    keep = torch.zeros(D, dtype=torch.bool, device=counts.device)
+    keep[c[(c >= 0) & (c < D)]] = True
+    return torch.where(keep, counts, 0)
+
 
 def phase_b_plain(topo, usage, cohort_usage, asg_usage, fit, wl_cq,
-                  offsets, members):
+                  offsets, members, cols=None):
     """Returns (admitted[W], usage', cohort_usage'). Steps the l-th member
-    of every domain at once, l = 0, 1, ... (the JAX package's grid rows)."""
+    of every domain at once, l = 0, 1, ... (the JAX package's grid rows);
+    with cols, of the listed domains only."""
     W = fit.shape[0]
     usage = usage.clone()
     cohort = cohort_usage.clone()
     admitted = torch.zeros(W, dtype=torch.bool, device=fit.device)
     counts = (offsets[1:] - offsets[:-1]).long()
+    if cols is not None:
+        counts = _selected(counts, cols)
     L = int(counts.max()) if counts.numel() else 0
     chain_all = topo["cq_chain"]
     for lvl in range(L):
@@ -553,10 +580,10 @@ def phase_b_plain(topo, usage, cohort_usage, asg_usage, fit, wl_cq,
 
 
 def phase_b(topo, usage, cohort_usage, asg_usage, fit, wl_cq, offsets,
-            members):
+            members, cols=None):
     if _is_cpu(fit):
         return phase_b_plain(topo, usage, cohort_usage, asg_usage, fit,
-                             wl_cq, offsets, members)
+                             wl_cq, offsets, members, cols)
     W = fit.shape[0]
     Q, F, R = usage.shape
     D = offsets.shape[0] - 1
@@ -579,8 +606,10 @@ def phase_b(topo, usage, cohort_usage, asg_usage, fit, wl_cq, offsets,
         _ptr(wl_cq, torch.int32, "wl_cq"),
         _ptr(offsets, torch.int32, "offsets"),
         _ptr(members, torch.int32, "members"),
+        0 if cols is None else _ptr(cols, torch.int32, "cols"),
         _ptr(admitted, torch.bool, "admitted"),
-    ], [D, F * R, topo["cq_chain"].shape[1]], fit.device)
+    ], [D, D if cols is None else cols.shape[0], F * R,
+        topo["cq_chain"].shape[1]], fit.device)
     phase_b.launches += 1
     return admitted, usage_out, cohort_out
 
@@ -820,7 +849,11 @@ def gather_arena(arena: dict, slots) -> tuple:
 # auction round); the bytes are the expanded candidate rows and the
 # gathered quota planes. Design (csrc/solve_preempt.cu): one thread block
 # per problem, threads over candidates in contiguous chunks, keyed prefix
-# sums as masked block scans, per-block scratch in device memory.
+# sums as masked block scans, per-block scratch in device memory. With
+# `slots` (the sharded solve's planner-assigned problems,
+# kueue_tpu/parallel/mesh.py:335-364), the blocks walk the slots in place
+# of 0..B and each writes its problem's outputs at the problem's row of
+# zero-initialised outputs; a padding slot (B or -1) writes nothing.
 
 PREEMPT_NOLIM = 2**61  # kueue_tpu/solver/preempt.py:317 (not NO_LIMIT)
 # problems the plain version solves at once (bounds its [b,CL,K,RF] temps)
@@ -1081,12 +1114,13 @@ def _solve_preempt_chunk(topo, usage, cohort_usage, gq, gf, gr, gc,
 def solve_preempt_plain(topo, usage, cohort_usage, gq, gf, gr, gc,
                         chain_local, requests, frs_np, cand_idx, cand_ql,
                         cand_usage_table, cand_prio_table, allow_borrowing,
-                        threshold_active, threshold, has_cohort):
+                        threshold_active, threshold, has_cohort, slots=None):
     """The vmap of kueue_tpu/solver/preempt.py:598 written out as a batch
     dimension, PREEMPT_PLAIN_CHUNK problems at a time; the fill-back
     loop freezes each problem once its bounds meet, as the vmapped
     while_loop does. Returns (targets[B,K] bool, feasible[B] bool,
-    stats[B,4] int32)."""
+    stats[B,4] int32); with slots, only the slots' problems are solved
+    and every other row stays zero."""
     B, K = cand_ql.shape
     dev = usage.device
     targets = torch.zeros((B, K), dtype=torch.bool, device=dev)
@@ -1095,6 +1129,15 @@ def solve_preempt_plain(topo, usage, cohort_usage, gq, gf, gr, gc,
     per_problem = (gq, gf, gr, gc, chain_local, requests, frs_np, cand_idx,
                    cand_ql)
     flags = (allow_borrowing, threshold_active, threshold, has_cohort)
+    if slots is not None:
+        s = slots.long()
+        rows = s[(s >= 0) & (s < B)]
+        out = solve_preempt_plain(
+            topo, usage, cohort_usage, *(a[rows] for a in per_problem),
+            cand_usage_table, cand_prio_table, *(a[rows] for a in flags))
+        for full, part in zip((targets, feasible, stats), out):
+            full[rows] = part
+        return targets, feasible, stats
     for s in range(0, B, PREEMPT_PLAIN_CHUNK):
         e = min(B, s + PREEMPT_PLAIN_CHUNK)
         t, f, st = _solve_preempt_chunk(
@@ -1111,12 +1154,12 @@ PREEMPT_BLOCKS_PER_SM = 4
 def solve_preempt(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
                   requests, frs_np, cand_idx, cand_ql, cand_usage_table,
                   cand_prio_table, allow_borrowing, threshold_active,
-                  threshold, has_cohort):
+                  threshold, has_cohort, slots=None):
     if _is_cpu(usage):
         return solve_preempt_plain(
             topo, usage, cohort_usage, gq, gf, gr, gc, chain_local, requests,
             frs_np, cand_idx, cand_ql, cand_usage_table, cand_prio_table,
-            allow_borrowing, threshold_active, threshold, has_cohort)
+            allow_borrowing, threshold_active, threshold, has_cohort, slots)
     B, QL = gq.shape
     RF = gf.shape[1]
     CL = gc.shape[1]
@@ -1126,14 +1169,17 @@ def solve_preempt(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
             or cand_usage_table.shape[1] != RF:
         raise ValueError("solve_preempt: inconsistent problem shapes")
     dev = usage.device
-    targets = torch.empty((B, K), dtype=torch.bool, device=dev)
-    feasible = torch.empty(B, dtype=torch.bool, device=dev)
-    stats = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    n_slots = B if slots is None else slots.shape[0]
+    # with slots, the rows of the other ranks' problems stay zero
+    alloc = torch.empty if slots is None else torch.zeros
+    targets = alloc((B, K), dtype=torch.bool, device=dev)
+    feasible = alloc(B, dtype=torch.bool, device=dev)
+    stats = alloc((B, 4), dtype=torch.int32, device=dev)
     # a persistent grid: each block walks problems blockIdx, +grid, ...
     # with its own scratch (candidate rows, flows and the per-chain-node
     # prefix planes: (3 + 2 DC) x K x RF int64, plus the per-CQ and
     # per-node rows and the per-candidate words)
-    grid = max(1, min(B, PREEMPT_BLOCKS_PER_SM
+    grid = max(1, min(n_slots, PREEMPT_BLOCKS_PER_SM
                       * torch.cuda.get_device_properties(dev)
                       .multi_processor_count))
     wide = (3 + 2 * DC) * K * RF + (QL + CL) * RF
@@ -1170,7 +1216,9 @@ def solve_preempt(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
         _ptr(targets, torch.bool, "targets"),
         _ptr(feasible, torch.bool, "feasible"),
         _ptr(stats, torch.int32, "stats"),
-    ], [B, K, QL, RF, CL, DC, usage.shape[1], usage.shape[2], grid], dev)
+        0 if slots is None else _ptr(slots, torch.int32, "slots"),
+    ], [n_slots, B, K, QL, RF, CL, DC, usage.shape[1], usage.shape[2], grid],
+        dev)
     solve_preempt.launches += 1
     return targets, feasible, stats
 
@@ -1707,15 +1755,94 @@ def score_cluster_columns(ccap, coffer, cactive, mk_cq, requests,
     return out
 
 
-# kernel name (solver/csrc/<name>.cu) -> its wrapper
-KERNEL_WRAPPERS = {"avail": avail, "phase_a": phase_a,
-                   "drf_share": drf_share, "order": order_csr,
-                   "phase_b": phase_b, "pack": pack,
-                   "deltas": apply_state_deltas,
-                   "arena_scatter": scatter_arena_rows,
-                   "arena_gather": gather_arena,
-                   "solve_preempt": solve_preempt, "solve_fair": solve_fair,
-                   "cluster_cols": score_cluster_columns}
+# ---------------------------------------------------------------------------
+# mesh_combine: the sharded cycle's reduction
+# ---------------------------------------------------------------------------
+#
+# Replaces kueue_tpu/parallel/mesh.py:320-323. After Phase B over its own
+# domain columns a rank packs one int64 buffer [W + Q*F*R + C*F*R] =
+# (admitted as 0/1, usage_out - usage, cohort_out - cohort_usage), so
+# that it makes one all-reduce and not three; after the sum over the
+# mesh (the domains are disjoint, so every element has at most one
+# rank's non-zero value) unpack gives admitted = buf[:W] > 0 and the
+# deltas added to the pre-cycle usage. Bound on the H100: bytes, each
+# element read and written once. Design (csrc/mesh_combine.cu): two
+# entries, pack and unpack, one thread per buffer element in a
+# grid-stride loop.
+
+def combine_pack_plain(admitted, usage, usage_out, cohort_usage, cohort_out):
+    """The torch chain: two subtracts, a cast and a cat. Returns the
+    buffer [W + Q*F*R + C*F*R] int64."""
+    return torch.cat([admitted.to(torch.int64),
+                      (usage_out - usage).reshape(-1),
+                      (cohort_out - cohort_usage).reshape(-1)])
+
+
+def combine_pack(admitted, usage, usage_out, cohort_usage, cohort_out):
+    if _is_cpu(usage):
+        return combine_pack_plain(admitted, usage, usage_out, cohort_usage,
+                                  cohort_out)
+    W, NU, NC = admitted.shape[0], usage.numel(), cohort_usage.numel()
+    if usage_out.shape != usage.shape \
+            or cohort_out.shape != cohort_usage.shape:
+        raise ValueError("mesh_combine: the usage outputs do not match the "
+                         "inputs' shapes")
+    buf = torch.empty(W + NU + NC, dtype=torch.int64, device=usage.device)
+    _launch("mesh_combine", [
+        _ptr(admitted, torch.bool, "admitted"),
+        _ptr(usage, torch.int64, "usage"),
+        _ptr(usage_out, torch.int64, "usage_out"),
+        _ptr(cohort_usage, torch.int64, "cohort_usage"),
+        _ptr(cohort_out, torch.int64, "cohort_out"),
+        _ptr(buf, torch.int64, "buf"),
+    ], [W, NU, NC], usage.device, "mesh_combine_pack_launch")
+    combine_pack.launches += 1
+    return buf
+
+
+def combine_unpack_plain(buf, usage, cohort_usage):
+    """Returns (admitted[W], usage', cohort_usage') from a summed
+    buffer."""
+    NU, NC = usage.numel(), cohort_usage.numel()
+    W = buf.shape[0] - NU - NC
+    return (buf[:W] > 0, usage + buf[W:W + NU].reshape(usage.shape),
+            cohort_usage + buf[W + NU:].reshape(cohort_usage.shape))
+
+
+def combine_unpack(buf, usage, cohort_usage):
+    if _is_cpu(buf):
+        return combine_unpack_plain(buf, usage, cohort_usage)
+    NU, NC = usage.numel(), cohort_usage.numel()
+    W = buf.shape[0] - NU - NC
+    if W < 0:
+        raise ValueError("mesh_combine: the buffer is shorter than the usage")
+    dev = buf.device
+    admitted = torch.empty(W, dtype=torch.bool, device=dev)
+    usage_out = torch.empty_like(usage)
+    cohort_out = torch.empty_like(cohort_usage)
+    _launch("mesh_combine", [
+        _ptr(buf, torch.int64, "buf"),
+        _ptr(usage, torch.int64, "usage"),
+        _ptr(cohort_usage, torch.int64, "cohort_usage"),
+        _ptr(admitted, torch.bool, "admitted"),
+        _ptr(usage_out, torch.int64, "usage_out"),
+        _ptr(cohort_out, torch.int64, "cohort_out"),
+    ], [W, NU, NC], dev, "mesh_combine_unpack_launch")
+    combine_unpack.launches += 1
+    return admitted, usage_out, cohort_out
+
+
+# kernel name (solver/csrc/<name>.cu) -> its wrappers, one per entry
+KERNEL_WRAPPERS = {"avail": (avail,), "phase_a": (phase_a,),
+                   "drf_share": (drf_share,), "order": (order_csr,),
+                   "phase_b": (phase_b,), "pack": (pack,),
+                   "deltas": (apply_state_deltas,),
+                   "arena_scatter": (scatter_arena_rows,),
+                   "arena_gather": (gather_arena,),
+                   "solve_preempt": (solve_preempt,),
+                   "solve_fair": (solve_fair,),
+                   "cluster_cols": (score_cluster_columns,),
+                   "mesh_combine": (combine_pack, combine_unpack)}
 reset_launch_counts()
 
 

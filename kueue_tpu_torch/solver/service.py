@@ -43,10 +43,21 @@ columns ride the cycle's upload, the fused cycle scores them
 decisions; `last_placements` maps each admitted head the device placed to
 its cluster's name.
 
+With a mesh (`BatchSolver(mesh=parallel.mesh.make_mesh())`, the JAX
+package's mesh solver, kueue_tpu/solver/service.py:1251-1286) the cycle
+is unbound: no usage journal, no resident state, no arena twin; every
+dispatch uploads the state and the batch and runs
+parallel.mesh.solve_cycle_sharded over the cycle's domain plan
+(parallel/domains.py, timed as last_phase_s["plan"], kept in
+`last_domain_plan`), and `solve_preemptions` runs K9 through
+parallel.mesh.solve_preempt_sharded. Fair-sharing preemption does not
+run under a mesh: the Scheduler sends it to the CPU Preemptor, and a
+fair batch raises here.
+
 Left out of these slices (the JAX package has them): the host-side
 router (`_route`, Plan.fit_pred), the dispatch supervisor and watchdog,
-the background fetch pool, fault injection, the flight recorder,
-batched partial admission, and the multi-chip mesh.
+the background fetch pool, fault injection, the flight recorder and
+batched partial admission.
 """
 
 from __future__ import annotations
@@ -78,6 +89,9 @@ from kueue_tpu_torch.solver.kernel import (
 )
 from kueue_tpu_torch.solver.preempt import preempt_args
 
+# after the scheduler package, whose import reaches solver.encode first
+from kueue_tpu_torch.parallel import mesh as meshpkg  # noqa: E402,I001
+
 # The largest device backlog shipped as a delta prologue: a bigger
 # correction set re-uploads the mirror wholesale (the JAX package's
 # bound, kueue_tpu/solver/service.py:1034).
@@ -88,8 +102,12 @@ DENSE_DECISION_KEYS = ("admitted", "fit", "chosen", "borrows",
                        "chosen_borrow")
 
 # the phases of one solve, timed per cycle (seconds) in last_phase_s;
-# "preempt" is solve_preemptions' upload, launches, sync and fetch
-PHASES = ("encode", "upload", "device", "fetch", "decode", "preempt")
+# "plan" is the mesh's domain plan, "preempt" solve_preemptions' upload,
+# launches, sync and fetch
+PHASES = ("encode", "plan", "upload", "device", "fetch", "decode", "preempt")
+
+_NO_FAIR_UNDER_MESH = ("fair-sharing preemption does not run under a mesh "
+                       "(the Scheduler sends it to the CPU Preemptor)")
 
 # the outputs of the preemption solves, in fetch order
 PREEMPT_KEYS = ("preempt_targets", "preempt_feasible", "preempt_stats")
@@ -180,12 +198,21 @@ class ResidentState:
 
 
 class BatchSolver:
-    def __init__(self, max_podsets: int = 4, device=None):
+    def __init__(self, max_podsets: int = 4, device=None, mesh=None):
         """device=None means the card (raises without one); the tests
-        pass device="cpu", which runs the kernels' plain versions.
-        Workloads are ordered by the default wlpkg.Ordering."""
+        pass device="cpu", which runs the kernels' plain versions. With a
+        mesh (parallel.mesh.Mesh) the device is the mesh's and the cycle
+        runs sharded over it. Workloads are ordered by the default
+        wlpkg.Ordering."""
         self.max_podsets = max_podsets
-        self.device = resolve(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve(device)
+        elif device is None or torch.device(device) == mesh.device:
+            self.device = mesh.device
+        else:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
         self.ordering = wlpkg.Ordering()
         self._topo_cache = None
         self._topo_key = None
@@ -204,6 +231,8 @@ class BatchSolver:
         # workload key -> remote cluster name, for the admitted heads the
         # last decode's mk_cluster placed (reset on every decode)
         self.last_placements: dict = {}
+        # the mesh's domain plan of the last dispatch (parallel/domains)
+        self.last_domain_plan = None
         # the usage the last dispatch read (after its delta prologue):
         # (topology, usage, cohort_usage) on the device, for
         # solve_preemptions
@@ -215,9 +244,12 @@ class BatchSolver:
 
     def bind_cache(self, cache) -> None:
         """Attach the Cache: enables the usage journal that keeps the
-        device-resident state reconciled across cycles."""
+        device-resident state reconciled across cycles. Under a mesh the
+        cycle is unbound and nothing drains a journal, so none is
+        enabled."""
         self._cache = cache
-        cache.enable_usage_journal()
+        if self.mesh is None:
+            cache.enable_usage_journal()
 
     def bind_queues(self, queues) -> None:
         """Attach the queue Manager's workload delta feed: the encode
@@ -244,7 +276,7 @@ class BatchSolver:
 
     @property
     def resident_capable(self) -> bool:
-        return self._cache is not None
+        return self._cache is not None and self.mesh is None
 
     @property
     def arena(self) -> WorkloadArena:
@@ -476,7 +508,16 @@ class BatchSolver:
         (solver/fairpreempt.py, solved with the strategy flags fs_flags)
         are solved in the same call against the same usage
         (kernel.solve_cycle_with_preempt). The usage the cycle read is
-        kept for solve_preemptions."""
+        kept for solve_preemptions. Under a mesh the cycle is
+        parallel.mesh.solve_cycle_sharded and a preempt_batch is solved by
+        solve_preempt_sharded; a fair_batch raises."""
+        if self.mesh is not None:
+            if fair_batch is not None:
+                raise ValueError(_NO_FAIR_UNDER_MESH)
+            tp = time.perf_counter()
+            self.last_domain_plan = meshpkg.plan_cycle(self.mesh, plan.topo,
+                                                       plan.batch.wl_cq)
+            self.last_phase_s["plan"] = time.perf_counter() - tp
         t0 = time.perf_counter()
         topo, batch, state = plan.topo, plan.batch, plan.state
         compact = topo.nominal.shape[1] <= MAX_COMPACT_FLAVORS
@@ -553,7 +594,18 @@ class BatchSolver:
             up = sum(a.nbytes for a in batch_np)
             self._sync()
             t1 = time.perf_counter()
-            if pargs is None and fargs is None:
+            if self.mesh is not None:
+                result = meshpkg.solve_cycle_sharded(
+                    self.mesh, plan.topo_dev, *dev, plan=self.last_domain_plan,
+                    **kwargs)
+                if pargs is not None:
+                    result.update(zip(PREEMPT_KEYS,
+                                      meshpkg.solve_preempt_sharded(
+                                          self.mesh, plan.topo_dev, dev[0],
+                                          dev[1], pargs,
+                                          meshpkg.preempt_weights(
+                                              host_pargs[7]))))
+            elif pargs is None and fargs is None:
                 result = solve_cycle_fused(plan.topo_dev, *dev, **kwargs)
             else:
                 result = solve_cycle_with_preempt(plan.topo_dev, *dev, pargs,
@@ -650,12 +702,16 @@ class BatchSolver:
         (kernel.solve_preemptions) against the usage the last dispatch
         read: the cycle's usage from before its admissions, never the
         resident state Phase B left. One upload of both batches, one sync
-        and one fetch for both, timed as last_phase_s["preempt"]. Returns
-        the aux dict of preempt_aux (numpy), None with no batch."""
+        and one fetch for both, timed as last_phase_s["preempt"]. Under a
+        mesh K9 runs through parallel.mesh.solve_preempt_sharded and a
+        fair_batch raises. Returns the aux dict of preempt_aux (numpy),
+        None with no batch."""
         if preempt_batch is None and fair_batch is None:
             return None
         if self._cycle_state is None:
             raise RuntimeError("solve_preemptions needs a dispatched cycle")
+        if self.mesh is not None and fair_batch is not None:
+            raise ValueError(_NO_FAIR_UNDER_MESH)
         t0 = time.perf_counter()
         topo_dev, usage, cohort_usage = self._cycle_state
         host_p = None if preempt_batch is None else preempt_args(
@@ -666,8 +722,13 @@ class BatchSolver:
         dev_f = None if host_f is None else \
             tuple(self._upload(a) for a in host_f)
         t1 = time.perf_counter()
-        out = kernel.solve_preemptions(topo_dev, usage, cohort_usage, dev_p,
-                                       dev_f, tuple(fs_flags))
+        if self.mesh is None:
+            out = kernel.solve_preemptions(topo_dev, usage, cohort_usage,
+                                           dev_p, dev_f, tuple(fs_flags))
+        else:
+            out = dict(zip(PREEMPT_KEYS, meshpkg.solve_preempt_sharded(
+                self.mesh, topo_dev, usage, cohort_usage, dev_p,
+                meshpkg.preempt_weights(host_p[7]))))
         self._sync()
         self._observe_sync((time.perf_counter() - t1) * 1e3)
         fetched = self._fetch(out, [k for k in PREEMPT_KEYS + FAIR_KEYS

@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from kueue_tpu_torch.api import kueue as api
+from kueue_tpu_torch.parallel import domains as tdom
+from kueue_tpu_torch.parallel import mesh as tmesh
 from kueue_tpu_torch.sim import northstar as ns
 from kueue_tpu_torch.solver import BatchSolver, encode
 from kueue_tpu_torch.solver import kernel as tk
@@ -271,7 +273,9 @@ def test_bound_solver_on_card_equals_cpu(fair, cuda_device):
         assert np.array_equal(rs.cohort_dev.cpu().numpy(), truth.cohort_usage)
     launched = tk.launch_counts()
     assert all(n > 0 for name, n in launched.items()
-               if name not in ("drf_share", "solve_fair", "cluster_cols"))
+               if name not in ("drf_share", "solve_fair", "cluster_cols",
+                               "mesh_combine"))
+    assert launched["mesh_combine"] == 0  # no mesh here
     assert (launched["drf_share"] > 0) == fair
     assert (launched["solve_fair"] > 0) == fair
     assert launched["cluster_cols"] == 0  # no cluster columns here
@@ -529,3 +533,140 @@ def test_scheduler_multikueue_on_card_equals_cpu(cuda_device):
     clusters = {c for g in got for _, c in g[1]}
     assert {"w0", "w1"} <= clusters and "w2" not in clusters
     assert all(c != "w1" for g in got[2:] for _, c in g[1])
+
+
+# --- the sharded cycle's pieces (parallel/mesh.py) ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ("flat", "nested"))
+def test_phase_b_columns_on_card_equal_plain(kind, cuda_device):
+    """phase_b over each rank's columns of a 3-way plan (padded with the
+    sentinel D and with -1) against the plain version; the three ranks'
+    admissions are disjoint and their deltas add up to the whole cycle's."""
+    topo, usage, cu, wl = inputs(kind)
+    host_topo = tk.topo_to_device(topo, "cpu")
+    card_topo = {k: v.to(cuda_device) for k, v in host_topo.items()}
+    u, c = tk.state_to_device(usage, cu, "cpu")
+    batch = [torch.from_numpy(np.array(wl[k])) for k in WL_KEYS]
+    requests, podset_active, wl_cq, priority, timestamp, eligible, \
+        solvable = batch
+    fit, borrows, _, _, asg = tk.phase_a(host_topo, tk.avail(host_topo, u, c),
+                                         u, requests, podset_active, wl_cq,
+                                         eligible, solvable, 3)
+    offsets, members, _ = tk.order_csr(host_topo, fit, borrows, priority,
+                                       timestamp, wl_cq)
+    D = offsets.shape[0] - 1
+    plan = tdom.plan_domains(wl["wl_cq"], topo["cq_cohort"],
+                             topo["cohort_root"], topo["offered"], 3)
+    whole = tk.phase_b(host_topo, u, c, asg, fit, wl_cq, offsets, members)
+    admitted = torch.zeros_like(whole[0])
+    du, dc = torch.zeros_like(u), torch.zeros_like(c)
+    args = (u, c, asg, fit, wl_cq, offsets, members)
+    for r, row in enumerate(plan.columns):
+        cols = np.where(row >= 0, row, D if r % 2 else -1).astype(np.int32)
+        cols = torch.from_numpy(cols)
+        want = tk.phase_b(host_topo, *args, cols)
+        got = tk.phase_b(card_topo, *(a.to(cuda_device) for a in args),
+                         cols.to(cuda_device))
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        assert not (admitted & want[0]).any()
+        admitted |= want[0]
+        du += want[1] - u
+        dc += want[2] - c
+    assert (plan.columns < 0).any()  # the plan has padding lanes
+    assert torch.equal(admitted, whole[0])
+    assert torch.equal(u + du, whole[1]) and torch.equal(c + dc, whole[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", (1, 3))
+def test_solve_preempt_slots_on_card_equal_plain(depth, cuda_device):
+    """K9 over each rank's slots of a 3-way problem plan (pad lanes B and
+    -1) against the plain version; the rows of the three ranks add up to
+    the single launch's outputs."""
+    topo, usage, cu, args = synth_preempt_inputs(
+        50, 40, depth=depth, num_cqs=64, num_flavors=3, seed=depth)
+    host = (tk.topo_to_device(topo, "cpu"),
+            *tk.state_to_device(usage, cu, "cpu"),
+            *(torch.from_numpy(a) for a in args))
+    card = ({k: v.to(cuda_device) for k, v in host[0].items()},
+            *(t.to(cuda_device) for t in host[1:]))
+    whole = tk.solve_preempt(*card)
+    perm, _, b_local = tdom.plan_problems(tmesh.preempt_weights(args[7]), 3)
+    B = args[7].shape[0]
+    sums = [torch.zeros_like(t) for t in whole]
+    for r in range(3):
+        mine = perm[r * b_local:(r + 1) * b_local].astype(np.int32)
+        mine[mine == B] = -1 if r == 1 else B
+        slots = torch.from_numpy(mine)
+        want = tk.solve_preempt(*host, slots=slots)
+        got = tk.solve_preempt(*card, slots=slots.to(cuda_device))
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        for acc, part in zip(sums, got):
+            acc += part
+    assert (perm == B).any()  # some lanes are padding
+    for acc, t in zip(sums, whole):
+        assert torch.equal(acc, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ("flat", "nested"))
+def test_mesh_combine_on_card_equals_plain(kind, cuda_device):
+    topo, usage, cu, _ = inputs(kind)
+    rng = np.random.default_rng(8)
+    u, c = tk.state_to_device(usage, cu, "cpu")
+    admitted = torch.from_numpy(rng.random(97) < 0.4)
+    u_out = u + torch.from_numpy(rng.integers(-5, 6, size=usage.shape))
+    c_out = c + torch.from_numpy(rng.integers(-5, 6, size=cu.shape))
+    host = (admitted, u, u_out, c, c_out)
+    want = tk.combine_pack_plain(*host)
+    got = tk.combine_pack(*(t.to(cuda_device) for t in host))
+    assert torch.equal(got.cpu(), want)
+    back = tk.combine_unpack(got, u.to(cuda_device), c.to(cuda_device))
+    for a, b in zip(back, (admitted, u_out, c_out)):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(back, tk.combine_unpack_plain(want, u, c)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device):
+    mesh = tmesh.make_mesh()
+    yield mesh
+    mesh.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fair", (False, True))
+@pytest.mark.parametrize("kind", ("flat", "nested"))
+def test_sharded_cycle_world_size_1_on_card(kind, fair, nccl_mesh,
+                                            cuda_device):
+    """solve_cycle_sharded at world size 1 over NCCL equals
+    solve_cycle_fused on the card, and solve_preempt_sharded equals
+    solve_preempt; mesh_combine launches once each way per cycle."""
+    assert nccl_mesh.size == 1 and nccl_mesh.device.type == "cuda"
+    topo, usage, cu, wl = fair_inputs(kind) if fair else inputs(kind)
+    card = [tk.topo_to_device(topo, cuda_device),
+            *tk.state_to_device(usage, cu, cuda_device),
+            *(torch.from_numpy(np.array(wl[k])).to(cuda_device)
+              for k in WL_KEYS)]
+    want = tk.solve_cycle_fused(*card, num_podsets=3, fair_sharing=fair)
+    before = tk.launch_counts()
+    got = tmesh.solve_cycle_sharded(nccl_mesh, *card, num_podsets=3,
+                                    fair_sharing=fair)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["mesh_combine"] == before["mesh_combine"] + 2
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    ptopo, pusage, pcu, args = synth_preempt_inputs(
+        30, 24, depth=2, num_cqs=64, num_flavors=3, seed=4)
+    pcard = (tk.topo_to_device(ptopo, cuda_device),
+             *tk.state_to_device(pusage, pcu, cuda_device))
+    pargs = tuple(torch.from_numpy(a).to(cuda_device) for a in args)
+    got = tmesh.solve_preempt_sharded(nccl_mesh, *pcard, pargs)
+    want = tk.solve_preempt(*pcard, *pargs)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -122,10 +122,10 @@ class FakeClient:
 
 class Env:
     """A cache, a queue Manager and a Scheduler of one package, with a
-    BatchSolver on the given route."""
+    BatchSolver (or `solver`) on the given route."""
 
     def __init__(self, pkg: str, route: str, fair_sharing=False,
-                 preempt="cpu", fs_strategies=None):
+                 preempt="cpu", fs_strategies=None, solver=None):
         def mod(name):
             return importlib.import_module(f"{pkg}.{name}")
         self.pkg = pkg
@@ -134,9 +134,10 @@ class Env:
         self.cache = mod("cache").Cache()
         self.queues = mod("queue").Manager(clock=self.clock)
         self.client = FakeClient(self.wlpkg)
-        solver_cls = mod("solver").BatchSolver
-        solver = solver_cls(device="cpu") if pkg == "kueue_tpu_torch" \
-            else solver_cls()
+        if solver is None:
+            solver_cls = mod("solver").BatchSolver
+            solver = solver_cls(device="cpu") if pkg == "kueue_tpu_torch" \
+                else solver_cls()
         self.scheduler = mod("scheduler.scheduler").Scheduler(
             self.queues, self.cache, self.client, clock=self.clock,
             fair_sharing_enabled=fair_sharing, solver=solver,
@@ -240,11 +241,13 @@ def observe(env, admissions_only=False) -> dict:
 
 def run_both(setup, workloads, route, fair_sharing=False, cycles=1,
              between=None, admissions_only=False, preempt="cpu",
-             envs_out=None, fs_strategies=None):
+             envs_out=None, fs_strategies=None, solvers=None):
     """The scenario on both packages; returns the two observations after
     asserting they are equal, and the port's Env. envs_out, when given,
-    receives both Envs (JAX first)."""
-    envs = [Env(pkg, route, fair_sharing, preempt, fs_strategies)
+    receives both Envs (JAX first); solvers, when given, maps each
+    package to a factory of its BatchSolver."""
+    envs = [Env(pkg, route, fair_sharing, preempt, fs_strategies,
+                None if solvers is None else solvers[pkg]())
             for pkg in PKGS]
     if envs_out is not None:
         envs_out.extend(envs)
@@ -334,6 +337,13 @@ def test_fair_sharing_zero_weight_sorts_last(route):
 @pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("seed", range(10))
 def test_fair_sharing_random(seed, route):
+    setup, workloads = fair_sharing_scenario(seed)
+    run_both(setup, workloads, route, fair_sharing=True, cycles=2)
+
+
+def fair_sharing_scenario(seed: int):
+    """A cohort of 2-5 CQs of mixed fair weights and 3-10 contending
+    workloads: (setup, workloads)."""
     rng = random.Random(7000 + seed)
     n_cqs = rng.randint(2, 5)
     specs = [(f"cq{i}", rng.choice([2, 5, 8]), rng.choice([500, 1000, 2000]))
@@ -356,8 +366,7 @@ def test_fair_sharing_random(seed, route):
         return [WorkloadWrapper(n).queue(q).priority(p).creation(ts)
                 .pod_set(count=1, cpu=c).obj()
                 for n, q, p, ts, c in wl_specs]
-
-    run_both(setup, workloads, route, fair_sharing=True, cycles=2)
+    return setup, workloads
 
 
 # --- tests/test_scheduler.py cases ---
