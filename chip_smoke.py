@@ -156,16 +156,22 @@ REPLACES = {
     "solve_fair": "kueue_tpu/solver/fairpreempt.py:210",
     "cluster_cols": "kueue_tpu/solver/kernel.py:614",
     "mesh_combine": "kueue_tpu/parallel/mesh.py:320",
+    "global_scan": "kueue_tpu/solver/kernel.py:250",
 }
 # the kernels each end-to-end phase must launch
 PHASE_KERNELS = {
+    # the oracles on the kernel inputs: solve_cycle (global_scan),
+    # solve_cycle_cohort_parallel and solve_cycle_fused, fair sharing on
+    # in one variant
+    "oracles": ("avail", "phase_a", "drf_share", "order", "phase_b",
+                "global_scan"),
     "unbound": ("avail", "phase_a", "order", "phase_b", "pack"),
     "bound_fill": ("arena_gather", "avail", "phase_a", "order", "phase_b",
                    "pack"),
     "bound_churn": tuple(k for k in REPLACES
                          if k not in ("drf_share", "solve_preempt",
                                       "solve_fair", "cluster_cols",
-                                      "mesh_combine")),
+                                      "mesh_combine", "global_scan")),
     # the finishes free more than 512 (cq, resource) coords and replace
     # more than 512 arena rows each cycle: the state and the twin are
     # re-uploaded whole, so deltas and arena_scatter do not run here
@@ -183,6 +189,10 @@ PHASE_KERNELS = {
     # the state and the twin whole, as in the fair phase)
     "scheduler_multikueue": ("arena_gather", "avail", "phase_a", "order",
                              "phase_b", "pack", "cluster_cols"),
+    # the bound fit cycle, then avail and phase_a once per search round
+    # (the finishes re-upload the state and the twin whole)
+    "scheduler_partial": ("arena_gather", "avail", "phase_a", "order",
+                          "phase_b", "pack"),
 }
 # The sharded cycle's sub-phases and the kernels each must launch: under a
 # mesh the cycle is unbound (no arena twin, no resident state), K9 runs over
@@ -246,6 +256,15 @@ MK_SYNTH = dict(num_clusters=8, num_flavors=32, num_resources=2,
 # collect's copy per key against one copy of all keys: calls of each, in
 # turns
 FETCH_REPS = 200
+# Elastic Jobs under PartialAdmission on the north star (sim/northstar
+# build_partial_admission): the CQs of cohorts 0-127 queue Jobs of 512
+# pods of 1 unit that may run with 64, more than the 320 units a cohort
+# of 8 CQs holds in a flavor; the rest queue the north star's workloads.
+PARTIAL = dict(num_cqs=2048, num_cohorts=256, num_flavors=32,
+               nominal_units=40, cpu_units=40, partial_cohorts=128,
+               count=512, min_count=64)
+PARTIAL_TIMED = 5
+PARTIAL_WAVES = E2E_WARMUP + PARTIAL_TIMED + 2  # a head on every CQ
 
 
 def log(msg: str) -> None:
@@ -755,15 +774,29 @@ def normalize(decisions: dict) -> dict:
     return out
 
 
-def check_resident(solver, cache, topo) -> None:
+def check_resident(solver, cache, topo, host_admitted=()) -> None:
     """The resident usage fetched from the card equals the host mirror,
-    and the mirror equals a fresh encode of the cache."""
+    and the mirror equals a fresh encode of the cache. host_admitted:
+    the workloads the last cycle admitted on the host (not on the card),
+    whose usage reaches the mirror through the cache journal only at the
+    next cycle's reconcile, so the cache is taken without them."""
     import numpy as np
+    from kueue_tpu_torch.core.resources import FlavorResource
     from kueue_tpu_torch.solver import encode
     rs = solver.resident
     if rs.device_backlog:
         raise AssertionError("corrections left unshipped after a cycle")
     truth = encode.encode_state(cache.snapshot(), topo)
+    corr = {}
+    for wl in host_admitted:
+        adm = wl.status.admission
+        for psa in adm.pod_set_assignments:
+            for r, v in psa.resource_usage.items():
+                key = (adm.cluster_queue, FlavorResource(psa.flavors[r], r))
+                corr[key] = corr.get(key, 0) - v
+    deltas = encode.encode_deltas(corr, topo) if corr else None
+    if deltas is not None:
+        encode.apply_deltas_np(topo, truth.usage, truth.cohort_usage, deltas)
     for name, got, want in (
             ("usage", rs.usage_dev.cpu().numpy(), rs.mirror_usage),
             ("cohort_usage", rs.cohort_dev.cpu().numpy(), rs.mirror_cohort),
@@ -2304,6 +2337,325 @@ def scheduler_sharded_phase(device) -> dict:
     return summary
 
 
+ORACLE_KEYS = ("admitted", "fit", "borrows", "chosen", "chosen_borrow",
+               "usage", "cohort_usage")
+
+
+def oracle_phase(device) -> dict:
+    """The cycle's oracles on the card, on the north-star and the nested
+    kernel inputs (kernel_inputs): with fair sharing off, on with the
+    mixed weights of fair_topo, and (nested) with the flavor-resume
+    ranks. Each variant drives solve_cycle (Phase A, the global order,
+    global_scan), solve_cycle_cohort_parallel (Phase A, the host grid,
+    phase_b over it) and solve_cycle_fused, between a reset and a read of
+    the launch counts, and holds their seven outputs equal. Then, outside
+    the count, global_scan against global_scan_plain on the same card
+    tensors; with fair sharing off, global_scan's device ms, call ms,
+    plain ms and bound beside phase_b's ms on the same Phase A and order
+    (their ratio: the speed-up of the cohort-parallel Phase B over the
+    global scan)."""
+    import torch
+    from kueue_tpu_torch.solver import kernel as k
+    phase = "oracles"
+    t_phase = time.perf_counter()
+    launches = {}
+    rows, checks = {}, []
+    for kind in ("north_star", "nested"):
+        inp = kernel_inputs(kind, device)
+        usage, cu, wl = inp["usage"], inp["cu"], inp["wl"]
+        W, P, _ = wl["requests"].shape
+        batch = [wl[n] for n in ("requests", "podset_active", "wl_cq",
+                                 "priority", "timestamp", "eligible",
+                                 "solvable")]
+        variants = ("plain", "fair") + (("start_rank",) if kind == "nested"
+                                        else ())
+        for variant in variants:
+            topo = inp["fair_topo"] if variant == "fair" else inp["topo"]
+            fair = variant == "fair"
+            kw = dict(num_podsets=P, fair_sharing=fair,
+                      start_rank=inp["start_rank"]
+                      if variant == "start_rank" else None)
+            torch.cuda.synchronize()
+            k.reset_launch_counts()
+            t0 = time.perf_counter()
+            seq = k.solve_cycle(topo, usage, cu, *batch, **kw)
+            par = k.solve_cycle_cohort_parallel(topo, topo, usage, cu,
+                                                *batch, **kw)
+            fused = k.solve_cycle_fused(topo, usage, cu, *batch,
+                                        compact=False, **kw)
+            torch.cuda.synchronize()
+            drive_s = time.perf_counter() - t0
+            for name, n in k.launch_counts().items():
+                launches[name] = launches.get(name, 0) + n
+            for other, label in ((par, "cohort_parallel"), (fused, "fused")):
+                compare([f"{kind}/{variant} {label} {key}"
+                         for key in ORACLE_KEYS],
+                        [other[key] for key in ORACLE_KEYS],
+                        [seq[key] for key in ORACLE_KEYS])
+            # global_scan against its plain version on the cycle's own
+            # Phase A and global order
+            fit, borrows, _, _, asg, share = k.solve_phase_a(
+                topo, usage, cu, *batch[:3], *batch[5:], **kw)
+            offsets, members, order = k.order_csr(
+                topo, fit, borrows, wl["priority"], wl["timestamp"],
+                wl["wl_cq"], share if fair else None, with_order=True)
+            s_args = (topo, usage, cu, asg, fit, wl["wl_cq"], order)
+            t0 = time.perf_counter()
+            want = k.global_scan_plain(*s_args)
+            plain_once_s = time.perf_counter() - t0
+            err = compare([f"{kind}/{variant} global_scan {key}" for key in
+                           ("admitted", "usage", "cohort_usage")],
+                          k.global_scan(*s_args), want)
+            admitted = int(seq["admitted"].sum())
+            fits = int(seq["fit"].sum())
+            if not 0 < admitted < fits:
+                raise AssertionError(f"{phase} {kind}/{variant}: {admitted} "
+                                     f"of {fits} fitting heads admitted; the "
+                                     "scan's re-check is not exercised")
+            check = {"kind": kind, "variant": variant, "W": W, "fit": fits,
+                     "admitted": admitted, "drive_ms": drive_s * 1e3,
+                     "plain_once_ms": plain_once_s * 1e3,
+                     "max_abs_err": err}
+            checks.append(check)
+            log(f"[{phase}] {kind}/{variant}: solve_cycle == "
+                "solve_cycle_cohort_parallel == solve_cycle_fused on 7 "
+                "outputs; global_scan equal to plain; " + json.dumps(check))
+            if variant != "plain":
+                continue
+            b_args = (topo, usage, cu, asg, fit, wl["wl_cq"], offsets,
+                      members)
+            torch.cuda.synchronize()
+            call_ms = time_cuda(lambda: k.global_scan(*s_args), iters=20)
+            plain_ms = time_cuda(lambda: k.global_scan_plain(*s_args),
+                                 iters=1, warmup=1)
+            kernel_ms = profiled_device_ms(lambda: k.global_scan(*s_args),
+                                           10, "global_scan")
+            ms, source = (kernel_ms, "profiler") if kernel_ms is not None \
+                else (call_ms, "events")
+            pb_ms = profiled_device_ms(lambda: k.phase_b(*b_args), 20,
+                                       "phase_b") \
+                or time_cuda(lambda: k.phase_b(*b_args), iters=20)
+            moved = phase_b_bytes(topo, usage, cu, asg, fit, wl["wl_cq"],
+                                  order, None, want)
+            steps = int((offsets[1:] - offsets[:-1]).max().item())
+            rows[kind] = {
+                "max_abs_err": err, "ms": ms, "ms_source": source,
+                "call_ms": call_ms, "plain_ms": plain_ms,
+                "library_ms": None, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                "bytes": moved, "dependent_steps": W, "fit_steps": fits,
+                "phase_b_ms": pb_ms, "phase_b_dependent_steps": steps,
+                "global_over_phase_b": ms / pb_ms}
+            log(f"[{phase}] {kind} global_scan: ms={ms:.5f} ({source}) "
+                f"call_ms={call_ms:.4f} plain_ms={plain_ms:.2f} bound_ms="
+                f"{rows[kind]['bound_ms']:.6f} ({moved} bytes / 3.35 TB/s); "
+                f"latency-bound: {W} dependent steps ({fits} fit); "
+                f"phase_b on the same inputs {pb_ms:.5f} ms ({steps} steps): "
+                f"global scan / cohort-parallel = "
+                f"{rows[kind]['global_over_phase_b']:.1f}x")
+    for name in PHASE_KERNELS[phase]:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{phase} path")
+    summary = {"launches": launches, "checks": checks, "kernel_rows": rows,
+               "wall_s": time.perf_counter() - t_phase}
+    log(f"[{phase}] " + json.dumps(
+        {k_: v for k_, v in summary.items() if k_ != "kernel_rows"}))
+    return summary
+
+
+def partial_env(device):
+    """The partial-admission cell (sim/northstar build_partial_admission),
+    its Scheduler's solver on `device` (None: no solver, the cpu-forced
+    route and its sequential PodSetReducer). Every requeue's (key,
+    status, message) is kept in the returned list."""
+    from kueue_tpu_torch.sim import northstar as ns
+    from kueue_tpu_torch.solver import BatchSolver
+    env = ns.build_partial_admission(
+        waves=PARTIAL_WAVES, **PARTIAL,
+        solver=None if device is None else BatchSolver(device=device))
+    sched, msgs = env[0], []
+    real = sched.requeue_and_update
+
+    def requeue(e):
+        real(e)
+        msgs.append((e.info.key, e.status, e.inadmissible_msg))
+    sched.requeue_and_update = requeue
+    return env, msgs
+
+
+def partial_record(client, msgs: list) -> tuple:
+    """What a partial cycle left: the workloads it admitted in order with
+    their pod counts, and the requeues' messages."""
+    return (tuple((wl.metadata.name,
+                   tuple(p.count for p in wl.status.admission
+                         .pod_set_assignments))
+                  for wl in client.new_applied), tuple(sorted(msgs)))
+
+
+def scheduler_partial_phase(device) -> dict:
+    """The port's Scheduler on the partial-admission cell, cycle after
+    cycle, on the card: before each cycle the last cycle's admissions
+    finish (outside the timed window, with the check of the resident
+    state and a full collection); the cycle is one schedule() call on the
+    device route, in which the elastic heads the fit cycle did not fit
+    search their counts, avail and phase_a launched once per round.
+    Then the same cycles with device="cpu" must make the same admissions
+    with the same counts and the same Pending messages, and the first two
+    with no solver (the sequential PodSetReducer) the same admissions."""
+    from kueue_tpu_torch.core import workload as wlpkg
+    from kueue_tpu_torch.sim import northstar as ns
+    from kueue_tpu_torch.solver import encode, kernel
+    phase = "scheduler_partial"
+    t_phase = time.perf_counter()
+    (sched, cache, queues, client), msgs = partial_env(device)
+    solver = sched.solver
+    topo = encode.encode_topology(cache.snapshot())
+    log(f"[{phase}] cluster: {PARTIAL['num_cqs']} CQs, "
+        f"{PARTIAL['num_cohorts']} cohorts, {PARTIAL['num_flavors']} flavors "
+        f"x {PARTIAL['nominal_units']} units; cohorts 0-"
+        f"{PARTIAL['partial_cohorts'] - 1} queue Jobs of {PARTIAL['count']} "
+        f"pods (min {PARTIAL['min_count']}) of 1 unit, the rest one-pod "
+        f"workloads of {PARTIAL['cpu_units']} units; "
+        f"{queues.pending_total()} pending staged in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    keys = SCHED_PHASES + ("partial", "gc", "other", "cycle")
+    phases = {p: [] for p in keys}
+    records, per_cycle = [], []
+    admitted_timed = 0
+    gc_clock = GcClock()
+    gc.callbacks.append(gc_clock)
+
+    def host_admitted() -> list:
+        """The last cycle's admissions the card did not decide: the
+        reduced Jobs, assigned on the host at their found counts."""
+        return [wl for wl in client.new_applied
+                if wlpkg.key(wl) not in solver.resident.pending]
+
+    def run_cycle(cycle: int, check_first: bool = True) -> dict:
+        if check_first and cycle > 0:
+            check_resident(solver, cache, topo, host_admitted())
+        finished = ns.finish_applied(cache, queues, client)
+        gc.collect()
+        msgs.clear()
+        before, syncs = client.admitted, solver.counters["syncs"]
+        g0, t0 = gc_clock.total, time.perf_counter()
+        sched.schedule(timeout=0)
+        g1, t1 = gc_clock.total, time.perf_counter()
+        if sched.last_route != "device":
+            raise AssertionError(f"{phase} cycle {cycle} took the "
+                                 f"{sched.last_route!r} route")
+        records.append(partial_record(client, msgs))
+        row = {**sched.last_phase_s, **solver.last_phase_s,
+               "gc": g1 - g0, "cycle": t1 - t0}
+        row["other"] = row["cycle"] - sum(row[p] for p in SCHED_PHASES) \
+            - row["partial"]
+        stats = {"admitted": client.admitted - before,
+                 "full": sum(1 for n, _ in records[-1][0]
+                             if n.startswith("w")),
+                 "reduced": sum(1 for n, c in records[-1][0]
+                                if n.startswith("p")),
+                 "reduced_pods": sorted({c[0] for n, c in records[-1][0]
+                                         if n.startswith("p")}),
+                 "rounds": solver.last_partial_rounds,
+                 "syncs": solver.counters["syncs"] - syncs,
+                 "upload_bytes": solver.last_upload_bytes,
+                 "partial_share": row["partial"] / row["cycle"]}
+        row["stats"] = stats
+        log(f"[{phase}] cycle {cycle}"
+            f"{' (warm-up)' if cycle < E2E_WARMUP else ''}: finished="
+            f"{finished} {json.dumps(stats)} pending="
+            f"{queues.pending_total()} cycle_ms={row['cycle'] * 1e3:.1f} ms="
+            + json.dumps({p: round(row[p] * 1e3, 3) for p in keys
+                          if p != "cycle"}))
+        return row
+
+    kernel.reset_launch_counts()
+    rounds_total = 0
+    for cycle in range(E2E_WARMUP + PARTIAL_TIMED):
+        row = run_cycle(cycle)
+        stats = row["stats"]
+        rounds_total += stats["rounds"]
+        if stats["rounds"] <= 0 or stats["reduced"] <= 0:
+            raise AssertionError(f"{phase} cycle {cycle}: no search or no "
+                                 f"reduced admission ({stats})")
+        if cycle < E2E_WARMUP:
+            continue
+        per_cycle.append(stats)
+        admitted_timed += stats["admitted"]
+        for p in keys:
+            phases[p].append(row[p])
+    launches = kernel.launch_counts()
+    for name in PHASE_KERNELS[phase]:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{phase} path")
+    cycles = E2E_WARMUP + PARTIAL_TIMED
+    for name in ("avail", "phase_a"):
+        if launches[name] != cycles + rounds_total:
+            raise AssertionError(f"{phase}: {name} launched "
+                                 f"{launches[name]} times, not once a cycle "
+                                 f"and once a round ({cycles} + "
+                                 f"{rounds_total})")
+    summary = {p: {"p50_ms": percentile(v, 50) * 1e3, "max_ms": max(v) * 1e3}
+               for p, v in phases.items()}
+    summary["admitted_per_s"] = admitted_timed / sum(phases["cycle"])
+    summary["admitted_timed"] = admitted_timed
+    for name in ("admitted", "full", "reduced", "rounds", "syncs",
+                 "upload_bytes", "partial_share"):
+        values = [s[name] for s in per_cycle]
+        summary[name] = {"p50": percentile(values, 50), "min": min(values),
+                         "max": max(values)}
+    summary["reduced_pods"] = sorted({c for s in per_cycle
+                                      for c in s["reduced_pods"]})
+    summary["launches"] = launches
+    summary["counters"] = dict(solver.counters)
+    check_resident(solver, cache, topo, host_admitted())
+    summary["traced_cycle"] = traced_cycle(
+        phase, run_cycle, E2E_WARMUP + PARTIAL_TIMED)
+    check_resident(solver, cache, topo, host_admitted())
+    gc.callbacks.remove(gc_clock)
+    # the same cycles on the CPU, with the plain kernels
+    t_cpu = time.perf_counter()
+    (c_sched, c_cache, c_queues, c_client), c_msgs = partial_env("cpu")
+    for cycle, want in enumerate(records):
+        ns.finish_applied(c_cache, c_queues, c_client)
+        c_msgs.clear()
+        c_sched.schedule(timeout=0)
+        got = partial_record(c_client, c_msgs)
+        if got[0] != want[0]:
+            raise AssertionError(f"{phase} cycle {cycle}: the card admitted "
+                                 "other workloads or counts than the CPU")
+        if got[1] != want[1]:
+            raise AssertionError(f"{phase} cycle {cycle}: the Pending "
+                                 "messages differ from the CPU's")
+    summary["cpu_check_s"] = time.perf_counter() - t_cpu
+    # the sequential PodSetReducer (no solver: the cpu-forced route)
+    t_cpu = time.perf_counter()
+    (r_sched, r_cache, r_queues, r_client), r_msgs = partial_env(None)
+    for cycle in range(E2E_WARMUP + 1):
+        ns.finish_applied(r_cache, r_queues, r_client)
+        t0 = time.perf_counter()
+        r_sched.schedule(timeout=0)
+        cycle_s = time.perf_counter() - t0
+        if r_sched.last_route != "cpu-forced":
+            raise AssertionError(f"{phase}: the reducer run took the "
+                                 f"{r_sched.last_route!r} route")
+        got = sorted(partial_record(r_client, r_msgs)[0])
+        if got != sorted(records[cycle][0]):
+            raise AssertionError(f"{phase} cycle {cycle}: the card admitted "
+                                 "other workloads or counts than the "
+                                 "sequential PodSetReducer")
+    summary["reducer_first_timed_cycle_ms"] = cycle_s * 1e3
+    summary["reducer_nominate_ms"] = r_sched.last_phase_s["nominate"] * 1e3
+    summary["reducer_check_s"] = time.perf_counter() - t_cpu
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[{phase}] equal to the CPU run ({len(records)} cycles: "
+        f"admissions, counts, Pending messages) and to the sequential "
+        f"PodSetReducer (cycles 0-{E2E_WARMUP}); {client.admitted} admitted")
+    log(f"[{phase}] " + json.dumps(summary))
+    return summary
+
+
 def traced_cycle(phase: str, run_cycle, cycle: int,
                  kernel: str = None, kernels: tuple = None) -> dict:
     """One more main-path cycle under torch.profiler (after the timed
@@ -2373,7 +2725,9 @@ def main() -> int:
         t0 = time.perf_counter()
         kernel_phase(kind, device, results)
         log(f"[kernels:{kind}] wall {time.perf_counter() - t0:.1f} s")
-    runners = {"scheduler_fair": scheduler_phase,
+    runners = {"oracles": oracle_phase,
+               "scheduler_partial": scheduler_partial_phase,
+               "scheduler_fair": scheduler_phase,
                "scheduler_preempt": scheduler_preempt_phase,
                "scheduler_fair_preempt": scheduler_fair_preempt_phase,
                "scheduler_multikueue": scheduler_multikueue_phase,
@@ -2391,6 +2745,10 @@ def main() -> int:
                 and summary["launches"]["mesh_combine"]:
             raise AssertionError(f"mesh_combine launched on the {phase} "
                                  "path")
+        # the global scan is the oracle's alone
+        if phase != "oracles" and summary["launches"]["global_scan"]:
+            raise AssertionError(f"global_scan launched on the {phase} "
+                                 "path")
     # K9's rows: the main path's captured inputs and the synthetic nested
     results["north_star"]["solve_preempt"] = \
         e2e["scheduler_preempt"]["kernel_rows"]["captured"]
@@ -2406,6 +2764,9 @@ def main() -> int:
         e2e["scheduler_multikueue"]["kernel_rows"]["captured"]
     results["nested"]["cluster_cols"] = \
         e2e["scheduler_multikueue"]["kernel_rows"]["synthetic"]
+    # K14's: the oracle phase's, on the north-star and nested inputs
+    for kind in ("north_star", "nested"):
+        results[kind]["global_scan"] = e2e["oracles"]["kernel_rows"][kind]
 
     sharded = e2e["scheduler_sharded"]
     kernels = []
@@ -2429,14 +2790,20 @@ def main() -> int:
                        if k in ("ms", "call_ms", "plain_ms", "library_ms",
                                 "bound_ms", "dependent_steps",
                                 "rounds_max", "rounds_mean", "pops_max",
-                                "fillback_max")},
+                                "fillback_max", "phase_b_ms",
+                                "global_over_phase_b")},
             # phase_b's, solve_preempt's, solve_fair's and cluster_cols'
             # real limit is a serial chain, which a byte or operation
             # count does not capture
             **({"latency_bound": f"{row['dependent_steps']} dependent steps",
                 "dependent_steps": row["dependent_steps"]}
                if name in ("phase_b", "solve_preempt", "solve_fair",
-                           "cluster_cols") else {}),
+                           "cluster_cols", "global_scan") else {}),
+            **({"inputs": "the oracle phase's north-star kernel inputs, "
+                          "fair sharing off",
+                "fit_steps": row["fit_steps"], "phase_b_ms": row["phase_b_ms"],
+                "global_over_phase_b": row["global_over_phase_b"]}
+               if name == "global_scan" else {}),
             **({"inputs": "the scheduler multikueue phase's first timed "
                           "cycle",
                 "rows": row["rows"], "placed": row["placed"],

@@ -28,6 +28,10 @@ the batched solves (solver/candidates.py): minimal preemption
 fair-sharing preemption for the heads with candidates in their cohort
 (solver/fairpreempt.py, kernel.solve_fair, K11), both launched once more
 against the usage the cycle's dispatch read, with one sync for the two.
+The heads with PartialAdmission on in a Never/Never CQ search their
+reduced pod counts together (BatchSolver.batched_partial_admission,
+Phase A on the card once per lockstep round, against that same usage)
+and get one flavor assignment each at the counts found.
 Otherwise (route "cpu-forced") the CPU path runs the whole cycle.
 
 Differences from the JAX Scheduler, on this synchronous path:
@@ -44,10 +48,9 @@ Differences from the JAX Scheduler, on this synchronous path:
 - An encode or launch failure of the preemption solve propagates; the
   JAX Scheduler hands the entries to the CPU Preemptor instead
   (scheduler.py:2064-2068, :2084-2088).
-- Heads that may be partially admitted go to CPU nomination, the JAX
-  branch taken when the batched partial admission gives no result
-  (scheduler.py:2185-2191); their Pending message on failure is the CPU
-  assigner's rather than the batched path's generic one.
+- An exception of the batched partial admission propagates; the JAX
+  Scheduler hands its heads to the CPU reducer instead
+  (scheduler.py:2186-2191).
 - A solver exception propagates instead of rerunning the cycle on the
   CPU: nothing hides a device fault.
 - Not ported: the speculative pipeline (and its pipelined preemption
@@ -402,15 +405,27 @@ class Scheduler:
         # entries can't fit, and a Never/Never preemption policy (with no
         # partial admission possible) means the CPU assigner could only
         # restate NoFit.
-        nofit_entries, rest = [], []
+        nofit_entries, rest, partial_ws = [], [], []
         for i, w in enumerate(valid_heads):
             if i in decisions:
                 continue
             e = self._device_nofit_entry(w, snapshot)
             if e is not None:
                 nofit_entries.append(e)
+            elif self._batched_reducer_eligible(w, snapshot):
+                partial_ws.append(w)
             else:
-                rest.append(w)  # preemption or partial admission: CPU
+                rest.append(w)  # preemption possible: CPU nomination
+        if partial_ws:
+            # Batched partial admission (podset_reducer.go:29-86): the
+            # heads' searches in lockstep, Phase A on the card a round,
+            # then one assigner run per head at its found counts.
+            for item in self._batched_partial_admission(partial_ws, plan,
+                                                        snapshot):
+                if isinstance(item, Entry):
+                    nofit_entries.append(item)
+                else:
+                    rest.append(item)
         # Preempt-mode targets are deferred to the batched solves, except
         # under a mesh with fair sharing: the sharded solve carries only
         # minimal preemption (kueue_tpu/scheduler/scheduler.py:1952-1957),
@@ -616,6 +631,54 @@ class Scheduler:
         e.inadmissible_msg = ("couldn't assign flavors: insufficient quota "
                               "(batched assignment)")
         return e
+
+    def _batched_reducer_eligible(self, w: wlpkg.Info,
+                                  snapshot: Snapshot) -> bool:
+        """Batched partial admission needs probes that cannot pass by
+        preemption: a Never/Never policy makes the reducer's predicate
+        fit alone, which is what the batched Phase A evaluates."""
+        if not features.enabled(features.PARTIAL_ADMISSION) \
+                or not w.can_be_partially_admitted():
+            return False
+        p = snapshot.cluster_queues[w.cluster_queue].preemption
+        return (p.within_cluster_queue == api.PREEMPTION_NEVER
+                and p.reclaim_within_cohort == api.PREEMPTION_NEVER)
+
+    def _batched_partial_admission(self, partial_ws: list, plan,
+                                   snapshot: Snapshot) -> list:
+        """The solver's batched search, then an Entry for each head it
+        resolved: at its found counts, one FlavorAssigner run (with the
+        reclaim oracle); with none, NoFit with the batch path's generic
+        message. A head whose probe could not be encoded is returned as
+        it is, for CPU nomination. The assigner runs count as nominate
+        time, the search as the solver's "partial"."""
+        from kueue_tpu_torch.solver.service import CPU_FALLBACK
+        results = self.solver.batched_partial_admission(plan, snapshot,
+                                                        partial_ws)
+        t_ph = _time.perf_counter()
+        out: list = []
+        oracle = make_reclaim_oracle(self.preemptor, snapshot)
+        for i, w in enumerate(partial_ws):
+            counts = results.get(i)
+            if counts is CPU_FALLBACK:
+                out.append(w)
+                continue
+            e = Entry(info=w)
+            if counts is None:
+                e.inadmissible_msg = ("couldn't assign flavors: "
+                                      "insufficient quota "
+                                      "(batched assignment)")
+                out.append(e)
+                continue
+            cq = snapshot.cluster_queues[w.cluster_queue]
+            assigner = fa.FlavorAssigner(w, cq, snapshot.resource_flavors,
+                                         self.fair_sharing_enabled, oracle)
+            e.assignment = assigner.assign(counts)
+            e.inadmissible_msg = e.assignment.message()
+            w.last_assignment = e.assignment.last_state
+            out.append(e)
+        self._span("nominate", t_ph)
+        return out
 
     def _cpu_preempt_targets(self, pending: list, snapshot: Snapshot) -> None:
         """Resolve deferred preempt-mode entries with the CPU preemptor

@@ -15,7 +15,8 @@ Two ways to drive a cycle:
   its preemption-heavy one (`build_preempt_reclaim`, bench.py
   bench_preemption_reclaim, with `admit_victim`), its fair-sharing
   preemption one (`build_fair_preemption`, bench.py
-  bench_fair_preemption) and a MultiKueue manager cluster placing its
+  bench_fair_preemption), elastic Jobs that PartialAdmission reduces
+  (`build_partial_admission`) and a MultiKueue manager cluster placing its
   admissions on a fleet of worker clusters (`build_multikueue`, with
   `RemoteCapacity` standing in for the MultiKueue controller's capacity
   columns);
@@ -84,7 +85,10 @@ def make_local_queue(name: str, cluster_queue: str) -> api.LocalQueue:
 
 
 def make_workload(name: str, queue: str, cpu_units: int, priority: int = 0,
-                  creation: float = 0.0) -> api.Workload:
+                  creation: float = 0.0, count: int = 1,
+                  min_count: int = None) -> api.Workload:
+    """One pod set "main" of `count` pods of cpu_units each (cpu and
+    GiB); with min_count, PartialAdmission may reduce it to that many."""
     wl = api.Workload(metadata=ObjectMeta(
         name=name, namespace="default", uid=f"wl-{name}",
         creation_timestamp=creation))
@@ -94,7 +98,8 @@ def make_workload(name: str, queue: str, cpu_units: int, priority: int = 0,
         name="c", requests={"cpu": cpu_units * 1000,
                             "memory": cpu_units << 30})])
     wl.spec.pod_sets.append(api.PodSet(
-        name="main", count=1, template=PodTemplateSpec(spec=spec)))
+        name="main", count=count, min_count=min_count,
+        template=PodTemplateSpec(spec=spec)))
     return wl
 
 
@@ -428,6 +433,41 @@ def build_mixed_preemption(num_borrowers: int = 6, victims_per_cq: int = 12,
     client = SimClient()
     sched = Scheduler(queues, cache, client, clock=clock, solver=solver,
                       solver_min_heads=0, fair_sharing_enabled=True)
+    return sched, cache, queues, client
+
+
+def build_partial_admission(num_cqs: int = 2048, num_cohorts: int = 256,
+                            num_flavors: int = 32, nominal_units: int = 40,
+                            cpu_units: int = 40, partial_cohorts: int = 128,
+                            count: int = 512, min_count: int = 64,
+                            waves: int = 8, solver=None) -> tuple:
+    """Elastic Jobs under PartialAdmission on the north star:
+    build_scheduler's cluster (flavors f0..f{num_flavors-1} of
+    nominal_units per CQ, Never/Never preemption), `waves` waves staged
+    as stage_waves stages them (workload n: priority n % 5, creation n).
+    The CQs of cohorts 0..partial_cohorts-1 queue Jobs of one pod set of
+    `count` pods of 1 cpu and 1 GiB that may run with min_count; with
+    the north star's 8 CQs a cohort, 512 pods are more than the 320 a
+    cohort holds in one flavor, so none fits whole and each searches its
+    count. The other CQs queue the north star's one-pod workloads of
+    cpu_units. Returns (Scheduler, Cache, Manager, SimClient)."""
+    flavors = [f"f{i}" for i in range(num_flavors)]
+    sched, cache, queues, client = build_scheduler(
+        num_cqs, num_cohorts, flavors, nominal_units, solver=solver)
+    n = 0
+    for wave in range(waves):
+        for i in range(num_cqs):
+            if i % num_cohorts < partial_cohorts:
+                wl = make_workload(f"p{wave}-{i}", f"lq{i}", cpu_units=1,
+                                   priority=n % 5, creation=float(n),
+                                   count=count, min_count=min_count)
+            else:
+                wl = make_workload(f"w{wave}-{i}", f"lq{i}",
+                                   cpu_units=cpu_units, priority=n % 5,
+                                   creation=float(n))
+            if not queues.add_or_update_workload(wl):
+                raise ValueError(f"no queue for {wl.metadata.name}")
+            n += 1
     return sched, cache, queues, client
 
 

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("avail", "phase_a", "drf_share", "order", "phase_b", "pack",
            "deltas", "arena_scatter", "arena_gather", "solve_preempt",
-           "solve_fair", "cluster_cols", "mesh_combine")
+           "solve_fair", "cluster_cols", "mesh_combine", "global_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -27,6 +27,14 @@ cycle is:
    the global admit order.
 6. `pack`    - the compact decision wire format (`mk_cluster` passes).
 
+Phase A also runs on its own (`solve_phase_a`: avail, phase_a and, with
+fair sharing, drf_share), once per round of the batched partial-admission
+search. The cycle's oracles compose the same kernels: the three-step
+`solve_cycle_cohort_parallel` (Phase A, the host's [L,D] order grid of
+`build_order_grid`, phase_b over it in `solve_phase_b_domains`) and the
+global W-step scan `solve_cycle` (Phase A, the global admit order, then
+`global_scan`, csrc/global_scan.cu, which no production path launches).
+
 The sharded cycle (kueue_tpu_torch/parallel/mesh.py) runs the same
 kernels on each rank: `phase_b` over the rank's planner columns (`cols`),
 `solve_preempt` over its problem slots (`slots`), and `combine_pack` /
@@ -611,6 +619,102 @@ def phase_b(topo, usage, cohort_usage, asg_usage, fit, wl_cq, offsets,
     ], [D, D if cols is None else cols.shape[0], F * R,
         topo["cq_chain"].shape[1]], fit.device)
     phase_b.launches += 1
+    return admitted, usage_out, cohort_out
+
+
+# ---------------------------------------------------------------------------
+# global_scan: the global W-step admit scan (the cycle's test oracle)
+# ---------------------------------------------------------------------------
+#
+# Replaces the lax.scan of kueue_tpu/solver/kernel.py:250
+# solve_cycle_impl: admit_step (:279-303) with :82 _chain_avail and :106
+# _chain_add_usage, one step per workload of the global admit order. It
+# is the semantic oracle the cohort-parallel cycle (phase_b over the
+# conflict-domain CSR) is held to, so it shares no code with phase_b.cu:
+# the step follows admit_step, one head at a time across every domain.
+# Bound on the H100: latency — W dependent steps, each a walk of DC
+# chain levels; the bytes are small. Design: one thread block, one
+# thread per (f,r) lane (looping when F*R exceeds the block). Each lane
+# only ever reads and writes its own (f,r) column of usage and
+# cohort_usage, so the lanes share nothing but the step's decision, a
+# __syncthreads_and. usage/cohort_usage are updated in global memory on
+# copies of the inputs ([Q,F,R] int64 is 1 MB at the north star). A head
+# that did not fit never admits; the kernel skips its step.
+
+def global_scan_plain(topo, usage, cohort_usage, asg_usage, fit, wl_cq,
+                      order):
+    """Returns (admitted[W], usage', cohort_usage'): admit_step over
+    `order`, one workload a step, with tensors of one (f,r) row each."""
+    W = fit.shape[0]
+    usage = usage.clone()
+    cohort = cohort_usage.clone()
+    admitted = torch.zeros(W, dtype=torch.bool, device=fit.device)
+    q_of = wl_cq.tolist()
+    has_cohort = (topo["cq_cohort"] >= 0).tolist()
+    chains = topo["cq_chain"].tolist()
+    subtree, c_guar = topo["cohort_subtree"], topo["cohort_guaranteed"]
+    c_limit = topo["cohort_borrow_limit"]
+    for w in order.tolist():
+        q = q_of[w]
+        au = asg_usage[w]                                     # [F,R]
+        nominal_q, guar_q = topo["nominal"][q], topo["guaranteed"][q]
+        usage_q = usage[q]
+        chain = [c for c in chains[q] if c >= 0]
+        if has_cohort[q]:
+            # _chain_avail: the root first, then each level down
+            parent = subtree[chain[-1]] - cohort[chain[-1]]
+            for c in reversed(chain[:-1]):
+                parent = _avail_level(subtree[c], c_guar[c], c_limit[c],
+                                      cohort[c], parent)
+            avail_q = _avail_level(nominal_q, guar_q, topo["borrow_limit"][q],
+                                   usage_q, parent)
+        else:
+            avail_q = nominal_q - usage_q
+        still_fits = ((au == 0) | (au <= avail_q)).all()
+        admit = fit[w] & still_fits
+        new_usage_q = usage_q + torch.where(admit, au, 0)
+        delta = (new_usage_q - guar_q).clamp_min(0) - \
+            (usage_q - guar_q).clamp_min(0)
+        usage[q] = new_usage_q
+        if has_cohort[q]:
+            # _chain_add_usage: each level absorbs up to its guaranteed
+            for c in chain:
+                old = cohort[c].clone()
+                new = old + delta
+                cohort[c] = new
+                delta = (new - c_guar[c]).clamp_min(0) - \
+                    (old - c_guar[c]).clamp_min(0)
+        admitted[w] = admit
+    return admitted, usage, cohort
+
+
+def global_scan(topo, usage, cohort_usage, asg_usage, fit, wl_cq, order):
+    if _is_cpu(fit):
+        return global_scan_plain(topo, usage, cohort_usage, asg_usage, fit,
+                                 wl_cq, order)
+    W = fit.shape[0]
+    Q, F, R = usage.shape
+    usage_out = usage.clone()
+    cohort_out = cohort_usage.clone()
+    admitted = torch.zeros(W, dtype=torch.bool, device=fit.device)
+    _launch("global_scan", [
+        _ptr(topo["cq_cohort"], torch.int32, "cq_cohort"),
+        _ptr(topo["cq_chain"], torch.int32, "cq_chain"),
+        _ptr(topo["nominal"], torch.int64, "nominal"),
+        _ptr(topo["guaranteed"], torch.int64, "guaranteed"),
+        _ptr(topo["borrow_limit"], torch.int64, "borrow_limit"),
+        _ptr(topo["cohort_subtree"], torch.int64, "cohort_subtree"),
+        _ptr(topo["cohort_guaranteed"], torch.int64, "cohort_guaranteed"),
+        _ptr(topo["cohort_borrow_limit"], torch.int64, "cohort_borrow_limit"),
+        _ptr(usage_out, torch.int64, "usage"),
+        _ptr(cohort_out, torch.int64, "cohort_usage"),
+        _ptr(asg_usage, torch.int64, "asg_usage"),
+        _ptr(fit, torch.bool, "fit"),
+        _ptr(wl_cq, torch.int32, "wl_cq"),
+        _ptr(order, torch.int32, "order"),
+        _ptr(admitted, torch.bool, "admitted"),
+    ], [order.shape[0], F * R, topo["cq_chain"].shape[1]], fit.device)
+    global_scan.launches += 1
     return admitted, usage_out, cohort_out
 
 
@@ -1842,7 +1946,8 @@ KERNEL_WRAPPERS = {"avail": (avail,), "phase_a": (phase_a,),
                    "solve_preempt": (solve_preempt,),
                    "solve_fair": (solve_fair,),
                    "cluster_cols": (score_cluster_columns,),
-                   "mesh_combine": (combine_pack, combine_unpack)}
+                   "mesh_combine": (combine_pack, combine_unpack),
+                   "global_scan": (global_scan,)}
 reset_launch_counts()
 
 
@@ -2009,3 +2114,161 @@ def max_rank_bound(wl_cq, cq_cohort, cohort_root) -> int:
     while b < raw:
         b *= 4
     return b
+
+
+# ---------------------------------------------------------------------------
+# Phase A alone, the order grid, Phase B over it, and the global scan
+# ---------------------------------------------------------------------------
+#
+# The JAX package's remaining cycle programs: Phase A on its own
+# (kueue_tpu/solver/kernel.py:405 solve_phase_a_impl, jit :471), the
+# engine of batched partial admission; Phase B over a host-built [L,D]
+# order grid (:420 solve_phase_b_domains_impl, jit :473, with
+# build_order_grid :671) and the three-step cycle that composes them
+# (:724 solve_cycle_cohort_parallel); and the global W-step scan (:250
+# solve_cycle_impl, jit :313), the oracle the cohort-parallel cycles are
+# held to. No new kernel but global_scan: the rest launch avail, phase_a,
+# drf_share, order and phase_b.
+
+def solve_phase_a(topo, usage, cohort_usage, requests, podset_active, wl_cq,
+                  eligible, solvable, num_podsets: int,
+                  fair_sharing: bool = False, start_rank=None) -> tuple:
+    """Phase A only (kueue_tpu/solver/kernel.py:405): avail, phase_a and,
+    with fair_sharing, drf_share. Returns (fit[W], borrows[W],
+    chosen[W,NP,R], chosen_borrow[W,NP,R], asg_usage[W,F,R], share[W]),
+    share zero with fair sharing off."""
+    avail_q = avail(topo, usage, cohort_usage)
+    fit, borrows, chosen, chosen_borrow, asg_usage = phase_a(
+        topo, avail_q, usage, requests, podset_active, wl_cq, eligible,
+        solvable, num_podsets, start_rank)
+    share = drf_share(topo, usage, asg_usage, wl_cq) if fair_sharing else \
+        torch.zeros(fit.shape[0], dtype=torch.int64, device=fit.device)
+    return fit, borrows, chosen, chosen_borrow, asg_usage, share
+
+
+def build_order_grid(fit, borrows, priority, timestamp, wl_cq, cq_cohort,
+                     num_cohorts: int, cohort_root=None, share=None):
+    """Host-side: global admit order -> [L,D] grid of workload indices
+    (kueue_tpu/solver/kernel.py:671, numpy in both packages).
+
+    Domain = root cohort (the whole tree is one capacity domain for
+    hierarchical cohorts), or a synthetic per-CQ domain for cohortless
+    CQs. Within each domain, workloads keep their global-order rank; rows
+    pad with -1; workloads that did not fit are left out (they never
+    admit). L is bucketed to a power of four from 8."""
+    fit = np.asarray(fit)
+    borrows = np.asarray(borrows)
+    priority = np.asarray(priority)
+    timestamp = np.asarray(timestamp)
+    wl_cq = np.asarray(wl_cq)
+    cq_cohort = np.asarray(cq_cohort)
+
+    share = (np.zeros(len(wl_cq), np.int64) if share is None
+             else np.asarray(share))
+    order = np.lexsort((timestamp, -priority, share,
+                        borrows.astype(np.int32), (~fit).astype(np.int32)))
+    order = order[fit[order]]
+    cohort_of_wl = cq_cohort[wl_cq]
+    if cohort_root is not None:
+        cohort_of_wl = np.where(
+            cohort_of_wl >= 0,
+            np.asarray(cohort_root)[np.maximum(cohort_of_wl, 0)], -1)
+    # static domain space: all cohorts + one synthetic domain per CQ
+    domain = np.where(cohort_of_wl >= 0, cohort_of_wl,
+                      num_cohorts + wl_cq).astype(np.int64)
+    D = num_cohorts + len(cq_cohort)
+    # rank of each workload within its domain, in global order: stable
+    # sort by domain, position minus segment start
+    dom_of_sorted = domain[order]
+    n = len(order)
+    ranks = np.zeros(n, np.int64)
+    if n:
+        perm = np.argsort(dom_of_sorted, kind="stable")
+        sd = dom_of_sorted[perm]
+        pos = np.arange(n)
+        first = np.r_[True, sd[1:] != sd[:-1]]
+        seg_start = np.maximum.accumulate(np.where(first, pos, 0))
+        ranks[perm] = pos - seg_start
+    raw_l = max(1, int(ranks.max()) + 1) if n else 1
+    L = 8
+    while L < raw_l:
+        L *= 4
+    grid = np.full((L, D), -1, np.int32)
+    grid[ranks, dom_of_sorted] = order.astype(np.int32)
+    return grid
+
+
+def grid_csr(grid):
+    """An [L,D] order grid as the CSR phase_b walks: offsets[D+1] int32,
+    and members int32, each column's valid rows (>= 0) in row order."""
+    cols = grid.t()                                        # [D,L]
+    valid = cols >= 0
+    offsets = torch.zeros(cols.shape[0] + 1, dtype=torch.int32,
+                          device=grid.device)
+    offsets[1:] = torch.cumsum(valid.sum(dim=1), 0)
+    return offsets, cols[valid].to(torch.int32)
+
+
+def solve_phase_b_domains(topo, usage, cohort_usage, asg_usage, fit, wl_cq,
+                          grid) -> tuple:
+    """Phase B over an [L,D] order grid (kueue_tpu/solver/kernel.py:420):
+    row l holds the l-th workload of every conflict domain, -1 padding.
+    The grid becomes phase_b's CSR (grid_csr), so each domain's members
+    keep their row order. Returns (admitted[W], usage', cohort_usage')."""
+    if isinstance(grid, np.ndarray):
+        grid = torch.from_numpy(grid)
+    offsets, members = grid_csr(grid.to(fit.device))
+    return phase_b(topo, usage, cohort_usage, asg_usage, fit, wl_cq,
+                   offsets, members)
+
+
+def _host_topo(topo_np, name: str) -> np.ndarray:
+    a = topo_np[name] if isinstance(topo_np, dict) else getattr(topo_np, name)
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def solve_cycle_cohort_parallel(topo_dev, topo_np, usage, cohort_usage,
+                                requests, podset_active, wl_cq, priority,
+                                timestamp, eligible, solvable,
+                                num_podsets: int, fair_sharing: bool = False,
+                                start_rank=None) -> dict:
+    """The three-step cycle (kueue_tpu/solver/kernel.py:724): Phase A on
+    the device, the order grid on the host (topo_np: the encoded
+    topology, an object or a dict of numpy arrays), Phase B on the
+    device. The same outputs as solve_cycle. topo_np may also be the
+    device dict itself (its arrays are copied to the host)."""
+    fit, borrows, chosen, chosen_borrow, asg_usage, share = solve_phase_a(
+        topo_dev, usage, cohort_usage, requests, podset_active, wl_cq,
+        eligible, solvable, num_podsets, fair_sharing, start_rank)
+    grid = build_order_grid(
+        fit.cpu().numpy(), borrows.cpu().numpy(), priority.cpu().numpy(),
+        timestamp.cpu().numpy(), wl_cq.cpu().numpy(),
+        _host_topo(topo_np, "cq_cohort"),
+        _host_topo(topo_np, "cohort_subtree").shape[0],
+        cohort_root=_host_topo(topo_np, "cohort_root"),
+        share=share.cpu().numpy() if fair_sharing else None)
+    admitted, usage_out, cohort_out = solve_phase_b_domains(
+        topo_dev, usage, cohort_usage, asg_usage, fit, wl_cq, grid)
+    return {"admitted": admitted, "chosen": chosen, "borrows": borrows,
+            "chosen_borrow": chosen_borrow, "fit": fit, "usage": usage_out,
+            "cohort_usage": cohort_out}
+
+
+def solve_cycle(topo, usage, cohort_usage, requests, podset_active, wl_cq,
+                priority, timestamp, eligible, solvable, num_podsets: int,
+                fair_sharing: bool = False, start_rank=None) -> dict:
+    """One batched admission cycle by the global scan
+    (kueue_tpu/solver/kernel.py:250 solve_cycle_impl): Phase A as
+    solve_phase_a, the global admit order (order_csr's, with_order), then
+    global_scan. Returns admitted/chosen/borrows/chosen_borrow/fit/usage/
+    cohort_usage."""
+    fit, borrows, chosen, chosen_borrow, asg_usage, share = solve_phase_a(
+        topo, usage, cohort_usage, requests, podset_active, wl_cq, eligible,
+        solvable, num_podsets, fair_sharing, start_rank)
+    order = order_csr(topo, fit, borrows, priority, timestamp, wl_cq,
+                      share if fair_sharing else None, with_order=True)[2]
+    admitted, usage_out, cohort_out = global_scan(
+        topo, usage, cohort_usage, asg_usage, fit, wl_cq, order)
+    return {"admitted": admitted, "chosen": chosen, "borrows": borrows,
+            "chosen_borrow": chosen_borrow, "fit": fit, "usage": usage_out,
+            "cohort_usage": cohort_out}

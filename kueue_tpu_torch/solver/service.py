@@ -54,10 +54,17 @@ parallel.mesh.solve_preempt_sharded. Fair-sharing preemption does not
 run under a mesh: the Scheduler sends it to the CPU Preemptor, and a
 fair batch raises here.
 
+Batched partial admission (`batched_partial_admission`, the JAX
+package's kueue_tpu/solver/service.py:1732): the heads the cycle did not
+fit that may be partially admitted search their pod counts together, in
+lockstep binary searches; each round encodes every active head's probe
+and runs Phase A alone on them (kernel.solve_phase_a, which on the card
+launches avail and phase_a) against the usage the last dispatch read,
+with one sync a round, timed as last_phase_s["partial"].
+
 Left out of these slices (the JAX package has them): the host-side
 router (`_route`, Plan.fit_pred), the dispatch supervisor and watchdog,
-the background fetch pool, fault injection, the flight recorder and
-batched partial admission.
+the background fetch pool, fault injection and the flight recorder.
 """
 
 from __future__ import annotations
@@ -75,6 +82,10 @@ from kueue_tpu_torch.core import workload as wlpkg
 from kueue_tpu_torch.core.resources import FlavorResource
 from kueue_tpu_torch.device import resolve
 from kueue_tpu_torch.scheduler import flavorassigner as fa
+from kueue_tpu_torch.scheduler.podset_reducer import (
+    counts_for_index,
+    reduction_space,
+)
 from kueue_tpu_torch.solver import encode, kernel
 from kueue_tpu_torch.solver.arena import WorkloadArena
 from kueue_tpu_torch.solver.fairpreempt import fair_args
@@ -103,8 +114,18 @@ DENSE_DECISION_KEYS = ("admitted", "fit", "chosen", "borrows",
 
 # the phases of one solve, timed per cycle (seconds) in last_phase_s;
 # "plan" is the mesh's domain plan, "preempt" solve_preemptions' upload,
-# launches, sync and fetch
-PHASES = ("encode", "plan", "upload", "device", "fetch", "decode", "preempt")
+# launches, sync and fetch, "partial" batched_partial_admission's rounds
+PHASES = ("encode", "plan", "upload", "device", "fetch", "decode", "preempt",
+          "partial")
+
+# batched_partial_admission's answer for a head whose probe could not be
+# encoded: it goes back to CPU nomination and its sequential reducer
+# (kueue_tpu/solver/service.py:98)
+CPU_FALLBACK = object()
+
+# the most lockstep rounds of a partial-admission search (log2 of the
+# largest reduction space in practice)
+MAX_PARTIAL_ROUNDS = 40
 
 _NO_FAIR_UNDER_MESH = ("fair-sharing preemption does not run under a mesh "
                        "(the Scheduler sends it to the CPU Preemptor)")
@@ -237,6 +258,8 @@ class BatchSolver:
         # (topology, usage, cohort_usage) on the device, for
         # solve_preemptions
         self._cycle_state = None
+        # lockstep rounds of the last batched_partial_admission
+        self.last_partial_rounds = 0
         self._sync_samples: list = []  # recent launch-to-sync times (ms)
         self._probe_sync_ms: Optional[float] = None  # estimated_sync_ms
 
@@ -741,6 +764,106 @@ class BatchSolver:
                                             for v in fetched.values())
         self.last_phase_s["preempt"] = time.perf_counter() - t0
         return preempt_aux(fetched)
+
+    def batched_partial_admission(self, plan: Plan, snapshot: Snapshot,
+                                  infos: list) -> dict:
+        """Partial admission for many heads at once
+        (kueue_tpu/solver/service.py:1732; reference:
+        podset_reducer.go:29-86, run per head per probe). Every head's
+        binary search over its reduction space (podset_reducer's
+        reduction_space / counts_for_index, shared with the sequential
+        PodSetReducer) advances in lockstep: each round, each active
+        head's probe, a shadow Info with its pod sets scaled to the
+        candidate counts, is one row of one encoded batch, uploaded and
+        run through Phase A alone (kernel.solve_phase_a, fair sharing off,
+        no resume ranks) against the usage the cycle's dispatch read
+        (the pre-cycle state, never the mirror its decode has moved on);
+        one sync a round, then its fit bits are fetched. Only for heads
+        whose probes cannot pass by preemption: the caller keeps to
+        Never/Never CQs, where the reducer's predicate is fit alone.
+
+        Returns {head index: the largest counts that fit, None when none
+        does, or CPU_FALLBACK when a probe could not be encoded}. The
+        rounds are in last_partial_rounds, their time in
+        last_phase_s["partial"]."""
+        if self._cycle_state is None:
+            raise RuntimeError("batched_partial_admission needs a "
+                               "dispatched cycle")
+        t0 = time.perf_counter()
+        topo = plan.topo
+        topo_dev, usage, cohort_usage = self._cycle_state
+
+        def shadow(info, counts):
+            s = wlpkg.Info.__new__(wlpkg.Info)
+            s.obj = info.obj
+            s.cluster_queue = info.cluster_queue
+            s.last_assignment = None
+            s._fru_cache = None
+            s._fr_keys_cache = None
+            s.total_requests = [
+                psr if psr.count == c else psr.scaled_to(c)
+                for psr, c in zip(info.total_requests, counts)]
+            return s
+
+        class _Search:
+            __slots__ = ("full", "deltas", "total", "lo", "hi", "good")
+
+            def __init__(self, pod_sets):
+                self.full, self.deltas, self.total = reduction_space(pod_sets)
+                self.lo, self.hi = 0, self.total + 1
+                self.good = None
+
+            def counts(self, i):
+                return counts_for_index(self.full, self.deltas, self.total,
+                                        i)
+
+        searches = {i: _Search(info.obj.spec.pod_sets)
+                    for i, info in enumerate(infos)}
+        out = {i: None for i in range(len(infos))}
+        rounds = up = 0
+        for _ in range(MAX_PARTIAL_ROUNDS):
+            active = [i for i, s in searches.items()
+                      if s.total > 0 and s.lo < s.hi]
+            if not active:
+                break
+            rounds += 1
+            mids = {i: (searches[i].lo + searches[i].hi) // 2 for i in active}
+            batch = encode.encode_workloads(
+                [shadow(infos[i], searches[i].counts(mids[i]))
+                 for i in active], snapshot, topo, ordering=self.ordering,
+                max_podsets=self.max_podsets)
+            host = (batch.requests, batch.podset_active, batch.wl_cq,
+                    batch.eligible, batch.solvable)
+            up += sum(a.nbytes for a in host)
+            fit = kernel.solve_phase_a(
+                topo_dev, usage, cohort_usage,
+                *(self._upload(a) for a in host),
+                num_podsets=self.max_podsets, fair_sharing=False,
+                start_rank=None)[0]
+            self._sync()
+            fit = fit.cpu().numpy()
+            self.counters["fetch_bytes"] += fit.nbytes
+            fit = fit[:batch.n]
+            for k, i in enumerate(active):
+                s = searches[i]
+                if not batch.solvable[k]:
+                    s.lo = s.hi = 0
+                    s.good = None
+                    out[i] = CPU_FALLBACK
+                elif fit[k]:
+                    s.good = mids[i]
+                    s.hi = mids[i]
+                else:
+                    s.lo = mids[i] + 1
+        for i, s in searches.items():
+            if out[i] is not CPU_FALLBACK and s.good is not None \
+                    and s.lo == s.good:
+                out[i] = s.counts(s.good)
+        self.last_partial_rounds = rounds
+        self.last_upload_bytes += up
+        self.counters["upload_bytes"] += up
+        self.last_phase_s["partial"] = time.perf_counter() - t0
+        return out
 
     def solve_preempt(self, preempt_batch) -> tuple:
         """K9 alone through solve_preemptions. Returns numpy

@@ -274,8 +274,9 @@ def test_bound_solver_on_card_equals_cpu(fair, cuda_device):
     launched = tk.launch_counts()
     assert all(n > 0 for name, n in launched.items()
                if name not in ("drf_share", "solve_fair", "cluster_cols",
-                               "mesh_combine"))
+                               "mesh_combine", "global_scan"))
     assert launched["mesh_combine"] == 0  # no mesh here
+    assert launched["global_scan"] == 0  # the oracle: no production path
     assert (launched["drf_share"] > 0) == fair
     assert (launched["solve_fair"] > 0) == fair
     assert launched["cluster_cols"] == 0  # no cluster columns here
@@ -670,3 +671,146 @@ def test_sharded_cycle_world_size_1_on_card(kind, fair, nccl_mesh,
     want = tk.solve_preempt(*pcard, *pargs)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+ORACLE_KEYS = ("admitted", "fit", "borrows", "chosen", "chosen_borrow",
+               "usage", "cohort_usage")
+
+
+def oracle_inputs(kind: str):
+    """The small flat and nested inputs, and the north star's and the
+    nested kernel inputs at chip_smoke's shapes."""
+    if kind == "north_star":
+        return synth_solver_inputs(num_cqs=2048, num_cohorts=256,
+                                   num_flavors=32, num_resources=2,
+                                   num_workloads=2048, num_podsets=4, seed=42)
+    if kind == "nested_large":
+        return synth_nested_inputs(num_cqs=2048, num_leaf_cohorts=256,
+                                   fanout=4, depth=3, num_flavors=32,
+                                   num_resources=2, num_workloads=2048,
+                                   num_podsets=3, no_cohort_every=16, seed=7)
+    return inputs(kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fair", (False, True))
+@pytest.mark.parametrize("kind", ("flat", "nested", "north_star",
+                                  "nested_large"))
+def test_global_scan_on_card_equals_plain(kind, fair, cuda_device):
+    """global_scan against global_scan_plain on the same card tensors,
+    then solve_cycle on the card against the CPU's, and against
+    solve_cycle_cohort_parallel and solve_cycle_fused on the card; with
+    fair sharing the order takes drf_share's shares."""
+    topo, usage, cu, wl = oracle_inputs(kind)
+    if fair:
+        rng = np.random.default_rng(9)
+        Q = topo["cq_cohort"].shape[0]
+        topo["fair_weight"] = np.array([0, 500, 1000, 3000], np.int64)[
+            rng.integers(0, 4, size=Q)]
+    P = wl["requests"].shape[1]
+    host = [tk.topo_to_device(topo, "cpu"),
+            *tk.state_to_device(usage, cu, "cpu"),
+            *(torch.from_numpy(np.array(wl[k])) for k in WL_KEYS)]
+    card = [{k: v.to(cuda_device) for k, v in host[0].items()}] + \
+        [t.to(cuda_device) for t in host[1:]]
+    ctopo, cusage, ccu = card[:3]
+    fit, borrows, _, _, asg, share = tk.solve_phase_a(
+        *card[:6], *card[8:], num_podsets=P, fair_sharing=fair)
+    order = tk.order_csr(ctopo, fit, borrows, card[6], card[7], card[5],
+                         share if fair else None, with_order=True)[2]
+    args = (ctopo, cusage, ccu, asg, fit, card[5], order)
+    before = tk.launch_counts()["global_scan"]
+    got = tk.global_scan(*args)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["global_scan"] == before + 1
+    for name, a, b in zip(("admitted", "usage", "cohort_usage"), got,
+                          tk.global_scan_plain(*args)):
+        assert torch.equal(a, b), name
+    assert got[0].any() and not torch.equal(got[0], fit)
+    kw = dict(num_podsets=P, fair_sharing=fair)
+    want = tk.solve_cycle(*host, **kw)
+    seq = tk.solve_cycle(*card, **kw)
+    par = tk.solve_cycle_cohort_parallel(ctopo, topo, *card[1:], **kw)
+    fused = tk.solve_cycle_fused(*card, compact=False, **kw)
+    for k in ORACLE_KEYS:
+        assert torch.equal(seq[k].cpu(), want[k]), k
+        assert torch.equal(par[k], seq[k]), k
+        assert torch.equal(fused[k], seq[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start_rank", (False, True))
+@pytest.mark.parametrize("fair", (False, True))
+@pytest.mark.parametrize("kind", ("flat", "nested"))
+def test_solve_phase_a_on_card_equals_cpu(kind, fair, start_rank,
+                                          cuda_device):
+    """Phase A alone: avail, phase_a and, with fair sharing, drf_share
+    launched once each; the six outputs equal the CPU's."""
+    topo, usage, cu, wl = fair_inputs(kind) if fair else inputs(kind)
+    sr = torch.from_numpy(synth_start_rank(wl, 40, seed=3)) \
+        if start_rank else None
+    host = [tk.topo_to_device(topo, "cpu"),
+            *tk.state_to_device(usage, cu, "cpu"),
+            *(torch.from_numpy(np.array(wl[k])) for k in
+              ("requests", "podset_active", "wl_cq", "eligible",
+               "solvable"))]
+    card = [{k: v.to(cuda_device) for k, v in host[0].items()}] + \
+        [t.to(cuda_device) for t in host[1:]]
+    want = tk.solve_phase_a(*host, num_podsets=3, fair_sharing=fair,
+                            start_rank=sr)
+    before = tk.launch_counts()
+    got = tk.solve_phase_a(*card, num_podsets=3, fair_sharing=fair,
+                           start_rank=None if sr is None
+                           else sr.to(cuda_device))
+    torch.cuda.synchronize()
+    after = tk.launch_counts()
+    for name in ("avail", "phase_a", "drf_share"):
+        assert after[name] - before[name] == \
+            (1 if name != "drf_share" or fair else 0), name
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_batched_partial_admission_on_card_equals_cpu(cuda_device):
+    """The Scheduler on sim/northstar's partial-admission cell at 64 CQs
+    in 8 cohorts (4 of them elastic), on the card and on the CPU: the
+    same admissions, counts and Pending messages every cycle, avail and
+    phase_a launched once per search round beside the fit cycle's, one
+    sync a round."""
+    runs = []
+    for device in (cuda_device, "cpu"):
+        env = ns.build_partial_admission(
+            num_cqs=64, num_cohorts=8, num_flavors=4, partial_cohorts=4,
+            waves=6, solver=BatchSolver(device=device))
+        msgs = []
+        real = env[0].requeue_and_update
+
+        def requeue(e, real=real, msgs=msgs):
+            real(e)
+            msgs.append((e.info.key, e.status, e.inadmissible_msg))
+        env[0].requeue_and_update = requeue
+        runs.append((env, msgs))
+    for cycle in range(4):
+        rows = []
+        for (sched, cache, queues, client), msgs in runs:
+            ns.finish_applied(cache, queues, client)
+            msgs.clear()
+            syncs = sched.solver.counters["syncs"]
+            tk.reset_launch_counts()
+            sched.schedule(timeout=0)
+            rounds = sched.solver.last_partial_rounds
+            assert rounds > 0 and sched.last_route == "device"
+            assert sched.solver.counters["syncs"] - syncs == 2 + rounds
+            rows.append((sorted((wl.metadata.name, [
+                p.count for p in wl.status.admission.pod_set_assignments])
+                for wl in client.new_applied), sorted(msgs), rounds))
+            if sched.solver.device.type == "cuda":
+                launched = tk.launch_counts()
+                assert launched["avail"] == launched["phase_a"] == 1 + rounds
+                assert launched["phase_b"] == 1
+                assert launched["global_scan"] == 0
+        assert rows[0] == rows[1], cycle
+        assert any(c[0] < 512 for name, c in rows[0][0]
+                   if name.startswith("p"))
+    assert runs[0][0][3].admitted > 0

@@ -476,18 +476,16 @@ def test_lower_priority_preemption(route):
 
 @pytest.mark.parametrize("route", ROUTES)
 def test_partial_admission(route):
-    """On the device route the JAX Scheduler searches the counts with
-    its batched partial admission and the port with the CPU reducer:
-    the admissions are compared, not the messages of the failed
-    probes."""
+    """On the device route both Schedulers search the counts with their
+    batched partial admission; on the CPU route with the sequential
+    reducer. Admissions and messages are compared."""
     def workloads():
         return [WorkloadWrapper("w").queue("lq")
                 .pod_set(count=10, min_count=2, cpu="1").obj(),
                 WorkloadWrapper("x").queue("lq").priority(-1)
                 .pod_set(count=3, min_count=1, cpu="4").obj()]
 
-    got, _ = run_both(simple_setup("6"), workloads, route, cycles=2,
-                      admissions_only=route == "device")
+    got, _ = run_both(simple_setup("6"), workloads, route, cycles=2)
     psa = got["applied"]["default/w"][1][0]
     assert psa[3] == 6
 
