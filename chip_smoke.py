@@ -48,11 +48,13 @@ versions:
    the device route with the work gate choosing the device and every
    preempt-mode head solved by the K9 kernel (solve_preempt) after the
    fit sync; its inputs in the first timed cycle are kept and held
-   against the plain version, as is a synthetic nested input (depth 3,
-   within-CQ, reclaim and threshold problems, padding); one traced
-   cycle; then the same scenario with device="cpu" (the plain K9) and
-   on the cpu-forced route (the CPU Preemptor) must evict the same
-   workloads with the same reasons and admit the same workloads.
+   against the plain version (the kernel's arena in shared memory), as
+   are a synthetic nested input (depth 3, within-CQ, reclaim and
+   threshold problems, padding) and a K = 2048 input with every slot
+   active (the arena in global scratch); one traced cycle; then the
+   same scenario with device="cpu" (the plain K9) and on the
+   cpu-forced route (the CPU Preemptor) must evict the same workloads
+   with the same reasons and admit the same workloads.
 6. scheduler fair preempt: the port's Scheduler with fair sharing and
    device preemption on the JAX package's fair-sharing preemption
    configuration (bench.py bench_fair_preemption at 2048 CQs in 256
@@ -224,6 +226,13 @@ PREEMPT_NESTED = dict(num_problems=900, max_candidates=120,
                       max_local_cqs=12, depth=3, num_cqs=2048,
                       num_leaf_cohorts=256, fanout=4, num_flavors=4,
                       num_resources=2, table_rows=4096, seed=17)
+# ... and the global-scratch case: K = 2048 with every slot of every real
+# problem active (synth.fill_inactive_slots), an arena past a block's
+# shared memory
+PREEMPT_GLOBAL = dict(num_problems=256, max_candidates=1500,
+                      max_local_cqs=12, depth=2, num_cqs=2048,
+                      num_leaf_cohorts=256, fanout=4, num_flavors=4,
+                      num_resources=2, table_rows=4096, seed=29)
 # The fair-sharing preemption configuration (bench.py
 # bench_fair_preemption, bench.py:1727-1775; sim/northstar
 # build_fair_preemption) at the north star's 2048 CQs.
@@ -358,9 +367,16 @@ class GcClock:
             self._start = None
 
 
+def kernel_record(key: str, name: str) -> bool:
+    """Whether a profiler row is kernel `name`'s: a CUDA function named
+    `<name>_...`; a template's demangled name leads with its return
+    type."""
+    return key.removeprefix("void ").startswith(f"{name}_")
+
+
 def profiled_device_ms(fn, iters: int, kernel_name: str):
-    """Mean device time per call of the CUDA kernels whose names start
-    with `<kernel_name>_`, from a torch.profiler trace of `iters` calls
+    """Mean device time per call of kernel `kernel_name`'s CUDA kernels
+    (kernel_record), from a torch.profiler trace of `iters` calls
     (device activity only, then, if that trace kept no record of them,
     host and device activity, as the traced cycles record); None when
     neither holds device time for them."""
@@ -375,7 +391,7 @@ def profiled_device_ms(fn, iters: int, kernel_name: str):
                 fn()
             torch.cuda.synchronize()
         total = sum(device_us(e) for e in prof.key_averages()
-                    if e.key.startswith(f"{kernel_name}_")
+                    if kernel_record(e.key, kernel_name)
                     and str(e.device_type).endswith("CUDA"))
         if total:
             return total / iters / 1e3
@@ -1223,14 +1239,49 @@ def preempt_bytes(args, outs, usage) -> int:
     return moved
 
 
+def ptxas_report(name: str) -> dict:
+    """Registers a thread and spill bytes (stores + loads) of kernel
+    `name`'s library, from ptxas's -v report in this run's build log
+    (empty when the library was not built in this run)."""
+    import re
+    from kueue_tpu_torch.solver import _build
+    log_text = _build.BUILD_LOG.get(name, "")
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log_text)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log_text)]
+    return {"ptxas_registers": max(regs) if regs else None,
+            "ptxas_spill_bytes": max(spills) if spills else None}
+
+
+PREEMPT_PLAN_KEYS = ("active_slots", "row_slots", "group_slots", "rule",
+                     "arena_bytes", "smem_bytes_per_block", "blocks_per_sm",
+                     "grid", "registers", "local_bytes", "ptxas_registers",
+                     "ptxas_spill_bytes")
+
+
+def preempt_plan_row(k) -> dict:
+    """The last solve_preempt launch's plan: active slots, the arena's
+    rule and bytes a block (dynamic shared memory under the shared rule,
+    global scratch under the global), blocks an SM, the grid, and the
+    registers and local bytes a thread (runtime) beside ptxas's."""
+    plan = dict(k.solve_preempt.last_plan)
+    plan["smem_bytes_per_block"] = plan["arena_bytes"] \
+        if plan["rule"] == "shared" else 0
+    return {**plan, **ptxas_report("solve_preempt")}
+
+
 def preempt_kernel_check(label: str, k, args: tuple, got, n_real: int,
-                         timed: bool) -> dict:
+                         timed: bool, kwargs: dict = None) -> dict:
     """solve_preempt's outputs `got` against the plain version on the
-    same card tensors (all three equal); with `timed`, the kernel's
+    same card tensors (all three equal); the launch plan (active slots,
+    arena rule, blocks an SM, registers); with `timed`, the kernel's
     device time (profiler), its time per call and the plain version's
-    (CUDA events), and its byte bound."""
+    (CUDA events), and its byte bound. kwargs: solve_preempt's
+    (active_slots, slots)."""
     import torch
-    want = k.solve_preempt_plain(*args)
+    kwargs = dict(kwargs or {})
+    plain_kw = {"slots": kwargs.get("slots")}  # it computes every slot
+    want = k.solve_preempt_plain(*args, **plain_kw)
     compare(("targets", "feasible", "stats"), got, want)
     stats = want[2][:n_real].cpu()
     feasible = want[1][:n_real].cpu()
@@ -1244,12 +1295,15 @@ def preempt_kernel_check(label: str, k, args: tuple, got, n_real: int,
            "filled_back": int(stats[:, 3].sum()),
            "rounds_max": int(rounds.max()),
            "rounds_mean": float(rounds.float().mean())}
+    compare(("targets", "feasible", "stats"), k.solve_preempt(*args, **kwargs),
+            want)
+    row.update(preempt_plan_row(k))
     if timed:
         def run_kernel():
-            return k.solve_preempt(*args)
+            return k.solve_preempt(*args, **kwargs)
 
         def run_plain():
-            return k.solve_preempt_plain(*args)
+            return k.solve_preempt_plain(*args, **plain_kw)
         torch.cuda.synchronize()
         row["call_ms"] = time_cuda(run_kernel, iters=10)
         row["plain_ms"] = time_cuda(run_plain, iters=2, warmup=1)
@@ -1279,6 +1333,7 @@ def scheduler_preempt_phase(device) -> dict:
     workloads with the same reasons and admit the same workloads."""
     import torch
     from kueue_tpu_torch.solver import kernel, synth
+    from kueue_tpu_torch.solver.preempt import active_slot_count
     phase = "scheduler_preempt"
     heads_n, problems_n = preempt_expected()
     keys = PREEMPT_PHASES + ("gc", "other", "cycle")
@@ -1366,14 +1421,28 @@ def scheduler_preempt_phase(device) -> dict:
         raise AssertionError("solve_preempt was not called in the captured "
                              "cycle")
     summary["kernel_rows"] = {"captured": preempt_kernel_check(
-        "captured", kernel, captured.args, captured.out, problems_n, True)}
-    topo, usage, cu, args = synth.synth_preempt_inputs(**PREEMPT_NESTED)
-    dev_args = (kernel.topo_to_device(topo, device),
-                *kernel.state_to_device(usage, cu, device),
-                *(torch.from_numpy(a).to(device) for a in args))
-    summary["kernel_rows"]["nested"] = preempt_kernel_check(
-        "nested", kernel, dev_args, kernel.solve_preempt(*dev_args),
-        PREEMPT_NESTED["num_problems"], True)
+        "captured", kernel, captured.args, captured.out, problems_n, True,
+        captured.kwargs)}
+    if summary["kernel_rows"]["captured"]["rule"] != "shared":
+        raise AssertionError(f"{phase}: K9 took the global-scratch rule on "
+                             "the captured batch")
+    for label, spec, every_slot in (("nested", PREEMPT_NESTED, False),
+                                    ("global", PREEMPT_GLOBAL, True)):
+        topo, usage, cu, args = synth.synth_preempt_inputs(**spec)
+        if every_slot:
+            args = synth.fill_inactive_slots(
+                args, spec["num_flavors"], spec["num_resources"],
+                seed=spec["seed"], every_slot=True)
+        kw = {"active_slots": active_slot_count(args[5], args[6])}
+        dev_args = (kernel.topo_to_device(topo, device),
+                    *kernel.state_to_device(usage, cu, device),
+                    *(torch.from_numpy(a).to(device) for a in args))
+        summary["kernel_rows"][label] = preempt_kernel_check(
+            label, kernel, dev_args, kernel.solve_preempt(*dev_args, **kw),
+            spec["num_problems"], True, kw)
+    if summary["kernel_rows"]["global"]["rule"] != "global":
+        raise AssertionError(f"{phase}: K9's every-slot K = 2048 batch did "
+                             "not take the global-scratch rule")
     summary["traced_cycle"] = traced_cycle(
         phase, run_cycle, E2E_WARMUP + PREEMPT_TIMED, kernel="solve_preempt")
     gc.callbacks.remove(gc_clock)
@@ -2189,7 +2258,8 @@ def sharded_preempt_check(captured, k) -> dict:
         raise AssertionError("solve_preempt_sharded was not called in the "
                              "captured cycle")
     _, topo, usage, cu, pargs, weights = captured.args
-    whole = k.solve_preempt(topo, usage, cu, *pargs)
+    act = {"active_slots": getattr(pargs, "active_slots", None)}
+    whole = k.solve_preempt(topo, usage, cu, *pargs, **act)
     compare(("main path targets", "main path feasible", "main path stats"),
             captured.out, whole)
     n = SHARDED_RANKS
@@ -2201,7 +2271,7 @@ def sharded_preempt_check(captured, k) -> dict:
         mine = perm[r * b_local:(r + 1) * b_local].astype("int32")
         slots = torch.from_numpy(mine).to(usage.device)
         slots0 = slots if r == 0 else slots0
-        got = k.solve_preempt(topo, usage, cu, *pargs, slots=slots)
+        got = k.solve_preempt(topo, usage, cu, *pargs, slots=slots, **act)
         compare((f"rank {r} targets", f"rank {r} feasible",
                  f"rank {r} stats"), got,
                 k.solve_preempt_plain(topo, usage, cu, *pargs, slots=slots))
@@ -2215,22 +2285,23 @@ def sharded_preempt_check(captured, k) -> dict:
     perm1, _, _ = plan_problems(weights, 1)
     slots1 = torch.from_numpy(perm1.astype("int32")).to(usage.device)
     compare(("ws1 targets", "ws1 feasible", "ws1 stats"),
-            k.solve_preempt(topo, usage, cu, *pargs, slots=slots1), whole)
+            k.solve_preempt(topo, usage, cu, *pargs, slots=slots1,
+                            **act), whole)
     torch.cuda.synchronize()
     out = {"ranks": n, "B": B, "b_local": b_local, "per_rank": per_rank,
            "max_abs_err": 0.0,
            "slots_ws1": {
                "ms": profiled_device_ms(lambda: k.solve_preempt(
-                   topo, usage, cu, *pargs, slots=slots1), 5,
+                   topo, usage, cu, *pargs, slots=slots1, **act), 5,
                    "solve_preempt"),
                "call_ms": time_cuda(lambda: k.solve_preempt(
-                   topo, usage, cu, *pargs, slots=slots1), 5)},
+                   topo, usage, cu, *pargs, slots=slots1, **act), 5)},
            "slots_rank0": {
                "ms": profiled_device_ms(lambda: k.solve_preempt(
-                   topo, usage, cu, *pargs, slots=slots0), 5,
+                   topo, usage, cu, *pargs, slots=slots0, **act), 5,
                    "solve_preempt"),
                "call_ms": time_cuda(lambda: k.solve_preempt(
-                   topo, usage, cu, *pargs, slots=slots0), 5),
+                   topo, usage, cu, *pargs, slots=slots0, **act), 5),
                "plain_ms": time_cuda(lambda: k.solve_preempt_plain(
                    topo, usage, cu, *pargs, slots=slots0), 1, warmup=1)}}
     log("[scheduler_sharded] 4-way rank check of K9: equal to the "
@@ -2679,12 +2750,12 @@ def traced_cycle(phase: str, run_cycle, cycle: int,
            "top_device_ms": {k[:60]: us / 1e3 for k, us in rows[:12] if us}}
     if kernel is not None:
         out[f"{kernel}_device_ms"] = sum(
-            us for k, us in rows if k.startswith(f"{kernel}_")) / 1e3
+            us for k, us in rows if kernel_record(k, kernel)) / 1e3
     # the phase's kernels that launched in the cycle but of which the
     # trace kept no record (the busy time then reads low)
     out["missing_from_trace"] = [
         name for name in (kernels or PHASE_KERNELS[phase])
-        if not any(k.startswith(f"{name}_") for k, _ in rows)]
+        if not any(kernel_record(k, name) for k, _ in rows)]
     log(f"[trace:{phase}] " + json.dumps(out))
     return out
 
@@ -2811,7 +2882,12 @@ def main() -> int:
                if name == "cluster_cols" else {}),
             **({"inputs": "the scheduler preempt phase's first timed cycle",
                 "rounds_max": row["rounds_max"],
-                "rounds_mean": row["rounds_mean"]}
+                "rounds_mean": row["rounds_mean"],
+                **{key: row[key] for key in PREEMPT_PLAN_KEYS},
+                "global": {key: e2e["scheduler_preempt"]["kernel_rows"]
+                           ["global"][key] for key in
+                           ("ms", "call_ms", "plain_ms", "bound_ms",
+                            "shape_B_K_QL_RF_CL_DC", *PREEMPT_PLAN_KEYS)}}
                if name == "solve_preempt" else {}),
             **({"inputs": "the scheduler fair preempt phase's first timed "
                           "cycle",

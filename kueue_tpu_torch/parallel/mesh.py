@@ -305,9 +305,10 @@ def solve_preempt_sharded(mesh: Mesh, topo: dict, usage, cohort_usage,
     """K9 over the planner's problem axis (kueue_tpu/parallel/mesh.py:
     206-217, 335-364): `weights` (default preempt_weights) place the
     problems on the ranks; each rank solves its b_local slots from the
-    full arguments, and one all-reduce of the outputs' bytes rebuilds
-    them in the original problem order. Returns what kernel.solve_preempt
-    returns: (targets[B,K], feasible[B], stats[B,4])."""
+    full arguments (and preempt_args' active_slots, when it carries
+    them), and one all-reduce of the outputs' bytes rebuilds them in the
+    original problem order. Returns what kernel.solve_preempt returns:
+    (targets[B,K], feasible[B], stats[B,4])."""
     B, K = preempt_args[7].shape
     if weights is None:
         weights = preempt_weights(preempt_args[7])
@@ -316,7 +317,8 @@ def solve_preempt_sharded(mesh: Mesh, topo: dict, usage, cohort_usage,
     mine = perm[mesh.rank * b_local:(mesh.rank + 1) * b_local]
     slots = torch.from_numpy(mine.astype(np.int32)).to(mesh.device)
     targets, feasible, stats = kernel.solve_preempt(
-        topo, usage, cohort_usage, *preempt_args, slots=slots)
+        topo, usage, cohort_usage, *preempt_args, slots=slots,
+        active_slots=getattr(preempt_args, "active_slots", None))
     # every row has one writer and zeros elsewhere, so the byte-wise sum
     # of the three outputs side by side is each row's own bytes
     buf = torch.cat([stats.reshape(-1).view(torch.uint8),

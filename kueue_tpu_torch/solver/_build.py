@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with `nvcc` for Hopper (`sm_90a`) into a
 shared library with plain `extern "C"` entries (`<name>_launch`, or for
-a file with two, `<name>_<entry>_launch`), loaded with ctypes: every
+a file with two, `<name>_<entry>_launch`; solve_preempt also has
+`solve_preempt_plan`, its launch plan), loaded with ctypes: every
 pointer and the stream pass as `c_void_p`, every size as `c_longlong`,
 and the entry returns `cudaGetLastError()` after the launch. The libraries go to `_build/` beside this module (listed in
 .gitignore), named by a hash of the sources and flags, so an edited

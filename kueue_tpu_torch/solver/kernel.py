@@ -948,16 +948,31 @@ def gather_arena(arena: dict, slots) -> tuple:
 # returned set onto the reverse greedy's fixpoint. All against the usage
 # from before the cycle. Outputs: targets[B,K] bool, feasible[B] bool,
 # stats[B,4] int32 = (candidates, k*+1 or 0, fill-back rounds, returned).
-# Bound on the H100: latency — each problem is a chain of dependent block
-# scans (per-CQ and per-node prefix sums, the chain walk, then each
-# auction round); the bytes are the expanded candidate rows and the
-# gathered quota planes. Design (csrc/solve_preempt.cu): one thread block
-# per problem, threads over candidates in contiguous chunks, keyed prefix
-# sums as masked block scans, per-block scratch in device memory. With
-# `slots` (the sharded solve's planner-assigned problems,
-# kueue_tpu/parallel/mesh.py:335-364), the blocks walk the slots in place
-# of 0..B and each writes its problem's outputs at the problem's row of
-# zero-initialised outputs; a padding slot (B or -1) writes nothing.
+# Bound on the H100: latency. Each problem is a chain of dependent
+# block-wide passes: 2 sorts, 2 + DC scans forward, 1 + DC scans per
+# fill-back evaluation (1 + 2 (rounds - 1) of them), each scan two
+# barriers a group of slots; the bytes it must move (the problem arrays
+# and outputs, the candidate-table rows and the quota elements it
+# gathers) bound it far lower (0.005 ms at the reclaim cell's batch).
+# Design (csrc/solve_preempt.cu): a persistent grid of blocks, one
+# problem at a time each; a problem's slots compacted to its active ones
+# (a request or a needs-preemption flag: no other slot changes an
+# output), at most `active_slots` (default RF; preempt.PreemptArgs
+# carries the batch's, counted from the host encode), in register groups
+# of 2, 4 or 8; every keyed prefix sum, over all keys and a group of
+# slots at once,
+# as one segmented scan over the candidates sorted by key (local CQ once
+# a problem, cohort node once per depth, reused by every auction round);
+# 3 blocks an SM by registers; the problem's rows, sort tables and quota
+# planes in dynamic shared memory when they fit a block (the "shared"
+# rule), else in a per-block slice of global scratch (the "global"
+# rule), chosen by csrc's solve_preempt_plan, which also sizes the grid
+# by occupancy; a problem with no valid candidate writes its outputs at
+# once. With `slots` (the sharded solve's planner-assigned problems,
+# kueue_tpu/parallel/mesh.py:335-364), the blocks walk the slots in
+# place of 0..B and each writes its problem's outputs at the problem's
+# row of zero-initialised outputs; a padding slot (B or -1) writes
+# nothing.
 
 PREEMPT_NOLIM = 2**61  # kueue_tpu/solver/preempt.py:317 (not NO_LIMIT)
 # problems the plain version solves at once (bounds its [b,CL,K,RF] temps)
@@ -1251,14 +1266,45 @@ def solve_preempt_plain(topo, usage, cohort_usage, gq, gf, gr, gc,
     return targets, feasible, stats
 
 
-# blocks per SM of solve_preempt's persistent grid
-PREEMPT_BLOCKS_PER_SM = 4
+# the most candidates a problem the K9 kernel takes: its sort tables hold
+# candidate indices as int16 (encode's K buckets reach 32768 at 8193 to
+# 32768 candidates)
+PREEMPT_MAX_K = 32768
+
+
+def preempt_plan(n_slots: int, K: int, QL: int, RFA: int, CL: int,
+                 DC: int) -> dict:
+    """solve_preempt's launch plan on the current card (csrc's
+    solve_preempt_plan, host calls only): threads a block, the arena's
+    bytes a block, its rule ("shared": dynamic shared memory; "global": a
+    per-block slice of global scratch), blocks an SM by occupancy, the
+    persistent grid, the kernel's registers and local bytes a thread,
+    the row stride (RFA rounded up to the group width) and the group
+    width the kernel is compiled for (2, 4 or 8 slots in registers)."""
+    out = (ctypes.c_longlong * 9)()
+    fn = _build.entry("solve_preempt", 1, 6, "solve_preempt_plan")
+    rc = fn(ctypes.cast(out, ctypes.c_void_p), *(ctypes.c_longlong(x) for x in
+            (n_slots, K, QL, RFA, CL, DC)), None)
+    if rc != 0:
+        raise RuntimeError(f"solve_preempt_plan failed: CUDA error {rc}")
+    return {"threads": out[0], "arena_bytes": out[1],
+            "rule": "shared" if out[2] else "global", "blocks_per_sm": out[3],
+            "grid": out[4], "registers": out[5], "local_bytes": out[6],
+            "row_slots": out[7], "group_slots": out[8],
+            "active_slots": RFA}
 
 
 def solve_preempt(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
                   requests, frs_np, cand_idx, cand_ql, cand_usage_table,
                   cand_prio_table, allow_borrowing, threshold_active,
-                  threshold, has_cohort, slots=None):
+                  threshold, has_cohort, slots=None, active_slots=None):
+    """K9. active_slots bounds every problem's active slots (requests > 0
+    or frs_np; preempt.active_slot_count, which preempt.PreemptArgs
+    carries): the kernel's rows and scans run over that many; None takes
+    RF. A problem with more writes stats of -1, on which
+    service.preempt_aux raises. The plain version takes every slot. The
+    kernel keeps candidate indices in 16 bits: K above PREEMPT_MAX_K
+    raises."""
     if _is_cpu(usage):
         return solve_preempt_plain(
             topo, usage, cohort_usage, gq, gf, gr, gc, chain_local, requests,
@@ -1272,6 +1318,14 @@ def solve_preempt(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
     if chain_local.shape[:2] != (B, QL) or cand_idx.shape != (B, K) \
             or cand_usage_table.shape[1] != RF:
         raise ValueError("solve_preempt: inconsistent problem shapes")
+    if K > PREEMPT_MAX_K:
+        raise ValueError(f"solve_preempt: K {K} above the kernel's "
+                         f"{PREEMPT_MAX_K} candidates a problem")
+    RFA = RF if active_slots is None else int(active_slots)
+    if not 0 <= RFA <= RF:
+        raise ValueError(f"solve_preempt: active_slots {RFA} outside "
+                         f"0..{RF}")
+    RFA = max(RFA, 1)
     dev = usage.device
     n_slots = B if slots is None else slots.shape[0]
     # with slots, the rows of the other ranks' problems stay zero
@@ -1279,17 +1333,11 @@ def solve_preempt(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
     targets = alloc((B, K), dtype=torch.bool, device=dev)
     feasible = alloc(B, dtype=torch.bool, device=dev)
     stats = alloc((B, 4), dtype=torch.int32, device=dev)
-    # a persistent grid: each block walks problems blockIdx, +grid, ...
-    # with its own scratch (candidate rows, flows and the per-chain-node
-    # prefix planes: (3 + 2 DC) x K x RF int64, plus the per-CQ and
-    # per-node rows and the per-candidate words)
-    grid = max(1, min(n_slots, PREEMPT_BLOCKS_PER_SM
-                      * torch.cuda.get_device_properties(dev)
-                      .multi_processor_count))
-    wide = (3 + 2 * DC) * K * RF + (QL + CL) * RF
-    scratch64 = torch.empty(grid * wide, dtype=torch.int64, device=dev)
-    scratch32 = torch.empty(grid * (5 + DC) * K, dtype=torch.int32,
-                            device=dev)
+    plan = preempt_plan(max(n_slots, 1), K, QL, RFA, CL, DC)
+    # the global rule's arena: a slice per block of the persistent grid
+    scratch = torch.empty(plan["grid"] * plan["arena_bytes"]
+                          if plan["rule"] == "global" else 16,
+                          dtype=torch.uint8, device=dev)
     _launch("solve_preempt", [
         _ptr(topo["nominal"], torch.int64, "nominal"),
         _ptr(topo["guaranteed"], torch.int64, "guaranteed"),
@@ -1315,16 +1363,20 @@ def solve_preempt(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
         _ptr(threshold_active, torch.bool, "threshold_active"),
         _ptr(threshold, torch.int64, "threshold"),
         _ptr(has_cohort, torch.bool, "has_cohort"),
-        _ptr(scratch64, torch.int64, "scratch64"),
-        _ptr(scratch32, torch.int32, "scratch32"),
+        _ptr(scratch, torch.uint8, "scratch"),
         _ptr(targets, torch.bool, "targets"),
         _ptr(feasible, torch.bool, "feasible"),
         _ptr(stats, torch.int32, "stats"),
         0 if slots is None else _ptr(slots, torch.int32, "slots"),
-    ], [n_slots, B, K, QL, RF, CL, DC, usage.shape[1], usage.shape[2], grid],
-        dev)
+    ], [n_slots, B, K, QL, RF, CL, DC, usage.shape[1], usage.shape[2], RFA,
+        plan["grid"], plan["threads"], plan["arena_bytes"],
+        int(plan["rule"] == "shared")], dev)
     solve_preempt.launches += 1
+    solve_preempt.last_plan = plan
     return targets, feasible, stats
+
+
+solve_preempt.last_plan = None  # the last launch's preempt_plan
 
 
 # ---------------------------------------------------------------------------
@@ -1998,7 +2050,8 @@ def solve_cycle_fused(topo, usage, cohort_usage, requests, podset_active,
 
 def solve_preemptions(topo, usage, cohort_usage, preempt_args=None,
                       fair_preempt_args=None, fs_strategies: tuple = ()):
-    """K9 on preempt_args and K11 on fair_preempt_args (each when given),
+    """K9 on preempt_args (over its active_slots when it is a
+    preempt.PreemptArgs) and K11 on fair_preempt_args (each when given),
     launched back to back against the same usage, with no sync between
     them. Returns the dict of their outputs (preempt_targets,
     preempt_feasible, preempt_stats; fair_targets, fair_feasible,
@@ -2006,8 +2059,9 @@ def solve_preemptions(topo, usage, cohort_usage, preempt_args=None,
     out = {}
     if preempt_args is not None:
         (out["preempt_targets"], out["preempt_feasible"],
-         out["preempt_stats"]) = solve_preempt(topo, usage, cohort_usage,
-                                               *preempt_args)
+         out["preempt_stats"]) = solve_preempt(
+             topo, usage, cohort_usage, *preempt_args,
+             active_slots=getattr(preempt_args, "active_slots", None))
     if fair_preempt_args is not None:
         (out["fair_targets"], out["fair_feasible"], out["fair_reasons"],
          out["fair_stats"]) = solve_fair(topo, usage, cohort_usage,

@@ -283,13 +283,40 @@ def localize_cohorts(batch: PreemptionBatch, cq_chain: np.ndarray) -> None:
     batch.gc = gc
 
 
-def preempt_args(batch: PreemptionBatch) -> tuple:
+class PreemptArgs(tuple):
+    """preempt_args' arrays, in the order kernel.solve_preempt takes them,
+    with the batch's `active_slots`: the most slots of any problem that
+    have a request or a needs-preemption flag (active_slot_count), counted
+    once from the host arrays. The compositions that take a preempt_args
+    tuple hand it to solve_preempt; map() keeps it across an upload."""
+
+    def __new__(cls, arrays, active_slots: int):
+        self = super().__new__(cls, arrays)
+        self.active_slots = active_slots
+        return self
+
+    def map(self, fn) -> "PreemptArgs":
+        return PreemptArgs((fn(a) for a in self), self.active_slots)
+
+
+def preempt_args(batch: PreemptionBatch) -> PreemptArgs:
     """The batch's arrays in the order kernel.solve_preempt takes them
-    (kueue_tpu/solver/preempt.py:767)."""
-    return (batch.gq, batch.gf, batch.gr, batch.gc, batch.chain_local,
-            batch.requests, batch.frs_np, batch.cand_idx, batch.cand_ql,
-            batch.cand_usage, batch.cand_prio, batch.allow_borrowing,
-            batch.threshold_active, batch.threshold, batch.has_cohort)
+    (kueue_tpu/solver/preempt.py:767), with their active slot count."""
+    return PreemptArgs(
+        (batch.gq, batch.gf, batch.gr, batch.gc, batch.chain_local,
+         batch.requests, batch.frs_np, batch.cand_idx, batch.cand_ql,
+         batch.cand_usage, batch.cand_prio, batch.allow_borrowing,
+         batch.threshold_active, batch.threshold, batch.has_cohort),
+        active_slot_count(batch.requests, batch.frs_np))
+
+
+def active_slot_count(requests: np.ndarray, frs_np: np.ndarray) -> int:
+    """The most active slots of any problem of a batch's requests[B,RF]
+    and frs_np[B,RF]: a slot with a request or a needs-preemption flag
+    (kernel.solve_preempt's active_slots)."""
+    if requests.size == 0:
+        return 0
+    return int(((requests > 0) | frs_np).sum(1).max())
 
 
 def decode_targets(batch: PreemptionBatch, targets_mask: np.ndarray,

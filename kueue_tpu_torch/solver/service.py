@@ -143,6 +143,13 @@ def preempt_aux(fetched: dict) -> Optional[dict]:
     None when neither did."""
     aux = {}
     if "preempt_targets" in fetched:
+        # the K9 kernel's rows of -1: a problem with more active slots
+        # than the launch was sized for (kernel.solve_preempt)
+        unsized = np.flatnonzero((fetched["preempt_stats"] == -1).all(1))
+        if unsized.size:
+            raise RuntimeError(
+                f"solve_preempt left problems {unsized[:8].tolist()} "
+                "unsolved: more active slots than its active_slots")
         aux["preempt"] = (fetched["preempt_targets"],
                           fetched["preempt_feasible"])
         aux["preempt_stats"] = fetched["preempt_stats"]
@@ -567,7 +574,7 @@ class BatchSolver:
         host_pargs = pargs = host_fargs = fargs = None
         if preempt_batch is not None:
             host_pargs = preempt_args(preempt_batch)
-            pargs = tuple(self._upload(a) for a in host_pargs)
+            pargs = host_pargs.map(self._upload)
         if fair_batch is not None:
             host_fargs = fair_args(fair_batch)
             fargs = tuple(self._upload(a) for a in host_fargs)
@@ -740,8 +747,7 @@ class BatchSolver:
         host_p = None if preempt_batch is None else preempt_args(
             preempt_batch)
         host_f = None if fair_batch is None else fair_args(fair_batch)
-        dev_p = None if host_p is None else \
-            tuple(self._upload(a) for a in host_p)
+        dev_p = None if host_p is None else host_p.map(self._upload)
         dev_f = None if host_f is None else \
             tuple(self._upload(a) for a in host_f)
         t1 = time.perf_counter()

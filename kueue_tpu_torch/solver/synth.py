@@ -220,6 +220,35 @@ def synth_preempt_inputs(num_problems: int, max_candidates: int,
     return topo, usage, cusage, preempt_args(batch)
 
 
+def fill_inactive_slots(args: tuple, num_flavors: int, num_resources: int,
+                        seed: int = 0, every_slot: bool = False) -> tuple:
+    """A copy of preempt_args (synth_preempt_inputs') in which each real
+    problem's inactive slots (no request, not needs-preemption) point at
+    a real (flavor, resource) and every candidate-table row has usage in
+    the slots past num_resources. No output may change: the kernel's
+    slot compaction rests on it. With every_slot, each slot of a real
+    problem that was inactive or padding asks for the smallest request
+    of the batch instead, so every slot is active."""
+    args = [np.array(a, copy=True) for a in args]
+    gq, gf, gr, req, frs, tab_u = (args[0], args[1], args[2], args[5],
+                                   args[6], args[9])
+    rng = np.random.default_rng(seed)
+    real = (gq[:, 0] >= 0)[:, None]
+    if every_slot:
+        off = real & ((gf < 0) | ((req <= 0) & ~frs))
+    else:
+        off = real & (req <= 0) & ~frs
+    n = int(off.sum())
+    gf[off] = rng.integers(0, num_flavors, size=n)
+    gr[off] = rng.integers(0, num_resources, size=n)
+    unit = int(req[req > 0].min())
+    tab_u[1:, num_resources:] = rng.integers(
+        1, 7, size=tab_u[1:, num_resources:].shape) * unit
+    if every_slot:
+        req[off] = unit
+    return tuple(args)
+
+
 def synth_preempt_cluster(depth: int, num_cqs: int, num_leaf_cohorts: int,
                           fanout: int, num_flavors: int, num_resources: int,
                           seed: int):

@@ -21,7 +21,10 @@ from kueue_tpu_torch.solver import BatchSolver, encode
 from kueue_tpu_torch.solver import kernel as tk
 from kueue_tpu_torch.solver.fairpreempt import strategy_flags
 from kueue_tpu_torch.scheduler.preemption import parse_strategies
+from kueue_tpu_torch.solver.preempt import active_slot_count
+from kueue_tpu_torch.solver.service import PREEMPT_KEYS, preempt_aux
 from kueue_tpu_torch.solver.synth import (cluster_oracle,
+                                          fill_inactive_slots,
                                           synth_cluster_inputs,
                                           synth_deltas, synth_fair_inputs,
                                           synth_fair_problems,
@@ -610,6 +613,259 @@ def test_solve_preempt_slots_on_card_equal_plain(depth, cuda_device):
     assert (perm == B).any()  # some lanes are padding
     for acc, t in zip(sums, whole):
         assert torch.equal(acc, t)
+
+
+def preempt_on(device, topo, usage, cu, args) -> tuple:
+    """solve_preempt's arguments (synth_preempt_inputs') on `device`."""
+    return (tk.topo_to_device(topo, device),
+            *tk.state_to_device(usage, cu, device),
+            *(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+              for a in args))
+
+
+def k9_equals_plain(card, **kw) -> tuple:
+    """K9 launched once on `card` (with kw) equal to the plain version on
+    the same tensors in all three outputs. Returns the plain outputs on
+    the host."""
+    want = tk.solve_preempt_plain(*card, slots=kw.get("slots"))
+    before = tk.launch_counts()["solve_preempt"]
+    got = tk.solve_preempt(*card, **kw)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["solve_preempt"] == before + 1
+    for name, a, b in zip(("targets", "feasible", "stats"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    return tuple(t.cpu() for t in want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", (1, 2, 3))
+def test_solve_preempt_inactive_slots_on_card_equal_plain(depth,
+                                                          cuda_device):
+    """Inactive slots (no request, not needs-preemption) pointed at real
+    quota, with candidate usage in them, change no output: K9 over the
+    batch's active slots and over all RF equal the plain version, which
+    computes every slot."""
+    topo, usage, cu, args = synth_preempt_inputs(
+        120, 120, max_local_cqs=6, depth=depth, num_flavors=4,
+        seed=40 + depth)
+    args = fill_inactive_slots(args, 4, 2, seed=depth)
+    gf, req, frs = args[1], args[5], args[6]
+    assert ((gf >= 0) & (req <= 0) & ~frs).any()
+    rfa = active_slot_count(req, frs)
+    assert 0 < rfa < gf.shape[1]
+    card = preempt_on(cuda_device, topo, usage, cu, args)
+    targets, feasible, stats = k9_equals_plain(card, active_slots=rfa)
+    plan = tk.solve_preempt.last_plan
+    assert plan["active_slots"] == rfa and plan["rule"] == "shared"
+    k9_equals_plain(card)
+    assert tk.solve_preempt.last_plan["active_slots"] == gf.shape[1]
+    assert feasible[:120].any() and not feasible[:120].all()
+    assert stats[:, 3].sum() > 0 and targets.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_candidates,every_slot,rule",
+                         ((1500, True, "global"), (400, False, "shared")))
+def test_solve_preempt_scratch_rules_on_card(max_candidates, every_slot,
+                                             rule, cuda_device):
+    """K = 2048 with every slot of every real problem active takes the
+    global-scratch rule; K = 512 over 2 active slots (the reclaim cell's
+    shape) the shared-memory rule. Both equal the plain version."""
+    topo, usage, cu, args = synth_preempt_inputs(
+        60, max_candidates, max_local_cqs=6, depth=2, num_flavors=4,
+        seed=7)
+    args = fill_inactive_slots(args, 4, 2, seed=7, every_slot=every_slot)
+    rfa = active_slot_count(args[5], args[6])
+    RF = args[1].shape[1]
+    assert rfa == (RF if every_slot else 2)
+    card = preempt_on(cuda_device, topo, usage, cu, args)
+    targets, feasible, stats = k9_equals_plain(card, active_slots=rfa)
+    plan = tk.solve_preempt.last_plan
+    assert plan["rule"] == rule and plan["active_slots"] == rfa
+    assert plan["blocks_per_sm"] >= 1
+    assert feasible[:60].any() and targets.any()
+
+
+@pytest.mark.cuda
+def test_solve_preempt_padding_only_on_card(cuda_device):
+    """A batch whose every problem has no valid candidate: nothing to
+    remove, infeasible, stats (0, 0, 1, 0) in every row, as the plain
+    version writes them."""
+    topo, usage, cu, args = synth_preempt_inputs(40, 60, depth=3, seed=9)
+    args = list(args)
+    args[8] = np.full_like(args[8], -1)
+    card = preempt_on(cuda_device, topo, usage, cu, args)
+    targets, feasible, stats = k9_equals_plain(
+        card, active_slots=active_slot_count(args[5], args[6]))
+    assert not targets.any() and not feasible.any()
+    assert (stats == torch.tensor([0, 0, 1, 0], dtype=torch.int32)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", (8, 40, 200))
+def test_solve_preempt_odd_k_on_card(K, cuda_device):
+    """K that is not a multiple of a warp (idle lanes in the last warp,
+    chunks of one candidate or of several)."""
+    topo, usage, cu, args = synth_preempt_inputs(80, K, max_local_cqs=5,
+                                                 depth=2, seed=K)
+    args = list(args)
+    for i in (7, 8):
+        args[i] = np.ascontiguousarray(args[i][:, :K])
+    card = preempt_on(cuda_device, topo, usage, cu, args)
+    targets, feasible, stats = k9_equals_plain(
+        card, active_slots=active_slot_count(args[5], args[6]))
+    assert targets.shape[1] == K and feasible[:80].any()
+
+
+@pytest.mark.cuda
+def test_solve_preempt_padded_slots_on_card(cuda_device):
+    """K9 over problem slots in a shuffled order with padding entries (B
+    and -1) between them, over the batch's active slots: equal to the
+    plain version with the same slots; the other rows stay zero."""
+    topo, usage, cu, args = synth_preempt_inputs(90, 100, depth=3, seed=5)
+    B = args[7].shape[0]
+    rng = np.random.default_rng(5)
+    slots = rng.permutation(B)[:70].astype(np.int32)
+    slots[::7] = B
+    slots[3::11] = -1
+    card = preempt_on(cuda_device, topo, usage, cu, args)
+    targets, feasible, stats = k9_equals_plain(
+        card, slots=torch.from_numpy(slots).to(cuda_device),
+        active_slots=active_slot_count(args[5], args[6]))
+    solved = np.zeros(B, bool)
+    solved[slots[(slots >= 0) & (slots < B)]] = True
+    assert not stats[torch.from_numpy(~solved)].any()
+    assert stats[torch.from_numpy(solved)][:, 2].min() >= 1
+
+
+@pytest.mark.cuda
+def test_solve_preempt_reclaim_batch_on_card(cuda_device, monkeypatch):
+    """K9 on the batch the port's Scheduler builds on the reclaim
+    configuration at 4 roots x 2 children x 8 CQs x 36 victims (the
+    cell's K = 512, QL = 16 and RF = 8 with 2 active slots), captured
+    from the cycle, equal to the plain version."""
+    calls = []
+    real = tk.solve_preempt
+
+    def capture(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+    capture.launches = 0  # solve_preempt counts on its module name
+    monkeypatch.setattr(tk, "solve_preempt", capture)
+    sched, cache, queues, client = ns.build_preempt_reclaim(
+        4, 2, 8, 36, solver=BatchSolver(device=cuda_device))
+    sched.solver_sync_floor_ms = 0.0
+    sched.schedule(timeout=0)
+    monkeypatch.undo()
+    assert sched.last_preempt_gate == "device" and len(calls) == 1
+    a, kw = calls[0]
+    assert kw["active_slots"] == 2
+    assert (a[11].shape[1], a[3].shape[1], a[4].shape[1]) == (512, 16, 8)
+    targets, feasible, stats = k9_equals_plain(a, **kw)
+    assert feasible.any() and targets.any()
+
+
+def full_k_inputs(num_problems: int, K: int, seed: int) -> tuple:
+    """synth_preempt_inputs at K candidates a problem, whose problem 0
+    has exactly K: all in its CQ, which is in no cohort, asking on every
+    resource for what only the removal of every candidate frees. So k* is
+    K - 1, and the run of CQ 0 in the candidates' CQ order ends at
+    position K."""
+    topo, usage, cu, args = synth_preempt_inputs(num_problems, K, depth=2,
+                                                 seed=seed)
+    args = [np.array(a, copy=True) for a in args]
+    gq, gf, gr, gc, chain, req, frs, cidx, cql, tab_u = args[:10]
+    assert cql.shape[1] == K
+    q0 = int(np.flatnonzero(topo["cq_cohort"] < 0)[0])
+    R = usage.shape[2]
+    gq[0] = -1
+    gq[0, 0] = q0
+    gc[0] = -1
+    chain[0] = -1
+    gf[0] = -1
+    gf[0, :R] = 0
+    gr[0] = 0
+    gr[0, :R] = np.arange(R)
+    cidx[0] = np.random.default_rng(seed).integers(1, tab_u.shape[0], K)
+    cql[0] = 0
+    req[0] = 0
+    req[0, :R] = tab_u[1:, :R].min(0)
+    frs[0] = False
+    frs[0, :R] = True
+    args[11][0] = args[12][0] = args[14][0] = False  # borrowing, threshold
+    usage = usage.copy()
+    usage[q0, 0] = (topo["nominal"][q0, 0] + tab_u[cidx[0], :R].sum(0)
+                    - req[0, :R])
+    return topo, usage, cu, args
+
+
+@pytest.mark.cuda
+def test_solve_preempt_full_k_on_card(cuda_device):
+    """K = 32768, the largest K bucket, with a problem of exactly K
+    candidates whose k* is the last one (the place of a candidate in its
+    CQ's run then reaches K), and every other problem at up to K
+    candidates: equal to the plain version; one more candidate column
+    raises."""
+    K = tk.PREEMPT_MAX_K
+    topo, usage, cu, args = full_k_inputs(4, K, seed=21)
+    card = preempt_on(cuda_device, topo, usage, cu, args)
+    targets, feasible, stats = k9_equals_plain(
+        card, active_slots=active_slot_count(args[5], args[6]))
+    assert feasible[0] and stats[0, 0] == K and stats[0, 1] == K
+    assert tk.solve_preempt.last_plan["rule"] == "global"
+    wide = list(card)
+    for i in (10, 11):  # cand_idx, cand_ql: 8 more candidate columns
+        wide[i] = torch.cat([card[i], card[i][:, :8]], dim=1)
+    with pytest.raises(ValueError, match="above the kernel"):
+        tk.solve_preempt(*wide)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("every_slot", (False, True))
+def test_solve_preempt_wide_slots_on_card(every_slot, cuda_device):
+    """More than 8 active slots: 12 resources give RF = 32, and the kernel
+    runs its groups of 8 slots over a row stride set at launch, every
+    scan and fit walking two groups (12 active slots: a stride of 16) or
+    four (every slot active), under the shared and the global rule."""
+    topo, usage, cu, args = synth_preempt_inputs(
+        60, 100, max_local_cqs=6, depth=2, num_flavors=3, num_resources=12,
+        seed=11)
+    args = fill_inactive_slots(args, 3, 12, seed=11, every_slot=every_slot)
+    rfa = active_slot_count(args[5], args[6])
+    assert args[1].shape[1] == 32 and rfa == (32 if every_slot else 12)
+    card = preempt_on(cuda_device, topo, usage, cu, args)
+    targets, feasible, stats = k9_equals_plain(card, active_slots=rfa)
+    plan = tk.solve_preempt.last_plan
+    assert (plan["group_slots"], plan["row_slots"]) == \
+        (8, 32 if every_slot else 16)
+    assert plan["rule"] == ("global" if every_slot else "shared")
+    assert feasible[:60].any() and targets.any() and stats[:, 3].sum() > 0
+
+
+@pytest.mark.cuda
+def test_solve_preempt_unsized_slots_refused_on_card(cuda_device):
+    """A launch sized below the active slots of a problem with candidates
+    writes that problem no targets, infeasible and stats of -1 and solves
+    the rest as the plain version does; service.preempt_aux refuses the
+    -1 rows. (active_slots 2 sizes rows of 2 slots; the problems ask
+    for up to 3.)"""
+    topo, usage, cu, args = synth_preempt_inputs(40, 60, depth=2,
+                                                 num_resources=3, seed=3)
+    per = ((args[5] > 0) | args[6]).sum(1)
+    over = (per > 2) & (args[8] >= 0).any(1)
+    assert over.any() and (~over[:40]).any()
+    card = preempt_on(cuda_device, topo, usage, cu, args)
+    got = tk.solve_preempt(*card, active_slots=2)
+    want = tk.solve_preempt_plain(*card)
+    torch.cuda.synchronize()
+    targets, feasible, stats = (x.cpu() for x in got)
+    assert (stats[over] == -1).all()
+    assert not feasible[over].any() and not targets[over].any()
+    for a, b in zip((targets, feasible, stats), want):
+        assert torch.equal(a[~over], b.cpu()[~over])
+    with pytest.raises(RuntimeError, match="active slots"):
+        preempt_aux({k: x.numpy() for k, x in
+                     zip(PREEMPT_KEYS, (targets, feasible, stats))})
 
 
 @pytest.mark.cuda

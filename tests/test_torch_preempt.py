@@ -11,7 +11,9 @@ On the same inputs, made from seeds, exactly equal (int64 and bits):
 - solve_preempt_plain against solve_preempt_impl on synthetic batches:
   a flat cohort forest and trees 2 and 3 deep with CQs attached at two
   depths, within-CQ, reclaim and threshold problems, problems with no
-  candidates or no fitting prefix, and padding problems;
+  candidates or no fitting prefix, and padding problems; and the
+  invariant the CUDA kernel's slot compaction rests on (a slot with no
+  request and no needs-preemption flag changes no output), on both;
 - the cycle compositions with preempt_args: solve_cycle_with_preempt,
   the resident cycle (with a delta prologue) and the arena cycle against
   their JAX programs;
@@ -42,7 +44,7 @@ from kueue_tpu_torch.solver import encode as tenc
 from kueue_tpu_torch.solver import fairpreempt as tfp
 from kueue_tpu_torch.solver import kernel as tk
 from kueue_tpu_torch.solver import preempt as tpre
-from kueue_tpu_torch.solver.service import BatchSolver
+from kueue_tpu_torch.solver.service import BatchSolver, preempt_aux
 from kueue_tpu_torch.solver.synth import (synth_deltas, synth_preempt_inputs,
                                           synth_preempt_problems)
 from tests.test_torch_kernels import (P, WL_KEYS, assert_same, jax_topo,
@@ -89,6 +91,68 @@ def test_solve_preempt_matches_jax(depth, seed):
     # padding problems: nothing to remove, one round
     assert not targets[13:].any() and not feasible[13:].any()
     assert (stats[13:] == [0, 0, 1, 0]).all()
+
+
+@pytest.mark.parametrize("seed", (1, 2))
+@pytest.mark.parametrize("depth", (1, 2, 3))
+def test_inactive_slots_change_no_output(depth, seed):
+    """What the CUDA kernel's slot compaction rests on: a slot with no
+    request and no needs-preemption flag changes no output. Made a
+    padding slot (gf = -1, gr = 0), the JAX program and the plain version
+    give the targets, feasible and stats of the untouched batch."""
+    topo, usage, cu, args = synth_preempt_inputs(
+        40, 20, depth=depth, num_cqs=32, num_flavors=2, num_resources=3,
+        seed=seed)
+    gf, gr, req, frs = args[1], args[2], args[5], args[6]
+    off = (gf >= 0) & (req <= 0) & ~frs
+    assert off.any()  # the batch has such slots
+    cut = list(args)
+    cut[1] = np.where(off, -1, gf).astype(gf.dtype)
+    cut[2] = np.where(off, 0, gr).astype(gr.dtype)
+    ref = jax_solve(topo, usage, cu, args)
+    assert ref[1][:40].any()
+    for got in (jax_solve(topo, usage, cu, cut),
+                port_solve(topo, usage, cu, cut),
+                port_solve(topo, usage, cu, args)):
+        for name, a, b in zip(OUTPUTS, got, ref):
+            assert_same(a, b, name)
+
+
+def test_preempt_args_carry_active_slots():
+    """preempt_args counts the batch's active slots once, from the host
+    arrays (the most slots with a request or a needs-preemption flag in
+    any problem), keeps the count across map(), and
+    kernel.solve_preemptions, which hands it to solve_preempt, gives the
+    JAX program's outputs."""
+    topo, usage, cu, args = synth_preempt_inputs(
+        13, 20, depth=2, num_cqs=32, num_flavors=2, num_resources=3, seed=4)
+    per = ((args[5] > 0) | args[6]).sum(1)
+    assert isinstance(args, tpre.PreemptArgs)
+    assert args.active_slots == per.max() == 3 < args[1].shape[1]
+    up = args.map(t)
+    assert up.active_slots == 3 and all(
+        np.array_equal(u.numpy(), a) for u, a in zip(up, args))
+    out = tk.solve_preemptions(torch_topo(topo), t(usage), t(cu), up)
+    ref = jax_solve(topo, usage, cu, args)
+    for name, a, b in zip(OUTPUTS, ref, (out["preempt_targets"],
+                                          out["preempt_feasible"],
+                                          out["preempt_stats"])):
+        assert_same(b.numpy(), a, name)
+
+
+def test_preempt_aux_refuses_unsized_rows():
+    """A K9 stats row of -1 (a problem with more active slots than the
+    launch was sized for) raises in preempt_aux; rows of real outcomes and
+    padding problems pass."""
+    fetched = {"preempt_targets": np.zeros((3, 8), bool),
+               "preempt_feasible": np.array([True, False, False]),
+               "preempt_stats": np.array([[4, 2, 1, 0], [0, 0, 1, 0],
+                                          [3, 0, 1, 0]], np.int32)}
+    aux = preempt_aux(fetched)
+    assert aux["preempt_stats"] is fetched["preempt_stats"]
+    fetched["preempt_stats"][2] = -1
+    with pytest.raises(RuntimeError, match=r"problems \[2\]"):
+        preempt_aux(fetched)
 
 
 def test_solve_preempt_fills_back():
