@@ -8,7 +8,20 @@ shape (2048 ClusterQueues, 256 cohorts, 32 flavors, 2 resources, 2048
 heads, 4 podsets) and on a nested-cohort input (depth 3, 3 active
 podsets), and times both; drf_share also on fair weights 0/500/1000/3000
 with a root cohort lending nothing, and the admit order also with those
-shares and with a mix of ties, negative shares and NO_LIMIT. Then it
+shares and with a mix of ties, negative shares and NO_LIMIT. Then, on
+the shapes the first kernels raised on, solve_preempt with a problem of
+exactly 131,072 candidates (32-bit candidate indices), phase_a at the
+north star's widths with 32 and with 17 resources, and cluster_cols at
+64 clusters x 32 flavors x 16 resources and, at the synthetic batch's
+8 x 32 x 2048 rows, at 8, 16 and 32 resources, each equal to its plain
+version (cluster_cols also to the host oracle) and timed.
+cluster_cols' rows are timed by CUDA events over back-to-back launches
+and report the pipeline's rows, live columns (its stages), warps and
+chunk steps, and its latency bound: (stages + chunks of 32 rows - 1)
+ticks of the least tick (one shared load, R compares, one shuffle),
+measured in clock cycles on the card, beside a row-a-tick pipeline's
+(rows + stages) ticks; the takes, one at a time a stage, are not in
+that chain. Then it
 drives the port's main paths end to end on a 2048-CQ cluster with
 51,200 workloads pending in the port's queue Manager, each cycle's
 decisions held against the same solve on the CPU with the plain
@@ -262,6 +275,32 @@ MK_LOST = ("w1", E2E_WARMUP + 5)
 # out mid-scan
 MK_SYNTH = dict(num_clusters=8, num_flavors=32, num_resources=2,
                 num_workloads=2048, num_podsets=4, num_cqs=2048, seed=23)
+# K12's time a launch before its redesign (the one-warp kernel at the
+# captured cycle, PERF.md section 6); printed beside the new time, never
+# in the kernels line
+K12_EARLIER_MS = 0.884
+# The shapes on which the first kernels raised (wide_phase): K9 with a
+# problem of exactly 131,072 candidates; phase_a at the north star's
+# widths with 32 resources (17 resource names bucket to 32) and with 17;
+# K12 at 64 clusters x 32 flavors x 16 resources (270,336 B of columns),
+# and at MK_SYNTH's clusters, flavors and rows with 8, 16 and 32 resources
+# (the register form's widest two, then the arena form)
+WIDE_K9 = dict(num_problems=3, K=131072, seed=5)
+WIDE_PHASE_A = dict(num_cqs=2048, num_cohorts=256, num_flavors=32,
+                    num_workloads=2048, num_podsets=4)
+WIDE_K12 = {
+    "k64_f32_r16": dict(num_clusters=64, num_flavors=32, num_resources=16,
+                        num_workloads=2048, num_podsets=4, num_cqs=2048,
+                        requested_share=0.15, seed=23),
+    "k8_f32_r8": dict(num_clusters=8, num_flavors=32, num_resources=8,
+                      num_workloads=2048, num_podsets=4, num_cqs=2048,
+                      requested_share=0.3, seed=23),
+    "k8_f32_r16": dict(num_clusters=8, num_flavors=32, num_resources=16,
+                       num_workloads=2048, num_podsets=4, num_cqs=2048,
+                       requested_share=0.15, seed=23),
+    "k8_f32_r32": dict(num_clusters=8, num_flavors=32, num_resources=32,
+                       num_workloads=2048, num_podsets=4, num_cqs=2048,
+                       requested_share=0.1, seed=23)}
 # collect's copy per key against one copy of all keys: calls of each, in
 # turns
 FETCH_REPS = 200
@@ -311,6 +350,56 @@ def time_cuda(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_cuda_queued(fn, iters: int, host_us: float = 300.0,
+                     tries: int = 3) -> float:
+    """Milliseconds of device time per call, by CUDA events: a sleep
+    kernel holds the card while the host enqueues `iters` calls (host_us
+    each, at most), so the calls run back to back between the events and
+    the host's launch cost stays out of the reading. The start event,
+    recorded just after the sleep, must still be pending once every call
+    is enqueued; if it is not (the host took longer than host_us a call,
+    so the reading could hold host gaps), the reading is taken again with
+    a sleep four times as long, and after `tries` readings it raises."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(iters * host_us * 2e3))  # cycles, <= 2 GHz
+        start.record()
+        for _ in range(iters):
+            fn()
+        covered = not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / iters
+        host_us *= 4
+    raise RuntimeError(f"time_cuda_queued: the host took more than "
+                       f"{host_us / 4:.0f} us a call to enqueue {iters} "
+                       "calls; the card ran ahead of it")
+
+
+def cluster_least_tick(device, R: int, iters: int = 4096) -> float:
+    """Clock cycles of cluster_cols' least pipeline tick: one warp's
+    dependent rounds of one shared load, R compares and one shuffle
+    (csrc/cluster_cols.cu cluster_cols_tick_kernel), the least of three
+    runs."""
+    import torch
+    from kueue_tpu_torch.solver import kernel as k
+    best = None
+    for _ in range(3):
+        out = torch.zeros(2, dtype=torch.int64, device=device)
+        k._launch("cluster_cols", [out.data_ptr()], [iters, R], device,
+                  symbol="cluster_cols_tick_launch")
+        torch.cuda.synchronize()
+        cycles = out[0].item() / iters
+        best = cycles if best is None else min(best, cycles)
+    return best
 
 
 def device_us(event, self_only: bool = False) -> float:
@@ -1253,7 +1342,8 @@ def ptxas_report(name: str) -> dict:
             "ptxas_spill_bytes": max(spills) if spills else None}
 
 
-PREEMPT_PLAN_KEYS = ("active_slots", "row_slots", "group_slots", "rule",
+PREEMPT_PLAN_KEYS = ("active_slots", "row_slots", "group_slots",
+                     "index_bits", "rule",
                      "arena_bytes", "smem_bytes_per_block", "blocks_per_sm",
                      "grid", "registers", "local_bytes", "ptxas_registers",
                      "ptxas_spill_bytes")
@@ -1823,9 +1913,10 @@ def cluster_kernel_check(label: str, k, args: tuple, got, cols: tuple,
     """cluster_cols' output `got` against the plain version on the same
     card tensors and against the host oracle (synth.cluster_oracle: the
     rows walked in the global admit order through place_remote_dicts on
-    `cols`); with `timed`, the kernel's device time (profiler), its time
-    per call and the plain version's (CUDA events), its byte bound and
-    its chain of dependent steps (one per placed row)."""
+    `cols`); with `timed`, the kernel's device time (CUDA events over
+    back-to-back launches, time_cuda_queued), its time per call and the
+    plain version's (CUDA events), its byte bound, and its pipeline's
+    numbers and latency bounds (cluster_pipeline_row)."""
     import numpy as np
     import torch
     from kueue_tpu_torch.solver import synth
@@ -1847,7 +1938,7 @@ def cluster_kernel_check(label: str, k, args: tuple, got, cols: tuple,
            "active_clusters": int(host[2].sum()),
            "by_column": np.bincount(mkc[mkc >= 0],
                                     minlength=args[0].shape[0]).tolist(),
-           "dependent_steps": placed, "oracle_equal": True}
+           "oracle_equal": True}
     if timed:
         def run_kernel():
             return k.score_cluster_columns(*args)
@@ -1857,16 +1948,51 @@ def cluster_kernel_check(label: str, k, args: tuple, got, cols: tuple,
         torch.cuda.synchronize()
         row["call_ms"] = time_cuda(run_kernel, iters=20)
         row["plain_ms"] = time_cuda(run_plain, iters=2, warmup=1)
-        kernel_ms = profiled_device_ms(run_kernel, 20, "cluster_cols")
-        row["ms"], row["ms_source"] = (kernel_ms, "profiler") \
-            if kernel_ms is not None else (row["call_ms"], "events")
+        # device time by CUDA events, the launches back to back
+        row["ms"] = time_cuda_queued(run_kernel, iters=50)
+        row["ms_source"] = "events"
         row["bytes"] = cluster_bytes(args, got)
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
         # no one PyTorch call runs the sequential scan
         row["library_ms"] = None
+        row.update(cluster_pipeline_row(k, args, device=got.device))
     log(f"[kernels:cluster_cols:{label}] equal to plain and to the host "
-        "oracle: " + json.dumps(row))
+        "oracle: " + json.dumps(row)
+        + (f"; before the redesign, the one-warp kernel took "
+           f"{K12_EARLIER_MS} ms a launch on the captured cycle (PERF.md)"
+           if timed else ""))
     return row
+
+
+def cluster_pipeline_row(k, args: tuple, device) -> dict:
+    """cluster_cols' pipeline on `args` (one more launch): the rows in the
+    pipeline N, the live columns S (its stages), the warps of stages G and
+    the stages a warp, its chunk steps (N/32 chunks + G - 1), the launch
+    plan, ptxas's report, and two latency bounds in units of the least
+    tick (one shared load, R compares, one shuffle; measured here in
+    clock cycles) at the SM clock the runtime reports: the chunked
+    pipeline's chain, S + N/32 - 1 ticks (chunk 0 through every stage,
+    the last stage through every chunk; the takes, which run one at a
+    time a stage, are left out), and a row-a-tick pipeline's, N + S
+    ticks."""
+    import torch
+    k.score_cluster_columns(*args)
+    torch.cuda.synchronize()
+    n, s, g, per_warp = k.score_cluster_columns.last_stats.tolist()
+    plan = k.score_cluster_columns.last_plan
+    R = args[4].shape[2]
+    tick = cluster_least_tick(device, R)
+    chunks = -(-n // 32)
+    return {"pipeline_rows": n, "live_stages": s, "stage_warps": g,
+            "stages_per_warp": per_warp, "chunk_steps": chunks + g - 1,
+            "least_tick_cycles": tick, "sm_clock_khz": plan["clock_khz"],
+            "latency_bound_ms": (s + chunks - 1) * tick / plan["clock_khz"],
+            "dependent_steps": s + chunks - 1,
+            "row_pipeline_bound_ms": (n + s) * tick / plan["clock_khz"],
+            **{f"plan_{key}": plan[key] for key in
+               ("threads", "rule", "arena_bytes", "register_r",
+                "registers", "local_bytes")},
+            **ptxas_report("cluster_cols")}
 
 
 def scheduler_multikueue_phase(device) -> dict:
@@ -2408,6 +2534,79 @@ def scheduler_sharded_phase(device) -> dict:
     return summary
 
 
+def wide_phase(device) -> dict:
+    """The shapes on which the first card kernels raised, each kernel
+    against its plain version on the same card tensors and timed, outside
+    every main path's launch count: K9 with a problem of exactly 131,072
+    candidates (32-bit candidate indices, the global rule); phase_a at
+    the north star's widths with 32 resources and with 17 (the chosen
+    flavors in shared memory); cluster_cols at 64 clusters x 32 flavors x
+    16 resources (the arena in global scratch, several warps of stages)
+    and at 8 x 32 with 8, 16 (the register form) and 32 resources (the
+    requests read from the arena), equal to the host oracle too."""
+    import numpy as np
+    import torch
+    from kueue_tpu_torch.solver import kernel as k, synth
+    from kueue_tpu_torch.solver.preempt import active_slot_count
+    t_phase = time.perf_counter()
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    rows = {}
+    # K9
+    topo, usage, cu, args = synth.synth_full_k_inputs(**WIDE_K9)
+    p_args = (k.topo_to_device(topo, device),
+              *k.state_to_device(usage, cu, device), *(dev(a) for a in args))
+    kw = {"active_slots": active_slot_count(args[5], args[6])}
+    row = preempt_kernel_check("k131072", k, p_args,
+                               k.solve_preempt(*p_args, **kw),
+                               WIDE_K9["num_problems"], True, kw)
+    if row["index_bits"] != 32 or row["rule"] != "global":
+        raise AssertionError(f"solve_preempt at K = {WIDE_K9['K']}: "
+                             f"{row['index_bits']}-bit indices, "
+                             f"{row['rule']} rule")
+    rows["solve_preempt"] = row
+    # phase_a
+    for R in (32, 17):
+        topo, usage, cu, wl = synth.synth_solver_inputs(
+            num_resources=R, seed=42, **WIDE_PHASE_A)
+        t_topo = k.topo_to_device(topo, device)
+        usage_d, cu_d = k.state_to_device(usage, cu, device)
+        wl = {key: dev(v) for key, v in wl.items()}
+        P = WIDE_PHASE_A["num_podsets"]
+        a_args = (t_topo, k.avail_plain(t_topo, usage_d, cu_d), usage_d,
+                  wl["requests"], wl["podset_active"], wl["wl_cq"],
+                  wl["eligible"], wl["solvable"], P, None)
+        want = k.phase_a_plain(*a_args)
+        row = {"max_abs_err": compare(
+            ("fit", "borrows", "chosen", "chosen_borrow", "asg_usage"),
+            k.phase_a(*a_args), want), "R": R, "fit": int(want[0].sum())}
+        if not row["fit"]:
+            raise AssertionError(f"phase_a at R = {R}: no head fits")
+        torch.cuda.synchronize()
+        row["call_ms"] = time_cuda(lambda: k.phase_a(*a_args), iters=20)
+        row["ms"] = time_cuda_queued(lambda: k.phase_a(*a_args), iters=50)
+        row["ms_source"] = "events"
+        row["plain_ms"] = time_cuda(lambda: k.phase_a_plain(*a_args),
+                                    iters=2, warmup=1)
+        row["bytes"] = phase_a_bytes(t_topo, wl, P, None, want)
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        row["library_ms"] = None
+        log(f"[kernels:phase_a:r{R}] equal to plain: " + json.dumps(row))
+        rows[f"phase_a_r{R}"] = row
+    rows["phase_a"] = rows.pop("phase_a_r32")
+    # cluster_cols
+    for label, spec in WIDE_K12.items():
+        cols, _, resources, args = synth.synth_cluster_inputs(**spec)
+        c_args = tuple(dev(a) for a in args)
+        rows[f"cluster_cols_{label}"] = cluster_kernel_check(
+            label, k, c_args, k.score_cluster_columns(*c_args), cols,
+            resources, True)
+    rows["wall_s"] = time.perf_counter() - t_phase
+    log(f"[wide] wall {rows['wall_s']:.1f} s")
+    return rows
+
+
 ORACLE_KEYS = ("admitted", "fit", "borrows", "chosen", "chosen_borrow",
                "usage", "cohort_usage")
 
@@ -2760,6 +2959,10 @@ def traced_cycle(phase: str, run_cycle, cycle: int,
     return out
 
 
+# the numbers of a wide_phase row that the kernels line carries
+WIDE_KEYS = ("ms", "call_ms", "plain_ms", "bound_ms", "max_abs_err")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2796,6 +2999,7 @@ def main() -> int:
         t0 = time.perf_counter()
         kernel_phase(kind, device, results)
         log(f"[kernels:{kind}] wall {time.perf_counter() - t0:.1f} s")
+    wide = wide_phase(device)
     runners = {"oracles": oracle_phase,
                "scheduler_partial": scheduler_partial_phase,
                "scheduler_fair": scheduler_phase,
@@ -2851,8 +3055,10 @@ def main() -> int:
             # every main path, each counted from its own reset
             "launches": sum(by_phase.values()),
             "launches_by_phase": by_phase,
-            "max_abs_err": max(results[k][name]["max_abs_err"]
-                               for k in results),
+            "max_abs_err": max([results[k][name]["max_abs_err"]
+                                for k in results]
+                               + [r["max_abs_err"] for key, r in wide.items()
+                                  if key.startswith(name)]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
             "bound_bytes": row["bytes"], "library_ms": row["library_ms"],
@@ -2869,7 +3075,12 @@ def main() -> int:
             **({"latency_bound": f"{row['dependent_steps']} dependent steps",
                 "dependent_steps": row["dependent_steps"]}
                if name in ("phase_b", "solve_preempt", "solve_fair",
-                           "cluster_cols", "global_scan") else {}),
+                           "global_scan") else {}),
+            **({"latency_bound": f"{row['dependent_steps']} dependent steps "
+                                 "of the chunked pipeline (stages + chunks "
+                                 "of 32 rows - 1), its takes left out",
+                "dependent_steps": row["dependent_steps"]}
+               if name == "cluster_cols" else {}),
             **({"inputs": "the oracle phase's north-star kernel inputs, "
                           "fair sharing off",
                 "fit_steps": row["fit_steps"], "phase_b_ms": row["phase_b_ms"],
@@ -2878,9 +3089,31 @@ def main() -> int:
             **({"inputs": "the scheduler multikueue phase's first timed "
                           "cycle",
                 "rows": row["rows"], "placed": row["placed"],
-                "unplaced": row["unplaced"]}
+                "unplaced": row["unplaced"],
+                **{key: row[key] for key in
+                   ("pipeline_rows", "live_stages", "stage_warps",
+                    "stages_per_warp", "chunk_steps", "least_tick_cycles",
+                    "sm_clock_khz", "latency_bound_ms",
+                    "row_pipeline_bound_ms", "plan_rule",
+                    "plan_register_r", "plan_registers")},
+                "wide": {label: {key: wide[f"cluster_cols_{label}"][key]
+                                 for key in WIDE_KEYS + (
+                                     "chunk_steps", "live_stages",
+                                     "stage_warps", "latency_bound_ms",
+                                     "placed", "plan_rule",
+                                     "plan_register_r", "plan_registers",
+                                     "plan_local_bytes")}
+                         for label in WIDE_K12}}
                if name == "cluster_cols" else {}),
+            **({"wide": {"r32": {key: wide["phase_a"][key]
+                                 for key in WIDE_KEYS},
+                         "r17": {key: wide["phase_a_r17"][key]
+                                 for key in WIDE_KEYS}}}
+               if name == "phase_a" else {}),
             **({"inputs": "the scheduler preempt phase's first timed cycle",
+                "wide_k131072": {key: wide["solve_preempt"][key] for key in
+                                 WIDE_KEYS + ("index_bits", "rule",
+                                              "arena_bytes")},
                 "rounds_max": row["rounds_max"],
                 "rounds_mean": row["rounds_mean"],
                 **{key: row[key] for key in PREEMPT_PLAN_KEYS},
@@ -2905,7 +3138,8 @@ def main() -> int:
                 "inputs": "the north-star kernel inputs' Phase B outputs"}
                if name == "mesh_combine" else {})})
     log(f"[wall] {time.perf_counter() - t_start:.1f} s, phases "
-        + json.dumps({p: round(e2e[p]["wall_s"], 1) for p in e2e}))
+        + json.dumps({p: round(e2e[p]["wall_s"], 1) for p in e2e})
+        + f", wide {wide['wall_s']:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -6,12 +6,18 @@
 // TryNextFlavor CQs), then the lowest flavor index among the candidates
 // at that rank: the first index, as jnp.argmax on bool returns it.
 // asg_usage[w] accumulates across podsets in place; each lane owns the
-// entries of its own flavors.
+// entries of its own flavors. A warp's slice of shared memory holds the
+// chosen flavor of each resource (4R bytes: any R) and the per-flavor
+// fit and borrow flags (2F bytes).
 #include <climits>
 #include "common.cuh"
 
-#define KQ_MAX_R 16
 #define KQ_WARPS_PER_BLOCK 4
+
+// a warp's shared-memory slice, in ints: ch[R], then fit_f[F], borrow_f[F]
+__host__ __device__ inline int kq_warp_ints(int F, int R) {
+  return R + (2 * F + 3) / 4;
+}
 
 __device__ __forceinline__ int kq_warp_min(int v) {
   for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -39,11 +45,12 @@ __global__ void phase_a_kernel(
     unsigned char* __restrict__ chosen_borrow,   // [W,NP,R]
     long long* __restrict__ asg,                 // [W,F,R]
     int W, int P, int NP, int F, int R) {
-  extern __shared__ unsigned char smem[];
+  extern __shared__ int smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int w = blockIdx.x * KQ_WARPS_PER_BLOCK + warp;
   if (w >= W) return;  // uniform per warp
-  unsigned char* fit_f = smem + (size_t)warp * 2 * F;
+  int* ch = smem + (size_t)warp * kq_warp_ints(F, R);
+  unsigned char* fit_f = (unsigned char*)(ch + R);
   unsigned char* borrow_f = fit_f + F;
   const int q = wl_cq[w];
   const int FR = F * R;
@@ -58,7 +65,6 @@ __global__ void phase_a_kernel(
   bool any_active = false;
   for (int p = 0; p < P; ++p) any_active |= podset_active[(size_t)w * P + p] != 0;
   bool ok_all = true, borrow_any = false;
-  int ch[KQ_MAX_R];
   for (int p = 0; p < NP; ++p) {
     const size_t wp = (size_t)w * P + p;
     const long long* req = requests + wp * R;
@@ -106,21 +112,22 @@ __global__ void phase_a_kernel(
       const int c = (target < KQ_INF_RANK && has_req) ? first : -1;
       const bool cb = c >= 0 && borrow_f[c];
       ok &= !has_req || c >= 0;
-      ch[r] = c;
       if (lane == 0) {
+        ch[r] = c;
         const size_t o = ((size_t)w * NP + p) * R + r;
         chosen[o] = active ? c : -1;
         chosen_borrow[o] = (active && cb) ? 1 : 0;
       }
       borrow_any |= active && cb;
     }
+    __syncwarp();  // ch[] is complete
     if (active) {
       ok_all &= ok;
       for (int f = lane; f < F; f += 32)
         for (int r = 0; r < R; ++r)
           if (ch[r] == f) asg_w[f * R + r] += req[r];
     }
-    __syncwarp();  // fit_f / borrow_f are rewritten by the next podset
+    __syncwarp();  // ch, fit_f and borrow_f are rewritten by the next podset
   }
   if (lane == 0) {
     fit[w] = (ok_all && solvable[w] && any_active) ? 1 : 0;
@@ -136,12 +143,17 @@ extern "C" int phase_a_launch(
     const void* solvable, const void* start_rank, void* fit, void* borrows,
     void* chosen, void* chosen_borrow, void* asg, long long W, long long P,
     long long NP, long long F, long long R, void* stream) {
-  if (R > KQ_MAX_R) return (int)cudaErrorInvalidValue;
   if (W > 0) {
     const int threads = 32 * KQ_WARPS_PER_BLOCK;
     const long long blocks = (W + KQ_WARPS_PER_BLOCK - 1) / KQ_WARPS_PER_BLOCK;
-    const size_t smem = (size_t)KQ_WARPS_PER_BLOCK * 2 * F;
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    const size_t smem =
+        (size_t)KQ_WARPS_PER_BLOCK * kq_warp_ints((int)F, (int)R) * 4;
+    if (smem > 48 * 1024) {
+      const int rc = (int)cudaFuncSetAttribute(
+          phase_a_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (rc != 0) return rc;
+    }
     phase_a_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
         (const int*)group_id, (const int*)flavor_group, (const int*)flavor_rank,
         (const long long*)nominal, (const unsigned char*)offered,

@@ -59,9 +59,12 @@
 //    dynamic shared memory when it fits a block (the "shared" rule), else
 //    in a per-block slice of global scratch (the "global" rule).
 //    solve_preempt_plan chooses the rule and sizes the persistent grid by
-//    the occupancy the rule leaves. Candidate indices, CQs, node keys and
-//    flags are 16-bit (K <= 32768, which the wrapper checks); a position
-//    in a sorted run, which reaches K, is 32-bit.
+//    the occupancy the rule leaves. CQs and flags are 16-bit; candidate
+//    indices and sort keys (the sorted orders and their keys) are 16-bit
+//    for K <= SP_NARROW_K, which keeps 3 arenas an SM at the reclaim
+//    cell's shape, and 32-bit above it (the kernel's index type IX; an
+//    arena that large takes the global rule). A position in a sorted run,
+//    which reaches K, is 32-bit.
 //  - 3 blocks of 256 threads an SM: the launch bounds hold a thread to
 //    80 registers (ptxas spills a few hundred bytes; 2 blocks at 128
 //    registers ran slower on the reclaim batch).
@@ -91,6 +94,8 @@
 #define SP_LIM (SP_NOLIM / 4)
 #define SP_THREADS 256
 #define SP_FULL 0xffffffffu
+// the most candidates a problem the 16-bit index form takes
+#define SP_NARROW_K 32768
 
 enum : short {
   F_VALID = 1, F_INCQ = 2, F_DO = 4, F_ELIG = 8, F_LO = 16, F_HI = 32,
@@ -114,7 +119,8 @@ __host__ __device__ inline long long sp_threads(long long K) {
   return t < 32 ? 32 : (t > SP_THREADS ? SP_THREADS : t);
 }
 
-// The arena: int64 arrays, then int arrays, then short arrays (offsets in
+// The arena: int64 arrays, then int arrays, then short arrays, then the
+// sorted orders and keys in the index type of `ix` bytes (offsets in
 // elements from the region's first byte). Host and device share it.
 // pnx: each candidate's place in the preemptor CQ's run and in the runs
 // of the preemptor's DC chain nodes, up to K, so int.
@@ -123,9 +129,14 @@ struct SpLayout {
       wp;
   long long ibase, uidx, prio, dep, chain, sgq, sgc, act, sgf, sgr, frs, wf,
       tab, startq, start, pnx;
-  long long sbase, cq, flags, ed, permq, skeyq, perm, skey;
+  long long sbase, cq, flags, ed;
+  long long xbase, permq, skeyq, perm, skey;
   long long bytes;
 };
+
+__host__ __device__ inline int sp_index_bytes(long long K) {
+  return K <= SP_NARROW_K ? 2 : 4;
+}
 
 __host__ __device__ inline SpLayout sp_layout(long long K, long long QL,
                                               long long A, long long CL,
@@ -170,11 +181,13 @@ __host__ __device__ inline SpLayout sp_layout(long long K, long long QL,
   L.cq = s; s += K;
   L.flags = s; s += K;
   L.ed = s; s += K;
-  L.permq = s; s += K;
-  L.skeyq = s; s += K;
-  L.perm = s; s += DC * K;
-  L.skey = s; s += DC * K;
-  L.bytes = (L.sbase + s * 2 + 15) / 16 * 16;
+  L.xbase = (L.sbase + s * 2 + 3) / 4 * 4;
+  long long x = 0;
+  L.permq = x; x += K;
+  L.skeyq = x; x += K;
+  L.perm = x; x += DC * K;
+  L.skey = x; x += DC * K;
+  L.bytes = (L.xbase + x * sp_index_bytes(K) + 15) / 16 * 16;
   return L;
 }
 
@@ -187,7 +200,8 @@ struct SpCtx {
   long long *ws, *wp;
   int *uidx, *prio, *dep, *chain, *sgq, *sgc, *act, *sgf, *sgr, *frs, *wf;
   int *tab, *startq, *start, *pnx;
-  short *cq, *flags, *ed, *permq, *skeyq, *perm, *skey;
+  short *cq, *flags, *ed;
+  void *permq, *skeyq, *perm, *skey;  // of the kernel's index type
   long long th;
   int NK, na, has_cohort, ab0, th_act, kth, kstar, nvalid, nback;
 };
@@ -195,6 +209,12 @@ __shared__ SpCtx cx;
 
 __device__ __forceinline__ long long sp_min(long long a, long long b) {
   return a < b ? a : b;
+}
+
+// an order or key array of the context as the kernel's index type
+template <class IX>
+__device__ __forceinline__ IX* sp_ix(void* p) {
+  return (IX*)p;
 }
 
 // workload_fits (preemption.go:576-585) for one hypothesis: u0row(a) is
@@ -267,9 +287,9 @@ __device__ __forceinline__ void sp_warp_scan(int& f, long long (&s)[G]) {
 // of its segment in the walk. Thread t owns positions t*ipt ..
 // (t+1)*ipt - 1 of the walk: only it calls val and emit for them, and
 // emit may write only k's own entries. Two barriers a group.
-template <int G, class Val, class Emit>
-__device__ __forceinline__ void seg_pass(int K, int A, const short* perm,
-                                         const short* skey, bool rev,
+template <int G, class IX, class Val, class Emit>
+__device__ __forceinline__ void seg_pass(int K, int A, const IX* perm,
+                                         const IX* skey, bool rev,
                                          Val val, Emit emit) {
   const int T = blockDim.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
@@ -350,8 +370,8 @@ __device__ __forceinline__ void seg_pass(int K, int A, const short* perm,
 // NK - 1). A candidate's rank among its key's is its warp's count of
 // earlier equal keys (__match_any_sync) plus the counts of the earlier
 // warps and tiles. Starts and ends with a barrier.
-template <class Key>
-__device__ void sort_keys(int ns, int K, Key key, short* perms, short* skeys,
+template <class IX, class Key>
+__device__ void sort_keys(int ns, int K, Key key, IX* perms, IX* skeys,
                           int* starts) {
   const int NK = cx.NK, T = blockDim.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
@@ -405,8 +425,8 @@ __device__ void sort_keys(int ns, int K, Key key, short* perms, short* skeys,
         const int p = starts[s * (NK + 1) + kk] +
                       tab[((size_t)s * trows + t * nw + warp) * NK + kk] +
                       __popc(peers & lt);
-        perms[(size_t)s * K + p] = (short)k;
-        skeys[(size_t)s * K + p] = (short)raw;
+        perms[(size_t)s * K + p] = (IX)k;
+        skeys[(size_t)s * K + p] = (IX)raw;
       }
     }
   }
@@ -414,7 +434,8 @@ __device__ void sort_keys(int ns, int K, Key key, short* perms, short* skeys,
 }
 
 // the number of entries <= k in the ascending run seg[0..len)
-__device__ __forceinline__ int sp_upper(const short* seg, int len, int k) {
+template <class IX>
+__device__ __forceinline__ int sp_upper(const IX* seg, int len, int k) {
   int lo = 0, hi = len;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -430,7 +451,7 @@ __device__ __forceinline__ int sp_upper(const short* seg, int len, int k) {
 // marginal on its way up, X[0] a node's member suffix (inclusive) at the
 // depth in hand, X[1 + d] what chain node d of the preemptor holds on top
 // of the forward state (members after the candidate, and its own flow).
-template <int G, int AF>
+template <int G, int AF, class IX>
 __device__ void sp_fillback_ok(int K, int A_arg, int DC, int k0, int k1,
                                int mbit, int obit, bool ab_fb) {
   const int A = AF > 0 ? AF : A_arg;
@@ -440,7 +461,7 @@ __device__ void sp_fillback_ok(int K, int A_arg, int DC, int k0, int k1,
     const long long* V = cx.V;
     long long* Tr = cx.T;
     const short* flags = cx.flags;
-    seg_pass<G>(K, A, cx.permq, cx.skeyq, true,
+    seg_pass<G>(K, A, sp_ix<IX>(cx.permq), sp_ix<IX>(cx.skeyq), true,
         [&](int k, int, int a0, long long (&x)[G]) {
           const bool m = (flags[k] & mbit) != 0;
 #pragma unroll
@@ -475,13 +496,13 @@ __device__ void sp_fillback_ok(int K, int A_arg, int DC, int k0, int k1,
   }
   __syncthreads();
   for (int dlt = DC - 1; dlt >= 0; --dlt) {
-    const short* perm = cx.perm + (size_t)dlt * K;
+    const IX* perm = sp_ix<IX>(cx.perm) + (size_t)dlt * K;
     {
       long long *FL = cx.FL, *X = cx.X;
       const long long *cg = cx.cg, *cuf = cx.cuf;
       const short* flags = cx.flags;
       const int* chain = cx.chain;  // the preemptor's (local CQ 0's)
-      seg_pass<G>(K, A, perm, cx.skey + (size_t)dlt * K, true,
+      seg_pass<G>(K, A, perm, sp_ix<IX>(cx.skey) + (size_t)dlt * K, true,
           [&](int k, int key, int a0, long long (&x)[G]) {
             const bool m = key >= 0 && (flags[k] & mbit);
 #pragma unroll
@@ -525,7 +546,8 @@ __device__ void sp_fillback_ok(int K, int A_arg, int DC, int k0, int k1,
   {
     const int e0 = cx.startq[1];
     const int* pnx0 = cx.pnx;
-    const short *permq = cx.permq, *cq = cx.cq;
+    const IX* permq = sp_ix<IX>(cx.permq);
+    const short* cq = cx.cq;
     short* flags = cx.flags;
     const long long *V = cx.V, *Tr = cx.T, *X = cx.X, *uf = cx.uf,
                     *cuf = cx.cuf;
@@ -557,7 +579,7 @@ __device__ __forceinline__ void sp_count(int c, int* total) {
   if ((threadIdx.x & 31) == 0 && w) atomicAdd(total, w);
 }
 
-template <int G, int AF>
+template <int G, int AF, class IX>
 __global__ void __launch_bounds__(SP_THREADS, 3) solve_preempt_kernel(
     const long long* __restrict__ nominal,
     const long long* __restrict__ guaranteed,
@@ -597,6 +619,7 @@ __global__ void __launch_bounds__(SP_THREADS, 3) solve_preempt_kernel(
     long long* w = (long long*)base;
     int* iw = (int*)(base + L.ibase);
     short* sw = (short*)(base + L.sbase);
+    IX* xw = (IX*)(base + L.xbase);
     cx.V = w + L.rows; cx.T = cx.V + KA; cx.FL = cx.T + KA; cx.X = cx.FL + KA;
     cx.nom = w + L.nom; cx.guar = w + L.guar; cx.bl = w + L.bl;
     cx.usg = w + L.usg; cx.uf = w + L.uf; cx.sub = w + L.sub;
@@ -610,8 +633,8 @@ __global__ void __launch_bounds__(SP_THREADS, 3) solve_preempt_kernel(
     cx.startq = iw + L.startq; cx.start = iw + L.start;
     cx.pnx = iw + L.pnx;
     cx.cq = sw + L.cq; cx.flags = sw + L.flags; cx.ed = sw + L.ed;
-    cx.permq = sw + L.permq; cx.skeyq = sw + L.skeyq; cx.perm = sw + L.perm;
-    cx.skey = sw + L.skey;
+    cx.permq = xw + L.permq; cx.skeyq = xw + L.skeyq; cx.perm = xw + L.perm;
+    cx.skey = xw + L.skey;
     cx.NK = (QL > CL ? QL : CL) + 1;
   }
   __syncthreads();
@@ -739,14 +762,14 @@ __global__ void __launch_bounds__(SP_THREADS, 3) solve_preempt_kernel(
     // 3. the candidates by local CQ (starts and ends with a barrier)
     {
       const short* cq = cx.cq;
-      sort_keys(1, K, [&](int, int k) { return (int)cq[k]; }, cx.permq,
-                cx.skeyq, cx.startq);
+      sort_keys(1, K, [&](int, int k) { return (int)cq[k]; },
+                sp_ix<IX>(cx.permq), sp_ix<IX>(cx.skeyq), cx.startq);
     }
     // 4. the do-mask: the CQ borrows after all its earlier candidates
     {
       const long long* V = cx.V;
       long long* Tr = cx.T;
-      seg_pass<G>(K, A, cx.permq, cx.skeyq, false,
+      seg_pass<G>(K, A, sp_ix<IX>(cx.permq), sp_ix<IX>(cx.skeyq), false,
           [&](int k, int, int a0, long long (&x)[G]) {
 #pragma unroll
             for (int g = 0; g < G; ++g) x[g] = V[(size_t)k * A + a0 + g];
@@ -794,7 +817,7 @@ __global__ void __launch_bounds__(SP_THREADS, 3) solve_preempt_kernel(
       const long long* V = cx.V;
       long long* Tr = cx.T;
       const short* flags = cx.flags;
-      seg_pass<G>(K, A, cx.permq, cx.skeyq, false,
+      seg_pass<G>(K, A, sp_ix<IX>(cx.permq), sp_ix<IX>(cx.skeyq), false,
           [&](int k, int, int a0, long long (&x)[G]) {
             const bool dk = (flags[k] & F_DO) != 0;
 #pragma unroll
@@ -842,7 +865,7 @@ __global__ void __launch_bounds__(SP_THREADS, 3) solve_preempt_kernel(
             const int nd = chain[qs * DC + min(e - s, DC - 1)];
             return nd < 0 ? -1 : nd;
           },
-          cx.perm, cx.skey, cx.start);
+          sp_ix<IX>(cx.perm), sp_ix<IX>(cx.skey), cx.start);
     } else {
       __syncthreads();
     }
@@ -854,7 +877,7 @@ __global__ void __launch_bounds__(SP_THREADS, 3) solve_preempt_kernel(
       const int NK = cx.NK;
       int* pnx = cx.pnx;
       for (int k = k0; k < k1; ++k) {
-        pnx[k] = startq[0] + sp_upper(cx.permq + startq[0],
+        pnx[k] = startq[0] + sp_upper(sp_ix<IX>(cx.permq) + startq[0],
                                       startq[1] - startq[0], k);
         for (int d = 0; d < DC; ++d) {
           const int c = chain[d];
@@ -862,7 +885,7 @@ __global__ void __launch_bounds__(SP_THREADS, 3) solve_preempt_kernel(
           int p = -1;
           if (dl >= 0 && dl < DC) {
             const int* st = start + dl * (NK + 1);
-            p = st[c] + sp_upper(cx.perm + (size_t)dl * K + st[c],
+            p = st[c] + sp_upper(sp_ix<IX>(cx.perm) + (size_t)dl * K + st[c],
                                  st[c + 1] - st[c], k);
           }
           pnx[(size_t)(1 + d) * K + k] = p;
@@ -875,8 +898,8 @@ __global__ void __launch_bounds__(SP_THREADS, 3) solve_preempt_kernel(
       long long* FL = cx.FL;
       long long* arr = cx.X + dlt * KA;
       const long long *cu0 = cx.cu0, *cg = cx.cg;
-      seg_pass<G>(K, A, cx.perm + (size_t)dlt * K, cx.skey + (size_t)dlt * K,
-          false,
+      seg_pass<G>(K, A, sp_ix<IX>(cx.perm) + (size_t)dlt * K,
+          sp_ix<IX>(cx.skey) + (size_t)dlt * K, false,
           [&](int k, int key, int a0, long long (&x)[G]) {
 #pragma unroll
             for (int g = 0; g < G; ++g)
@@ -903,7 +926,8 @@ __global__ void __launch_bounds__(SP_THREADS, 3) solve_preempt_kernel(
       const int kth = cx.kth, sq0 = cx.startq[0], NK = cx.NK;
       const int *start = cx.start, *chain = cx.chain, *dep = cx.dep;
       const int* pnx = cx.pnx;
-      const short *permq = cx.permq, *perm = cx.perm, *flags = cx.flags;
+      const IX *permq = sp_ix<IX>(cx.permq), *perm = sp_ix<IX>(cx.perm);
+      const short* flags = cx.flags;
       const long long *usg = cx.usg, *Tr = cx.T, *X = cx.X, *cu0 = cx.cu0;
       for (int k = k0; k < k1; ++k) {
         if (!(flags[k] & F_DO)) continue;
@@ -939,7 +963,7 @@ __global__ void __launch_bounds__(SP_THREADS, 3) solve_preempt_kernel(
     // each local cohort's at k*, from the keyed sums at the last
     // candidate of the key at or before k*
     if (done) {
-      const short *permq = cx.permq, *skeyq = cx.skeyq;
+      const IX *permq = sp_ix<IX>(cx.permq), *skeyq = sp_ix<IX>(cx.skeyq);
       const long long *usg = cx.usg, *Tr = cx.T, *cu0 = cx.cu0, *X = cx.X;
       long long *uf = cx.uf, *cuf = cx.cuf;
       const int* dep = cx.dep;
@@ -955,8 +979,8 @@ __global__ void __launch_bounds__(SP_THREADS, 3) solve_preempt_kernel(
       }
       for (int x = tid; x < DC * K; x += T) {
         const int dl = x / K, p = x % K;
-        const short* perm = cx.perm + (size_t)dl * K;
-        const short* skey = cx.skey + (size_t)dl * K;
+        const IX* perm = sp_ix<IX>(cx.perm) + (size_t)dl * K;
+        const IX* skey = sp_ix<IX>(cx.skey) + (size_t)dl * K;
         const int k = perm[p], c = skey[p];
         if (c < 0 || dep[c] != dl || k > kstar) continue;
         if (p + 1 < K && skey[p + 1] == c && perm[p + 1] <= kstar) continue;
@@ -979,7 +1003,7 @@ __global__ void __launch_bounds__(SP_THREADS, 3) solve_preempt_kernel(
     }
     __syncthreads();
     // 10. the fill-back auction rounds
-    sp_fillback_ok<G, AF>(K, A, DC, k0, k1, F_HI, F_LO, ab_fb);
+    sp_fillback_ok<G, AF, IX>(K, A, DC, k0, k1, F_HI, F_LO, ab_fb);
     int rounds = 1;
     for (;;) {
       const short* flags = cx.flags;
@@ -988,8 +1012,8 @@ __global__ void __launch_bounds__(SP_THREADS, 3) solve_preempt_kernel(
         differ |= ((flags[k] & F_LO) != 0) != ((flags[k] & F_HI) != 0);
       if (!__syncthreads_or(differ) || rounds >= K + 2) break;
       // hi' = ok(lo), lo' = ok(hi')
-      sp_fillback_ok<G, AF>(K, A, DC, k0, k1, F_LO, F_TMP, ab_fb);
-      sp_fillback_ok<G, AF>(K, A, DC, k0, k1, F_TMP, F_LO, ab_fb);
+      sp_fillback_ok<G, AF, IX>(K, A, DC, k0, k1, F_LO, F_TMP, ab_fb);
+      sp_fillback_ok<G, AF, IX>(K, A, DC, k0, k1, F_TMP, F_LO, ab_fb);
       short* fw = cx.flags;
       for (int k = k0; k < k1; ++k)
         fw[k] = (short)((fw[k] & ~F_HI) | ((fw[k] & F_TMP) ? F_HI : 0));
@@ -1018,30 +1042,37 @@ __global__ void __launch_bounds__(SP_THREADS, 3) solve_preempt_kernel(
   }
 }
 
-typedef decltype(&solve_preempt_kernel<2, 2>) SpKernel;
+typedef decltype(&solve_preempt_kernel<2, 2, short>) SpKernel;
 
-// the instantiation for a batch with at most RFA active slots: the row
-// stride fixed at G up to 8 slots, beyond that groups of 8 over a stride
-// given at launch
-static SpKernel sp_kernel(long long RFA) {
-  return RFA <= 2 ? solve_preempt_kernel<2, 2>
-         : RFA <= 4 ? solve_preempt_kernel<4, 4>
-         : RFA <= 8 ? solve_preempt_kernel<8, 8>
-                    : solve_preempt_kernel<8, 0>;
+template <class IX>
+static SpKernel sp_kernel_ix(long long RFA) {
+  return RFA <= 2 ? solve_preempt_kernel<2, 2, IX>
+         : RFA <= 4 ? solve_preempt_kernel<4, 4, IX>
+         : RFA <= 8 ? solve_preempt_kernel<8, 8, IX>
+                    : solve_preempt_kernel<8, 0, IX>;
+}
+
+// the instantiation for a batch with at most RFA active slots and K
+// candidates a problem: the row stride fixed at G up to 8 slots, beyond
+// that groups of 8 over a stride given at launch; 16-bit indices up to
+// SP_NARROW_K candidates, 32-bit above
+static SpKernel sp_kernel(long long RFA, long long K) {
+  return sp_index_bytes(K) == 2 ? sp_kernel_ix<short>(RFA)
+                                : sp_kernel_ix<int>(RFA);
 }
 
 // The launch plan for a batch whose problems have at most RFA active
 // slots: out = {threads, arena bytes a block, 1 if the arena is in shared
 // memory (else a per-block slice of global scratch, grid x bytes), blocks
 // an SM, grid, registers a thread, local bytes a thread, the row stride
-// A, the group width G}. The shared rule holds when the arena fits the
+// A, the group width G, the index bits (16 or 32)}. The shared rule holds when the arena fits the
 // block's opt-in shared memory beside the static part.
 extern "C" int solve_preempt_plan(void* out, long long n_slots, long long K,
                                   long long QL, long long RFA, long long CL,
                                   long long DC, void* /*stream*/) {
   long long* o = (long long*)out;
   const long long A = sp_stride(RFA);
-  const SpKernel kern = sp_kernel(RFA);
+  const SpKernel kern = sp_kernel(RFA, K);
   cudaFuncAttributes attr;
   int rc = (int)cudaFuncGetAttributes(&attr, kern);
   if (rc != 0) return rc;
@@ -1078,6 +1109,7 @@ extern "C" int solve_preempt_plan(void* out, long long n_slots, long long K,
   o[6] = (long long)attr.localSizeBytes;
   o[7] = A;
   o[8] = sp_group(RFA);
+  o[9] = 8 * sp_index_bytes(K);
   return 0;
 }
 
@@ -1097,7 +1129,7 @@ extern "C" int solve_preempt_launch(
     long long grid, long long threads, long long arena_bytes,
     long long in_smem, void* stream) {
   if (n_slots > 0 && K > 0) {
-    sp_kernel(RFA)<<<(unsigned)grid, (unsigned)threads,
+    sp_kernel(RFA, K)<<<(unsigned)grid, (unsigned)threads,
                               in_smem ? (size_t)arena_bytes : 0,
                               (cudaStream_t)stream>>>(
         (const long long*)nominal, (const long long*)guaranteed,

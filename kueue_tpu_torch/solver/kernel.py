@@ -85,10 +85,6 @@ TOPO_FIELDS = (
     "cohort_lendable",
 )
 
-# Widest resource axis phase_a keeps per podset in registers.
-MAX_RESOURCES = 16
-
-
 def topo_to_device(topo, device) -> dict:
     """Encoded topology (a `Topology` or a dict of numpy arrays, as either
     package's encoder or synth makes it) -> dict of tensors on `device`."""
@@ -231,7 +227,9 @@ def avail(topo, usage, cohort_usage):
 # min-reductions; the chosen flavor is the first (lowest-index) lane
 # whose flavor is a candidate, as jnp.argmax on bool picks it.
 # asg_usage accumulates in place per workload: each lane owns its
-# flavors' entries.
+# flavors' entries. The chosen flavor of each resource sits in the
+# warp's shared-memory slice beside the flavor flags (4R + 2F bytes), so
+# any R is taken.
 
 def phase_a_plain(topo, avail_q, usage, requests, podset_active, wl_cq,
                   eligible, solvable, num_podsets: int, start_rank=None):
@@ -306,8 +304,6 @@ def phase_a(topo, avail_q, usage, requests, podset_active, wl_cq, eligible,
                              start_rank)
     W, P, R = requests.shape
     F = eligible.shape[2]
-    if R > MAX_RESOURCES:
-        raise ValueError(f"phase_a kernel takes R <= {MAX_RESOURCES}, got {R}")
     if not 0 < num_podsets <= P:
         raise ValueError(f"num_podsets {num_podsets} outside 1..{P}")
     dev = requests.device
@@ -963,7 +959,9 @@ def gather_arena(arena: dict, slots) -> tuple:
 # slots at once,
 # as one segmented scan over the candidates sorted by key (local CQ once
 # a problem, cohort node once per depth, reused by every auction round);
-# 3 blocks an SM by registers; the problem's rows, sort tables and quota
+# 3 blocks an SM by registers; candidate indices and sort keys 16-bit up
+# to PREEMPT_NARROW_K candidates a problem, 32-bit above (any K); the
+# problem's rows, sort tables and quota
 # planes in dynamic shared memory when they fit a block (the "shared"
 # rule), else in a per-block slice of global scratch (the "global"
 # rule), chosen by csrc's solve_preempt_plan, which also sizes the grid
@@ -1266,10 +1264,10 @@ def solve_preempt_plain(topo, usage, cohort_usage, gq, gf, gr, gc,
     return targets, feasible, stats
 
 
-# the most candidates a problem the K9 kernel takes: its sort tables hold
-# candidate indices as int16 (encode's K buckets reach 32768 at 8193 to
-# 32768 candidates)
-PREEMPT_MAX_K = 32768
+# the most candidates a problem for which the K9 kernel keeps candidate
+# indices and sort keys in 16 bits (csrc SP_NARROW_K; encode's K buckets
+# reach 32768 at 8193 to 32768 candidates); above it they are 32-bit
+PREEMPT_NARROW_K = 32768
 
 
 def preempt_plan(n_slots: int, K: int, QL: int, RFA: int, CL: int,
@@ -1279,9 +1277,11 @@ def preempt_plan(n_slots: int, K: int, QL: int, RFA: int, CL: int,
     bytes a block, its rule ("shared": dynamic shared memory; "global": a
     per-block slice of global scratch), blocks an SM by occupancy, the
     persistent grid, the kernel's registers and local bytes a thread,
-    the row stride (RFA rounded up to the group width) and the group
-    width the kernel is compiled for (2, 4 or 8 slots in registers)."""
-    out = (ctypes.c_longlong * 9)()
+    the row stride (RFA rounded up to the group width), the group width
+    the kernel is compiled for (2, 4 or 8 slots in registers) and the
+    width of its candidate indices and sort keys (16 bits up to
+    PREEMPT_NARROW_K candidates, else 32)."""
+    out = (ctypes.c_longlong * 10)()
     fn = _build.entry("solve_preempt", 1, 6, "solve_preempt_plan")
     rc = fn(ctypes.cast(out, ctypes.c_void_p), *(ctypes.c_longlong(x) for x in
             (n_slots, K, QL, RFA, CL, DC)), None)
@@ -1291,7 +1291,7 @@ def preempt_plan(n_slots: int, K: int, QL: int, RFA: int, CL: int,
             "rule": "shared" if out[2] else "global", "blocks_per_sm": out[3],
             "grid": out[4], "registers": out[5], "local_bytes": out[6],
             "row_slots": out[7], "group_slots": out[8],
-            "active_slots": RFA}
+            "index_bits": out[9], "active_slots": RFA}
 
 
 def solve_preempt(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
@@ -1302,9 +1302,9 @@ def solve_preempt(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
     or frs_np; preempt.active_slot_count, which preempt.PreemptArgs
     carries): the kernel's rows and scans run over that many; None takes
     RF. A problem with more writes stats of -1, on which
-    service.preempt_aux raises. The plain version takes every slot. The
-    kernel keeps candidate indices in 16 bits: K above PREEMPT_MAX_K
-    raises."""
+    service.preempt_aux raises. The plain version takes every slot. Any
+    K: the kernel's candidate indices are 16-bit up to PREEMPT_NARROW_K
+    and 32-bit above (`solve_preempt.last_plan["index_bits"]`)."""
     if _is_cpu(usage):
         return solve_preempt_plain(
             topo, usage, cohort_usage, gq, gf, gr, gc, chain_local, requests,
@@ -1318,9 +1318,6 @@ def solve_preempt(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
     if chain_local.shape[:2] != (B, QL) or cand_idx.shape != (B, K) \
             or cand_usage_table.shape[1] != RF:
         raise ValueError("solve_preempt: inconsistent problem shapes")
-    if K > PREEMPT_MAX_K:
-        raise ValueError(f"solve_preempt: K {K} above the kernel's "
-                         f"{PREEMPT_MAX_K} candidates a problem")
     RFA = RF if active_slots is None else int(active_slots)
     if not 0 <= RFA <= RF:
         raise ValueError(f"solve_preempt: active_slots {RFA} outside "
@@ -1844,10 +1841,20 @@ def solve_fair(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
 # resource, offering at least one; the first such f is debited for later
 # rows. Output mk_cluster [W] int32, -1 where nothing was placed. The
 # host twin is encode.place_remote_dicts. Bound on the H100: latency —
-# one dependent step per row that takes part, over a few KB. Design: one
-# warp, the remaining capacity in shared memory with lane l owning the
-# columns k*F + f = l (mod 32), a ballot per 32 rows of the order, and a
-# warp min for the first fitting column (csrc/cluster_cols.cu).
+# the placements chain, over a few KB. Design (csrc/cluster_cols.cu): a
+# column-stage pipeline in one block. Each live column c = k*F + f is a
+# stage holding its remaining amounts; the rows that take part flow
+# through the stages in admit order and ascending c, and the first stage
+# that fits an untaken row takes it, so the result is the sequential
+# scan's. The stages are split among up to 32 warps (4 each, more when
+# the warps run out); a warp tests a chunk of 32 rows against a stage
+# with one ballot, takes the earliest that fits, tests the later ones
+# again, and hands the chunk's untaken mask to the next warp: a chain of
+# about S + N/32 chunk steps (S live columns, N rows) plus the takes. Any
+# R and any K*F: the requests sit in registers for R <= 16 (R padded to
+# 1, 2, 4, 8 or 16), else they are read from the block's arena, which is
+# in shared memory when it fits and in global scratch otherwise
+# (cluster_plan).
 
 def score_cluster_columns_plain(ccap, coffer, cactive, mk_cq, requests,
                                 podset_active, wl_cq, order, admitted):
@@ -1875,26 +1882,55 @@ def score_cluster_columns_plain(ccap, coffer, cactive, mk_cq, requests,
     return out
 
 
-# dynamic shared memory the kernel may take: R int64 remaining amounts
-# and a 32-bit offer mask a column
-MAX_CLUSTER_SMEM = 232448
+# cluster_plan's results by (card, W, R, K, F): the plan's attribute
+# queries took about a millisecond of host time a call on the H100, more
+# than the kernel itself
+_CLUSTER_PLANS: dict = {}
+
+
+def cluster_plan(W: int, R: int, K: int, F: int) -> dict:
+    """score_cluster_columns' launch plan on the current card (csrc's
+    cluster_cols_plan, host calls only, kept per shape): threads of the
+    one block, the arena's bytes, its rule ("shared": dynamic shared
+    memory; "global": global scratch), the register form's R, padded to
+    a power of two (0: the requests read from the arena), the kernel's
+    registers and local bytes a thread, the SM clock in kHz, and the
+    stages a warp of the pipeline owns (a constant of the source)."""
+    key = (torch.cuda.current_device(), W, R, K, F)
+    plan = _CLUSTER_PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_longlong * 8)()
+        fn = _build.entry("cluster_cols", 1, 4, "cluster_cols_plan")
+        rc = fn(ctypes.cast(out, ctypes.c_void_p),
+                *(ctypes.c_longlong(x) for x in (W, R, K, F)), None)
+        if rc != 0:
+            raise RuntimeError(f"cluster_cols_plan failed: CUDA error {rc}")
+        plan = _CLUSTER_PLANS[key] = {
+            "threads": out[0], "arena_bytes": out[1],
+            "rule": "shared" if out[2] else "global", "register_r": out[3],
+            "registers": out[4], "local_bytes": out[5], "clock_khz": out[6],
+            "warp_stages": out[7]}
+    return plan
 
 
 def score_cluster_columns(ccap, coffer, cactive, mk_cq, requests,
                           podset_active, wl_cq, order, admitted):
+    """K12. On the card, `score_cluster_columns.last_plan` keeps the
+    launch's cluster_plan and `last_stats` its device tensor (N, S, G,
+    stages a warp): the rows in the pipeline, the live columns (the
+    stages), the warps of stages and the most stages a warp holds."""
     if _is_cpu(requests):
         return score_cluster_columns_plain(ccap, coffer, cactive, mk_cq,
                                            requests, podset_active, wl_cq,
                                            order, admitted)
     W, P, R = requests.shape
     K, F, _ = ccap.shape
-    if R > MAX_RESOURCES:
-        raise ValueError(f"cluster_cols takes at most {MAX_RESOURCES} "
-                         f"resources, got {R}")
-    if K * F * (R * 8 + 4) > MAX_CLUSTER_SMEM:
-        raise ValueError(f"cluster_cols: {K}x{F}x{R} columns exceed the "
-                         "shared memory of one block")
-    out = torch.empty(W, dtype=torch.int32, device=requests.device)
+    dev = requests.device
+    plan = cluster_plan(W, R, K, F)
+    out = torch.empty(W, dtype=torch.int32, device=dev)
+    stats = torch.empty(4, dtype=torch.int32, device=dev)
+    scratch = torch.empty(plan["arena_bytes"] if plan["rule"] == "global"
+                          else 16, dtype=torch.uint8, device=dev)
     _launch("cluster_cols", [
         _ptr(ccap, torch.int64, "ccap"),
         _ptr(coffer, torch.bool, "coffer"),
@@ -1906,9 +1942,18 @@ def score_cluster_columns(ccap, coffer, cactive, mk_cq, requests,
         _ptr(order, torch.int32, "order"),
         _ptr(admitted, torch.bool, "admitted"),
         _ptr(out, torch.int32, "mk_cluster"),
-    ], [W, P, R, K, F], requests.device)
+        _ptr(scratch, torch.uint8, "scratch"),
+        _ptr(stats, torch.int32, "stats"),
+    ], [W, P, R, K, F, plan["threads"], plan["arena_bytes"],
+        int(plan["rule"] == "shared")], dev)
     score_cluster_columns.launches += 1
+    score_cluster_columns.last_plan = plan
+    score_cluster_columns.last_stats = stats
     return out
+
+
+score_cluster_columns.last_plan = None
+score_cluster_columns.last_stats = None
 
 
 # ---------------------------------------------------------------------------

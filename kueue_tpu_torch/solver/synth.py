@@ -220,6 +220,43 @@ def synth_preempt_inputs(num_problems: int, max_candidates: int,
     return topo, usage, cusage, preempt_args(batch)
 
 
+def synth_full_k_inputs(num_problems: int, K: int, seed: int) -> tuple:
+    """synth_preempt_inputs at K candidates a problem (K one of the
+    encode's buckets), whose problem 0 has exactly K: all in its CQ,
+    which is in no cohort, asking on every resource for what only the
+    removal of every candidate frees. So k* is K - 1, and the run of CQ 0
+    in the candidates' CQ order ends at position K. The other problems
+    have up to K candidates."""
+    topo, usage, cu, args = synth_preempt_inputs(num_problems, K, depth=2,
+                                                 seed=seed)
+    args = [np.array(a, copy=True) for a in args]
+    gq, gf, gr, gc, chain, req, frs, cidx, cql, tab_u = args[:10]
+    if cql.shape[1] != K:
+        raise ValueError(f"K {K} is not a candidate bucket "
+                         f"({cql.shape[1]})")
+    q0 = int(np.flatnonzero(topo["cq_cohort"] < 0)[0])
+    R = usage.shape[2]
+    gq[0] = -1
+    gq[0, 0] = q0
+    gc[0] = -1
+    chain[0] = -1
+    gf[0] = -1
+    gf[0, :R] = 0
+    gr[0] = 0
+    gr[0, :R] = np.arange(R)
+    cidx[0] = np.random.default_rng(seed).integers(1, tab_u.shape[0], K)
+    cql[0] = 0
+    req[0] = 0
+    req[0, :R] = tab_u[1:, :R].min(0)
+    frs[0] = False
+    frs[0, :R] = True
+    args[11][0] = args[12][0] = args[14][0] = False  # borrowing, threshold
+    usage = usage.copy()
+    usage[q0, 0] = (topo["nominal"][q0, 0] + tab_u[cidx[0], :R].sum(0)
+                    - req[0, :R])
+    return topo, usage, cu, args
+
+
 def fill_inactive_slots(args: tuple, num_flavors: int, num_resources: int,
                         seed: int = 0, every_slot: bool = False) -> tuple:
     """A copy of preempt_args (synth_preempt_inputs') in which each real
@@ -504,17 +541,25 @@ def synth_preempt_problems(topo: dict, num_problems: int,
 def synth_cluster_inputs(num_clusters: int = 8, num_flavors: int = 32,
                          num_resources: int = 2, num_workloads: int = 2048,
                          num_podsets: int = 4, num_cqs: int = 64,
-                         max_capacity: int = 64, seed: int = 0) -> tuple:
+                         max_capacity: int = 64, seed: int = 0,
+                         requested_share: float = 1.0,
+                         negative_share: float = 0.0) -> tuple:
     """MultiKueue columns and an admitted batch for score_cluster_columns:
     a quarter of the clusters lost, 70% of the (flavor, resource) cells
     offered, capacity below max_capacity per cell, a few rows' requests
     (so it runs out mid-scan), a share of the rows not admitted or of a CQ without the
     MultiKueue check, requests left in inactive podsets (which must not
-    count), and a random admit order. Flavor names are "f0".."f{F-1}" in
-    sorted order (f10 before f2), the order of a topology's index.
-    Returns (cols, flavors, resources, args): cols the name-space form
-    place_remote_dicts takes, args the kernel's (ccap, coffer, cactive,
-    mk_cq, requests, podset_active, wl_cq, order, admitted) numpy arrays."""
+    count), and a random admit order. Below 1, requested_share is the
+    chance that a row asks for a resource at all (wide resource axes then
+    still find columns offering every resource a row asks for); above 0,
+    negative_share is the share of rows whose first podset asks for a
+    negative amount of one resource (which no column has to cover, and
+    whose debit gives the column capacity back). Flavor names are
+    "f0".."f{F-1}" in sorted order (f10 before f2), the order of a
+    topology's index. Returns (cols, flavors, resources, args): cols the
+    name-space form place_remote_dicts takes, args the kernel's (ccap,
+    coffer, cactive, mk_cq, requests, podset_active, wl_cq, order,
+    admitted) numpy arrays."""
     rng = np.random.default_rng(seed)
     K, F, R, W, P, Q = (num_clusters, num_flavors, num_resources,
                         num_workloads, num_podsets, num_cqs)
@@ -527,6 +572,12 @@ def synth_cluster_inputs(num_clusters: int = 8, num_flavors: int = 32,
                     0).astype(np.int64)
     requests = rng.integers(0, 12, size=(W, P, R)).astype(np.int64)
     requests[rng.random(W) < 0.05] = 0            # rows that request nothing
+    if requested_share < 1.0:
+        requests *= rng.random((W, 1, R)) < requested_share
+    if negative_share > 0.0:
+        neg = np.flatnonzero(rng.random(W) < negative_share)
+        requests[neg, 0, rng.integers(0, R, size=neg.size)] = \
+            -rng.integers(1, 12, size=neg.size)
     podset_active = rng.random((W, P)) < 0.6
     podset_active[:, 0] = True
     wl_cq = rng.integers(0, Q, size=W).astype(np.int32)

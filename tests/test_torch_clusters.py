@@ -96,6 +96,151 @@ def test_score_cluster_columns_matches_jax(seed):
     assert cactive[ref[ref >= 0]].all()
 
 
+# the remaining amount the card kernel gives a resource a column does not
+# offer (csrc/cluster_cols.cu CC_NO_OFFER)
+NO_OFFER = -(1 << 62)
+
+
+def column_pipeline(ccap, coffer, cactive, mk_cq, requests, podset_active,
+                    wl_cq, order, admitted, warp_stages: int = 4,
+                    max_warps: int = 32) -> np.ndarray:
+    """A numpy model of csrc/cluster_cols.cu's column-stage pipeline, laid
+    out as the kernel lays it out: the live columns (an active cluster's
+    (k, f) offering some resource) in ascending c = k*F + f are the
+    stages, split into G warps of consecutive stages (about warp_stages
+    each, at most max_warps warps); the rows that take part (admitted, of
+    a MultiKueue CQ, some resource requested) go through them in chunks
+    of 32 in admit order. A warp takes the chunks in order; for each of
+    its stages it takes, while any untaken row of the chunk fits, the
+    earliest one and tests the later rows again against what is left;
+    then it hands the chunk's untaken mask to the next warp. Returns
+    mk_cluster [W]."""
+    K, F, R = ccap.shape
+    W = requests.shape[0]
+    treq = np.where(podset_active[:, :, None], requests, 0).sum(1)
+    cap = ccap.reshape(K * F, R)
+    offer = coffer.reshape(K * F, R)
+    stages = np.flatnonzero(np.repeat(cactive, F) & offer.any(1))
+    S = stages.size
+    rem = np.where(offer[stages], cap[stages], NO_OFFER)      # [S,R]
+    part = admitted[order] & mk_cq[wl_cq[order]] & (treq[order] > 0).any(1)
+    rows = order[part]
+    N = rows.size
+    G = min(max_warps, max(1, -(-S // warp_stages)))
+    out = np.full(W, -1, np.int32)
+    chunks = [np.arange(k, min(k + 32, N)) for k in range(0, N, 32)]
+    # untaken[k]: chunk k's rows still untaken after the last warp so far
+    untaken = [np.ones(ch.size, bool) for ch in chunks]
+    for w in range(G):
+        for k, ch in enumerate(chunks):
+            q = treq[rows[ch]]                                 # [32,R]
+            for s in range(S * w // G, S * (w + 1) // G):
+                after = 0
+                while True:
+                    lanes = np.flatnonzero(untaken[k])
+                    lanes = lanes[lanes >= after]
+                    fits = ((q[lanes] <= 0) | (q[lanes] <= rem[s])).all(1)
+                    if not fits.any():
+                        break
+                    j = lanes[np.argmax(fits)]
+                    rem[s] -= q[j]
+                    out[rows[ch[j]]] = stages[s] // F
+                    untaken[k][j] = False
+                    after = j + 1
+    return out
+
+
+@pytest.mark.parametrize("seed", range(60))
+def test_column_pipeline_matches_jax(seed):
+    """The column-stage decomposition is the sequential scan: the
+    pipeline model equals the JAX scan on every seed, with 4, 1 or 16
+    stages a warp (1: a warp per stage; 16: few warps)."""
+    _, _, _, args = cluster_case(seed)
+    ref = np.asarray(_score(*(jnp.asarray(a) for a in args)))
+    got = column_pipeline(*args, warp_stages=(4, 1, 16)[seed % 3])
+    assert_same(got, ref, "mk_cluster")
+
+
+# K12 beyond the card's first kernel: more than 16 resources, more columns
+# than one block's shared memory held, fewer live columns than a warp's
+# lanes, requests with negative components
+WIDE_CLUSTERS = {
+    "k64_f32_r16": dict(num_clusters=64, num_flavors=32, num_resources=16,
+                        num_workloads=384, num_podsets=4, num_cqs=16,
+                        requested_share=0.15),
+    "k8_f32_r32": dict(num_clusters=8, num_flavors=32, num_resources=32,
+                       num_workloads=384, num_podsets=4, num_cqs=16,
+                       requested_share=0.1),
+    "ragged": dict(num_clusters=3, num_flavors=5, num_resources=3,
+                   num_workloads=97, num_podsets=2, num_cqs=8),
+    "negative": dict(num_clusters=8, num_flavors=32, num_resources=2,
+                     num_workloads=384, num_podsets=4, num_cqs=16,
+                     negative_share=0.15),
+    "k64_r16_negative": dict(num_clusters=64, num_flavors=32,
+                             num_resources=16, num_workloads=384,
+                             num_podsets=4, num_cqs=16,
+                             requested_share=0.15, negative_share=0.15),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_CLUSTERS))
+def test_wide_cluster_columns_match_jax(case):
+    """The plain score_cluster_columns and the pipeline model against the
+    JAX scan at the wide shapes the card kernel now takes (K=64, F=32,
+    R=16; R=32; fewer live columns than lanes; negative request
+    components, which no column has to cover and whose debit returns
+    capacity)."""
+    kw = WIDE_CLUSTERS[case]
+    _, _, _, args = synth_cluster_inputs(seed=5, **kw)
+    ref = np.asarray(_score(*(jnp.asarray(a) for a in args)))
+    assert_same(tk.score_cluster_columns(*(t(a) for a in args)), ref,
+                "mk_cluster")
+    assert_same(column_pipeline(*args), ref, "pipeline")
+    assert (ref >= 0).sum() > 5
+    ccap, coffer, cactive, mk_cq, requests, podset_active, wl_cq, _, \
+        admitted = args
+    live = int((np.repeat(cactive, kw["num_flavors"])
+                & coffer.reshape(-1, kw["num_resources"]).any(1)).sum())
+    if case == "ragged":
+        assert live < 32
+    if "negative" in case:
+        treq = np.where(podset_active[:, :, None], requests, 0).sum(1)
+        part = admitted & mk_cq[wl_cq]
+        neg = part & (treq < 0).any(1) & (treq > 0).any(1)
+        assert (ref[neg] >= 0).any()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_fused_cycle_wide_resources_with_cluster_args_matches_jax(kind):
+    """The fused cycle with cluster columns over 32 resources (17 names
+    bucket to 32): Phase A and K12 beyond the 16 resources the card's
+    first kernels took, every output equal to the JAX cycle's."""
+    topo, usage, cu, wl = make_inputs(kind, 3, num_resources=32)
+    ccap, coffer, cactive, mk_cq = cycle_cluster_args(topo, wl, 3)
+    # offer almost every cell, with room for a few heads, so that rows
+    # asking for ~18 of the 32 resources fit
+    rng = np.random.default_rng(3)
+    coffer = coffer | (rng.random(coffer.shape) < 0.9)
+    top = int(np.where(wl["podset_active"][:, :, None], wl["requests"],
+                       0).sum(1).max())
+    ccap = np.where(coffer, rng.integers(top // 2, 3 * top + 1,
+                                         size=ccap.shape), 0)
+    cargs = (ccap, coffer, cactive, mk_cq)
+    kw = dict(num_podsets=P, max_rank=64, compact=False)
+    ref = jk.solve_cycle_fused(
+        jax_topo(topo), jnp.asarray(usage), jnp.asarray(cu),
+        *(jnp.asarray(wl[k]) for k in WL_KEYS),
+        cluster_args=tuple(jnp.asarray(a) for a in cargs), **kw)
+    got = tk.solve_cycle_fused(torch_topo(topo), t(usage), t(cu),
+                               *(t(wl[k]) for k in WL_KEYS),
+                               cluster_args=tuple(t(a) for a in cargs), **kw)
+    assert set(got) == set(ref)
+    for k in ref:
+        assert_same(got[k], ref[k], k)
+    assert got["chosen"].shape[2] == 32 and got["admitted"].any()
+    assert (got["mk_cluster"] >= 0).any()
+
+
 def test_cluster_cases_reach_every_branch():
     """Over the seeds: lost clusters, partial offers (a cluster offering
     a flavor in some resources only), rows that take part but find no

@@ -28,6 +28,7 @@ from kueue_tpu_torch.solver.synth import (cluster_oracle,
                                           synth_cluster_inputs,
                                           synth_deltas, synth_fair_inputs,
                                           synth_fair_problems,
+                                          synth_full_k_inputs,
                                           synth_nested_inputs,
                                           synth_preempt_inputs,
                                           synth_preempt_problems,
@@ -448,19 +449,41 @@ def test_scheduler_fair_preempt_on_card_equals_cpu(cuda_device):
     assert tk.launch_counts()["solve_preempt"] == 1
 
 
+# the H100's shared memory a block may opt in to, less the kernel's static
+# 128 B: cluster_cols' arena moves to global scratch above it
+CLUSTER_SMEM = 227 * 1024 - 128
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ((8, 32, 2, 2048, 4), (3, 5, 3, 97, 2),
-                                   (16, 126, 4, 1024, 3)))
+@pytest.mark.parametrize("shape", (
+    (8, 32, 2, 2048, 4, {}), (3, 5, 3, 97, 2, {}),
+    (16, 126, 4, 1024, 3, {}),
+    (8, 32, 6, 2048, 4, {"requested_share": 0.4}),
+    (8, 32, 8, 2048, 4, {"requested_share": 0.3}),
+    (8, 32, 16, 2048, 4, {"requested_share": 0.15}),
+    (64, 32, 16, 2048, 4, {"requested_share": 0.15}),
+    (4, 8, 20, 256, 2, {"requested_share": 0.2}),
+    (8, 32, 32, 2048, 4, {"requested_share": 0.1}),
+    (2, 3, 1, 300, 2, {})))
 def test_cluster_cols_on_card_equals_plain_and_oracle(shape, cuda_device):
     """K12 on K clusters, F flavors, R resources, W rows, P podsets: equal
     to its plain version and to the host oracle walked in the admit order.
-    (3, 5, 3, 97, 2): fewer columns than lanes and a ragged last warp;
-    (16, 126, 4, ...): 72 KB of shared memory, above the default 48."""
-    K, F, R, W, P = shape
+    (3, 5, 3, 97, 2) and (2, 3, 1, ...): a few live columns, one or few
+    stages a warp; (16, 126, 4, ...): 2016 columns over 32 warps of
+    stages; R = 3 and 6: the register form with R padded (to 4, 8);
+    (8, 32, 16, ...): the register form's 16 warps, the arena in global
+    scratch; (64, 32, 16, ...): 2048 columns of 16 resources (270,336 B
+    of columns alone); (4, 8, 20, ...) and (8, 32, 32, ...): the requests
+    read from the arena, in shared memory and in global scratch."""
+    K, F, R, W, P, extra = shape
+    rt = 1 << (R - 1).bit_length() if R <= 16 else 0
+    ra = rt or R
+    arena = K * F * ra * 8 + ra * W * 8 + -(-W // 32) * 8 + K * F * 8 + W * 4
+    arena = -(-arena // 16) * 16
     for seed in (0, 1):
         cols, _, resources, args = synth_cluster_inputs(
             num_clusters=K, num_flavors=F, num_resources=R, num_workloads=W,
-            num_podsets=P, seed=seed)
+            num_podsets=P, seed=seed, **extra)
         host = [torch.from_numpy(a) for a in args]
         want = tk.score_cluster_columns(*host)
         before = tk.score_cluster_columns.launches
@@ -472,6 +495,42 @@ def test_cluster_cols_on_card_equals_plain_and_oracle(shape, cuda_device):
                                 args[7], args[8], args[3])
         np.testing.assert_array_equal(got.cpu().numpy(), oracle)
         assert (oracle >= 0).any() and (oracle[args[8]] == -1).any()
+        plan = tk.score_cluster_columns.last_plan
+        N, S, G, per_warp = tk.score_cluster_columns.last_stats.tolist()
+        assert plan["register_r"] == rt
+        assert plan["threads"] == (512 if rt == 16 else 1024)
+        assert plan["arena_bytes"] == arena
+        assert plan["rule"] == ("shared" if arena <= CLUSTER_SMEM
+                                else "global")
+        assert S == int((np.repeat(args[2], F)
+                         & args[1].reshape(K * F, R).any(1)).sum())
+        assert N > 0
+        assert G == min(plan["threads"] // 32,
+                        max(1, -(-S // plan["warp_stages"])))
+        assert per_warp == -(-S // G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ((8, 32, 2, 2048, 4), (64, 32, 16, 1024, 4),
+                                   (3, 5, 3, 97, 2)))
+def test_cluster_cols_negative_requests_on_card_equal_plain(shape,
+                                                            cuda_device):
+    """Rows whose total request is negative in a resource: no column has
+    to cover it, and the taking column's debit gives capacity back. The
+    kernel equals its plain version (the JAX scan's semantics, which the
+    host oracle does not share here)."""
+    K, F, R, W, P = shape
+    _, _, _, args = synth_cluster_inputs(
+        num_clusters=K, num_flavors=F, num_resources=R, num_workloads=W,
+        num_podsets=P, seed=4, negative_share=0.15,
+        requested_share=0.15 if R > 4 else 1.0)
+    host = [torch.from_numpy(a) for a in args]
+    want = tk.score_cluster_columns(*host)
+    got = tk.score_cluster_columns(*(t.to(cuda_device) for t in host))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    treq = np.where(args[5][:, :, None], args[4], 0).sum(1)
+    assert (want.numpy()[(treq < 0).any(1)] >= 0).any()
 
 
 @pytest.mark.cuda
@@ -765,59 +824,47 @@ def test_solve_preempt_reclaim_batch_on_card(cuda_device, monkeypatch):
     assert feasible.any() and targets.any()
 
 
-def full_k_inputs(num_problems: int, K: int, seed: int) -> tuple:
-    """synth_preempt_inputs at K candidates a problem, whose problem 0
-    has exactly K: all in its CQ, which is in no cohort, asking on every
-    resource for what only the removal of every candidate frees. So k* is
-    K - 1, and the run of CQ 0 in the candidates' CQ order ends at
-    position K."""
-    topo, usage, cu, args = synth_preempt_inputs(num_problems, K, depth=2,
-                                                 seed=seed)
-    args = [np.array(a, copy=True) for a in args]
-    gq, gf, gr, gc, chain, req, frs, cidx, cql, tab_u = args[:10]
-    assert cql.shape[1] == K
-    q0 = int(np.flatnonzero(topo["cq_cohort"] < 0)[0])
-    R = usage.shape[2]
-    gq[0] = -1
-    gq[0, 0] = q0
-    gc[0] = -1
-    chain[0] = -1
-    gf[0] = -1
-    gf[0, :R] = 0
-    gr[0] = 0
-    gr[0, :R] = np.arange(R)
-    cidx[0] = np.random.default_rng(seed).integers(1, tab_u.shape[0], K)
-    cql[0] = 0
-    req[0] = 0
-    req[0, :R] = tab_u[1:, :R].min(0)
-    frs[0] = False
-    frs[0, :R] = True
-    args[11][0] = args[12][0] = args[14][0] = False  # borrowing, threshold
-    usage = usage.copy()
-    usage[q0, 0] = (topo["nominal"][q0, 0] + tab_u[cidx[0], :R].sum(0)
-                    - req[0, :R])
-    return topo, usage, cu, args
-
-
 @pytest.mark.cuda
 def test_solve_preempt_full_k_on_card(cuda_device):
-    """K = 32768, the largest K bucket, with a problem of exactly K
-    candidates whose k* is the last one (the place of a candidate in its
-    CQ's run then reaches K), and every other problem at up to K
-    candidates: equal to the plain version; one more candidate column
-    raises."""
-    K = tk.PREEMPT_MAX_K
-    topo, usage, cu, args = full_k_inputs(4, K, seed=21)
+    """K = 32768, the largest K of 16-bit candidate indices, with a
+    problem of exactly K candidates whose k* is the last one (the place
+    of a candidate in its CQ's run then reaches K), and every other
+    problem at up to K candidates: equal to the plain version. With 8
+    more candidate columns (K = 32776, problem 0's new candidates copies
+    of its first 8) the kernel takes 32-bit indices and still equals the
+    plain version."""
+    K = tk.PREEMPT_NARROW_K
+    topo, usage, cu, args = synth_full_k_inputs(4, K, seed=21)
     card = preempt_on(cuda_device, topo, usage, cu, args)
-    targets, feasible, stats = k9_equals_plain(
-        card, active_slots=active_slot_count(args[5], args[6]))
+    slots = active_slot_count(args[5], args[6])
+    targets, feasible, stats = k9_equals_plain(card, active_slots=slots)
     assert feasible[0] and stats[0, 0] == K and stats[0, 1] == K
-    assert tk.solve_preempt.last_plan["rule"] == "global"
+    plan = tk.solve_preempt.last_plan
+    assert plan["rule"] == "global" and plan["index_bits"] == 16
     wide = list(card)
     for i in (10, 11):  # cand_idx, cand_ql: 8 more candidate columns
         wide[i] = torch.cat([card[i], card[i][:, :8]], dim=1)
-    with pytest.raises(ValueError, match="above the kernel"):
-        tk.solve_preempt(*wide)
+    targets, feasible, stats = k9_equals_plain(wide, active_slots=slots)
+    assert tk.solve_preempt.last_plan["index_bits"] == 32
+    assert stats[0, 0] == K + 8 and feasible[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_problems", (2, 4))
+def test_solve_preempt_k131072_on_card(num_problems, cuda_device):
+    """K = 131072, the bucket above 32768 candidates: problem 0 has
+    exactly K candidates (k* the last), the others up to K. The kernel
+    takes 32-bit candidate indices on the global rule and equals the
+    plain version."""
+    K = 131072
+    topo, usage, cu, args = synth_full_k_inputs(num_problems, K, seed=5)
+    assert ((args[8] >= 0).sum(1) > tk.PREEMPT_NARROW_K).any()
+    card = preempt_on(cuda_device, topo, usage, cu, args)
+    targets, feasible, stats = k9_equals_plain(
+        card, active_slots=active_slot_count(args[5], args[6]))
+    plan = tk.solve_preempt.last_plan
+    assert plan["index_bits"] == 32 and plan["rule"] == "global"
+    assert feasible[0] and stats[0, 0] == K and stats[0, 1] == K
 
 
 @pytest.mark.cuda
@@ -1025,6 +1072,132 @@ def test_solve_phase_a_on_card_equals_cpu(kind, fair, start_rank,
             (1 if name != "drf_share" or fair else 0), name
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start_rank", (False, True))
+@pytest.mark.parametrize("num_resources", (17, 32))
+@pytest.mark.parametrize("kind", ("flat", "nested"))
+def test_phase_a_wide_resources_on_card(kind, num_resources, start_rank,
+                                        cuda_device):
+    """phase_a over more than 16 resources (17 names as they are, and 32,
+    the encode's bucket for them): the chosen flavor of each resource in
+    the warp's shared memory. phase_a and solve_phase_a equal the plain
+    versions."""
+    if kind == "flat":
+        topo, usage, cu, wl = synth_solver_inputs(
+            num_cqs=64, num_cohorts=8, num_flavors=40,
+            num_resources=num_resources, num_workloads=96, num_podsets=3,
+            seed=num_resources)
+    else:
+        topo, usage, cu, wl = synth_nested_inputs(
+            num_cqs=64, num_leaf_cohorts=8, fanout=2, depth=3,
+            num_flavors=40, num_resources=num_resources, num_workloads=96,
+            num_podsets=3, no_cohort_every=5, seed=num_resources)
+    usage = usage + topo["nominal"] // 3
+    sr = torch.from_numpy(synth_start_rank(wl, 40, seed=3)) \
+        if start_rank else None
+    host = [tk.topo_to_device(topo, "cpu"),
+            *tk.state_to_device(usage, cu, "cpu"),
+            *(torch.from_numpy(np.array(wl[k])) for k in
+              ("requests", "podset_active", "wl_cq", "eligible",
+               "solvable"))]
+    card = [{k: v.to(cuda_device) for k, v in host[0].items()}] + \
+        [t.to(cuda_device) for t in host[1:]]
+    card_sr = None if sr is None else sr.to(cuda_device)
+    av = tk.avail_plain(*card[:3])
+    want = tk.phase_a_plain(card[0], av, card[1], *card[3:], 3, card_sr)
+    before = tk.launch_counts()["phase_a"]
+    got = tk.phase_a(card[0], av, card[1], *card[3:], 3, card_sr)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["phase_a"] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert want[2].shape[2] == num_resources and want[0].any()
+    want = tk.solve_phase_a(*host, num_podsets=3, start_rank=sr)
+    got = tk.solve_phase_a(*card, num_podsets=3, start_rank=card_sr)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+# 17 resource names: cpu, memory and 15 extended resources
+WIDE_RESOURCES = ("cpu", "memory", *(f"example.com/r{i}" for i in range(15)))
+
+
+def wide_resource_env(device):
+    """A Scheduler (as sim/northstar build_scheduler makes it) over 16 CQs
+    in 4 cohorts and 3 flavors, every CQ covering the 17 resources of
+    WIDE_RESOURCES at 8 units each (f0 none of every other extended
+    resource, so that some heads take f1), and 4 waves of one-pod workloads
+    asking for cpu, memory and 2-4 of the extended resources (1-4 units
+    each). Returns (Scheduler, Cache, Manager, SimClient)."""
+    from kueue_tpu_torch.api.corev1 import (Container, PodSpec,
+                                            PodTemplateSpec)
+    from kueue_tpu_torch.api.meta import FakeClock
+    from kueue_tpu_torch.cache import Cache
+    from kueue_tpu_torch.queue import Manager
+    from kueue_tpu_torch.scheduler.scheduler import Scheduler
+    flavors = ["f0", "f1", "f2"]
+    clock = FakeClock(1000.0)
+    cache, queues = Cache(), Manager(clock=clock)
+    for f in flavors:
+        cache.add_or_update_resource_flavor(ns.make_flavor(f))
+    for i in range(16):
+        cq = ns.make_cq(f"cq{i}", f"cohort-{i % 4}", flavors, 8)
+        cq.spec.resource_groups = [api.ResourceGroup(
+            covered_resources=list(WIDE_RESOURCES),
+            flavors=[api.FlavorQuotas(name=f, resources=[
+                api.ResourceQuota(name=r, nominal_quota=8000 if r == "cpu"
+                                  else 8 << 30 if r == "memory"
+                                  else 0 if f == "f0" and k % 2 else 8)
+                for k, r in enumerate(WIDE_RESOURCES)]) for f in flavors])]
+        cache.add_cluster_queue(cq)
+        queues.add_cluster_queue(cq)
+        queues.add_local_queue(ns.make_local_queue(f"lq{i}", f"cq{i}"))
+    rng = np.random.default_rng(17)
+    for wave in range(4):
+        for i in range(16):
+            n = wave * 16 + i
+            wl = ns.make_workload(f"w{wave}-{i}", f"lq{i}", 2,
+                                  priority=n % 5, creation=float(n))
+            extra = rng.choice(15, size=rng.integers(2, 5), replace=False)
+            requests = {"cpu": int(rng.integers(1, 4)) * 1000,
+                        "memory": int(rng.integers(1, 4)) << 30}
+            requests.update({WIDE_RESOURCES[2 + int(e)]:
+                             int(rng.integers(1, 5)) for e in extra})
+            wl.spec.pod_sets[0].template = PodTemplateSpec(spec=PodSpec(
+                containers=[Container(name="c", requests=requests)]))
+            assert queues.add_or_update_workload(wl)
+    client = ns.SimClient()
+    sched = Scheduler(queues, cache, client, clock=clock,
+                      solver=BatchSolver(device=device), solver_min_heads=0)
+    return sched, cache, queues, client
+
+
+@pytest.mark.cuda
+def test_scheduler_17_resources_on_card_equals_cpu(cuda_device):
+    """The port's Scheduler on a topology of 17 resource names (the
+    encode buckets them to 32): every cycle on the device route, phase_a
+    launched with R = 32, and the admissions and usage of each cycle
+    equal to the same cycles with device="cpu"."""
+    runs = [wide_resource_env(d) for d in (cuda_device, "cpu")]
+    topo = encode.encode_topology(runs[0][1].snapshot())
+    assert topo.nominal.shape[2] == 32
+    tk.reset_launch_counts()
+    admitted = 0
+    for cycle in range(4):
+        rows = []
+        for sched, cache, queues, client in runs:
+            ns.finish_applied(cache, queues, client)
+            sched.schedule(timeout=0)
+            assert sched.last_route == "device"
+            rows.append((sorted(wl.metadata.name for wl in client.new_applied),
+                         [sorted(cache.usage_for_cluster_queue(f"cq{i}")[0]
+                                 .items()) for i in range(16)]))
+        assert rows[0] == rows[1], cycle
+        admitted += len(rows[0][0])
+    assert admitted > 0
+    assert tk.launch_counts()["phase_a"] == 4
 
 
 @pytest.mark.cuda

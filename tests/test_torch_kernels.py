@@ -39,16 +39,17 @@ WL_KEYS = ("requests", "podset_active", "wl_cq", "priority", "timestamp",
            "eligible", "solvable")
 
 
-def make_inputs(kind: str, seed: int):
+def make_inputs(kind: str, seed: int, num_resources: int = R):
     if kind == "flat":
         topo, usage, cu, wl = synth_solver_inputs(
-            num_cqs=Q, num_cohorts=4, num_flavors=F, num_resources=R,
-            num_workloads=W, num_podsets=P, seed=seed)
+            num_cqs=Q, num_cohorts=4, num_flavors=F,
+            num_resources=num_resources, num_workloads=W, num_podsets=P,
+            seed=seed)
     else:
         topo, usage, cu, wl = synth_nested_inputs(
             num_cqs=Q, num_leaf_cohorts=4, fanout=2, depth=int(kind[-1]),
-            num_flavors=F, num_resources=R, num_workloads=W, num_podsets=P,
-            no_cohort_every=5, seed=seed)
+            num_flavors=F, num_resources=num_resources, num_workloads=W,
+            num_podsets=P, no_cohort_every=5, seed=seed)
     # a tighter cluster, so that phase B rejects some heads
     usage = usage + topo["nominal"] // 3
     wl["solvable"][::7] = False
@@ -117,6 +118,29 @@ def test_phase_a_matches_jax(kind, seed, variant):
     for name, a, b in zip(("fit", "borrows", "chosen", "chosen_borrow",
                            "asg_usage"), got, ref):
         assert_same(a, b, name)
+
+
+@pytest.mark.parametrize("variant", ("plain", "start_rank"))
+@pytest.mark.parametrize("num_resources", (17, 32))
+@pytest.mark.parametrize("kind", KINDS)
+def test_phase_a_wide_resources_match_jax(kind, num_resources, variant):
+    """Phase A over more than 16 resources: 17 names as they are and 32,
+    the encode's bucket for 17 to 32 (the kernel keeps the chosen flavor
+    of each resource in shared memory, so the plain version it is held
+    to on the card must take any R)."""
+    topo, usage, cu, wl = make_inputs(kind, 4, num_resources)
+    start_rank = synth_start_rank(wl, F, 4) if variant == "start_rank" \
+        else None
+    ref = jax_phase_a(topo, usage, cu, wl, start_rank)
+    tt = torch_topo(topo)
+    got = tk.phase_a(tt, tk.avail(tt, t(usage), t(cu)), t(usage),
+                     *(t(wl[k]) for k in ("requests", "podset_active",
+                                          "wl_cq", "eligible", "solvable")),
+                     P, None if start_rank is None else t(start_rank))
+    for name, a, b in zip(("fit", "borrows", "chosen", "chosen_borrow",
+                           "asg_usage"), got, ref):
+        assert_same(a, b, name)
+    assert got[2].shape[2] == num_resources and got[0].any()
 
 
 @pytest.mark.parametrize("seed", SEEDS)
