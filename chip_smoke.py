@@ -8,7 +8,12 @@ shape (2048 ClusterQueues, 256 cohorts, 32 flavors, 2 resources, 2048
 heads, 4 podsets) and on a nested-cohort input (depth 3, 3 active
 podsets), and times both; drf_share also on fair weights 0/500/1000/3000
 with a root cohort lending nothing, and the admit order also with those
-shares and with a mix of ties, negative shares and NO_LIMIT. Then, on
+shares and with a mix of ties, negative shares and NO_LIMIT. phase_a and
+phase_b also report the form their launch took (phase_b: each domain's)
+and a latency bound in ms: their least step or reduction and a global
+round trip, measured in clock cycles on the card by their tick kernels;
+phase_b is also timed over a column list of the occupied domains on the
+same inputs. Then, on
 the shapes the first kernels raised on, solve_preempt with a problem of
 exactly 131,072 candidates (32-bit candidate indices), phase_a at the
 north star's widths with 32 and with 17 resources, and cluster_cols at
@@ -827,6 +832,43 @@ def kernel_phase(kind: str, device, results: dict) -> None:
         nbytes(slots) + (n_real + W) * row_bytes(twin),
         lambda: [twin[n].index_select(0, clamped) for n in ARENA_FIELDS])
 
+    # the share empty domains take: phase_b over every domain that can
+    # hold members against a column list of the occupied ones
+    counts = offsets[1:] - offsets[:-1]
+    occupied = torch.nonzero(counts > 0).flatten().to(torch.int32)
+    compare(("admitted (occupied columns)", "usage (occupied columns)",
+             "cohort_usage (occupied columns)"),
+            k.phase_b(*b_args, occupied), k.phase_b_plain(*b_args, occupied))
+    # the forms the launches took, and the least steps their latency
+    # bounds are counted in
+    k.phase_a(*a_args)
+    a_plan = dict(k.phase_a.last_plan)
+    k.phase_b(*b_args)
+    b_plan = dict(k.phase_b.last_plan)
+    DC = topo["cq_chain"].shape[1]
+    b_tick = k.phase_b_tick(device, min(DC, 4))
+    redux = k.phase_a_tick(device)
+    q = wl["wl_cq"].long()
+    reqs = (wl["requests"][:, :P] > 0).flatten(1).sum(1)
+    reductions = int((reqs * (1 + topo["prefer_no_borrow"][q].long())).max())
+    clock = b_tick["clock_khz"]
+    extra = {
+        "phase_a": {"form": a_plan["form"],
+                    "register_r": a_plan["register_r"],
+                    "dependent_reductions": reductions,
+                    "redux_cycles": redux,
+                    "load_cycles": b_tick["load_cycles"],
+                    "latency_bound_ms": (2 * b_tick["load_cycles"]
+                                         + reductions * redux) / clock},
+        "phase_b": {"form": b_plan["vote"], "plan": b_plan,
+                    "domain_forms": k.phase_b_forms(topo, b_plan,
+                                                    F * R),
+                    "step_cycles": b_tick["step_cycles"],
+                    "load_cycles": b_tick["load_cycles"],
+                    "sm_clock_khz": clock,
+                    "latency_bound_ms": (b_tick["load_cycles"] + steps
+                                         * b_tick["step_cycles"]) / clock}}
+
     log(f"[kernels:{kind}] order equal to plain with shares (non-zero, "
         f"negative) {json.dumps(share_counts)}; drf_share shares "
         f"{int((ref_s != 0).sum())} non-zero, {int((ref_s < 0).sum())} "
@@ -865,7 +907,22 @@ def kernel_phase(kind: str, device, results: dict) -> None:
             "max_abs_err": err, "ms": ms, "ms_source": source,
             "call_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms, "bytes": moved,
-            **({"dependent_steps": steps} if name == "phase_b" else {})}
+            **({"dependent_steps": steps} if name == "phase_b" else {}),
+            **extra.get(name, {})}
+        if name in extra:
+            log(f"[kernels:{kind}] {name} form: " + json.dumps(extra[name]))
+    # on the same inputs: every domain's block against the occupied
+    # columns' (the column list the sharded cycle hands phase_b)
+    occ_ms = profiled_device_ms(lambda: k.phase_b(*b_args, occupied), 50,
+                                "phase_b")
+    all_ms = profiled_device_ms(lambda: k.phase_b(*b_args), 50, "phase_b")
+    results[kind]["phase_b"]["occupied_columns"] = {
+        "blocks": int(occupied.numel()), "ms": occ_ms, "all_domains_ms": all_ms,
+        "all_domain_blocks": int(topo["dom_roots"].shape[0]
+                                 + topo["dom_solo"].shape[0])}
+    log(f"[kernels:{kind}] phase_b on the same inputs: all domains "
+        f"{all_ms} ms, the {int(occupied.numel())} occupied columns "
+        f"{occ_ms} ms")
 
 
 def normalize(decisions: dict) -> dict:
@@ -2589,6 +2646,7 @@ def wide_phase(device) -> dict:
         row["ms_source"] = "events"
         row["plain_ms"] = time_cuda(lambda: k.phase_a_plain(*a_args),
                                     iters=2, warmup=1)
+        row["form"] = k.phase_a.last_plan["form"]
         row["bytes"] = phase_a_bytes(t_topo, wl, P, None, want)
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
         row["library_ms"] = None
@@ -3106,10 +3164,23 @@ def main() -> int:
                          for label in WIDE_K12}}
                if name == "cluster_cols" else {}),
             **({"wide": {"r32": {key: wide["phase_a"][key]
-                                 for key in WIDE_KEYS},
+                                 for key in WIDE_KEYS + ("form",)},
                          "r17": {key: wide["phase_a_r17"][key]
-                                 for key in WIDE_KEYS}}}
+                                 for key in WIDE_KEYS + ("form",)}}}
                if name == "phase_a" else {}),
+            # the form each launch took and its latency bound: one global
+            # round trip and the steps (phase_b) or two and the reductions
+            # (phase_a) in the least cycles measured on this card
+            **({key: row[key] for key in ("form", "latency_bound_ms")}
+               if name in ("phase_a", "phase_b") else {}),
+            **({"nested_form": results["nested"][name]["form"],
+                "nested_latency_bound_ms":
+                    results["nested"][name]["latency_bound_ms"]}
+               if name in ("phase_a", "phase_b") else {}),
+            **({"occupied_columns": row["occupied_columns"],
+                "nested_occupied_columns":
+                    results["nested"][name]["occupied_columns"]}
+               if name == "phase_b" else {}),
             **({"inputs": "the scheduler preempt phase's first timed cycle",
                 "wide_k131072": {key: wide["solve_preempt"][key] for key in
                                  WIDE_KEYS + ("index_bits", "rule",

@@ -58,6 +58,7 @@ the plain versions agree exactly.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -85,12 +86,81 @@ TOPO_FIELDS = (
     "cohort_lendable",
 )
 
+# The conflict-domain tables phase_b stages its rows by, derived once per
+# topology (`domain_tables`), in topo_to_device's output beside
+# TOPO_FIELDS.
+DOMAIN_FIELDS = ("dom_roots", "dom_solo", "dom_row", "dom_cqs",
+                 "dom_cohorts", "dom_nq", "dom_nc", "cq_slot", "cq_chain_slot")
+
+
+def domain_tables(cq_cohort, cohort_root, cq_chain) -> dict:
+    """The conflict domains of a topology as tables (numpy int32). A domain
+    is a root cohort's tree, or a CQ with no cohort (a solo domain):
+    - dom_roots [NR]: the root cohorts (cohort_root[c] == c), ascending;
+      row b of the per-root tables is dom_roots[b];
+    - dom_solo [NS]: the CQs with no cohort, ascending (domain C + q);
+    - dom_row [C]: a root's row, -1 for a cohort that is not a root;
+    - dom_cqs [NR,SQ], dom_cohorts [NR,SC]: each root's CQs and cohorts,
+      ascending, -1 padded (SQ, SC at least 1); dom_nq, dom_nc [NR] their
+      counts;
+    - cq_slot [Q]: a CQ's index in its root's dom_cqs row (0 for a solo
+      CQ); cq_chain_slot [Q,DC]: each cq_chain entry's index in the root's
+      dom_cohorts row, -1 where cq_chain is -1.
+    Raises ValueError where a chain leaves its root's tree."""
+    cq_cohort = np.asarray(cq_cohort)
+    cohort_root = np.asarray(cohort_root)
+    cq_chain = np.asarray(cq_chain)
+    C, Q = cohort_root.shape[0], cq_cohort.shape[0]
+    roots = np.flatnonzero(cohort_root == np.arange(C)).astype(np.int32)
+    dom_row = np.full(C, -1, np.int32)
+    dom_row[roots] = np.arange(roots.shape[0], dtype=np.int32)
+    in_cohort = cq_cohort >= 0
+    cq_root = np.where(in_cohort, cohort_root[np.maximum(cq_cohort, 0)], -1)
+    if (in_cohort & (dom_row[np.maximum(cq_root, 0)] < 0)).any():
+        raise ValueError("a cohort's root is not a root cohort")
+    co_row = np.where(cohort_root >= 0, dom_row[np.maximum(cohort_root, 0)],
+                      -1)
+    NR = roots.shape[0]
+
+    def grouped(row_of):
+        """Each row's members (indices whose row_of is the row), ascending,
+        -1 padded; each member's index in its row; the rows' counts."""
+        ids = np.flatnonzero(row_of >= 0)
+        counts = np.bincount(row_of[ids], minlength=NR).astype(np.int32)
+        start = np.concatenate(([0], np.cumsum(counts)[:-1])).astype(np.int64)
+        by_row = ids[np.argsort(row_of[ids], kind="stable")]
+        slot = np.zeros(row_of.shape[0], np.int32)
+        slot[by_row] = np.arange(by_row.shape[0]) - np.repeat(start, counts)
+        table = np.full((NR, max(1, int(counts.max(initial=0)))), -1,
+                        np.int32)
+        table[row_of[by_row], slot[by_row]] = by_row
+        return table, slot, counts
+
+    dom_cqs, cq_slot, dom_nq = grouped(
+        np.where(in_cohort, dom_row[np.maximum(cq_root, 0)], -1))
+    dom_cohorts, cohort_slot, dom_nc = grouped(co_row)
+    valid = cq_chain >= 0
+    chain_root = cohort_root[np.maximum(cq_chain, 0)]
+    if (valid & (chain_root != cq_root[:, None])).any():
+        raise ValueError("a cq_chain entry lies outside its CQ's root tree")
+    cq_chain_slot = np.where(valid, cohort_slot[np.maximum(cq_chain, 0)],
+                             -1).astype(np.int32)
+    return {"dom_roots": roots, "dom_solo": np.flatnonzero(~in_cohort)
+            .astype(np.int32), "dom_row": dom_row, "dom_cqs": dom_cqs,
+            "dom_cohorts": dom_cohorts, "dom_nq": dom_nq, "dom_nc": dom_nc,
+            "cq_slot": cq_slot, "cq_chain_slot": cq_chain_slot}
+
+
 def topo_to_device(topo, device) -> dict:
     """Encoded topology (a `Topology` or a dict of numpy arrays, as either
-    package's encoder or synth makes it) -> dict of tensors on `device`."""
+    package's encoder or synth makes it) -> dict of tensors on `device`:
+    TOPO_FIELDS, and the domain tables (DOMAIN_FIELDS) phase_b reads."""
     get = topo.get if isinstance(topo, dict) else (lambda k: getattr(topo, k))
-    return {name: torch.from_numpy(np.ascontiguousarray(get(name))).to(device)
-            for name in TOPO_FIELDS}
+    arrays = {name: np.asarray(get(name)) for name in TOPO_FIELDS}
+    arrays.update(domain_tables(arrays["cq_cohort"], arrays["cohort_root"],
+                                arrays["cq_chain"]))
+    return {name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for name, a in arrays.items()}
 
 
 def state_to_device(usage, cohort_usage, device) -> tuple:
@@ -219,17 +289,33 @@ def avail(topo, usage, cohort_usage):
 # ---------------------------------------------------------------------------
 #
 # Replaces kueue_tpu/solver/kernel.py:128 _choose_flavors_one_podset and
-# :221 _phase_a. Bound on the H100: bytes — the gathers of the head's CQ
-# rows ([F,R] of nominal/avail/usage/offered) per podset and the
-# [W,F,R] asg_usage write; the arithmetic is a few compares per (f,r).
-# Design: one warp per workload, one lane per flavor (strided for
-# F > 32), a serial loop over podsets. best_rank / best_rank_nb are warp
-# min-reductions; the chosen flavor is the first (lowest-index) lane
-# whose flavor is a candidate, as jnp.argmax on bool picks it.
-# asg_usage accumulates in place per workload: each lane owns its
-# flavors' entries. The chosen flavor of each resource sits in the
-# warp's shared-memory slice beside the flavor flags (4R + 2F bytes), so
-# any R is taken.
+# :221 _phase_a. Bound on the H100: latency — a head is a chain of
+# podsets, each a reduction over the flavors per resource for the best
+# rank and the first fitting flavor at the chosen rank; the bytes (the
+# head's rows and its CQ's [F,R] rows) are small. Design (csrc/phase_a.cu):
+# one warp per workload, one lane per flavor (strided for F > 32). One
+# __reduce_min_sync on the key rank * 2^fb + f gives the best rank and
+# the lowest fitting index at it (jnp.argmax on bool picks the first); a
+# CQ that prefers no borrowing takes a second over the non-borrowing
+# candidates, and a third only when that rank is the target and differs
+# from the best. The register form (`phase_a_plan`: F <= 32, R <= 16,
+# P <= 32; R padded to a power of two) loads the head's and its CQ's rows
+# once and keeps the assignment in registers across podsets; the general
+# form (any F, R, P) reads the rows each podset and accumulates the
+# assignment in place, the chosen flavors in the warp's shared slice.
+
+PHASE_A_REGISTER_RS = (1, 2, 4, 8, 16)
+
+
+@functools.lru_cache(maxsize=64)
+def phase_a_plan(F: int, R: int, P: int) -> dict:
+    """phase_a's form for F flavors, R resources and P podsets (as
+    csrc/phase_a.cu pa_register_r picks it): "register" with R padded to
+    register_r, or "general" (register_r 0)."""
+    rt = next((r for r in PHASE_A_REGISTER_RS if R <= r), 0) \
+        if F <= 32 and P <= 32 else 0
+    return {"form": "register" if rt else "general", "register_r": rt}
+
 
 def phase_a_plain(topo, avail_q, usage, requests, podset_active, wl_cq,
                   eligible, solvable, num_podsets: int, start_rank=None):
@@ -337,7 +423,24 @@ def phase_a(topo, avail_q, usage, requests, podset_active, wl_cq, eligible,
         _ptr(asg_usage, torch.int64, "asg_usage"),
     ], [W, P, num_podsets, F, R], dev)
     phase_a.launches += 1
+    phase_a.last_plan = phase_a_plan(F, R, P)
     return fit, borrows, chosen, chosen_borrow, asg_usage
+
+
+phase_a.last_plan = None  # the last launch's phase_a_plan
+
+
+def phase_a_tick(device, iters: int = 4096) -> float:
+    """Clock cycles of one dependent __reduce_min_sync (csrc/phase_a.cu
+    phase_a_tick_kernel), the least of three runs."""
+    best = None
+    for _ in range(3):
+        out = torch.zeros(2, dtype=torch.int64, device=device)
+        _launch("phase_a", [out.data_ptr()], [iters], device,
+                symbol="phase_a_tick_launch")
+        cycles = out[0].item() / iters
+        best = cycles if best is None else min(best, cycles)
+    return best
 
 
 # ---------------------------------------------------------------------------
@@ -506,18 +609,110 @@ def order_csr(topo, fit, borrows, priority, timestamp, wl_cq, share=None,
 # Replaces kueue_tpu/solver/kernel.py:420 solve_phase_b_domains_impl with
 # :82 _chain_avail and :106 _chain_add_usage. Bound on the H100:
 # latency — each domain is a chain of dependent steps (one per member
-# workload: availability walk, block-wide AND, usage update up the
-# cohort chain); the bytes are small. Design: one thread block per
-# conflict domain. Domains touch disjoint usage state
+# workload: availability walk, still-fits vote, usage update up the
+# cohort chain); the bytes are small. Design (csrc/phase_b.cu): one block
+# per conflict domain. Domains touch disjoint usage state
 # (kueue_tpu/solver/kernel.py:396-403), so blocks never wait on each
-# other; a block walks its own members in admit order with one thread
-# per (f,r) (each thread only ever touches its own (f,r) column) and
-# __syncthreads_and for still_fits. The TPU's dense [L,D] grid is not
-# built: the kernel reads the CSR from order_csr. usage/cohort_usage
-# are updated in place on copies of the inputs. With `cols` (the sharded
-# cycle's planner columns, kueue_tpu/parallel/mesh.py:314-318), the
-# launch has one block per column and walks only those domains; a
-# padding column (D or -1) is a no-op.
+# other. A block stages its domain's rows (the CQs and cohorts of the
+# topology's domain tables: usage and the folded quota constants) and its
+# members' entries and assignment rows in shared memory, so no global
+# load sits on the chain of steps; one warp walks the members where
+# FR <= PHASE_B_WARP_FR, a step's nonzero columns one a lane and a warp
+# vote (the other warps stage the next chunk of members), the whole
+# block with __syncthreads_and above it. A domain whose rows exceed the
+# launch's shared state keeps its CQs' constants in the topology (the
+# hybrid form) or every row in a global scratch (`phase_b_plan`). The
+# TPU's dense [L,D] grid is not built: the kernel reads the CSR from
+# order_csr. usage/cohort_usage are written back, once, into copies of
+# the inputs. Without `cols` the launch has one block per root cohort and
+# per CQ with no cohort (the domains that can hold members), and over a
+# CSR of every workload (order_csr's, not the grid's of fitting heads)
+# the kernel writes every admitted bit; with `cols` (the sharded cycle's
+# planner columns, kueue_tpu/parallel/mesh.py:314-318) one block per
+# column, and a padding column (D or -1) or a cohort below a root is a
+# no-op.
+
+PHASE_B_THREADS = 256
+PHASE_B_WARP_FR = 256            # one warp walks up to this FR
+PHASE_B_SMEM = 200 * 1024        # shared memory a block may take
+PHASE_B_ASG_BYTES = 32 * 1024    # the two chunk buffers of members
+PHASE_B_CHUNK = 32               # members staged a chunk
+
+
+def phase_b_plan(FR: int, DC: int, SQ: int, SC: int) -> dict:
+    """The launch's shared-memory plan for FR columns, chains of DC
+    cohorts and domains of at most SQ CQs and SC cohorts
+    (csrc/phase_b.cu): the vote ("warp" up to PHASE_B_WARP_FR, else
+    "block"); the members a chunk, whose two buffers (entries with the
+    walked members, and the members' nonzero columns compacted, or in the
+    block form their rows whole, when staged) take about
+    PHASE_B_ASG_BYTES; the shared bytes of rows a block holds (state_cap:
+    24·FR bytes a row in the shared form, 8·FR a CQ row and 24·FR a
+    cohort row in the hybrid one, after the warp form's header of a bit
+    an element and an id a row); the block's shared bytes; and whether
+    the global scratch (Q·FR + 3·C·FR int64) may be needed.
+    `phase_b_forms` says which form each domain takes."""
+    return _phase_b_plan(FR, DC, SQ, SC, PHASE_B_SMEM, PHASE_B_ASG_BYTES)
+
+
+@functools.lru_cache(maxsize=64)
+def _phase_b_plan(FR: int, DC: int, SQ: int, SC: int, smem_cap: int,
+                  asg_bytes: int) -> dict:
+    warp = FR <= PHASE_B_WARP_FR
+    FRp = 32 * -(-FR // 32)
+    if warp:
+        chunk = max(1, min(PHASE_B_CHUNK, asg_bytes // (24 * FRp)))
+        stage_asg = True
+    else:
+        chunk = min(PHASE_B_CHUNK, asg_bytes // (16 * FR))
+        stage_asg = chunk >= 1
+        if not stage_asg:
+            chunk = PHASE_B_CHUNK
+    # the entries, with the walked members
+    entries = -(-chunk * (6 + DC) * 4 // 16) * 16
+    chunk_bytes = entries + (chunk * FRp * 12 if warp
+                             else chunk * FR * 8 if stage_asg else 0)
+    unit = 8 * FR
+    rows = SQ + SC
+    head = _lazy_head(rows, FR) if warp else 0
+    room = max(0, smem_cap - 2 * chunk_bytes) // 16 * 16
+    state_cap = min(head + 3 * rows * unit, room)
+    return {"vote": "warp" if warp else "block", "chunk": chunk,
+            "stage_asg": stage_asg, "state_cap": state_cap,
+            "smem": state_cap + 2 * chunk_bytes,
+            "scratch": head + (SQ + 3 * SC) * unit > state_cap,
+            "threads": PHASE_B_THREADS}
+
+
+def _lazy_head(rows, FR):
+    """Bytes of the warp form's header (csrc/phase_b.cu pb_lazy_bytes): a
+    bit an element of `rows` rows of FR columns and an id a row, 16-aligned
+    (numpy arrays or ints)."""
+    return -(-(-(-rows * FR // 32) * 4 + rows * 4) // 16) * 16
+
+
+def phase_b_forms(topo, plan: dict, FR: int) -> dict:
+    """{form: domains} of a launch of `plan` over the topology's domains
+    (the roots, and the CQs with no cohort), as csrc/phase_b.cu picks:
+    "shared" where the rows with the CQs' constants fit state_cap (after
+    the warp form's header), else "lazy" (the warp form) or "hybrid" (the
+    block form) where the rows without them do, else "global"."""
+    def host(t):
+        return (t.cpu().numpy() if isinstance(t, torch.Tensor)
+                else np.asarray(t)).astype(np.int64)
+    nq, nc = host(topo["dom_nq"]), host(topo["dom_nc"])
+    n_solo = int(topo["dom_solo"].shape[0])
+    nq = np.concatenate([nq, np.ones(n_solo, np.int64)])
+    nc = np.concatenate([nc, np.zeros(n_solo, np.int64)])
+    head = _lazy_head(nq + nc, FR) if plan["vote"] == "warp" else 0
+    cap = plan["state_cap"]
+    form = np.where(head + 3 * (nq + nc) * 8 * FR <= cap, "shared",
+                    np.where(head + (nq + 3 * nc) * 8 * FR <= cap,
+                             "lazy" if plan["vote"] == "warp" else "hybrid",
+                             "global"))
+    names, counts = np.unique(form, return_counts=True)
+    return {str(n): int(c) for n, c in zip(names, counts)}
+
 
 def _selected(counts, cols):
     """counts[D] with the domains outside cols (int [d_cols]; entries
@@ -588,23 +783,41 @@ def phase_b(topo, usage, cohort_usage, asg_usage, fit, wl_cq, offsets,
     if _is_cpu(fit):
         return phase_b_plain(topo, usage, cohort_usage, asg_usage, fit,
                              wl_cq, offsets, members, cols)
+    missing = [n for n in DOMAIN_FIELDS if n not in topo]
+    if missing:
+        raise KeyError(f"phase_b: the topology lacks the domain tables "
+                       f"{missing} (build it with topo_to_device)")
     W = fit.shape[0]
     Q, F, R = usage.shape
+    C = cohort_usage.shape[0]
+    FR, DC = F * R, topo["cq_chain"].shape[1]
     D = offsets.shape[0] - 1
+    NR = topo["dom_roots"].shape[0]
+    SQ, SC = topo["dom_cqs"].shape[1], topo["dom_cohorts"].shape[1]
+    plan = phase_b_plan(FR, DC, SQ, SC)
+    dev = fit.device
     usage_out = usage.clone()
     cohort_out = cohort_usage.clone()
-    admitted = torch.zeros(W, dtype=torch.bool, device=fit.device)
+    # the kernel writes every member's bit: without cols, over a CSR of
+    # every workload (order_csr's), no bit is left unwritten
+    admitted = (torch.empty if cols is None and members.shape[0] == W
+                else torch.zeros)(W, dtype=torch.bool, device=dev)
+    scratch = torch.empty(((Q + 3 * C) * FR if plan["scratch"] else 0,),
+                          dtype=torch.int64, device=dev)
+    n_blocks = NR + topo["dom_solo"].shape[0] if cols is None \
+        else cols.shape[0]
     _launch("phase_b", [
-        _ptr(topo["cq_cohort"], torch.int32, "cq_cohort"),
-        _ptr(topo["cq_chain"], torch.int32, "cq_chain"),
         _ptr(topo["nominal"], torch.int64, "nominal"),
         _ptr(topo["guaranteed"], torch.int64, "guaranteed"),
         _ptr(topo["borrow_limit"], torch.int64, "borrow_limit"),
         _ptr(topo["cohort_subtree"], torch.int64, "cohort_subtree"),
         _ptr(topo["cohort_guaranteed"], torch.int64, "cohort_guaranteed"),
         _ptr(topo["cohort_borrow_limit"], torch.int64, "cohort_borrow_limit"),
+        _ptr(topo["cq_chain"], torch.int32, "cq_chain"),
+        *(_ptr(topo[n], torch.int32, n) for n in DOMAIN_FIELDS),
         _ptr(usage_out, torch.int64, "usage"),
         _ptr(cohort_out, torch.int64, "cohort_usage"),
+        scratch.data_ptr() if plan["scratch"] else 0,
         _ptr(asg_usage, torch.int64, "asg_usage"),
         _ptr(fit, torch.bool, "fit"),
         _ptr(wl_cq, torch.int32, "wl_cq"),
@@ -612,10 +825,35 @@ def phase_b(topo, usage, cohort_usage, asg_usage, fit, wl_cq, offsets,
         _ptr(members, torch.int32, "members"),
         0 if cols is None else _ptr(cols, torch.int32, "cols"),
         _ptr(admitted, torch.bool, "admitted"),
-    ], [D, D if cols is None else cols.shape[0], F * R,
-        topo["cq_chain"].shape[1]], fit.device)
+    ], [D, NR, n_blocks, Q, C, FR, DC, SQ, SC, plan["chunk"],
+        int(plan["stage_asg"]), plan["state_cap"], plan["smem"],
+        int(plan["vote"] == "warp")], dev)
     phase_b.launches += 1
+    phase_b.last_plan = plan
     return admitted, usage_out, cohort_out
+
+
+phase_b.last_plan = None  # the last launch's phase_b_plan
+
+
+def phase_b_tick(device, depth: int, iters: int = 4096) -> dict:
+    """phase_b's least step in clock cycles (csrc/phase_b.cu
+    phase_b_tick_kernel: a member `depth` cohorts deep, 0 to 4, over rows
+    in shared memory: the fetch, the walk, the warp vote, the bubble-up),
+    one dependent global load read past L1 in cycles, each the least of
+    three runs, and the SM clock in kHz."""
+    steps, loads = [], []
+    for _ in range(3):
+        out = torch.zeros(5, dtype=torch.int64, device=device)
+        chase = torch.empty(1 << 16, dtype=torch.int32, device=device)
+        _launch("phase_b", [out.data_ptr(), chase.data_ptr()],
+                [chase.numel(), iters, depth], device,
+                symbol="phase_b_tick_launch")
+        o = out.tolist()
+        steps.append(o[0] / iters)
+        loads.append(o[2] / iters)
+    return {"step_cycles": min(steps), "load_cycles": min(loads),
+            "clock_khz": o[4]}
 
 
 # ---------------------------------------------------------------------------

@@ -1243,3 +1243,227 @@ def test_batched_partial_admission_on_card_equals_cpu(cuda_device):
         assert any(c[0] < 512 for name, c in rows[0][0]
                    if name.startswith("p"))
     assert runs[0][0][3].admitted > 0
+
+
+# --- K5 and K2 forms (csrc/phase_b.cu, csrc/phase_a.cu) ---
+
+def phase_inputs(kind: str, F: int = 40, R: int = 3, W: int = 96,
+                 Q: int = 64, cohorts: int = 8, seed: int = 3):
+    """inputs() at other widths: flat cohorts, or trees 3 deep with every
+    5th CQ outside any cohort."""
+    if kind == "flat":
+        topo, usage, cu, wl = synth_solver_inputs(
+            num_cqs=Q, num_cohorts=cohorts, num_flavors=F, num_resources=R,
+            num_workloads=W, num_podsets=3, seed=seed)
+    else:
+        topo, usage, cu, wl = synth_nested_inputs(
+            num_cqs=Q, num_leaf_cohorts=cohorts, fanout=2, depth=3,
+            num_flavors=F, num_resources=R, num_workloads=W, num_podsets=3,
+            no_cohort_every=5, seed=seed)
+    return topo, usage + topo["nominal"] // 3, cu, wl
+
+
+def phase_b_case(topo, usage, cu, wl, device):
+    """(card args, host args) of phase_b on the plain Phase A and order."""
+    host_topo = tk.topo_to_device(topo, "cpu")
+    u, c = tk.state_to_device(usage, cu, "cpu")
+    requests, podset_active, wl_cq, priority, timestamp, eligible, \
+        solvable = [torch.from_numpy(np.array(wl[k])) for k in WL_KEYS]
+    fit, borrows, _, _, asg = tk.phase_a(host_topo, tk.avail(host_topo, u, c),
+                                         u, requests, podset_active, wl_cq,
+                                         eligible, solvable, 3)
+    offsets, members, _ = tk.order_csr(host_topo, fit, borrows, priority,
+                                       timestamp, wl_cq)
+    host = (host_topo, u, c, asg, fit, wl_cq, offsets, members)
+    card = ({k: v.to(device) for k, v in host_topo.items()},
+            *(a.to(device) for a in host[1:]))
+    return card, host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ("shared", "lazy", "global", "block",
+                                  "block_unstaged", "chunks"))
+@pytest.mark.parametrize("kind", ("flat", "nested"))
+def test_phase_b_forms_on_card_equal_plain(kind, form, cuda_device,
+                                           monkeypatch):
+    """Each form of K5 against the plain version, alone and over a column
+    list with padding: the shared form (rows with the CQs' constants); the
+    lazy form (the rows members touch, claimed in a bitmap as they are
+    staged; the CQs' constants from the topology), by a launch's shared
+    memory cut below the largest domain's shared form; the global scratch,
+    by one cut to the chunk buffers; the block vote (FR = 320) and, past
+    FR = 2048, the rows read from asg in the walk (and from the global
+    scratch); and chunks of one or two members (double-buffered staging,
+    lazy rows claimed across chunks)."""
+    F, R, W, Q, cohorts = 40, 3, 96, 64, 8
+    if form == "block":
+        F, R = 20, 16
+    elif form == "block_unstaged":
+        F, R, W = 40, 64, 48
+    elif form == "chunks":
+        W, Q, cohorts = 160, 24, 2
+    topo, usage, cu, wl = phase_inputs(kind, F, R, W, Q, cohorts)
+    FR = F * R
+    if form == "chunks":
+        # two members a chunk (phase_b_plan: 24 bytes a column a member)
+        monkeypatch.setattr(tk, "PHASE_B_ASG_BYTES",
+                            2 * 24 * (-(-FR // 32) * 32))
+    card, host = phase_b_case(topo, usage, cu, wl, cuda_device)
+    t = host[0]
+    shape = (FR, topo["cq_chain"].shape[1], t["dom_cqs"].shape[1],
+             t["dom_cohorts"].shape[1])
+    plan = tk.phase_b_plan(*shape)
+    bufs = plan["smem"] - plan["state_cap"]
+    nq = t["dom_nq"].numpy().astype(np.int64)
+    nc = t["dom_nc"].numpy().astype(np.int64)
+    head = tk._lazy_head(nq + nc, FR)
+    if form in ("lazy", "chunks"):
+        cap = int((head + (nq + 3 * nc) * 8 * FR).max()) + 16
+        assert int((head + 3 * (nq + nc) * 8 * FR).max()) > cap
+        monkeypatch.setattr(tk, "PHASE_B_SMEM", bufs + cap)
+    elif form == "global":
+        monkeypatch.setattr(tk, "PHASE_B_SMEM", bufs)
+    plan = tk.phase_b_plan(*shape)
+    forms = tk.phase_b_forms(t, plan, FR)
+    want_form = {"lazy": "lazy", "chunks": "lazy", "global": "global",
+                 "block_unstaged": "global"}.get(form, "shared")
+    assert forms.get(want_form, 0) > 0, forms
+    D = host[6].shape[0] - 1
+    rng = np.random.default_rng(5)
+    cols = np.concatenate([rng.permutation(D)[:D // 2], [D, -1]]).astype(
+        np.int32)
+    for extra in ((), (torch.from_numpy(cols),)):
+        want = tk.phase_b(*host, *extra)
+        got = tk.phase_b(*card, *(a.to(cuda_device) for a in extra))
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        assert want[0].any() and not want[0].all()
+    plan = tk.phase_b.last_plan
+    assert plan["vote"] == ("block" if FR > tk.PHASE_B_WARP_FR else "warp")
+    assert plan["stage_asg"] == (FR <= 2048)
+    if form == "chunks":
+        assert plan["chunk"] <= 2
+        assert np.diff(host[6].numpy()).max() > 2 * plan["chunk"]
+
+
+def no_borrow_target_inputs():
+    """Three flavors of ranks 1, 0, 1 in every CQ, prefer-no-borrow on:
+    flavors 0 and 1 full and alike (every request borrows), flavor 2
+    empty; where 0 and 1 fit, the target is the non-borrowing rank 1, and
+    flavor 0, borrowing, the lowest fitting index at it (a third
+    reduction). tests/test_torch_phase_forms.py holds the plain version
+    to the JAX package on the same construction."""
+    topo, usage, cu, wl = synth_solver_inputs(
+        num_cqs=8, num_cohorts=2, num_flavors=3, num_resources=1,
+        num_workloads=24, num_podsets=2, seed=11)
+    Q = topo["cq_cohort"].shape[0]
+    topo["flavor_rank"] = np.tile(np.array([1, 0, 1], np.int32), (Q, 1))
+    topo["prefer_no_borrow"] = np.ones(Q, bool)
+    topo["nominal"][:, 1] = topo["nominal"][:, 0]
+    usage = np.zeros_like(usage)
+    usage[:, :2] = topo["nominal"][:, :2]
+    for c in range(topo["cohort_subtree"].shape[0]):
+        members = topo["cq_cohort"] == c
+        topo["cohort_subtree"][c] = topo["nominal"][members].sum(axis=0)
+        cu[c] = usage[members].sum(axis=0)
+    topo["cohort_subtree"][:, :2] *= 2
+    wl["requests"] = np.minimum(wl["requests"], 3000)
+    return topo, usage, cu, wl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ("plain", "start_rank", "no_borrow",
+                                     "near_inf", "past_key"))
+@pytest.mark.parametrize("F,R", ((32, 2), (32, 16), (40, 2), (8, 17),
+                                 (6, 32)))
+def test_phase_a_forms_on_card_equal_plain(F, R, variant, cuda_device):
+    """Each form of K2 against the plain version: the register form at
+    R = 2 and 16 (F = 32), the general form past 32 flavors (strided
+    lanes) and past 16 resources; with start ranks, prefer-no-borrow, ranks
+    at INF_RANK - 1, INF_RANK and INF_RANK + 1, and ranks past the packed
+    key's range (two reductions)."""
+    topo, usage, cu, wl = phase_inputs("nested", F, R, seed=F + R)
+    rng = np.random.default_rng(F * R)
+    if variant in ("no_borrow", "near_inf", "past_key"):
+        topo["prefer_no_borrow"] = rng.random(topo["cq_cohort"].shape[0]) < 0.6
+    if variant in ("near_inf", "past_key"):
+        fr = topo["flavor_rank"]
+        values = ([tk.INF_RANK - 1, tk.INF_RANK, tk.INF_RANK + 1]
+                  if variant == "near_inf" else [-(2**27), 2**27, 2**30, -3])
+        topo["flavor_rank"] = np.where(rng.random(fr.shape) < 0.3,
+                                       rng.choice(values, size=fr.shape),
+                                       fr).astype(np.int32)
+    sr = torch.from_numpy(synth_start_rank(wl, F, seed=3)) \
+        if variant in ("start_rank", "near_inf") else None
+    host = [tk.topo_to_device(topo, "cpu"),
+            *tk.state_to_device(usage, cu, "cpu"),
+            *(torch.from_numpy(np.array(wl[k])) for k in
+              ("requests", "podset_active", "wl_cq", "eligible",
+               "solvable"))]
+    av = tk.avail_plain(*host[:3])
+    want = tk.phase_a_plain(host[0], av, host[1], *host[3:], 3, sr)
+    card = [{k: v.to(cuda_device) for k, v in host[0].items()}] + \
+        [t.to(cuda_device) for t in host[1:]]
+    got = tk.phase_a(card[0], av.to(cuda_device), card[1], *card[3:], 3,
+                     None if sr is None else sr.to(cuda_device))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert want[0].any()
+    assert tk.phase_a.last_plan == tk.phase_a_plan(F, R, 3)
+    assert tk.phase_a.last_plan["form"] == (
+        "register" if F <= 32 and R <= 16 else "general")
+
+
+@pytest.mark.cuda
+def test_phase_a_no_borrow_target_on_card(cuda_device):
+    """prefer-no-borrow with a borrowing flavor of lower index at the
+    non-borrowing target rank: the third reduction picks it, as the plain
+    version (held to the JAX package on the CPU) does."""
+    topo, usage, cu, wl = no_borrow_target_inputs()
+    host = [tk.topo_to_device(topo, "cpu"),
+            *tk.state_to_device(usage, cu, "cpu"),
+            *(torch.from_numpy(np.array(wl[k])) for k in
+              ("requests", "podset_active", "wl_cq", "eligible",
+               "solvable"))]
+    av = tk.avail_plain(*host[:3])
+    want = tk.phase_a_plain(host[0], av, host[1], *host[3:], 2)
+    assert ((want[2] == 0) & want[3]).any()
+    card = [{k: v.to(cuda_device) for k, v in host[0].items()}] + \
+        [t.to(cuda_device) for t in host[1:]]
+    got = tk.phase_a(card[0], av.to(cuda_device), card[1], *card[3:], 2)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("csr", ("order", "grid"))
+def test_phase_b_writes_every_admitted_bit_on_card(csr, cuda_device):
+    """Over order_csr's CSR of every workload the wrapper leaves admitted
+    unset (torch.empty) and the kernel writes every member's bit; over
+    the host grid's CSR of the fitting heads (solve_phase_b_domains) the
+    rest stay zero. Both with the allocator's block poisoned with ones
+    first, against the plain version."""
+    topo, usage, cu, wl = phase_inputs("nested")
+    card, host = phase_b_case(topo, usage, cu, wl, cuda_device)
+    fit = host[4]
+    if csr == "grid":
+        grid = tk.build_order_grid(
+            fit.numpy(), np.zeros_like(fit.numpy()), wl["priority"],
+            wl["timestamp"], wl["wl_cq"], topo["cq_cohort"],
+            topo["cohort_subtree"].shape[0], cohort_root=topo["cohort_root"])
+        offsets, members = tk.grid_csr(torch.from_numpy(grid))
+        assert members.shape[0] < fit.shape[0]  # unfit heads left out
+        host = (*host[:6], offsets, members)
+        card = (*card[:6], offsets.to(cuda_device), members.to(cuda_device))
+    W = fit.shape[0]
+    for _ in range(4):  # the caching allocator hands the block back
+        poison = torch.ones(W, dtype=torch.bool).to(cuda_device)
+        del poison
+        got = tk.phase_b(*card)
+        torch.cuda.synchronize()
+        want = tk.phase_b(*host)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
