@@ -13,13 +13,22 @@ phase_b also report the form their launch took (phase_b: each domain's)
 and a latency bound in ms: their least step or reduction and a global
 round trip, measured in clock cycles on the card by their tick kernels;
 phase_b is also timed over a column list of the occupied domains on the
-same inputs. Then, on
+same inputs. The admit order (K4) and the arena gather (K7b) report
+their form (order_plan's; the gather's vector widths) and a latency
+bound (K4: four global round trips and its block steps, K7b: two round
+trips), and every kernel's row the launch floor (an empty kernel's
+device time, measured first). Then, on
 the shapes the first kernels raised on, solve_preempt with a problem of
 exactly 131,072 candidates (32-bit candidate indices), phase_a at the
 north star's widths with 32 and with 17 resources, and cluster_cols at
 64 clusters x 32 flavors x 16 resources and, at the synthetic batch's
-8 x 32 x 2048 rows, at 8, 16 and 32 resources, each equal to its plain
-version (cluster_cols also to the host oracle) and timed.
+8 x 32 x 2048 rows, at 8, 16 and 32 resources, the admit order at one
+domain of 2048 workloads, at W one above its staged form's limit, at W =
+65,536 over 65,792 domains and on the edge keys (+-0.0, NaNs of both
+signs, subnormals, INT64_MIN and INT64_MAX priorities, NO_LIMIT shares),
+the global order off and on, and the arena gather on a twin of odd row
+bytes and on sources sliced off a 16-byte boundary, each equal to its
+plain version (cluster_cols also to the host oracle) and timed.
 cluster_cols' rows are timed by CUDA events over back-to-back launches
 and report the pipeline's rows, live columns (its stages), warps and
 chunk steps, and its latency bound: (stages + chunks of 32 rows - 1)
@@ -62,7 +71,7 @@ versions:
    bench_preemption_reclaim: 2048 CQs, 256 child cohorts under 128
    roots, one flavor of 8 units per CQ, 64,512 admitted victims, one
    8-unit preemptor per CQ, every head in preempt mode): 1 warm-up and
-   3 timed cycles, each the first cycle of a fresh build, every one on
+   2 timed cycles, each the first cycle of a fresh build, every one on
    the device route with the work gate choosing the device and every
    preempt-mode head solved by the K9 kernel (solve_preempt) after the
    fit sync; its inputs in the first timed cycle are kept and held
@@ -78,7 +87,7 @@ versions:
    configuration (bench.py bench_fair_preemption at 2048 CQs in 256
    cohorts: one flavor of 8 units per CQ, member 0 of each cohort idle
    with one 8-unit preemptor, the other 7 each holding 12 admitted
-   victims, 21,504 in all): 1 warm-up and 3 timed cycles, each the
+   victims, 21,504 in all): 1 warm-up and 2 timed cycles, each the
    first cycle of a fresh build, every one on the device route with the
    work gate choosing the device and 256 fair problems solved by the K11
    kernel (solve_fair) after the fit sync, with one sync for the
@@ -103,13 +112,15 @@ versions:
    version and the host oracle (encode.place_remote_dicts walked in the
    global admit order, on the columns cut to the flavors and resources
    the topology knows), as is a synthetic batch (8 clusters, 32 flavors,
-   2 resources, 2048 rows); one traced cycle; then the same cycles with
+   2 resources, 2048 rows); the admit order's inputs in that cycle (with
+   the global order) are kept, held against the plain version and timed;
+   one traced cycle; then the same cycles with
    device="cpu" must admit the same workloads and place them on the
    same clusters in the same order.
 8. scheduler sharded: the sharded cycle (kueue_tpu_torch/parallel/mesh.py,
    K13) under the port's Scheduler, BatchSolver(mesh=make_mesh()): world
    size 1 over NCCL on the one card. (a) the north star's fill (2048 CQs
-   in 256 cohorts, 32 flavors of 40 units, 51,200 pending): 1 + 10
+   in 256 cohorts, 32 flavors of 40 units, 51,200 pending): 1 + 5
    cycles; (b) the preemption reclaim configuration: 1 warm-up and 1
    timed fresh build, every preempt-mode head solved by K9 over its
    problem slots (solve_preempt_sharded); (c) the MultiKueue cell: 1 + 3
@@ -137,6 +148,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -226,7 +238,7 @@ SHARDED_KERNELS = {
 }
 PHASE_KERNELS["scheduler_sharded"] = SHARDED_KERNELS["preempt"] + (
     "cluster_cols",)
-SHARDED_TIMED = {"fill": 10, "preempt": 1, "multikueue": 3}
+SHARDED_TIMED = {"fill": 5, "preempt": 1, "multikueue": 3}
 SHARDED_RANKS = 4  # the rank check's plan, each rank's body run in turn
 # The fair-sharing benchmark configuration (bench.py bench_fair_sharing,
 # builders bench.py:107-214): every admission borrows, 1024 per cycle.
@@ -237,7 +249,7 @@ FAIR_WAVES = 15         # cycles + 4, as the bench stages: 30,720 pending
 # bench.py:1807-1850; sim/northstar.build_preempt_reclaim).
 PREEMPT = dict(num_roots=128, children_per_root=2, cqs_per_child=8,
                victims_per_borrower=36)
-PREEMPT_TIMED = 3
+PREEMPT_TIMED = 2
 # K9's synthetic check: trees 3 deep (CQs attached at two depths),
 # within-CQ, reclaim and threshold problems, 124 padding rows
 PREEMPT_NESTED = dict(num_problems=900, max_candidates=120,
@@ -255,7 +267,7 @@ PREEMPT_GLOBAL = dict(num_problems=256, max_candidates=1500,
 # bench_fair_preemption, bench.py:1727-1775; sim/northstar
 # build_fair_preemption) at the north star's 2048 CQs.
 FAIR_PREEMPT = dict(num_cqs=2048, num_cohorts=256, victims_per_cq=12)
-FAIR_PREEMPT_TIMED = 3
+FAIR_PREEMPT_TIMED = 2
 # K11's synthetic check: trees 3 deep (CQs attached at two depths), two
 # flavors per problem, weight 0, roots lending nothing, thresholds, 124
 # padding rows, under every strategy order
@@ -306,6 +318,30 @@ WIDE_K12 = {
     "k8_f32_r32": dict(num_clusters=8, num_flavors=32, num_resources=32,
                        num_workloads=2048, num_podsets=4, num_cqs=2048,
                        requested_share=0.1, seed=23)}
+# K4 and K7b on the shapes their redesign splits on (wide_phase): one
+# domain holding every workload (all CQs under one cohort tree), W one
+# above the staged form's limit (ORDER_THREADS * ORDER_ILP = 4096), W =
+# 65,536 over D = 65,536 + 256 (a solo CQ every 7th), and the edge keys
+# (+-0.0, NaNs of both signs and several payloads, subnormals, INT64_MIN
+# and INT64_MAX priorities, NO_LIMIT, INT64_MIN, INT64_MAX and negative
+# shares); K7b on a twin of odd row bytes (P=3, F=5, R=3) and on sources
+# sliced one element off a 16-byte boundary, W not a multiple of 8
+WIDE_K4 = {
+    "one_domain_2048": dict(num_cqs=2048, num_cohorts=64, num_workloads=2048,
+                            one_domain=True, seed=7),
+    "staged_limit_plus_1": dict(num_cqs=2048, num_cohorts=256,
+                                num_workloads=4097, seed=9),
+    "w65536": dict(num_cqs=65536, num_cohorts=256, num_workloads=65536,
+                   solo_every=7, seed=11),
+    "edge_keys": dict(num_cqs=2048, num_cohorts=256, num_workloads=2048,
+                      edge=True, seed=6)}
+WIDE_K7B = {
+    "odd_p3_f5_r3": dict(slots=512, num_workloads=203, num_podsets=3,
+                         num_flavors=5, num_resources=3, offset=0, seed=2),
+    "misaligned": dict(slots=4096, num_workloads=2045, num_podsets=4,
+                       num_flavors=32, num_resources=2, offset=1, seed=3)}
+ORDER_NAN_BITS = (0x7ff8000000000000, 0x7ff8000000000123, 0xfff8000000000000,
+                  0xfff0000000000001, 0x7ff0000000000001)
 # collect's copy per key against one copy of all keys: calls of each, in
 # turns
 FETCH_REPS = 200
@@ -845,9 +881,14 @@ def kernel_phase(kind: str, device, results: dict) -> None:
     a_plan = dict(k.phase_a.last_plan)
     k.phase_b(*b_args)
     b_plan = dict(k.phase_b.last_plan)
+    k.order_csr(*o_args)
+    o_plan = dict(k.order_csr.last_plan)
+    k.gather_arena(inp["twin"], inp["slots"])
+    g_plan = dict(k.gather_arena.last_plan)
     DC = topo["cq_chain"].shape[1]
     b_tick = k.phase_b_tick(device, min(DC, 4))
     redux = k.phase_a_tick(device)
+    o_step = k.order_tick(device)
     q = wl["wl_cq"].long()
     reqs = (wl["requests"][:, :P] > 0).flatten(1).sum(1)
     reductions = int((reqs * (1 + topo["prefer_no_borrow"][q].long())).max())
@@ -867,7 +908,30 @@ def kernel_phase(kind: str, device, results: dict) -> None:
                     "load_cycles": b_tick["load_cycles"],
                     "sm_clock_khz": clock,
                     "latency_bound_ms": (b_tick["load_cycles"] + steps
-                                         * b_tick["step_cycles"]) / clock}}
+                                         * b_tick["step_cycles"]) / clock},
+        # the staged form's chain: ORDER_ROUND_TRIPS dependent global
+        # round trips (the CQ, its cohort, the root; the keys), then
+        # ORDER_STEPS block steps
+        "order": {"form": o_plan["form"], "plan": o_plan,
+                  "global_round_trips": k.ORDER_ROUND_TRIPS,
+                  "dependent_steps": k.ORDER_STEPS,
+                  "step_cycles": o_step,
+                  "load_cycles": b_tick["load_cycles"],
+                  "sm_clock_khz": clock,
+                  "latency_bound_ms": (k.ORDER_ROUND_TRIPS
+                                       * b_tick["load_cycles"]
+                                       + k.ORDER_STEPS * o_step) / clock},
+        # a row's slot, then its fields: two round trips
+        "arena_gather": {"form": "warp a row, vectors of "
+                                 + "/".join(map(str, g_plan["vec_bytes"]))
+                                 + " bytes",
+                         "vec_bytes": g_plan["vec_bytes"],
+                         "passes": g_plan["passes"],
+                         "global_round_trips": 2,
+                         "load_cycles": b_tick["load_cycles"],
+                         "sm_clock_khz": clock,
+                         "latency_bound_ms": 2 * b_tick["load_cycles"]
+                         / clock}}
 
     log(f"[kernels:{kind}] order equal to plain with shares (non-zero, "
         f"negative) {json.dumps(share_counts)}; drf_share shares "
@@ -2052,6 +2116,34 @@ def cluster_pipeline_row(k, args: tuple, device) -> dict:
             **ptxas_report("cluster_cols")}
 
 
+def order_captured_row(captured: Captured, k) -> dict:
+    """order_csr with the global order on the MultiKueue cycle's own
+    inputs: the captured call's outputs against the plain version, then
+    both timed."""
+    if captured.args is None or not captured.kwargs.get("with_order"):
+        raise AssertionError("order_csr was not called with the global "
+                             "order in the captured cycle")
+    args, kwargs = captured.args, captured.kwargs
+    want = k.order_csr_plain(*args, **kwargs)
+    row = {"max_abs_err": compare(("offsets (captured)", "members (captured)",
+                                   "order (captured)"), captured.out, want),
+           "W": int(args[1].shape[0])}
+    k.order_csr(*args, **kwargs)
+    row["form"] = k.order_csr.last_plan["form"]
+    row["ms"] = profiled_device_ms(lambda: k.order_csr(*args, **kwargs), 50,
+                                   "order")
+    row["ms_source"] = "profiler"
+    row["call_ms"] = time_cuda(lambda: k.order_csr(*args, **kwargs), 50)
+    row["plain_ms"] = time_cuda(lambda: k.order_csr_plain(*args, **kwargs),
+                                20)
+    row["library_ms"] = row["plain_ms"]
+    row["bytes"] = order_bytes(*args[:6], want) + nbytes(*args[6:7])
+    row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    log("[scheduler_multikueue] order_csr with the global order equal to "
+        "plain on the captured cycle's inputs: " + json.dumps(row))
+    return row
+
+
 def scheduler_multikueue_phase(device) -> dict:
     """The port's Scheduler on the MultiKueue cell, cycle after cycle, on
     the card: before each cycle the last cycle's admissions finish (their
@@ -2140,11 +2232,12 @@ def scheduler_multikueue_phase(device) -> dict:
         return row
 
     captured = Captured(kernel, "score_cluster_columns")
+    captured_order = Captured(kernel, "order_csr")
     fetch = {}
     kernel.reset_launch_counts()
     for cycle in range(E2E_WARMUP + MK_TIMED):
         if cycle == E2E_WARMUP:
-            with captured, fetch_timing(solver, fetch):
+            with captured, captured_order, fetch_timing(solver, fetch):
                 row = run_cycle(cycle)
         else:
             row = run_cycle(cycle)
@@ -2192,6 +2285,8 @@ def scheduler_multikueue_phase(device) -> dict:
     summary["kernel_rows"] = {"captured": cluster_kernel_check(
         "captured", kernel, captured.args, captured.out, cut, topo.resources,
         True)}
+    summary["kernel_rows"]["order_with_order"] = order_captured_row(
+        captured_order, kernel)
     cols, _, resources, args = synth.synth_cluster_inputs(**MK_SYNTH)
     dev_args = tuple(torch.from_numpy(a).to(device) for a in args)
     summary["kernel_rows"]["synthetic"] = cluster_kernel_check(
@@ -2591,6 +2686,173 @@ def scheduler_sharded_phase(device) -> dict:
     return summary
 
 
+def order_wide_inputs(device, num_cqs: int, num_cohorts: int,
+                      num_workloads: int, seed: int, one_domain: bool = False,
+                      edge: bool = False, solo_every: int = 0) -> tuple:
+    """order_csr's arguments on the card (a topology of cq_cohort,
+    cohort_root and C, and the heads' keys), from a seed: priorities and
+    timestamps from a few values (ties), shares with negatives and
+    NO_LIMIT; `edge` draws them from the edge values instead; with
+    `one_domain` every cohort's root is cohort 0; a CQ every `solo_every`
+    has no cohort (its own domain). Returns (topo, positional args,
+    share)."""
+    import numpy as np
+    import torch
+    from kueue_tpu_torch.solver import kernel as k
+    rng = np.random.default_rng(seed)
+    Q, C, W = num_cqs, num_cohorts, num_workloads
+    cq_cohort = rng.integers(0, C, size=Q).astype(np.int32)
+    if solo_every:
+        cq_cohort[::solo_every] = -1
+    cohort_root = np.zeros(C, np.int32) if one_domain else \
+        np.arange(C, dtype=np.int32)
+    i64 = np.iinfo(np.int64)
+    if edge:
+        prio = rng.choice(np.array([i64.min, i64.max, 0, 1, -1, i64.min + 1],
+                                   np.int64), size=W)
+        ts = rng.choice(np.concatenate([
+            [0.0, -0.0, np.inf, -np.inf, 1.5, -1.5, 5e-324, -5e-324],
+            np.array(ORDER_NAN_BITS, np.uint64).view(np.float64)]), size=W)
+        share = rng.choice(np.array([k.NO_LIMIT, -1, -2, 0, i64.max, i64.min,
+                                     7], np.int64), size=W)
+    else:
+        prio = rng.integers(0, 5, size=W).astype(np.int64)
+        ts = rng.integers(0, 6, size=W).astype(np.float64)
+        share = rng.choice(np.array(MIXED_SHARES, np.int64), size=W)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    topo = {"cq_cohort": dev(cq_cohort), "cohort_root": dev(cohort_root),
+            "cohort_subtree": torch.zeros((C, 1, 1), dtype=torch.int64,
+                                          device=device)}
+    args = (dev(rng.random(W) < 0.7), dev(rng.random(W) < 0.3), dev(prio),
+            dev(ts), dev(rng.integers(0, Q, size=W).astype(np.int32)))
+    return topo, args, dev(share)
+
+
+def gather_wide_inputs(device, slots: int, num_workloads: int,
+                       num_podsets: int, num_flavors: int,
+                       num_resources: int, offset: int, seed: int) -> tuple:
+    """A twin of `slots` rows of every arena field from a seed, each field
+    sliced `offset` elements into a larger buffer (8, 4 or 1 bytes off a
+    16-byte boundary for offset 1), and a batch of slots with -1, -7,
+    `slots` and `slots - 1` among them. Returns (twin, slots)."""
+    import numpy as np
+    import torch
+    from kueue_tpu_torch.solver import kernel as k
+    from kueue_tpu_torch.solver.arena import ARENA_FIELDS
+    rng = np.random.default_rng(seed)
+    P, F, R = num_podsets, num_flavors, num_resources
+    shapes = {"requests": (P, R), "podset_active": (P,), "wl_cq": (),
+              "priority": (), "timestamp": (), "eligible": (P, F),
+              "solvable": ()}
+    twin = {}
+    for name in ARENA_FIELDS:
+        shape = (slots,) + shapes[name]
+        size = math.prod(shape)
+        dtype = k.ARENA_DTYPES[name]
+        if dtype == torch.bool:
+            buf = torch.from_numpy(rng.random(size + 1) < 0.5)
+        elif dtype == torch.float64:
+            buf = torch.from_numpy(rng.random(size + 1))
+        else:
+            buf = torch.from_numpy(rng.integers(-1000, 1000, size=size + 1)
+                                   ).to(dtype)
+        twin[name] = buf.to(device)[offset:offset + size].view(shape)
+    batch = rng.integers(-3, slots + 2, size=num_workloads).astype(np.int32)
+    batch[:4] = (-1, -7, slots, slots - 1)
+    return twin, torch.from_numpy(batch).to(device)
+
+
+def wide_order_rows(device) -> dict:
+    """order_csr on WIDE_K4's shapes against its plain version run on the
+    CPU (the order the JAX lexsort gives: torch.sort on the card puts NaNs
+    with the sign bit set first; `card_plain_differs` says whether the
+    plain version on the card gave another CSR or order), the global order
+    off and on, and timed (its device time by the profiler, calls by CUDA
+    events)."""
+    import torch
+    from kueue_tpu_torch.solver import kernel as k
+    rows = {}
+    for label, spec in WIDE_K4.items():
+        topo, args, share = order_wide_inputs(device, **spec)
+        host_topo = {n: v.cpu() for n, v in topo.items()}
+        host = [a.cpu() for a in (*args, share)]
+        row = {"W": spec["num_workloads"],
+               "D": spec["num_cohorts"] + spec["num_cqs"],
+               "card_plain_differs": False}
+        for with_order in (False, True):
+            got = [t for t in k.order_csr(topo, *args, share,
+                                          with_order=with_order)
+                   if t is not None]
+            want = [t.to(device) for t in k.order_csr_plain(
+                host_topo, *host, with_order=with_order) if t is not None]
+            row["max_abs_err"] = compare(
+                (f"offsets ({label})", f"members ({label})",
+                 f"order ({label})"), got, want)
+            card = [t for t in k.order_csr_plain(topo, *args, share,
+                                                 with_order=with_order)
+                    if t is not None]
+            row["card_plain_differs"] |= not all(
+                torch.equal(a, b) for a, b in zip(card, want))
+        row["plan"] = dict(k.order_csr.last_plan)
+        row["form"] = row["plan"]["form"]
+        big = row["W"] > 10000
+        torch.cuda.synchronize()
+        for with_order, key in ((False, ""), (True, "with_order_")):
+            def run(with_order=with_order):
+                return k.order_csr(topo, *args, share, with_order=with_order)
+            row[f"{key}ms"] = profiled_device_ms(run, 3 if big else 50,
+                                                 "order")
+            row[f"{key}call_ms"] = time_cuda(run, iters=3 if big else 50)
+        row["ms_source"] = "profiler"
+        row["plain_ms"] = time_cuda(
+            lambda: k.order_csr_plain(topo, *args, share), iters=3 if big
+            else 20, warmup=1)
+        row["bytes"] = order_bytes(topo, *args, k.order_csr_plain(
+            topo, *args, share)[:2]) + nbytes(share)
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        row["library_ms"] = row["plain_ms"]
+        log(f"[kernels:order:{label}] equal to plain: " + json.dumps(row))
+        rows[f"order_{label}"] = row
+    return rows
+
+
+def wide_gather_rows(device) -> dict:
+    """gather_arena on WIDE_K7B's twins against its plain version, and
+    timed."""
+    import torch
+    from kueue_tpu_torch.solver import kernel as k
+    from kueue_tpu_torch.solver.arena import ARENA_FIELDS
+    rows = {}
+    for label, spec in WIDE_K7B.items():
+        twin, slots = gather_wide_inputs(device, **spec)
+        row = {"max_abs_err": compare(
+            tuple(f"{n} ({label})" for n in ARENA_FIELDS),
+            k.gather_arena(twin, slots), k.gather_arena_plain(twin, slots)),
+            "plan": dict(k.gather_arena.last_plan)}
+        row["form"] = row["plan"]["vec_bytes"]
+        torch.cuda.synchronize()
+        row["ms"] = profiled_device_ms(lambda: k.gather_arena(twin, slots),
+                                       100, "arena_gather")
+        row["ms_source"] = "profiler"
+        row["call_ms"] = time_cuda(lambda: k.gather_arena(twin, slots), 100)
+        row["plain_ms"] = time_cuda(
+            lambda: k.gather_arena_plain(twin, slots), 50)
+        clamped = slots.long().clamp(0, spec["slots"] - 1)
+        row["library_ms"] = time_cuda(
+            lambda: [twin[n].index_select(0, clamped) for n in ARENA_FIELDS],
+            50)
+        W = spec["num_workloads"]
+        n_real = int(((slots >= 0) & (slots < spec["slots"])).sum())
+        row["bytes"] = nbytes(slots) + (n_real + W) * row_bytes(twin)
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"[kernels:arena_gather:{label}] equal to plain: "
+            + json.dumps(row))
+        rows[f"arena_gather_{label}"] = row
+    return rows
+
+
 def wide_phase(device) -> dict:
     """The shapes on which the first card kernels raised, each kernel
     against its plain version on the same card tensors and timed, outside
@@ -2660,6 +2922,8 @@ def wide_phase(device) -> dict:
         rows[f"cluster_cols_{label}"] = cluster_kernel_check(
             label, k, c_args, k.score_cluster_columns(*c_args), cols,
             resources, True)
+    rows.update(wide_order_rows(device))
+    rows.update(wide_gather_rows(device))
     rows["wall_s"] = time.perf_counter() - t_phase
     log(f"[wide] wall {rows['wall_s']:.1f} s")
     return rows
@@ -3052,6 +3316,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    # the launch floor: an empty kernel's device time, and one with a load
+    # and a store, which every small kernel here pays
+    from kueue_tpu_torch.solver import kernel as kmod
+    floor = {name: profiled_device_ms(fn, 200, f"kq_{name}")
+             for name, fn in kmod.launch_floor_fns(device).items()}
+    log(f"[floor] device ms a launch: {json.dumps(floor)}")
     results: dict = {}
     for kind in ("north_star", "nested"):
         t0 = time.perf_counter()
@@ -3100,6 +3370,9 @@ def main() -> int:
     # K14's: the oracle phase's, on the north-star and nested inputs
     for kind in ("north_star", "nested"):
         results[kind]["global_scan"] = e2e["oracles"]["kernel_rows"][kind]
+    # K4 with the global order: the MultiKueue cycle's captured inputs
+    results["north_star"]["order"]["with_order"] = \
+        e2e["scheduler_multikueue"]["kernel_rows"]["order_with_order"]
 
     sharded = e2e["scheduler_sharded"]
     kernels = []
@@ -3121,6 +3394,9 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
             "bound_bytes": row["bytes"], "library_ms": row["library_ms"],
             "ms_source": row["ms_source"], "call_ms": row["call_ms"],
+            # an empty kernel's device time: the least any launch takes
+            "launch_floor_ms": floor["empty"],
+            "launch_floor_load_store_ms": floor["load_store"],
             "nested": {k: v for k, v in results["nested"][name].items()
                        if k in ("ms", "call_ms", "plain_ms", "library_ms",
                                 "bound_ms", "dependent_steps",
@@ -3172,11 +3448,28 @@ def main() -> int:
             # round trip and the steps (phase_b) or two and the reductions
             # (phase_a) in the least cycles measured on this card
             **({key: row[key] for key in ("form", "latency_bound_ms")}
-               if name in ("phase_a", "phase_b") else {}),
+               if name in ("phase_a", "phase_b", "order", "arena_gather")
+               else {}),
             **({"nested_form": results["nested"][name]["form"],
                 "nested_latency_bound_ms":
                     results["nested"][name]["latency_bound_ms"]}
-               if name in ("phase_a", "phase_b") else {}),
+               if name in ("phase_a", "phase_b", "order", "arena_gather")
+               else {}),
+            # K4: the global order on the MultiKueue cycle's inputs, and
+            # the wide shapes; K7b: the odd-width and misaligned twins
+            **({"with_order": {key: row["with_order"][key] for key in
+                               WIDE_KEYS + ("form", "W")},
+                "wide": {label: {key: wide[f"order_{label}"][key] for key in
+                                 WIDE_KEYS + ("form", "W", "D",
+                                              "with_order_ms",
+                                              "card_plain_differs")}
+                         for label in WIDE_K4}}
+               if name == "order" else {}),
+            **({"wide": {label: {key: wide[f"arena_gather_{label}"][key]
+                                 for key in WIDE_KEYS + ("form",
+                                                         "library_ms")}
+                         for label in WIDE_K7B}}
+               if name == "arena_gather" else {}),
             **({"occupied_columns": row["occupied_columns"],
                 "nested_occupied_columns":
                     results["nested"][name]["occupied_columns"]}

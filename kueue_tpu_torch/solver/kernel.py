@@ -508,18 +508,69 @@ def drf_share(topo, usage, asg_usage, wl_cq):
 # Replaces kueue_tpu/solver/kernel.py:498-525, the lexsort of the admit
 # order and the [L,D] order grid of solve_cycle_fused_impl. Output: a CSR
 # offsets[D+1] / members[W] of each conflict domain's workloads in admit
-# order, which phase_b walks. Both are one stable sort on the composite
-# key (domain, ~fit, borrows, share, -priority, timestamp, index). Bound
-# on the H100: latency — a few KB in and out. Design: a counting rank.
-# One warp per workload counts the workloads whose composite key is
-# smaller (tiles of the keys staged through shared memory, lanes summed
-# with shuffles) and writes members[rank] = i and its domain at the same
-# rank; a second kernel on the stream gives one thread to each domain
-# boundary d, whose lower bound in the sorted domains is offsets[d].
-# O(W^2) comparisons, no atomics. With with_order (cluster columns on)
-# the same loop also counts the rank without the domain key and writes
-# the global admit order (the lexsort itself), which score_cluster_columns
-# scans.
+# order, which phase_b walks: one stable sort on the composite key
+# (domain, ~fit, borrows, share, -priority, timestamp, index); with
+# with_order (cluster columns on, the oracles) also the global admit order
+# (the lexsort itself), which score_cluster_columns scans. Bound on the
+# H100: latency and the launch, ~70 KB in and out. Design (csrc/order.cu):
+# each key packed into four 64-bit words whose unsigned order is the key's
+# order, so a compare is one 256-bit subtraction. The staged form
+# (`order_plan`: W <= ORDER_THREADS * ORDER_ILP, and the keys, the
+# workloads, a histogram of the domains, the topology's cq_cohort and
+# cohort_root and the block's workloads within ORDER_SMEM) is one launch:
+# every block finds every workload's domain (the tables looked up in
+# shared memory), scans the histogram into the offsets, lists the
+# workloads in domain order and ranks its own slice against its domain's
+# keys, loaded from global memory while its domains are small (the north
+# star's ~8), else staged in shared memory (one big domain, or the global
+# order, which counts against all keys). Above that, the global form packs
+# the keys into a global scratch once and launches a counting rank over
+# tiles of them and the offsets' lower bounds (three launches).
+
+ORDER_THREADS = 512          # the staged form's block (csrc/order.cu)
+ORDER_ILP = 8                # workloads a thread stages
+ORDER_SMEM = 200 * 1024      # shared memory the staged form may take
+ORDER_BLOCK_MINES = 16       # a staged block's workloads (more at ORDER_SMS)
+ORDER_SMS = 132              # the H100's SMs: order_plan's default
+ORDER_RANK_THREADS = 256     # the global form's rank block
+ORDER_RANK_MINES = 32        # workloads a rank block ranks
+# The staged form's chain (the latency bound's count), small domains: two
+# dependent global round trips (the CQs with the topology's tables; the
+# domain's keys) and its dependent block steps: the tables staged, the
+# histogram, the scan's three barriers, the list in domain order, the
+# rank's reduction.
+ORDER_ROUND_TRIPS = 2
+ORDER_STEPS = 7
+
+
+def order_plan(W: int, D: int, with_order: bool = False,
+               sms: int = None) -> dict:
+    """order_csr's launch on W workloads over D domains (csrc/order.cu):
+    the form ("staged" or "global"), its launches, blocks, threads,
+    dynamic shared memory, workloads a block ranks and scratch bytes.
+    Read at every call, so a test can shrink ORDER_SMEM to force the
+    global form."""
+    sms = ORDER_SMS if sms is None else sms
+    blocks = max(1, min(sms, -(-W // ORDER_BLOCK_MINES)))
+    mines = -(-W // blocks)
+    smem = 36 * W + 4 * (D + 1) + 4 * D + 12 * mines
+    if W <= ORDER_THREADS * ORDER_ILP and smem <= ORDER_SMEM:
+        return {"form": "staged", "launches": 1, "blocks": blocks,
+                "threads": ORDER_THREADS, "smem_bytes": smem,
+                "mines_per_block": mines, "scratch_bytes": 0,
+                "with_order": bool(with_order)}
+    return {"form": "global", "launches": 3 if W else 1,
+            "blocks": -(-W // ORDER_RANK_MINES),
+            "threads": ORDER_RANK_THREADS,
+            "smem_bytes": ORDER_RANK_THREADS * 36,
+            "mines_per_block": ORDER_RANK_MINES, "scratch_bytes": 40 * W,
+            "with_order": bool(with_order)}
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def admit_order(fit, borrows, priority, timestamp, share=None):
     """Stable lexsort on (timestamp, -priority, share, borrows, ~fit), the
@@ -579,11 +630,13 @@ def order_csr(topo, fit, borrows, priority, timestamp, wl_cq, share=None,
     C = topo["cohort_subtree"].shape[0]
     D = C + topo["cq_cohort"].shape[0]
     dev = fit.device
+    plan = order_plan(W, D, with_order, _sm_count(dev.index))
     offsets = torch.empty(D + 1, dtype=torch.int32, device=dev)
     members = torch.empty(W, dtype=torch.int32, device=dev)
-    sorted_dom = torch.empty(W, dtype=torch.int32, device=dev)  # scratch
     order = torch.empty(W, dtype=torch.int32, device=dev) if with_order \
         else None
+    scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8,
+                          device=dev) if plan["scratch_bytes"] else None
     _launch("order", [
         _ptr(topo["cq_cohort"], torch.int32, "cq_cohort"),
         _ptr(topo["cohort_root"], torch.int32, "cohort_root"),
@@ -595,11 +648,43 @@ def order_csr(topo, fit, borrows, priority, timestamp, wl_cq, share=None,
         _ptr(wl_cq, torch.int32, "wl_cq"),
         _ptr(offsets, torch.int32, "offsets"),
         _ptr(members, torch.int32, "members"),
-        _ptr(sorted_dom, torch.int32, "sorted_dom"),
         0 if order is None else _ptr(order, torch.int32, "order"),
-    ], [W, C, D], dev)
+        0 if scratch is None else scratch.data_ptr(),
+    ], [W, C, D, 0 if plan["form"] == "staged" else 1, plan["blocks"],
+        plan["mines_per_block"], plan["smem_bytes"]], dev)
     order_csr.launches += 1
+    order_csr.last_plan = plan
     return offsets, members, order
+
+
+order_csr.last_plan = None  # the last launch's order_plan
+
+
+def order_tick(device, iters: int = 4096) -> float:
+    """Clock cycles of one of the staged form's dependent block steps (a
+    shared load and a __syncthreads at ORDER_THREADS threads; csrc/order.cu
+    kq_step_kernel), the least of three runs."""
+    best = None
+    for _ in range(3):
+        out = torch.zeros(2, dtype=torch.int64, device=device)
+        _launch("order", [out.data_ptr(), 0], [2, iters], device,
+                symbol="order_tick_launch")
+        cycles = out[0].item() / iters
+        best = cycles if best is None else min(best, cycles)
+    return best
+
+
+def launch_floor_fns(device) -> dict:
+    """The card's launch floor, as two launchers to time: "empty" (a kernel
+    with an empty body, kq_empty_kernel) and "load_store" (one load and one
+    store, kq_load_store_kernel), both in csrc/order.cu."""
+    src = torch.ones(1, dtype=torch.int32, device=device)
+    out = torch.zeros(1, dtype=torch.int32, device=device)
+    return {"empty": lambda: _launch("order", [0, 0], [0, 0], device,
+                                     symbol="order_tick_launch"),
+            "load_store": lambda: _launch(
+                "order", [out.data_ptr(), src.data_ptr()], [1, 0], device,
+                symbol="order_tick_launch")}
 
 
 # ---------------------------------------------------------------------------
@@ -1082,10 +1167,13 @@ def apply_state_deltas(topo, usage, cohort_usage, dq, df, dr, dv, lvl_c,
 # ARENA_FIELDS rows of every arena slot; bools are bytes. Bound on the
 # H100: bytes — each row (217 B at P=4, F=32, R=2) is read once and
 # written once — but at <= 512 scattered rows and 2048 gathered rows the
-# launch latency dominates. Design: one block per row, its threads copy
-# the row's bytes of every field (gather: or zero them for a padding
-# slot); both kernels take the seven fields as (pointer, row bytes)
-# pairs, so one copy loop serves every dtype.
+# launch latency dominates. The scatter: one block per row, its threads
+# copying the row's bytes of every field, one byte loop for every dtype.
+# The gather (csrc/arena_gather.cu): a warp a row (a warp a
+# pass of 32 vectors for a wider row), every field's loads before any
+# store (two round trips a row), each field in the widest vector that
+# divides its row bytes and the alignment of its source and destination
+# (`arena_gather_plan`); a padding slot's row is zeroed without a load.
 
 ARENA_DTYPES = {"requests": torch.int64, "podset_active": torch.bool,
                 "wl_cq": torch.int32, "priority": torch.int64,
@@ -1145,6 +1233,34 @@ def gather_arena_plain(arena: dict, slots) -> tuple:
             solvable)
 
 
+ARENA_GATHER_WARPS = 8  # warps of a gather block
+# the vector widths (bytes) csrc/arena_gather.cu has instances for, by
+# field, widest first: the bool fields 16, 4 or 1; the others their
+# dtype's size (requests also 16)
+ARENA_GATHER_WIDTHS = {"requests": (16, 8), "podset_active": (16, 4, 1),
+                       "wl_cq": (4,), "priority": (8,), "timestamp": (8,),
+                       "eligible": (16, 4, 1), "solvable": (1,)}
+
+
+def arena_gather_plan(row_bytes, src_ptrs, dst_ptrs) -> dict:
+    """arena_gather's launch over the fields' (ARENA_FIELDS order) row
+    bytes and base addresses (as csrc/arena_gather.cu's launcher derives
+    it): each field's vector bytes (the widest of its ARENA_GATHER_WIDTHS
+    dividing its row bytes and both addresses), the passes a row takes (a
+    lane a vector, 32 a pass), the warps a row takes (its passes, rounded
+    up to 1, 2, 4 or 8) and the rows a block copies."""
+    vec = []
+    for name, rb, src, dst in zip(ARENA_FIELDS, row_bytes, src_ptrs,
+                                  dst_ptrs):
+        vec.append(next(v for v in ARENA_GATHER_WIDTHS[name]
+                        if rb % v == 0 and src % v == 0 and dst % v == 0))
+    most = max((rb // v for rb, v in zip(row_bytes, vec)), default=0)
+    passes = -(-most // 32)
+    warps = next(w for w in (1, 2, 4, 8) if w >= min(passes, 8))
+    return {"vec_bytes": vec, "passes": passes, "warps_per_row": warps,
+            "rows_per_block": ARENA_GATHER_WARPS // warps}
+
+
 def gather_arena(arena: dict, slots) -> tuple:
     if _is_cpu(slots):
         return gather_arena_plain(arena, slots)
@@ -1159,10 +1275,16 @@ def gather_arena(arena: dict, slots) -> tuple:
         srcs.append(_ptr(src, ARENA_DTYPES[name], f"arena.{name}"))
         dsts.append(_ptr(out, ARENA_DTYPES[name], name))
         sizes.append(_row_bytes(src))
+    plan = arena_gather_plan(sizes, srcs, dsts)
+    lgs = [v.bit_length() - 1 for v in plan["vec_bytes"]]
     _launch("arena_gather", [_ptr(slots, torch.int32, "slots"), *srcs,
-                             *dsts], [W, cap, *sizes], slots.device)
+                             *dsts], [W, cap, *sizes, *lgs], slots.device)
     gather_arena.launches += 1
+    gather_arena.last_plan = plan
     return tuple(outs)
+
+
+gather_arena.last_plan = None  # the last launch's arena_gather_plan
 
 
 # ---------------------------------------------------------------------------

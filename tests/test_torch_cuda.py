@@ -1467,3 +1467,187 @@ def test_phase_b_writes_every_admitted_bit_on_card(csr, cuda_device):
         want = tk.phase_b(*host)
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# K4 (csrc/order.cu) and K7b (csrc/arena_gather.cu), redesigned
+# ---------------------------------------------------------------------------
+
+ORDER_NAN_BITS = np.array([0x7ff8000000000000, 0x7ff8000000000123,
+                           0xfff8000000000000, 0xfff0000000000001,
+                           0x7ff0000000000001], np.uint64)
+ORDER_LIMIT = tk.ORDER_THREADS * tk.ORDER_ILP  # the staged form's W
+
+
+def order_case(W, seed, Q=64, C=8, edge=False, one_domain=False,
+               solo_every=0):
+    """order_csr's host inputs (topology, positional args, share)."""
+    rng = np.random.default_rng(seed)
+    cq_cohort = rng.integers(0, C, size=Q).astype(np.int32)
+    if solo_every:
+        cq_cohort[::solo_every] = -1
+    cohort_root = np.zeros(C, np.int32) if one_domain else \
+        np.arange(C, dtype=np.int32) // 2 * 2  # pairs under one root
+    i64 = np.iinfo(np.int64)
+    if edge:
+        prio = rng.choice(np.array([i64.min, i64.max, 0, 1, -1, i64.min + 1],
+                                   np.int64), size=W)
+        ts = rng.choice(np.concatenate([
+            [0.0, -0.0, np.inf, -np.inf, 1.5, -1.5, 5e-324, -5e-324],
+            ORDER_NAN_BITS.view(np.float64)]), size=W)
+        share = rng.choice(np.array([tk.NO_LIMIT, -1, -2, 0, i64.max, i64.min,
+                                     7], np.int64), size=W)
+    else:
+        prio = rng.integers(0, 3, size=W).astype(np.int64)
+        ts = rng.integers(0, 4, size=W).astype(np.float64)
+        share = rng.choice(np.array([-2, -1, 0, 0, 125, 333, tk.NO_LIMIT],
+                                    np.int64), size=W)
+    topo = {"cq_cohort": torch.from_numpy(cq_cohort),
+            "cohort_root": torch.from_numpy(cohort_root),
+            "cohort_subtree": torch.zeros((C, 1, 1), dtype=torch.int64)}
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        rng.random(W) < 0.7, rng.random(W) < 0.3, prio, ts,
+        rng.integers(0, Q, size=W).astype(np.int32)))
+    return topo, args, torch.from_numpy(share)
+
+
+def order_equal_on_card(topo, args, share, device, with_order):
+    """order_csr on the card against the plain version on the host; members
+    a permutation of range(W); the kernels launched, counted by the
+    profiler, as many as order_plan states. Returns the plan."""
+    from torch.profiler import ProfilerActivity, profile
+    card_topo = {k: v.to(device) for k, v in topo.items()}
+    card = tuple(a.to(device) for a in args)
+    card_share = None if share is None else share.to(device)
+    want = tk.order_csr(topo, *args, share, with_order=with_order)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = tk.order_csr(card_topo, *card, card_share,
+                           with_order=with_order)
+        torch.cuda.synchronize()
+    plan = tk.order_csr.last_plan
+    assert (got[2] is None) == (not with_order)
+    for a, b in zip(got, want):
+        if b is not None:
+            assert torch.equal(a.cpu(), b)
+    W = args[0].shape[0]
+    assert torch.equal(torch.sort(got[1].cpu()).values,
+                       torch.arange(W, dtype=torch.int32))
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.key.startswith("order_")
+                  and str(e.device_type).endswith("CUDA"))
+    assert kernels == plan["launches"], (kernels, plan)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_order", (False, True))
+@pytest.mark.parametrize("share", ("mixed", "none"))
+@pytest.mark.parametrize("W", (2048, 33))
+def test_order_edge_keys_on_card(W, share, with_order, cuda_device):
+    """-0.0 beside 0.0, NaNs of both signs and several payloads,
+    subnormals, +-inf, INT64_MIN and INT64_MAX priorities, NO_LIMIT,
+    INT64_MIN, INT64_MAX and negative shares, CQs with no cohort."""
+    topo, args, sh = order_case(W, 6, Q=2048 if W > 64 else 64,
+                                C=256 if W > 64 else 8, edge=True,
+                                solo_every=5)
+    plan = order_equal_on_card(topo, args, sh if share == "mixed" else None,
+                               cuda_device, with_order)
+    assert plan["form"] == "staged"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_order", (False, True))
+@pytest.mark.parametrize("W", (0, 1, 31, 33, ORDER_LIMIT, ORDER_LIMIT + 1))
+def test_order_shapes_on_card(W, with_order, cuda_device):
+    """W = 0 (offsets all zero), 1, a ragged warp, the staged form's limit
+    and one above it (the global form, three launches)."""
+    topo, args, share = order_case(W, W + 1, Q=2048, C=256, solo_every=9)
+    plan = order_equal_on_card(topo, args, share, cuda_device, with_order)
+    assert plan["form"] == ("staged" if W <= ORDER_LIMIT else "global")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_order", (False, True))
+@pytest.mark.parametrize("W", (64, 2048))
+def test_order_one_domain_on_card(W, with_order, cuda_device):
+    """Every workload in one domain: all CQs under one cohort tree."""
+    topo, args, share = order_case(W, 7, Q=2048, C=64, one_domain=True)
+    assert order_equal_on_card(topo, args, share, cuda_device,
+                               with_order)["form"] == "staged"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_order", (False, True))
+def test_order_65536_on_card(with_order, cuda_device):
+    """W = 65,536 over D = 65,536 + 256 domains: the global form."""
+    topo, args, share = order_case(65536, 11, Q=65536, C=256, solo_every=7)
+    assert order_equal_on_card(topo, args, share, cuda_device,
+                               with_order)["form"] == "global"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_order", (False, True))
+@pytest.mark.parametrize("edge", (False, True))
+def test_order_global_form_forced_on_card(edge, with_order, cuda_device,
+                                          monkeypatch):
+    """The global form at the north star's W, ORDER_SMEM shrunk to 0."""
+    monkeypatch.setattr(tk, "ORDER_SMEM", 0)
+    topo, args, share = order_case(2048, 12, Q=2048, C=256, edge=edge,
+                                   solo_every=5)
+    assert order_equal_on_card(topo, args, share, cuda_device,
+                               with_order)["form"] == "global"
+
+
+def gather_twin(S, W, P, F, R, seed, offset=0):
+    """A host twin of S rows, each field `offset` elements into a larger
+    buffer (off a 16-byte boundary for offset 1), and W slots with -1, -7,
+    S and S - 1 among them."""
+    rng = np.random.default_rng(seed)
+    shapes = {"requests": (P, R), "podset_active": (P,), "wl_cq": (),
+              "priority": (), "timestamp": (), "eligible": (P, F),
+              "solvable": ()}
+    twin = {}
+    for name in tk.ARENA_FIELDS:
+        shape = (S,) + shapes[name]
+        size = int(np.prod(shape))
+        dtype = tk.ARENA_DTYPES[name]
+        if dtype == torch.bool:
+            buf = torch.from_numpy(rng.random(size + 1) < 0.5)
+        elif dtype == torch.float64:
+            buf = torch.from_numpy(rng.random(size + 1))
+        else:
+            buf = torch.from_numpy(rng.integers(-1000, 1000, size=size + 1)
+                                   ).to(dtype)
+        twin[name] = buf
+    slots = rng.integers(-3, S + 2, size=W).astype(np.int32)
+    slots[:4] = (-1, -7, S, S - 1)[:min(4, W)]
+    return twin, shapes, torch.from_numpy(slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("shape", ((4, 32, 2), (3, 5, 3), (4, 32, 32)))
+@pytest.mark.parametrize("W", (1, 203, 2045))
+def test_gather_arena_on_card(W, shape, offset, cuda_device):
+    """Slots -1, -7, cap and cap - 1 (zero rows), P=3 F=5 R=3 (odd row
+    bytes), R = 32 (two passes), sources sliced one element off a 16-byte
+    boundary, W not a multiple of 8."""
+    P, F, R = shape
+    S = 512
+    bufs, shapes, slots = gather_twin(S, W, P, F, R, W + P, offset)
+    host, card = {}, {}
+    for name, buf in bufs.items():
+        size = int(np.prod((S,) + shapes[name]))
+        host[name] = buf[offset:offset + size].view((S,) + shapes[name])
+        card[name] = buf.to(cuda_device)[offset:offset + size].view(
+            (S,) + shapes[name])
+        assert card[name].is_contiguous()
+    if offset:
+        assert card["requests"].data_ptr() % 16 == 8
+    want = tk.gather_arena(host, slots)
+    got = tk.gather_arena(card, slots.to(cuda_device))
+    torch.cuda.synchronize()
+    for name, a, b in zip(tk.ARENA_FIELDS, got, want):
+        assert torch.equal(a.cpu(), b), name
+    pad = min(W, 3)  # slots -1, -7 and cap: zero rows
+    assert not want[0][:pad].any() and not want[5][:pad].any()
