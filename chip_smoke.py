@@ -26,9 +26,12 @@ north star's widths with 32 and with 17 resources, and cluster_cols at
 domain of 2048 workloads, at W one above its staged form's limit, at W =
 65,536 over 65,792 domains and on the edge keys (+-0.0, NaNs of both
 signs, subnormals, INT64_MIN and INT64_MAX priorities, NO_LIMIT shares),
-the global order off and on, and the arena gather on a twin of odd row
-bytes and on sources sliced off a 16-byte boundary, each equal to its
-plain version (cluster_cols also to the host oracle) and timed.
+the global order off and on, the arena gather on a twin of odd row
+bytes and on sources sliced off a 16-byte boundary, and the decision
+pack at W not a multiple of 32 or 8, odd P * R and sources off a 16-byte
+boundary, each equal to its plain version (cluster_cols also to the host
+oracle) and timed. The pack's row reports a latency bound of one global
+round trip.
 cluster_cols' rows are timed by CUDA events over back-to-back launches
 and report the pipeline's rows, live columns (its stages), warps and
 chunk steps, and its latency bound: (stages + chunks of 32 rows - 1)
@@ -93,7 +96,13 @@ versions:
    kernel (solve_fair) after the fit sync, with one sync for the
    preemption solves; its inputs in the first timed cycle are kept and
    held against the plain version, as is a synthetic nested input
-   (depth 3, every strategy order, padding); one traced cycle; then the
+   (depth 3, every strategy order, padding); the captured inputs and
+   the nested batch also with the arena in global scratch (the form past
+   shared memory), and a batch past 32 local CQs (K11's general
+   instance), each row with K11's launch plan (form, arena bytes, blocks
+   an SM, registers, ptxas's spills) and its latency bound (a global
+   round trip and the chain's steps, each a keyed pick and a share's
+   64-bit max measured in clock cycles); one traced cycle; then the
    same scenario with device="cpu" (the plain K11, the same solve stats)
    and on the cpu-forced route (the CPU Preemptor) must evict the same
    workloads with the same reasons and admit the same workloads. Last, a
@@ -276,6 +285,16 @@ FAIR_NESTED = dict(num_problems=900, max_candidates=120, max_local_cqs=12,
                    num_flavors=4, num_resources=2, table_rows=4096, seed=19)
 FAIR_STRATS = ((True, True, False), (True, False, False),
                (False, False, False), (False, True, True))
+# K11 past 32 local CQs (its general instance): 64 local CQs, K = 512
+FAIR_QL64 = dict(num_problems=150, max_candidates=300, max_local_cqs=40,
+                 depth=2, num_cqs=2048, num_leaf_cohorts=16, fanout=4,
+                 num_flavors=4, num_resources=2, table_rows=512, seed=3)
+# K11's time a launch on the fair cell's captured inputs before its
+# redesign (PERF.md section 6): this script's reading, and the previous
+# kernel's timed beside the new one in one call; printed beside the new
+# time, never in the kernels line
+K11_EARLIER_MS = 0.0458
+K11_PARENT_MS = 0.0757
 # the shared-sync measurement: rounds of calls of each form, in turns
 SYNC_ROUNDS = 4
 SYNC_CALLS = 25
@@ -340,6 +359,11 @@ WIDE_K7B = {
                          num_flavors=5, num_resources=3, offset=0, seed=2),
     "misaligned": dict(slots=4096, num_workloads=2045, num_podsets=4,
                        num_flavors=32, num_resources=2, offset=1, seed=3)}
+# K8 at W not a multiple of 32 or 8, odd P * R, chosen and chosen_borrow
+# one or three elements past a 16-byte boundary
+WIDE_K8 = {"w1": (1, 1, 1, 0), "w31_p3_r1_off1": (31, 3, 1, 1),
+           "w33_p3_r3_off1": (33, 3, 3, 1), "w2047_off1": (2047, 4, 2, 1),
+           "w2049_p1_r5_off3": (2049, 1, 5, 3)}
 ORDER_NAN_BITS = (0x7ff8000000000000, 0x7ff8000000000123, 0xfff8000000000000,
                   0xfff0000000000001, 0x7ff0000000000001)
 # collect's copy per key against one copy of all keys: calls of each, in
@@ -509,7 +533,11 @@ def profiled_device_ms(fn, iters: int, kernel_name: str):
     (kernel_record), from a torch.profiler trace of `iters` calls
     (device activity only, then, if that trace kept no record of them,
     host and device activity, as the traced cycles record); None when
-    neither holds device time for them."""
+    neither holds device time for them. A trace may keep fewer records
+    than the calls launched (in a long run, about half of K11's): the
+    time is then the mean record's times the launches a call (the
+    records a call, rounded, at least one), not the total over `iters`,
+    which would read low."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -520,11 +548,17 @@ def profiled_device_ms(fn, iters: int, kernel_name: str):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(device_us(e) for e in prof.key_averages()
-                    if kernel_record(e.key, kernel_name)
-                    and str(e.device_type).endswith("CUDA"))
+        rows = [e for e in prof.key_averages()
+                if kernel_record(e.key, kernel_name)
+                and str(e.device_type).endswith("CUDA")]
+        total = sum(device_us(e) for e in rows)
         if total:
-            return total / iters / 1e3
+            records = sum(e.count for e in rows)
+            per_call = max(1, round(records / iters))
+            if records != per_call * iters:
+                log(f"[profile] {kernel_name}: the trace kept {records} "
+                    f"records of {iters} calls")
+            return total / records * per_call / 1e3
     return None
 
 
@@ -931,7 +965,13 @@ def kernel_phase(kind: str, device, results: dict) -> None:
                          "load_cycles": b_tick["load_cycles"],
                          "sm_clock_khz": clock,
                          "latency_bound_ms": 2 * b_tick["load_cycles"]
-                         / clock}}
+                         / clock},
+        # the launch and one global round trip: no load depends on another
+        "pack": {"form": "a thread an output byte",
+                 "global_round_trips": 1,
+                 "load_cycles": b_tick["load_cycles"],
+                 "sm_clock_khz": clock,
+                 "latency_bound_ms": b_tick["load_cycles"] / clock}}
 
     log(f"[kernels:{kind}] order equal to plain with shares (non-zero, "
         f"negative) {json.dumps(share_counts)}; drf_share shares "
@@ -1736,12 +1776,38 @@ def fair_bytes(args, outs, usage) -> int:
     return moved
 
 
+FAIR_PLAN_KEYS = ("form", "arena_bytes", "smem_bytes_per_block",
+                  "blocks_per_sm", "grid", "threads", "registers",
+                  "local_bytes", "lane_per_cq")
+
+
+_FAIR_COSTS = {}
+
+
+def fair_step_costs(k, device) -> dict:
+    """ptxas's registers and spills of solve_fair, and the cycles of a
+    global round trip and of a pop's least step (the keyed pick and a
+    share's 64-bit max, kernel.fair_tick) on this card, measured once a
+    process."""
+    if not _FAIR_COSTS:
+        b_tick = k.phase_b_tick(device, 1)
+        _FAIR_COSTS.update(ptxas_report("solve_fair"),
+                           step_cycles=k.fair_tick(device),
+                           load_cycles=b_tick["load_cycles"],
+                           sm_clock_khz=b_tick["clock_khz"])
+    return _FAIR_COSTS
+
+
 def fair_kernel_check(label: str, k, args: tuple, kwargs: dict, got,
-                      n_real: int, timed: bool) -> dict:
+                      n_real: int, timed: bool, plain_ms=None) -> dict:
     """solve_fair's outputs `got` against the plain version on the same
-    card tensors (all four equal); with `timed`, the kernel's device
-    time (profiler), its time per call and the plain version's (CUDA
-    events), its byte bound and its chain of dependent steps."""
+    card tensors (all four equal); the launch plan (the arena's form and
+    bytes, blocks an SM, registers at run time and ptxas's, spills) and
+    the latency bound: one global round trip and the chain's dependent
+    steps, each the least step (fair_step_costs) at the SM clock; with
+    `timed`, the kernel's device time (profiler), its time per call and
+    the plain version's (CUDA events; `plain_ms` where a row on the same
+    inputs timed it) and its byte bound."""
     import torch
     want = k.solve_fair_plain(*args, **kwargs)
     compare(("targets", "feasible", "reasons", "stats"), got, want)
@@ -1764,6 +1830,12 @@ def fair_kernel_check(label: str, k, args: tuple, kwargs: dict, got,
            "fillback_max": int(stats[:, 2].max()),
            "filled_back": int(stats[:, 3].sum()),
            "dependent_steps": steps}
+    plan = k.fair_plan(*row["shape_B_K_QL_RF_CL_DC"], args[1].device)
+    row.update({key: plan[key] for key in FAIR_PLAN_KEYS})
+    row.update(fair_step_costs(k, args[1].device))
+    row["latency_bound_ms"] = (row["load_cycles"]
+                               + steps * row["step_cycles"]) \
+        / row["sm_clock_khz"]
     if timed:
         def run_kernel():
             return k.solve_fair(*args, **kwargs)
@@ -1772,14 +1844,18 @@ def fair_kernel_check(label: str, k, args: tuple, kwargs: dict, got,
             return k.solve_fair_plain(*args, **kwargs)
         torch.cuda.synchronize()
         row["call_ms"] = time_cuda(run_kernel, iters=10)
-        row["plain_ms"] = time_cuda(run_plain, iters=2, warmup=1)
+        row["plain_ms"] = time_cuda(run_plain, iters=2, warmup=1) \
+            if plain_ms is None else plain_ms
         kernel_ms = profiled_device_ms(run_kernel, 10, "solve_fair")
         row["ms"], row["ms_source"] = (kernel_ms, "profiler") \
             if kernel_ms is not None else (row["call_ms"], "events")
         row["bytes"] = fair_bytes(args[3:], want, args[1])
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
         row["library_ms"] = None
-    log(f"[kernels:solve_fair:{label}] equal to plain: " + json.dumps(row))
+    log(f"[kernels:solve_fair:{label}] equal to plain: " + json.dumps(row)
+        + (f"; before the redesign, K11 read {K11_EARLIER_MS} ms a launch "
+           f"here on the captured cycle, and {K11_PARENT_MS} beside the new "
+           "kernel in one call (PERF.md)" if label == "captured" else ""))
     return row
 
 
@@ -1968,6 +2044,36 @@ def scheduler_fair_preempt_phase(device) -> dict:
             strat == FAIR_STRATS[0])
     summary["kernel_rows"]["nested"] = \
         summary["kernel_rows"][f"nested {FAIR_STRATS[0]}"]
+    # the captured cycle and the nested batch with the arena in global
+    # scratch (the form past shared memory), and a batch past 32 local CQs
+    kw = {"strat": FAIR_STRATS[0]}
+    smem = kernel.FAIR_SMEM
+    kernel.FAIR_SMEM = 0
+    try:
+        for label, a, kwargs, n_real in (
+                ("captured", captured.args, captured.kwargs, heads_n),
+                ("nested", dev_args, kw, FAIR_NESTED["num_problems"])):
+            row = fair_kernel_check(
+                f"{label} global", kernel, a, kwargs,
+                kernel.solve_fair(*a, **kwargs), n_real, True,
+                plain_ms=summary["kernel_rows"][label]["plain_ms"])
+            if row["form"] != "global":
+                raise AssertionError("solve_fair: the global form took "
+                                     f"{row['form']}")
+            summary["kernel_rows"][f"{label} global"] = row
+    finally:
+        kernel.FAIR_SMEM = smem
+    topo, usage, cu, args = synth.synth_fair_inputs(**FAIR_QL64)
+    q_args = (kernel.topo_to_device(topo, device),
+              *kernel.state_to_device(usage, cu, device),
+              *(torch.from_numpy(a).to(device) for a in args))
+    row = fair_kernel_check("ql64", kernel, q_args, kw,
+                            kernel.solve_fair(*q_args, **kw),
+                            FAIR_QL64["num_problems"], True)
+    if row["lane_per_cq"] or row["shape_B_K_QL_RF_CL_DC"][2] <= 32:
+        raise AssertionError("solve_fair: the QL > 32 batch took the "
+                             "narrow instance")
+    summary["kernel_rows"]["ql64"] = row
     summary["traced_cycle"] = traced_cycle(
         phase, run_cycle, E2E_WARMUP + FAIR_PREEMPT_TIMED, kernel="solve_fair")
     gc.callbacks.remove(gc_clock)
@@ -2853,6 +2959,40 @@ def wide_gather_rows(device) -> dict:
     return rows
 
 
+def wide_pack_rows(device) -> dict:
+    """K8 on WIDE_K8's shapes: equal to pack_plain, timed."""
+    import numpy as np
+    import torch
+    from kueue_tpu_torch.solver import kernel as k
+    rows = {}
+    for label, (W, P, R, off) in WIDE_K8.items():
+        rng = np.random.default_rng(W + off)
+        n = W * P * R
+        c_all = torch.from_numpy(rng.integers(-1, 40, size=n + 8)
+                                 .astype(np.int32)).to(device)
+        b_all = torch.from_numpy(rng.random(n + 8) < 0.3).to(device)
+        args = (c_all[off:off + n].view(W, P, R),
+                b_all[off:off + n].view(W, P, R),
+                *(torch.from_numpy(rng.random(W) < p).to(device)
+                  for p in (0.7, 0.5, 0.3)))
+        want = k.pack_plain(*args)
+        row = {"max_abs_err": compare(("dec_pr", "dec_bits"), k.pack(*args),
+                                      want), "W": W, "PR": P * R,
+               "offset_elements": off}
+        torch.cuda.synchronize()
+        row["call_ms"] = time_cuda(lambda: k.pack(*args), iters=50)
+        row["plain_ms"] = time_cuda(lambda: k.pack_plain(*args), iters=50)
+        kernel_ms = profiled_device_ms(lambda: k.pack(*args), 50, "pack")
+        row["ms"], row["ms_source"] = (kernel_ms, "profiler") \
+            if kernel_ms is not None else (row["call_ms"], "events")
+        row["bytes"] = nbytes(*args, *want)
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        row["library_ms"] = None
+        log(f"[kernels:pack:{label}] equal to plain: " + json.dumps(row))
+        rows[f"pack_{label}"] = row
+    return rows
+
+
 def wide_phase(device) -> dict:
     """The shapes on which the first card kernels raised, each kernel
     against its plain version on the same card tensors and timed, outside
@@ -2924,6 +3064,7 @@ def wide_phase(device) -> dict:
             resources, True)
     rows.update(wide_order_rows(device))
     rows.update(wide_gather_rows(device))
+    rows.update(wide_pack_rows(device))
     rows["wall_s"] = time.perf_counter() - t_phase
     log(f"[wide] wall {rows['wall_s']:.1f} s")
     return rows
@@ -3448,12 +3589,14 @@ def main() -> int:
             # round trip and the steps (phase_b) or two and the reductions
             # (phase_a) in the least cycles measured on this card
             **({key: row[key] for key in ("form", "latency_bound_ms")}
-               if name in ("phase_a", "phase_b", "order", "arena_gather")
+               if name in ("phase_a", "phase_b", "order", "arena_gather",
+                           "pack")
                else {}),
             **({"nested_form": results["nested"][name]["form"],
                 "nested_latency_bound_ms":
                     results["nested"][name]["latency_bound_ms"]}
-               if name in ("phase_a", "phase_b", "order", "arena_gather")
+               if name in ("phase_a", "phase_b", "order", "arena_gather",
+                           "pack")
                else {}),
             # K4: the global order on the MultiKueue cycle's inputs, and
             # the wide shapes; K7b: the odd-width and misaligned twins
@@ -3489,8 +3632,25 @@ def main() -> int:
             **({"inputs": "the scheduler fair preempt phase's first timed "
                           "cycle",
                 "pops_max": row["pops_max"], "pops_mean": row["pops_mean"],
-                "fillback_max": row["fillback_max"]}
+                "fillback_max": row["fillback_max"],
+                **{key: row[key] for key in FAIR_PLAN_KEYS + (
+                    "ptxas_registers", "ptxas_spill_bytes", "step_cycles",
+                    "load_cycles", "sm_clock_khz", "latency_bound_ms")},
+                "nested_latency_bound_ms":
+                    results["nested"][name]["latency_bound_ms"],
+                "forms": {label: {key: e2e["scheduler_fair_preempt"]
+                                  ["kernel_rows"][label][key] for key in
+                                  ("ms", "call_ms", "plain_ms", "bound_ms",
+                                   "latency_bound_ms",
+                                   "shape_B_K_QL_RF_CL_DC", "form",
+                                   "lane_per_cq", "arena_bytes")}
+                          for label in ("captured global", "nested global",
+                                        "ql64")}}
                if name == "solve_fair" else {}),
+            **({"wide": {label: {key: wide[f"pack_{label}"][key]
+                                 for key in WIDE_KEYS + ("W", "PR")}
+                         for label in WIDE_K8}}
+               if name == "pack" else {}),
             # the sharded cycle's variants, on its captured inputs
             **({"sharded": {k: v for k, v in sharded["fill"]["rank_check"]
                             .items() if k.startswith("phase_b_")}}

@@ -13,7 +13,8 @@
 // -priority with the sign bit flipped (so NO_LIMIT and negative shares
 // keep their signed order; -priority wraps in two's complement, so
 // INT64_MIN stays first, as torch and JAX negate), the timestamp mapped
-// from double to an order-preserving uint64 (-0.0 as 0.0; every NaN one
+// from double to an order-preserving uint64 (-0.0 and every subnormal as
+// 0.0, as the JAX package's CPU backend flushes them; every NaN one
 // code above +inf, so NaNs tie and go last, as torch.sort places them),
 // the index last. A compare is one 256-bit subtraction's borrow, with no
 // branch over fields; keys are unique, so a workload's rank is the number
@@ -67,7 +68,7 @@ __device__ __forceinline__ kq_u64 kq_ord_i64(long long v) {
 __device__ __forceinline__ kq_u64 kq_ord_f64(double t) {
   kq_u64 b = (kq_u64)__double_as_longlong(t);
   if (t != t) return ~0ULL;      // every NaN, after +inf and tied
-  if ((b << 1) == 0) b = 0;      // -0.0 is 0.0
+  if (((b >> 52) & 0x7ff) == 0) b = 0;  // -0.0 and subnormals are 0.0
   return (b >> 63) ? ~b : (b | (1ULL << 63));
 }
 

@@ -572,14 +572,22 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+# the smallest normal double: a timestamp of smaller magnitude (a
+# subnormal, or -0.0) orders as 0.0
+MIN_NORMAL_F64 = 2.2250738585072014e-308
+
+
 def admit_order(fit, borrows, priority, timestamp, share=None):
     """Stable lexsort on (timestamp, -priority, share, borrows, ~fit), the
     last key most significant (kueue_tpu/solver/kernel.py:498-501;
     reference: entryOrdering.Less, scheduler.go:643-672): one stable
     sort per key, least significant first. share is zero with fair
-    sharing off."""
+    sharing off. Subnormal timestamps compare as 0.0, as in the JAX
+    package, whose CPU backend flushes subnormal doubles to zero."""
     if share is None:
         share = torch.zeros_like(priority)
+    timestamp = torch.where(timestamp.abs() < MIN_NORMAL_F64,
+                            torch.zeros_like(timestamp), timestamp)
     order = torch.sort(timestamp, stable=True).indices
     for key in (-priority, share, borrows.to(torch.int32),
                 (~fit).to(torch.int32)):
@@ -1756,10 +1764,14 @@ solve_preempt.last_plan = None  # the last launch's preempt_plan
 # stats[B,4] int32 = (candidates, pops, fill-back iterations, filled
 # back). Bound on the H100: latency — each problem is a chain of
 # dependent pops, each a reduction over its CQs and a walk of a cohort
-# chain; the bytes are small. Design (csrc/solve_fair.cu): one warp per
-# problem, a (CQ, rank) -> candidate table in per-warp scratch, lanes
-# over the CQs for the pick and over the slots for the shares, the usage
-# updates and the fit.
+# chain; the bytes are small. Design (csrc/solve_fair.cu): a block of one
+# warp per problem, the problem staged once into an arena (its rows, share
+# and slot constants, the (CQ, rank) -> candidate table, the removal log
+# and the candidate rows) in shared memory, or past FAIR_SMEM in global
+# scratch (fair_form); the initial shares a lane a CQ; for QL <= 32 each
+# CQ's heap state in its lane's registers and the pick four warp
+# reductions; lanes over the slots for a share, the usage updates and the
+# fit.
 
 # the share of a CQ of fair weight 0 (kueue_tpu/solver/fairpreempt.py:54)
 MAXSHARE = 2**62
@@ -2097,19 +2109,97 @@ def solve_fair_plain(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
     return targets, feasible, reasons, stats
 
 
-# most warps of solve_fair's persistent grid, per SM
-FAIR_WARPS_PER_SM = 32
+# The shared memory a solve_fair block may take for its problem's arena
+# (read at each call, so a test can shrink it to force the global form);
+# the H100 opts a block in to 227 KB.
+FAIR_SMEM = 200 * 1024
 
 
-def fair_scratch_words(QL: int, RF: int, CL: int, DC: int, K: int) -> tuple:
-    """Per-warp scratch of solve_fair: (int64 words, int32 words). int64:
-    the usage, nominal and guaranteed rows of the local CQs, the usage,
-    guaranteed, subtree and borrow-limit rows of the local cohorts, the
-    shares, a delta row and the fill-back's saved rows; int32: each CQ's
-    pop position, heap flag, first refused candidate and table start, the
-    (CQ, rank) -> candidate table and the removal log."""
-    return (3 * QL * RF + 4 * CL * RF + QL + RF + (1 + DC) * RF,
-            4 * QL + 1 + 2 * K)
+def fair_arena_bytes(QL: int, RF: int, CL: int, DC: int, K: int,
+                     stage: bool) -> int:
+    """Bytes of one problem's arena in csrc/solve_fair.cu (sf_layout).
+    int64: the usage, nominal, guaranteed and base_other rows of the local
+    CQs, the usage, guaranteed, subtree and borrow-limit rows of the local
+    cohorts, lendable, the request, the preemptor CQ's borrow limit, a
+    delta row and lendable's multipliers, the fill-back's saved rows, the
+    shares, weights, floors and the weights' multipliers, and with `stage`
+    the candidates' usage rows; int32: each slot's flavor, resource,
+    same-resource mask and multiplier shift, the CQs' global ids, the
+    cohorts', the cohort chains, the table's CSR, each CQ's position, heap
+    flag, first refused candidate, count, order and weight shift, the (CQ,
+    rank) table, the removal log (candidate and CQ), the candidates' table
+    rows and CQs, and with `stage` their priorities; bytes: the
+    needs-preemption slots and floor_any; rounded up to 16."""
+    w64 = 4 * QL * RF + 4 * CL * RF + 5 * RF + (1 + DC) * RF + 4 * QL \
+        + (K * RF if stage else 0)
+    w32 = 4 * RF + QL + CL + QL * DC + QL + 1 + 6 * QL + 5 * K \
+        + (K if stage else 0)
+    return -(-(8 * w64 + 4 * w32 + RF + QL) // 16) * 16
+
+
+# csrc/solve_fair.cu's forms, by their codes
+FAIR_FORMS = ("shared", "global")
+
+
+def fair_form(QL: int, RF: int, CL: int, DC: int, K: int,
+              smem: int = None) -> str:
+    """The arena's place: "shared" (all of it, the candidate rows staged,
+    in the block's shared memory) or "global" (a slice of global scratch a
+    block, the candidate rows read in place from the table)."""
+    smem = FAIR_SMEM if smem is None else smem
+    if fair_arena_bytes(QL, RF, CL, DC, K, True) <= smem:
+        return "shared"
+    return "global"
+
+
+def fair_grid(B: int, form: str, blocks_per_sm: int, sms: int) -> int:
+    """Blocks of solve_fair's launch: one a problem (a block is one warp)
+    with the arena in shared memory; the persistent grid the card holds
+    at once with it in global scratch (a slice a block)."""
+    if form == "shared":
+        return B
+    return max(1, min(B, max(blocks_per_sm, 1) * sms))
+
+
+@functools.lru_cache(maxsize=64)
+def _fair_plan_card(QL: int, RF: int, CL: int, DC: int, K: int,
+                    form: int) -> tuple:
+    """csrc's solve_fair_plan for a shape and form, once a process: (arena
+    bytes, registers, local bytes, blocks an SM, the largest dynamic
+    shared memory a block, 1 for the narrow instance)."""
+    out = (ctypes.c_longlong * 6)()
+    fn = _build.entry("solve_fair", 1, 6, "solve_fair_plan")
+    rc = fn(ctypes.cast(out, ctypes.c_void_p), *(ctypes.c_longlong(x) for x in
+            (QL, RF, CL, DC, K, form)), None)
+    if rc != 0:
+        raise RuntimeError(f"solve_fair_plan failed: CUDA error {rc}")
+    return tuple(out)
+
+
+def fair_plan(B: int, K: int, QL: int, RF: int, CL: int, DC: int,
+              device=None) -> dict:
+    """solve_fair's launch plan on the current card: the form, the arena's
+    bytes (checked against csrc's sf_layout), the dynamic shared memory a
+    block, blocks an SM by occupancy, the grid, the kernel's registers and
+    local bytes a thread, and whether the lane-a-CQ instance runs (QL <=
+    32)."""
+    form = fair_form(QL, RF, CL, DC, K)
+    in_smem = form == "shared"
+    out = _fair_plan_card(QL, RF, CL, DC, K, FAIR_FORMS.index(form))
+    arena = fair_arena_bytes(QL, RF, CL, DC, K, in_smem)
+    if out[0] != arena:
+        raise RuntimeError(f"solve_fair: csrc's arena of {out[0]} bytes "
+                           f"differs from fair_arena_bytes' {arena}")
+    if in_smem and arena > out[4]:
+        raise RuntimeError(f"solve_fair: FAIR_SMEM {FAIR_SMEM} is above the "
+                           f"card's {out[4]} bytes a block")
+    sms = _sm_count(torch.cuda.current_device() if device is None
+                    else device.index)
+    return {"form": form, "arena_bytes": arena,
+            "smem_bytes_per_block": arena if in_smem else 0,
+            "blocks_per_sm": out[3], "grid": fair_grid(B, form, out[3], sms),
+            "threads": 32, "registers": out[1], "local_bytes": out[2],
+            "lane_per_cq": bool(out[5])}
 
 
 def solve_fair(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
@@ -2117,6 +2207,8 @@ def solve_fair(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
                cand_prio_table, threshold_active, threshold, has_cohort,
                cand_rank, cq_count, cq_order, base_other, floor_ratio,
                floor_any, weight, lendable, strat: tuple):
+    """K11: solve_fair_plain on the card (csrc/solve_fair.cu), in the form
+    fair_plan picks (`solve_fair.last_plan`)."""
     args = (gq, gf, gr, gc, chain_local, requests, frs_np, cand_idx,
             cand_ql, cand_usage_table, cand_prio_table, threshold_active,
             threshold, has_cohort, cand_rank, cq_count, cq_order,
@@ -2139,11 +2231,10 @@ def solve_fair(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
     feasible = torch.zeros(B, dtype=torch.bool, device=dev)
     reasons = torch.zeros((B, K), dtype=torch.int8, device=dev)
     stats = torch.zeros((B, 4), dtype=torch.int32, device=dev)
-    warps = max(1, min(B, FAIR_WARPS_PER_SM * torch.cuda.get_device_properties(
-        dev).multi_processor_count))
-    w64, w32 = fair_scratch_words(QL, RF, CL, DC, K)
-    scratch64 = torch.empty(warps * w64, dtype=torch.int64, device=dev)
-    scratch32 = torch.empty(warps * w32, dtype=torch.int32, device=dev)
+    plan = fair_plan(B, K, QL, RF, CL, DC, dev)
+    scratch = torch.empty(plan["grid"] * plan["arena_bytes"]
+                          if plan["form"] == "global" else 16,
+                          dtype=torch.uint8, device=dev)
     _launch("solve_fair", [
         _ptr(topo["nominal"], torch.int64, "nominal"),
         _ptr(topo["guaranteed"], torch.int64, "guaranteed"),
@@ -2175,16 +2266,34 @@ def solve_fair(topo, usage, cohort_usage, gq, gf, gr, gc, chain_local,
         _ptr(floor_any, torch.bool, "floor_any"),
         _ptr(weight, torch.int64, "weight"),
         _ptr(lendable, torch.int64, "lendable"),
-        _ptr(scratch64, torch.int64, "scratch64"),
-        _ptr(scratch32, torch.int32, "scratch32"),
+        _ptr(scratch, torch.uint8, "scratch"),
         _ptr(targets, torch.bool, "targets"),
         _ptr(feasible, torch.bool, "feasible"),
         _ptr(reasons, torch.int8, "reasons"),
         _ptr(stats, torch.int32, "stats"),
-    ], [B, K, QL, RF, CL, DC, usage.shape[1], usage.shape[2], warps, s0,
-        has_retry, s1], dev)
+    ], [B, K, QL, RF, CL, DC, usage.shape[1], usage.shape[2], s0,
+        has_retry, s1, plan["grid"], FAIR_FORMS.index(plan["form"]),
+        plan["arena_bytes"]], dev)
     solve_fair.launches += 1
+    solve_fair.last_plan = plan
     return targets, feasible, reasons, stats
+
+
+solve_fair.last_plan = None  # the last launch's fair_plan
+
+
+def fair_tick(device, iters: int = 4096) -> float:
+    """Clock cycles of a pop's least step (csrc/solve_fair.cu
+    solve_fair_tick_kernel: the keyed pick's four reductions and a share's
+    64-bit max, each on the last one's result), the least of three runs."""
+    best = None
+    for _ in range(3):
+        out = torch.zeros(2, dtype=torch.int64, device=device)
+        _launch("solve_fair", [out.data_ptr()], [iters], device,
+                symbol="solve_fair_tick_launch")
+        cycles = out[0].item() / iters
+        best = cycles if best is None else min(best, cycles)
+    return best
 
 
 # ---------------------------------------------------------------------------
@@ -2614,7 +2723,9 @@ def build_order_grid(fit, borrows, priority, timestamp, wl_cq, cq_cohort,
     hierarchical cohorts), or a synthetic per-CQ domain for cohortless
     CQs. Within each domain, workloads keep their global-order rank; rows
     pad with -1; workloads that did not fit are left out (they never
-    admit). L is bucketed to a power of four from 8."""
+    admit). L is bucketed to a power of four from 8. Subnormal
+    timestamps keep their order by value here: numpy does not flush
+    them, in this package or the JAX one, unlike admit_order."""
     fit = np.asarray(fit)
     borrows = np.asarray(borrows)
     priority = np.asarray(priority)

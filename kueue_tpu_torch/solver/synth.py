@@ -341,6 +341,52 @@ def synth_fair_inputs(num_problems: int, max_candidates: int,
     return topo, usage, cusage, fair_args(batch)
 
 
+# the fair batch's argument positions (fairpreempt.fair_args)
+_FAIR_BASE, _FAIR_FLOOR, _FAIR_FANY, _FAIR_WEIGHT, _FAIR_LEND = 17, 18, 19, \
+    20, 21
+
+
+def synth_fair_edges(kind: str, num_problems: int = 48,
+                     max_candidates: int = 24, seed: int = 0, **kw):
+    """synth_fair_inputs' batch bent to an edge of K11's arithmetic:
+    "ties": every CQ at its nominal usage and every cohort at its subtree
+    (so nothing is borrowed and a removal frees without borrowing),
+    lendable 1000 and weight 1000 (or 0, 2^62, for a third of the CQs),
+    and base_other setting each CQ's share to one of a few values that
+    share a high word and differ in the low one, several equal (the tie
+    goes to cq_order, then the slot); "limits": borrow limits of CQs and
+    cohorts at and around 2^61 / 4, the clamp, and weight 0 for a third
+    of the CQs. Returns (topo, usage, cohort_usage, fair_args)."""
+    topo, usage, cu, args = synth_fair_inputs(num_problems, max_candidates,
+                                              seed=seed, **kw)
+    rng = np.random.default_rng(seed + 500)
+    args = [a.copy() for a in args]
+    B, QL, RF = args[_FAIR_BASE].shape
+    weight = args[_FAIR_WEIGHT]
+    weight[:] = np.where(rng.uniform(size=(B, QL)) < 0.3, 0, 1000)
+    if kind == "ties":
+        usage = topo["nominal"].copy()
+        cu = topo["cohort_subtree"].copy()
+        high = rng.integers(1, 4, size=(B, 1)) << 32
+        low = np.array([5, 7, 5, 7, 9], np.int64)[
+            rng.integers(0, 5, size=(B, QL))]
+        args[_FAIR_BASE][:] = 0
+        args[_FAIR_BASE][:, :, 0] = high + low
+        args[_FAIR_LEND][:] = 1000
+        args[_FAIR_FLOOR][:] = -1
+        args[_FAIR_FANY][:] = False
+    elif kind == "limits":
+        lim = (2**61) // 4
+        edges = np.array([lim - 1, lim, lim + 1, 2**61, 0], np.int64)
+        for name in ("borrow_limit", "cohort_borrow_limit"):
+            t = topo[name] = topo[name].copy()
+            pick = rng.uniform(size=t.shape) < 0.5
+            t[pick] = edges[rng.integers(0, len(edges), size=int(pick.sum()))]
+    else:
+        raise ValueError(f"unknown edge kind {kind!r}")
+    return topo, usage, cu, tuple(args)
+
+
 def synth_fair_problems(topo: dict, num_problems: int, max_candidates: int,
                         max_local_cqs: int = 4, table_rows: int = 64,
                         seed: int = 0):

@@ -26,7 +26,8 @@ from kueue_tpu_torch.solver.service import PREEMPT_KEYS, preempt_aux
 from kueue_tpu_torch.solver.synth import (cluster_oracle,
                                           fill_inactive_slots,
                                           synth_cluster_inputs,
-                                          synth_deltas, synth_fair_inputs,
+                                          synth_deltas, synth_fair_edges,
+                                          synth_fair_inputs,
                                           synth_fair_problems,
                                           synth_full_k_inputs,
                                           synth_nested_inputs,
@@ -400,6 +401,105 @@ def test_solve_fair_on_card_equals_plain(depth, cuda_device):
         assert feasible[:200].any() and not feasible[:200].all()
         assert not targets[200:].any() and not stats[200:].any()
         assert stats[:, 1].max() > 1
+
+
+def fair_card_batch(case: str):
+    """K11's batches for the forms and edges: (numpy batch, real problems,
+    FAIR_SMEM for the launch or None). "staged" and "global" are one
+    nested batch under two shared-memory caps; "past_smem" is QL = 64,
+    RF = 32, K = 4096, DC = 3, whose arena passes a block's shared memory
+    with the candidate rows staged (the global form); "ql64" has 64 local
+    CQs (the general instance); "ties" and "limits" are
+    synth_fair_edges' batches."""
+    if case in ("staged", "global"):
+        batch = synth_fair_inputs(200, 120, max_local_cqs=8, depth=3,
+                                  num_flavors=3, seed=4)
+        return batch, 200, None if case == "staged" else 0
+    if case == "past_smem":
+        topo, usage, cu, args = synth_fair_inputs(
+            12, 3000, max_local_cqs=40, depth=3, num_cqs=2048,
+            num_leaf_cohorts=16, fanout=4, num_flavors=4, num_resources=16,
+            table_rows=2048, seed=5)
+        args = list(args)
+        for i in (7, 8, 14):  # cand_idx, cand_ql, cand_rank: K = 4096
+            assert (args[8][:, 4096:] < 0).all()
+            args[i] = np.ascontiguousarray(args[i][:, :4096])
+        return (topo, usage, cu, tuple(args)), 12, None
+    if case == "ql64":
+        return synth_fair_inputs(150, 300, max_local_cqs=40, depth=2,
+                                 num_cqs=2048, num_leaf_cohorts=16, fanout=4,
+                                 num_flavors=4, table_rows=512, seed=3), \
+            150, None
+    return synth_fair_edges(case, num_problems=200, max_candidates=60,
+                            seed=2, max_local_cqs=8, num_cqs=256,
+                            num_flavors=3, depth=2), 200, None
+
+
+FAIR_FORMS = {"staged": "shared", "global": "global", "past_smem": "global",
+              "ql64": "shared", "ties": "shared", "limits": "shared"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", tuple(FAIR_FORMS))
+def test_solve_fair_forms_on_card(case, cuda_device, monkeypatch):
+    """K11 in each form (the arena in shared memory, in global scratch),
+    past 32 local CQs (the general instance),
+    at QL = 64, RF = 32, K = 4096, DC = 3, on shares that tie on the high
+    word and on the share (cq_order decides) and on limits around
+    2^61 / 4 with weight 0, under every strategy order: all four outputs
+    equal the plain version's on the same card tensors, and padding
+    problems keep the outputs' defaults."""
+    (topo, usage, cu, args), n_real, smem = fair_card_batch(case)
+    if smem is not None:
+        monkeypatch.setattr(tk, "FAIR_SMEM", smem)
+    tt = tk.topo_to_device(topo, cuda_device)
+    state = tk.state_to_device(usage, cu, cuda_device)
+    dev_args = [torch.from_numpy(a).to(cuda_device) for a in args]
+    B = args[0].shape[0]
+    for strat in ((True, True, False), (True, False, False),
+                  (False, False, False), (False, True, True)):
+        want = tk.solve_fair_plain(tt, *state, *dev_args, strat=strat)
+        got = tk.solve_fair(tt, *state, *dev_args, strat=strat)
+        torch.cuda.synchronize()
+        assert tk.solve_fair.last_plan["form"] == FAIR_FORMS[case]
+        assert tk.solve_fair.last_plan["lane_per_cq"] == (
+            args[0].shape[1] <= 32 and args[1].shape[1] <= 32)
+        for name, a, b in zip(("targets", "feasible", "reasons", "stats"),
+                              got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, strat)
+        targets, feasible, reasons, stats = (x.cpu() for x in got)
+        assert feasible[:n_real].any()
+        if n_real < B:
+            assert not targets[n_real:].any() and not feasible[n_real:].any()
+            assert not reasons[n_real:].any() and not stats[n_real:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,P,R,off", [
+    (1, 1, 1, 0), (31, 3, 1, 1), (33, 3, 3, 1), (2047, 4, 2, 1),
+    (2049, 1, 5, 3), (2048, 4, 2, 0), (2049, 4, 2, 0), (100, 2, 2, 2),
+    (32, 4, 2, 0)])
+def test_pack_edge_shapes_on_card(W, P, R, off, cuda_device):
+    """K8 at W not a multiple of 32 or 8 (bit-plane rows that leave 4-byte
+    boundaries), odd P * R, and chosen / chosen_borrow starting `off`
+    elements past a 16-byte boundary: equal to pack_plain."""
+    rng = np.random.default_rng(W + off)
+    n = W * P * R
+    chosen_all = torch.from_numpy(
+        rng.integers(-1, 40, size=n + 8).astype(np.int32)).to(cuda_device)
+    borrow_all = torch.from_numpy(rng.random(n + 8) < 0.3).to(cuda_device)
+    chosen = chosen_all[off:off + n].view(W, P, R)
+    borrow = borrow_all[off:off + n].view(W, P, R)
+    fit, admitted, borrows = (torch.from_numpy(rng.random(W) < p)
+                              .to(cuda_device) for p in (0.7, 0.5, 0.3))
+    args = (chosen, borrow, fit, admitted, borrows)
+    before = tk.launch_counts()["pack"]
+    got = tk.pack(*args)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["pack"] == before + 1
+    want = tk.pack_plain(*(a.cpu() for a in args))
+    for name, a, b in zip(("dec_pr", "dec_bits"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), name
 
 
 def preemptions_syncs(solver, calls: list) -> None:

@@ -6,8 +6,8 @@ The CUDA kernels run only on the card (tests/test_torch_cuda.py). Here:
 `kernel.arena_gather_plan`'s vector widths; the packed key (four 64-bit
 words whose unsigned order is the admit key's order) as a numpy model,
 whose order equals order_csr_plain's and the JAX lexsort's on keys with
-signed zeros, NaNs of both signs and several payloads, subnormals (the
-plain version's order: XLA's CPU backend flushes them), INT64_MIN and
+signed zeros, NaNs of both signs and several payloads, subnormals of
+both signs (flushed to 0.0, as XLA's CPU backend flushes them), INT64_MIN and
 INT64_MAX priorities, NO_LIMIT and negative shares; and numpy models of
 the kernel's two forms (the staged form's histogram, scan, scatter into
 domain order in any order and rank within the domain; the global form's
@@ -30,6 +30,12 @@ NAN_BITS = np.array([0x7ff8000000000000, 0x7ff8000000000123,
                      0xfff8000000000000, 0xfff0000000000001,
                      0x7ff0000000000001], np.uint64)
 SIGN = np.uint64(1 << 63)
+# subnormals of both signs, the largest one, and the smallest normal,
+# which must not tie 0.0
+MAX_SUBNORMAL = 2.225073858507201e-308
+MIN_NORMAL = 2.2250738585072014e-308
+SUBNORMAL_EDGES = np.array([5e-324, -5e-324, 1e-310, -1e-310, MAX_SUBNORMAL,
+                            -MAX_SUBNORMAL, MIN_NORMAL, -MIN_NORMAL])
 
 
 def ord_i64(v):
@@ -38,9 +44,9 @@ def ord_i64(v):
 
 def ord_f64(t):
     """csrc/order.cu kq_ord_f64: an order-preserving uint64 of a double,
-    -0.0 as 0.0 and every NaN one code above +inf."""
+    -0.0 and every subnormal as 0.0, every NaN one code above +inf."""
     b = np.asarray(t, np.float64).view(np.uint64).copy()
-    b[(b << np.uint64(1)) == 0] = 0
+    b[(b >> np.uint64(52)) & np.uint64(0x7ff) == 0] = 0
     out = np.where(b >> np.uint64(63) == 1, ~b, b | SIGN)
     out[np.isnan(t)] = np.uint64(2**64 - 1)
     return out
@@ -169,7 +175,7 @@ def order_inputs(W, seed, edge=False, one_domain=False, solo_every=0,
                                             -1.5]),
                                   NAN_BITS.view(np.float64)])
         if edge == "subnormal":
-            special = np.concatenate([special, [5e-324, -5e-324, 1e-310]])
+            special = np.concatenate([special, SUBNORMAL_EDGES])
         timestamp = rng.choice(special, size=W)
         share = rng.choice(np.array([tk.NO_LIMIT, -1, -2, 0, INT64_MAX,
                                      INT64_MIN, 7], np.int64), size=W)
@@ -218,11 +224,6 @@ def test_packed_key_order_matches_plain_and_jax(case, share_kind):
     offsets, members, order = plain_csr(*args)
     j_offsets, j_members, j_order = jax_csr(*args)
     np.testing.assert_array_equal(packed, order)
-    if case.get("edge") == "subnormal":
-        # XLA's CPU backend flushes subnormals to zero, torch does not (nor
-        # does FP64 on the card): here the kernel follows the plain version
-        assert (np.abs(timestamp[timestamp != 0]) < 2.3e-308).any()
-        return
     np.testing.assert_array_equal(packed, j_order)
     np.testing.assert_array_equal(offsets, j_offsets)
     np.testing.assert_array_equal(members, j_members)
@@ -256,15 +257,43 @@ def test_order_form_models_match_plain(case, with_order):
 
 
 def test_ord_f64_edges():
-    """-0.0 ties 0.0; every NaN ties every other, above +inf; negative
+    """-0.0 and every subnormal tie 0.0; the smallest normal of either
+    sign does not; every NaN ties every other, above +inf; negative
     numbers below positive ones in their order."""
     nans = NAN_BITS.view(np.float64)
-    vals = np.array([-np.inf, -1.5, -5e-324, -0.0, 0.0, 5e-324, 1.5, np.inf])
+    vals = np.array([-np.inf, -1.5, -MIN_NORMAL, -MAX_SUBNORMAL, -5e-324,
+                     -0.0, 0.0, 5e-324, 1e-310, MAX_SUBNORMAL, MIN_NORMAL,
+                     1.5, np.inf])
     codes = ord_f64(vals)
-    assert codes[3] == codes[4]
-    assert (np.diff(codes[[0, 1, 2, 4, 5, 6, 7]].astype(object)) > 0).all()
+    zero = codes[6]
+    assert (codes[3:10] == zero).all()
+    assert (np.diff(codes[[0, 1, 2, 6, 10, 11, 12]].astype(object)) > 0).all()
     nan_codes = ord_f64(nans)
     assert (nan_codes == nan_codes[0]).all() and nan_codes[0] > codes[-1]
+
+
+@pytest.mark.parametrize("seed", (0, 1, 2))
+def test_subnormal_timestamps_tie_zero_like_jax(seed):
+    """The repaired fault: subnormal timestamps of both signs tie +-0.0 in
+    admit_order, as in the JAX lexsort (XLA's CPU backend flushes them),
+    and the smallest normal orders above them."""
+    rng = np.random.default_rng(seed)
+    W = 64
+    ts = rng.choice(np.concatenate([[0.0, -0.0], SUBNORMAL_EDGES]), size=W)
+    ts[:4] = (MIN_NORMAL, -MIN_NORMAL, 5e-324, -0.0)
+    fit = np.ones(W, bool)
+    borrows = np.zeros(W, bool)
+    priority = np.zeros(W, np.int64)
+    got = tk.admit_order(*(torch.from_numpy(a) for a in (fit, borrows,
+                                                         priority, ts)))
+    want = jnp.lexsort((jnp.asarray(ts), -jnp.asarray(priority)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    tiny = np.abs(ts) < MIN_NORMAL
+    pos = np.empty(W, np.int64)
+    pos[got.numpy()] = np.arange(W)
+    # the ties keep the index order; the smallest normals bound them
+    assert (np.diff(pos[tiny]) > 0).all()
+    assert pos[1] < pos[tiny].min() and pos[0] > pos[tiny].max()
 
 
 STAGED_D = 2304  # the north star's domains: 256 cohorts + 2048 CQs
