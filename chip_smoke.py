@@ -16,8 +16,12 @@ phase_b is also timed over a column list of the occupied domains on the
 same inputs. The admit order (K4) and the arena gather (K7b) report
 their form (order_plan's; the gather's vector widths) and a latency
 bound (K4: four global round trips and its block steps, K7b: two round
-trips), and every kernel's row the launch floor (an empty kernel's
-device time, measured first). Then, on
+trips), drf_share and deltas report their form (drf_share_plan's lanes
+a head; deltas_plan's) and a latency bound (a head's three round trips,
+two floor divisions and its shuffles; two round trips and a level step
+a level, each measured in clock cycles by their tick kernels), and every
+kernel's row the launch floor (an empty kernel's device time, measured
+first). Then, on
 the shapes the first kernels raised on, solve_preempt with a problem of
 exactly 131,072 candidates (32-bit candidate indices), phase_a at the
 north star's widths with 32 and with 17 resources, and cluster_cols at
@@ -29,8 +33,13 @@ signs, subnormals, INT64_MIN and INT64_MAX priorities, NO_LIMIT shares),
 the global order off and on, the arena gather on a twin of odd row
 bytes and on sources sliced off a 16-byte boundary, and the decision
 pack at W not a multiple of 32 or 8, odd P * R and sources off a 16-byte
-boundary, each equal to its plain version (cluster_cols also to the host
-oracle) and timed. The pack's row reports a latency bound of one global
+boundary, drf_share at F = 1, 32 and 33 by R = 1, 2, 3, 17 and 32 and
+with quantities past 2^53 and past int64, and deltas on a tree with CQs
+attached at two depths (a cohort coord at levels 0 and 1 of the tuple),
+at 2049 and 16,384 coords there (D = 8192 and 32,768: opted-in shared
+memory and the global form), with no cohort level and 10 levels deep,
+each equal to its plain version (cluster_cols also to the host oracle)
+and timed. The pack's row reports a latency bound of one global
 round trip.
 cluster_cols' rows are timed by CUDA events over back-to-back launches
 and report the pipeline's rows, live columns (its stages), warps and
@@ -64,7 +73,7 @@ versions:
    each bound cycle's resident usage held against the mirror and a
    fresh encode; drf_share's inputs in the first timed cycle are kept
    and its shares there held against the plain version on the same card
-   tensors, and again with a seeded usage and weights 0/500/1000/3000
+   tensors and timed, and again with a seeded usage and weights 0/500/1000/3000
    (the cell's own shares are uniform: every CQ has weight 1000 and
    starts the cycle empty); then the same cycles on the CPU
    (device="cpu") must admit the same workloads and leave the same
@@ -155,6 +164,7 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -364,6 +374,19 @@ WIDE_K7B = {
 WIDE_K8 = {"w1": (1, 1, 1, 0), "w31_p3_r1_off1": (31, 3, 1, 1),
            "w33_p3_r3_off1": (33, 3, 3, 1), "w2047_off1": (2047, 4, 2, 1),
            "w2049_p1_r5_off3": (2049, 1, 5, 3)}
+# K3 and K6 beside their main shapes (wide_phase): drf_share at F = 1, 32
+# and 33 flavors by R = 1, 2, 3, 17 and 32 resources, and with the
+# quantities scaled past 2^53 (the int64 division) and past int64 (a
+# wrapping product), on synth.synth_share_inputs' batches (weights
+# 0/500/1000/3000, a root lending nothing, 2048 CQs and heads); deltas on
+# the nested tree with every 3rd CQ attached one level up (a cohort coord
+# at levels 0 and 1 of the tuple), at 2049 and 16,384 coords there (D =
+# 8192, opted-in shared memory; D = 32,768, the global form), with no
+# cohort level, and on trees 10 deep (past the register form's levels)
+WIDE_K3 = tuple((F, R, 1) for F in (1, 32, 33) for R in (1, 2, 3, 17, 32)) \
+    + ((32, 2, 2**33), (32, 2, 2**45))
+WIDE_K6 = {"mixed_depth": 256, "mixed_2049": 2049, "mixed_16384": 16384,
+           "zero_levels": 256, "deep10": 300}
 ORDER_NAN_BITS = (0x7ff8000000000000, 0x7ff8000000000123, 0xfff8000000000000,
                   0xfff0000000000001, 0x7ff0000000000001)
 # collect's copy per key against one copy of all keys: calls of each, in
@@ -688,6 +711,146 @@ def deltas_bytes(deltas) -> int:
     return nbytes(*deltas) + coords * 3 * 8
 
 
+@functools.cache
+def card_ticks(device) -> dict:
+    """The least costs the K3 and K6 latency bounds count, measured once a
+    run in clock cycles on the card: a dependent global load read past
+    L1 and the SM clock (phase_b_tick), a floor division and a
+    shuffle-add (drf_share_tick), a level step of the delta prologue
+    (deltas_tick)."""
+    from kueue_tpu_torch.solver import kernel as k
+    b_tick = k.phase_b_tick(device, 1)
+    return {"load_cycles": b_tick["load_cycles"],
+            "sm_clock_khz": b_tick["clock_khz"], **k.drf_share_tick(device),
+            "level_step_cycles": k.deltas_tick(device)}
+
+
+def share_latency(plan: dict, ticks: dict) -> dict:
+    """drf_share's latency bound: a head's three dependent global round
+    trips (its CQ; the CQ's rows and root; the root's lendable row), its
+    two floor divisions and the plan's shuffle steps."""
+    cycles = (3 * ticks["load_cycles"] + 2 * ticks["div_cycles"]
+              + plan["shuffles"] * ticks["shuffle_cycles"])
+    return {"form": plan["form"], "plan": plan, "global_round_trips": 3,
+            "divisions": 2, "shuffles": plan["shuffles"],
+            **{key: ticks[key] for key in ("load_cycles", "div_cycles",
+                                           "shuffle_cycles",
+                                           "sm_clock_khz")},
+            "latency_bound_ms": cycles / ticks["sm_clock_khz"]}
+
+
+def deltas_latency(plan: dict, levels: int, ticks: dict) -> dict:
+    """The delta prologue's latency bound: two dependent global round
+    trips (the coords; the values at them), then a level step for the
+    delta coords' sums and one for each cohort level."""
+    steps = levels + 1 if levels else 0
+    cycles = 2 * ticks["load_cycles"] + steps * ticks["level_step_cycles"]
+    return {"form": plan["form"], "plan": plan, "global_round_trips": 2,
+            "level_steps": steps,
+            **{key: ticks[key] for key in ("load_cycles",
+                                           "level_step_cycles",
+                                           "sm_clock_khz")},
+            "latency_bound_ms": cycles / ticks["sm_clock_khz"]}
+
+
+def share_kernel_row(k, args: tuple, device) -> dict:
+    """drf_share on `args` (topology, usage, assignment, wl_cq, on the
+    card) against drf_share_plain on the same tensors, timed: the
+    profiler's device time a launch, back-to-back calls, the plain
+    version, the byte and latency bounds."""
+    import torch
+    row = {"max_abs_err": compare(("share",), (k.drf_share(*args),),
+                                  (k.drf_share_plain(*args),)),
+           "shape_W_F_R": list(args[2].shape)}
+    torch.cuda.synchronize()
+    row["call_ms"] = time_cuda(lambda: k.drf_share(*args), iters=50)
+    row["plain_ms"] = time_cuda(lambda: k.drf_share_plain(*args), iters=20)
+    kernel_ms = profiled_device_ms(lambda: k.drf_share(*args), 50,
+                                   "drf_share")
+    row["ms"], row["ms_source"] = (kernel_ms, "profiler") \
+        if kernel_ms is not None else (row["call_ms"], "events")
+    row["bytes"] = drf_share_bytes(args[0], args[2], args[3])
+    row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    row["library_ms"] = None
+    row.update(share_latency(k.drf_share.last_plan, card_ticks(device)))
+    return row
+
+
+def deltas_kernel_row(k, topo, usage, cu, deltas, device) -> dict:
+    """apply_state_deltas against its plain version on copies of the same
+    card state, timed as share_kernel_row times drf_share (in place:
+    the timed calls keep applying the tuple to one copy)."""
+    import torch
+    from kueue_tpu_torch.solver import synth
+    got, want = (usage.clone(), cu.clone()), (usage.clone(), cu.clone())
+    k.apply_state_deltas(topo, *got, *deltas)
+    k.apply_state_deltas_plain(topo, *want, *deltas)
+    lvl_c = deltas[4].cpu().numpy()
+    row = {"max_abs_err": compare(("usage", "cohort_usage"), got, want),
+           "D": int(deltas[0].shape[0]), "L": int(lvl_c.shape[0]),
+           "coords": int((deltas[0] >= 0).sum()),
+           "shared_level_coords": synth.shared_level_coords(lvl_c)}
+    plan = dict(k.apply_state_deltas.last_plan)
+    torch.cuda.synchronize()
+    row["call_ms"] = time_cuda(lambda: k.apply_state_deltas(
+        topo, *got, *deltas), iters=50)
+    row["plain_ms"] = time_cuda(lambda: k.apply_state_deltas_plain(
+        topo, *want, *deltas), iters=10)
+    kernel_ms = profiled_device_ms(lambda: k.apply_state_deltas(
+        topo, *got, *deltas), 50, "deltas")
+    row["ms"], row["ms_source"] = (kernel_ms, "profiler") \
+        if kernel_ms is not None else (row["call_ms"], "events")
+    row["bytes"] = deltas_bytes(deltas)
+    row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    row["library_ms"] = None
+    row.update(deltas_latency(plan, row["L"], card_ticks(device)))
+    return row
+
+
+def wide_share_rows(device) -> dict:
+    """K3 on WIDE_K3's shapes and K6 on WIDE_K6's: equal to the plain
+    versions, timed."""
+    import numpy as np
+    import torch
+    from kueue_tpu_torch.solver import kernel as k, synth
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    rows = {}
+    for F, R, scale in WIDE_K3:
+        topo, usage, asg, wl_cq = synth.synth_share_inputs(
+            F, R, num_cqs=2048, num_workloads=2048, scale=scale,
+            seed=F * 100 + R)
+        row = share_kernel_row(k, (k.topo_to_device(topo, device), dev(usage),
+                                   dev(asg), dev(wl_cq)), device)
+        label = f"f{F}_r{R}" + (f"_scale_2^{scale.bit_length() - 1}"
+                                if scale > 1 else "")
+        log(f"[kernels:drf_share:{label}] equal to plain: "
+            + json.dumps(row))
+        rows[f"drf_share_{label}"] = row
+    mixed = synth.synth_nested_inputs(seed=7, attach_up_every=3, **NESTED)
+    deep = synth.synth_nested_inputs(
+        num_cqs=512, num_leaf_cohorts=512, fanout=2, depth=10,
+        num_flavors=4, num_resources=2, num_workloads=8, attach_up_every=5,
+        seed=3)
+    for label, coords in WIDE_K6.items():
+        topo, usage, cu, _ = deep if label == "deep10" else mixed
+        deltas = synth.synth_deltas(topo, usage, coords, seed=coords,
+                                    level_pairs=4 if label == "deep10"
+                                    else 8)
+        if label == "zero_levels":
+            deltas = deltas[:4] + (deltas[4][:0], deltas[5][:0])
+        row = deltas_kernel_row(k, k.topo_to_device(topo, device), dev(usage),
+                                dev(cu), tuple(dev(a) for a in deltas),
+                                device)
+        if label.startswith("mixed") and not row["shared_level_coords"]:
+            raise AssertionError(f"deltas {label}: no cohort coord at two "
+                                 "levels")
+        log(f"[kernels:deltas:{label}] equal to plain: " + json.dumps(row))
+        rows[f"deltas_{label}"] = row
+    return rows
+
+
 def row_bytes(twin: dict) -> int:
     """Bytes of one arena row over every field."""
     return sum(t[0].numel() * t.element_size() for t in twin.values())
@@ -921,6 +1084,11 @@ def kernel_phase(kind: str, device, results: dict) -> None:
     g_plan = dict(k.gather_arena.last_plan)
     DC = topo["cq_chain"].shape[1]
     b_tick = k.phase_b_tick(device, min(DC, 4))
+    k.drf_share(*s_args)
+    s_plan = dict(k.drf_share.last_plan)
+    k.apply_state_deltas(topo, usage.clone(), cu.clone(), *deltas)
+    d_plan = dict(k.apply_state_deltas.last_plan)
+    ticks = card_ticks(device)
     redux = k.phase_a_tick(device)
     o_step = k.order_tick(device)
     q = wl["wl_cq"].long()
@@ -967,6 +1135,10 @@ def kernel_phase(kind: str, device, results: dict) -> None:
                          "latency_bound_ms": 2 * b_tick["load_cycles"]
                          / clock},
         # the launch and one global round trip: no load depends on another
+        # a head's three dependent round trips, two divisions, shuffles
+        "drf_share": share_latency(s_plan, ticks),
+        # two round trips, then a level step a level (and the first sums)
+        "deltas": deltas_latency(d_plan, int(deltas[4].shape[0]), ticks),
         "pack": {"form": "a thread an output byte",
                  "global_round_trips": 1,
                  "load_cycles": b_tick["load_cycles"],
@@ -1421,7 +1593,9 @@ def check_captured_share(captured: Captured, k) -> dict:
     out = {"heads": int(asg.shape[0]), "shape": list(asg.shape),
            "main_path_distinct": sorted(
                int(v) for v in torch.unique(captured.out).cpu())[:16],
-           "varied_distinct": distinct, "max_abs_err": 0}
+           "varied_distinct": distinct, "max_abs_err": 0,
+           # the main path's own inputs, timed beside the plain version
+           "row": share_kernel_row(k, captured.args, usage.device)}
     log("[scheduler_fair] drf_share equal to plain on the captured cycle's "
         "inputs and on them with varied usage and weights: "
         + json.dumps(out))
@@ -3065,6 +3239,7 @@ def wide_phase(device) -> dict:
     rows.update(wide_order_rows(device))
     rows.update(wide_gather_rows(device))
     rows.update(wide_pack_rows(device))
+    rows.update(wide_share_rows(device))
     rows["wall_s"] = time.perf_counter() - t_phase
     log(f"[wide] wall {rows['wall_s']:.1f} s")
     return rows
@@ -3590,14 +3765,28 @@ def main() -> int:
             # (phase_a) in the least cycles measured on this card
             **({key: row[key] for key in ("form", "latency_bound_ms")}
                if name in ("phase_a", "phase_b", "order", "arena_gather",
-                           "pack")
+                           "pack", "drf_share", "deltas")
                else {}),
             **({"nested_form": results["nested"][name]["form"],
                 "nested_latency_bound_ms":
                     results["nested"][name]["latency_bound_ms"]}
                if name in ("phase_a", "phase_b", "order", "arena_gather",
-                           "pack")
+                           "pack", "drf_share", "deltas")
                else {}),
+            # K3 on the fair cell's captured inputs and WIDE_K3's shapes,
+            # K6 on WIDE_K6's
+            **({"captured": {key: e2e["scheduler_fair"]["drf_share_check"]
+                             ["row"][key] for key in WIDE_KEYS + (
+                                 "shape_W_F_R", "form", "latency_bound_ms")}}
+               if name == "drf_share" else {}),
+            **({"wide": {key[len(name) + 1:]: {
+                k2: r[k2] for k2 in WIDE_KEYS + (
+                    ("shape_W_F_R", "form", "latency_bound_ms")
+                    if name == "drf_share" else
+                    ("D", "L", "coords", "shared_level_coords", "form",
+                     "latency_bound_ms"))}
+                for key, r in wide.items() if key.startswith(name + "_")}}
+               if name in ("drf_share", "deltas") else {}),
             # K4: the global order on the MultiKueue cycle's inputs, and
             # the wide shapes; K7b: the odd-width and misaligned twins
             **({"with_order": {key: row["with_order"][key] for key in

@@ -151,14 +151,55 @@ def domain_tables(cq_cohort, cohort_root, cq_chain) -> dict:
             "cq_slot": cq_slot, "cq_chain_slot": cq_chain_slot}
 
 
+# The chain tables drf_share and the delta prologue read, derived once
+# per topology (`chain_tables`), in topo_to_device's output beside
+# DOMAIN_FIELDS.
+CHAIN_FIELDS = ("cq_root", "cohort_multilevel")
+
+
+def chain_tables(cq_cohort, cohort_root, cohort_parent, cq_chain) -> dict:
+    """Per-topology tables that take dependent lookups off the kernels'
+    chains (numpy):
+    - cq_root [Q] int32: the root cohort of each CQ's cohort, -1 for a CQ
+      with no cohort (drf_share's lendable row);
+    - cohort_multilevel [C] bool: the cohorts that can sit at two levels
+      of one delta tuple. encode.deltas_from_coords puts the CQs' direct
+      cohorts (cq_chain[:, 0]) at level 0 and the parents of level l's
+      cohorts at level l + 1, for cq_chain.shape[1] levels; a cohort
+      reached at two of those levels (CQs attached under it at two
+      depths) is marked, and the delta kernel reads its old usage at
+      each level, after the earlier levels' adds."""
+    cq_cohort = np.asarray(cq_cohort)
+    cohort_root = np.asarray(cohort_root)
+    cohort_parent = np.asarray(cohort_parent)
+    cq_chain = np.asarray(cq_chain)
+    C = cohort_root.shape[0]
+    cq_root = np.where(cq_cohort >= 0,
+                       cohort_root[np.maximum(cq_cohort, 0)] if C else -1,
+                       -1).astype(np.int32)
+    levels = np.zeros(C, np.int32)
+    at = np.unique(cq_chain[:, 0]) if cq_chain.shape[1] else \
+        np.zeros(0, np.int64)
+    for _ in range(cq_chain.shape[1]):
+        at = at[at >= 0]
+        if not at.size:
+            break
+        levels[at] += 1
+        at = np.unique(cohort_parent[at])
+    return {"cq_root": cq_root, "cohort_multilevel": levels > 1}
+
+
 def topo_to_device(topo, device) -> dict:
     """Encoded topology (a `Topology` or a dict of numpy arrays, as either
     package's encoder or synth makes it) -> dict of tensors on `device`:
-    TOPO_FIELDS, and the domain tables (DOMAIN_FIELDS) phase_b reads."""
+    TOPO_FIELDS, the domain tables (DOMAIN_FIELDS) phase_b reads and the
+    chain tables (CHAIN_FIELDS) drf_share and the delta prologue read."""
     get = topo.get if isinstance(topo, dict) else (lambda k: getattr(topo, k))
     arrays = {name: np.asarray(get(name)) for name in TOPO_FIELDS}
     arrays.update(domain_tables(arrays["cq_cohort"], arrays["cohort_root"],
                                 arrays["cq_chain"]))
+    arrays.update(chain_tables(arrays["cq_cohort"], arrays["cohort_root"],
+                               arrays["cohort_parent"], arrays["cq_chain"]))
     return {name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
             for name, a in arrays.items()}
 
@@ -454,10 +495,20 @@ def phase_a_tick(device, iters: int = 4096) -> float:
 # weight; -1 where the root lends nothing, NO_LIMIT for weight 0, and 0
 # for a head that borrows nothing or whose CQ has no cohort. Both
 # divisions floor (JAX's //), which differs from C's truncation for the
-# negative drs. Bound on the H100: bytes — the head's [F,R] assignment
-# row and its CQ's nominal/offered/usage rows, a few integer ops each.
-# Design: one warp per workload; per resource the lanes stride over the
-# flavors and a shuffle sum gives the borrowing; lane 0 writes.
+# negative drs. Bound on the H100: latency — the bytes (the heads' [F,R]
+# assignment rows and their CQs' nominal/offered/usage rows) take under
+# a microsecond; a head's chain is three dependent global round trips
+# (its CQ; the CQ's rows and cq_root, the chain table of topo_to_device;
+# the root's lendable row), a few shuffles and two divisions. Design
+# (csrc/drf_share.cu): a group of G lanes a head (`drf_share_plan`: the
+# fewest lanes that load the row in one chunk), lane i taking elements
+# i, i+m, ... of the row (m = R * (G // R), so its resource is fixed),
+# every load of a chunk issued before any arithmetic, a shuffle tree over
+# the lanes of each resource; past 32 resources a lane owns resources i,
+# i+32, ...
+# The divisions go through double precision below 2^53 (corrected by a
+# multiply-back) and through the int64 division above, exact for every
+# int64.
 
 def drf_share_plain(topo, usage, asg_usage, wl_cq):
     """share[W] int64."""
@@ -480,25 +531,76 @@ def drf_share_plain(topo, usage, asg_usage, wl_cq):
     return torch.where(has_borrow & (cohort >= 0), dws, 0)
 
 
+DRF_CHUNK = 4  # passes a lane loads at once (csrc/drf_share.cu KQ_DRF_CHUNK)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def drf_share_plan(F: int, R: int) -> dict:
+    """drf_share's launch: G lanes a head, 32 // G heads a warp, and the
+    form: "lanes" (R <= G: a lane's resource fixed, m = R * (G // R)
+    elements a pass) or "wide" (R > 32: a lane owns resources i, i + 32,
+    ...). G is the least power of two that holds a resource a lane and
+    lets every lane load its share of the F*R row in one chunk of
+    DRF_CHUNK passes, at most 32: more heads a warp where that costs no
+    second chunk of loads."""
+    G = min(32, max(_pow2_at_least(R),
+                    _pow2_at_least(-(-F * R // DRF_CHUNK))))
+    if R > G:
+        return {"lanes_per_head": G, "heads_per_warp": 1, "form": "wide",
+                "passes": F, "shuffles": 6}
+    per = G // R
+    # the chain's shuffle steps: the tree over a resource's lanes, the
+    # ballot, the max over the resources
+    return {"lanes_per_head": G, "heads_per_warp": 32 // G, "form": "lanes",
+            "passes": -(-(F * R) // (R * per)),
+            "shuffles": (per - 1).bit_length() + 1 + (R - 1).bit_length()}
+
+
 def drf_share(topo, usage, asg_usage, wl_cq):
     if _is_cpu(asg_usage):
         return drf_share_plain(topo, usage, asg_usage, wl_cq)
+    if "cq_root" not in topo:
+        raise KeyError("drf_share: the topology dict lacks the chain table "
+                       "cq_root (build it with topo_to_device)")
     W, F, R = asg_usage.shape
+    plan = drf_share_plan(F, R)
     share = torch.empty(W, dtype=torch.int64, device=asg_usage.device)
     _launch("drf_share", [
         _ptr(topo["nominal"], torch.int64, "nominal"),
         _ptr(topo["offered"], torch.bool, "offered"),
-        _ptr(topo["cq_cohort"], torch.int32, "cq_cohort"),
-        _ptr(topo["cohort_root"], torch.int32, "cohort_root"),
+        _ptr(topo["cq_root"], torch.int32, "cq_root"),
         _ptr(topo["cohort_lendable"], torch.int64, "cohort_lendable"),
         _ptr(topo["fair_weight"], torch.int64, "fair_weight"),
         _ptr(usage, torch.int64, "usage"),
         _ptr(asg_usage, torch.int64, "asg_usage"),
         _ptr(wl_cq, torch.int32, "wl_cq"),
         _ptr(share, torch.int64, "share"),
-    ], [W, F, R], asg_usage.device)
+    ], [W, F, R, plan["lanes_per_head"], plan["passes"]], asg_usage.device)
     drf_share.launches += 1
+    drf_share.last_plan = plan
     return share
+
+
+drf_share.last_plan = None  # the last launch's drf_share_plan
+
+
+def drf_share_tick(device, iters: int = 4096) -> dict:
+    """drf_share's least steps in clock cycles (csrc/drf_share.cu
+    drf_share_tick_kernel, one warp): a floor division on the
+    double-precision path ("div_cycles") and a shuffle-add
+    ("shuffle_cycles"), each the least of three runs."""
+    div, shfl = [], []
+    for _ in range(3):
+        out = torch.zeros(3, dtype=torch.int64, device=device)
+        _launch("drf_share", [out.data_ptr()], [iters, 1001], device,
+                symbol="drf_share_tick_launch")
+        o = out.tolist()
+        div.append(o[0] / iters)
+        shfl.append(o[1] / iters)
+    return {"div_cycles": min(div), "shuffle_cycles": min(shfl)}
 
 
 # ---------------------------------------------------------------------------
@@ -1105,15 +1207,45 @@ def pack(chosen, chosen_borrow, fit, admitted, borrows):
 # admissions): D unique (q,f,r) coords with their deltas, bubbled up the
 # cohort chain as a difference of clamps past each level's guaranteed
 # quota; per level, several children may feed one cohort coord, so the
-# level's delta is a segment sum. Bound on the H100: latency — D <= 512
-# coords, a few KB. Design: one block; the coords of a level are spread
-# over the threads, the segment sums are 64-bit atomic adds into shared
-# memory (an unsigned add wraps correctly for negative deltas), and a
-# barrier separates the levels. usage/cohort_usage are updated IN PLACE
-# (the JAX program returns new arrays; in place is the torch form).
+# level's delta is a segment sum. Bound on the H100: latency — a
+# production tuple has D <= 512 coords (a few KB); the chain is the
+# coords, the values at them, then one segment sum a level. Design
+# (csrc/deltas.cu, `deltas_plan`): the register form (D <= 1024, L <= 4),
+# one block, a thread a row of every level: one round trip for every
+# index, a second for every value at them (usage, guaranteed, cohort
+# usage and guaranteed, cohort_multilevel), then a level is a barrier,
+# the row's segment sum (shared atomics into two buffers that take turns,
+# each zeroed where it is read: a sum in three 32-bit words, native
+# atomics, where a 64-bit add is a compare-and-swap loop) and the clamp
+# difference; a
+# cohort that can sit at two levels of a tuple (the chain table
+# cohort_multilevel) is read again at its level, after the earlier
+# level's add, as the JAX program reads it. Past that, the staged form:
+# one block of 1024 threads walks each level's rows, the sums in shared
+# memory (opted in past 48 KB) or, past DELTAS_SMEM, in a global scratch.
+# usage/cohort_usage are updated IN PLACE (the JAX program returns new
+# arrays; in place is the torch form).
 
-# The largest D the kernel takes (two int64 per coord in shared memory).
-MAX_DELTA_COORDS = 2048
+DELTAS_REGISTER_ROWS = 1024   # the register form's rows: a thread each
+DELTAS_REGISTER_LEVELS = (1, 2, 4)  # its compiled level counts
+DELTAS_SMEM = 200 * 1024      # shared memory the staged form may take
+
+
+def deltas_plan(D: int, L: int) -> dict:
+    """The delta prologue's launch for D rows and L levels: "register"
+    (threads = D rounded up to a warp, `levels` compiled, two sum buffers
+    of three uint32 words a row in shared memory), "shared" (1024 threads,
+    the two [D] int64 sum buffers in shared memory) or "global" (the sums
+    in a global scratch of 2 * D int64)."""
+    sums = 2 * D * 8
+    if D <= DELTAS_REGISTER_ROWS and L <= DELTAS_REGISTER_LEVELS[-1]:
+        return {"form": "register", "threads": -(-D // 32) * 32,
+                "levels": next(n for n in DELTAS_REGISTER_LEVELS if n >= L),
+                "smem": 2 * 3 * D * 4}
+    if sums <= DELTAS_SMEM:
+        return {"form": "shared", "threads": 1024, "levels": L, "smem": sums}
+    return {"form": "global", "threads": 1024, "levels": L, "smem": 0,
+            "scratch_bytes": sums}
 
 
 def apply_state_deltas_plain(topo, usage, cohort_usage, dq, df, dr, dv,
@@ -1146,11 +1278,15 @@ def apply_state_deltas(topo, usage, cohort_usage, dq, df, dr, dv, lvl_c,
     if _is_cpu(usage):
         return apply_state_deltas_plain(topo, usage, cohort_usage, dq, df,
                                         dr, dv, lvl_c, lvl_seg)
-    D = dq.shape[0]
-    if D > MAX_DELTA_COORDS:
-        raise ValueError(f"apply_state_deltas takes D <= {MAX_DELTA_COORDS}"
-                         f", got {D}")
+    if "cohort_multilevel" not in topo:
+        raise KeyError("apply_state_deltas: the topology dict lacks the "
+                       "chain table cohort_multilevel (build it with "
+                       "topo_to_device)")
+    D, L = dq.shape[0], lvl_c.shape[0]
     _, F, R = usage.shape
+    plan = deltas_plan(D, L)
+    scratch = torch.empty(2 * D if plan["form"] == "global" else 0,
+                          dtype=torch.int64, device=usage.device)
     _launch("deltas", [
         _ptr(topo["guaranteed"], torch.int64, "guaranteed"),
         _ptr(topo["cohort_guaranteed"], torch.int64, "cohort_guaranteed"),
@@ -1162,8 +1298,30 @@ def apply_state_deltas(topo, usage, cohort_usage, dq, df, dr, dv, lvl_c,
         _ptr(dv, torch.int64, "dv"),
         _ptr(lvl_c, torch.int32, "lvl_c"),
         _ptr(lvl_seg, torch.int32, "lvl_seg"),
-    ], [D, lvl_c.shape[0], F, R], usage.device)
+        _ptr(topo["cohort_multilevel"], torch.bool, "cohort_multilevel"),
+        scratch.data_ptr(),
+    ], [D, L, F, R, ("register", "shared", "global").index(plan["form"]),
+        plan["levels"], plan["smem"]], usage.device)
     apply_state_deltas.launches += 1
+    apply_state_deltas.last_plan = plan
+
+
+apply_state_deltas.last_plan = None  # the last launch's deltas_plan
+
+
+def deltas_tick(device, threads: int = 512, iters: int = 4096) -> float:
+    """Clock cycles of one level step of the delta prologue (csrc/deltas.cu
+    deltas_tick_kernel, one block of `threads`: a row's sum taken from its
+    three shared words and zeroed, three 32-bit shared atomic adds, a
+    barrier), the least of three runs."""
+    best = None
+    for _ in range(3):
+        out = torch.zeros(2, dtype=torch.int64, device=device)
+        _launch("deltas", [out.data_ptr()], [threads, iters], device,
+                symbol="deltas_tick_launch")
+        cycles = out[0].item() / iters
+        best = cycles if best is None else min(best, cycles)
+    return best
 
 
 # ---------------------------------------------------------------------------

@@ -172,21 +172,96 @@ def synth_nested_inputs(num_cqs: int = 64, num_leaf_cohorts: int = 8,
 
 
 def synth_deltas(topo: dict, usage: np.ndarray, num_coords: int,
-                 seed: int = 0) -> tuple:
+                 seed: int = 0, level_pairs: int = 0) -> tuple:
     """A delta prologue for kernel.apply_state_deltas: `num_coords`
     unique (q, f, r) coords with net deltas that keep usage non-negative
     (finishes free at most what is used, admissions add up to nominal),
-    encoded as encode.encode_deltas encodes the journal's corrections."""
+    encoded as encode.encode_deltas encodes the journal's corrections.
+    With `level_pairs`, that many of the coords come in pairs that put
+    one cohort coord at two levels of the tuple: a CQ attached to a
+    cohort P and a CQ of a child cohort of P, at the same (f, r), so (P,
+    f, r) is at level 0 and level 1 (the topology must attach CQs at two
+    depths, as synth_nested_inputs' attach_up_every does)."""
     rng = np.random.default_rng(seed + 3)
     Q, F, R = usage.shape
-    pick = rng.choice(Q * F * R, size=min(num_coords, Q * F * R),
-                      replace=False)
+    cells = []
+    if level_pairs:
+        cq_cohort, parent = topo["cq_cohort"], topo["cohort_parent"]
+        ups = [q for q in range(Q) if cq_cohort[q] >= 0
+               and (parent[np.maximum(cq_cohort, 0)][cq_cohort >= 0]
+                    == cq_cohort[q]).any()]
+        if not ups:
+            raise ValueError("no CQ is attached to a cohort with child "
+                             "cohorts")
+        for i in rng.choice(len(ups), size=level_pairs):
+            up = ups[i]
+            below = np.flatnonzero((cq_cohort >= 0) & (
+                parent[np.maximum(cq_cohort, 0)] == cq_cohort[up]))
+            f, r = rng.integers(0, F), rng.integers(0, R)
+            cells += [(up * F + f) * R + r,
+                      (int(rng.choice(below)) * F + f) * R + r]
+        cells = list(dict.fromkeys(cells))
+    rest = np.setdiff1d(np.arange(Q * F * R), cells)
+    cells += list(rng.choice(rest, size=min(num_coords - len(cells),
+                                            rest.size), replace=False))
     coords = []
-    for q, f, r in zip(*np.unravel_index(pick, (Q, F, R))):
+    for q, f, r in zip(*np.unravel_index(np.asarray(cells, np.int64),
+                                         (Q, F, R))):
         lo, hi = -int(usage[q, f, r]), int(topo["nominal"][q, f, r])
         coords.append((int(q), int(f), int(r),
                        int(rng.integers(lo, hi + 1)) or 1000))
     return deltas_from_coords(coords, topo["cq_chain"], topo["cohort_parent"])
+
+
+def shared_level_coords(lvl_c: np.ndarray) -> int:
+    """How many cohort coords of a delta tuple's lvl_c [L,D,3] sit at two
+    or more of its levels."""
+    seen = {}
+    for lvl in range(lvl_c.shape[0]):
+        for c, f, r in lvl_c[lvl][lvl_c[lvl, :, 0] >= 0].tolist():
+            seen.setdefault((c, f, r), set()).add(lvl)
+    return sum(len(v) > 1 for v in seen.values())
+
+
+def synth_share_inputs(num_flavors: int, num_resources: int,
+                       num_cqs: int = 64, num_workloads: int = 96,
+                       scale: int = 1, seed: int = 0) -> tuple:
+    """drf_share's inputs at any F and R: synth_nested_inputs' two-level
+    trees (every 9th CQ outside any cohort), some flavors not offered,
+    usage between 0 and 1.5x nominal, fair weights 0/500/1000/3000, the
+    first root lending nothing (its borrowers' drs is -1, so weight 3000
+    gives -1000 // 3000 = -1) and the second lending nothing in every
+    other resource, and half the heads' [F,R] assignment cells up to
+    nominal. Quantities are multiplied by `scale` (a power of two keeps
+    the ratios) to reach the int64 extremes. Returns (topo, usage,
+    asg_usage, wl_cq)."""
+    topo, _, _, wl = synth_nested_inputs(
+        num_cqs=num_cqs, num_leaf_cohorts=8, fanout=2, depth=2,
+        num_flavors=num_flavors, num_resources=num_resources,
+        num_workloads=num_workloads, num_podsets=1, no_cohort_every=9,
+        seed=seed)
+    rng = np.random.default_rng(seed + 5)
+    nominal = topo["nominal"]
+    Q, F, R = nominal.shape
+    topo["fair_weight"] = np.array([0, 500, 1000, 3000], np.int64)[
+        rng.integers(0, 4, size=Q)]
+    topo["offered"] = rng.uniform(size=(Q, F, R)) < 0.8
+    lend = topo["cohort_lendable"].copy()
+    roots = np.unique(topo["cohort_root"][topo["cq_cohort"][
+        topo["cq_cohort"] >= 0]])
+    lend[roots[0]] = 0
+    if roots.size > 1:
+        lend[roots[1], ::2] = 0
+    topo["cohort_lendable"] = lend * scale
+    topo["nominal"] = nominal * scale
+    usage = (nominal * rng.uniform(0, 1.5, size=(Q, F, R))).astype(
+        np.int64) * scale
+    wl_cq = wl["wl_cq"]
+    W = wl_cq.shape[0]
+    asg = np.where(rng.uniform(size=(W, F, R)) < 0.5,
+                   (nominal[wl_cq] * rng.uniform(size=(W, F, R))).astype(
+                       np.int64), 0) * scale
+    return topo, usage, asg, wl_cq
 
 
 def synth_start_rank(wl: dict, num_flavors: int, seed: int = 0) -> np.ndarray:

@@ -25,6 +25,7 @@ from kueue_tpu_torch.solver.preempt import active_slot_count
 from kueue_tpu_torch.solver.service import PREEMPT_KEYS, preempt_aux
 from kueue_tpu_torch.solver.synth import (cluster_oracle,
                                           fill_inactive_slots,
+                                          shared_level_coords,
                                           synth_cluster_inputs,
                                           synth_deltas, synth_fair_edges,
                                           synth_fair_inputs,
@@ -33,6 +34,7 @@ from kueue_tpu_torch.solver.synth import (cluster_oracle,
                                           synth_nested_inputs,
                                           synth_preempt_inputs,
                                           synth_preempt_problems,
+                                          synth_share_inputs,
                                           synth_solver_inputs,
                                           synth_start_rank)
 
@@ -1751,3 +1753,156 @@ def test_gather_arena_on_card(W, shape, offset, cuda_device):
         assert torch.equal(a.cpu(), b), name
     pad = min(W, 3)  # slots -1, -7 and cap: zero rows
     assert not want[0][:pad].any() and not want[5][:pad].any()
+
+
+def deltas_on_card(topo, usage, cu, deltas, device):
+    """apply_state_deltas on the card against its plain version on the
+    CPU, each on its own copy of the state; returns the card's plan."""
+    host = tk.topo_to_device(topo, "cpu")
+    card = {k: v.to(device) for k, v in host.items()}
+    want = (torch.from_numpy(usage.copy()), torch.from_numpy(cu.copy()))
+    got = tuple(t.to(device) for t in want)
+    d = [torch.from_numpy(a) for a in deltas]
+    tk.apply_state_deltas(host, *want, *d)
+    before = tk.launch_counts()["deltas"]
+    tk.apply_state_deltas(card, *got, *(a.to(device) for a in d))
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["deltas"] == before + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert not torch.equal(want[0], torch.from_numpy(usage))
+    return tk.apply_state_deltas.last_plan
+
+
+def mixed_depth_tree():
+    """The north star's widths on trees 3 deep with every 3rd CQ attached
+    to its leaf cohort's parent (a node shared by CQs at two depths)."""
+    topo, usage, cu, _ = synth_nested_inputs(
+        num_cqs=2048, num_leaf_cohorts=256, fanout=4, depth=3,
+        num_flavors=32, num_resources=2, num_workloads=8,
+        no_cohort_every=16, attach_up_every=3, seed=7)
+    return topo, usage, cu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coords,D,form", ((2049, 8192, "shared"),
+                                           (16384, 32768, "global")))
+def test_deltas_past_2048_coords_on_card(coords, D, form, cuda_device):
+    """K6 at any D: 2049 coords bucket to D = 8192 (128 KB of sums in
+    opted-in shared memory), 16,384 to D = 32,768 (512 KB, the global
+    form), on the mixed-depth tree."""
+    topo, usage, cu = mixed_depth_tree()
+    deltas = synth_deltas(topo, usage, coords, seed=coords, level_pairs=8)
+    assert deltas[0].shape[0] == D and shared_level_coords(deltas[4]) > 0
+    plan = deltas_on_card(topo, usage, cu, deltas, cuda_device)
+    assert plan["form"] == form
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ("register", "shared", "global"))
+def test_deltas_mixed_depth_on_card(form, cuda_device, monkeypatch):
+    """A cohort coord at levels 0 and 1 of one tuple, whose old usage at
+    level 1 is the value after level 0's add, in each form (the staged
+    ones forced by shrinking the register form and the shared memory)."""
+    if form != "register":
+        monkeypatch.setattr(tk, "DELTAS_REGISTER_ROWS", 0)
+    if form == "global":
+        monkeypatch.setattr(tk, "DELTAS_SMEM", 0)
+    topo, usage, cu = mixed_depth_tree()
+    deltas = synth_deltas(topo, usage, 256, seed=11, level_pairs=8)
+    lv0 = {tuple(c) for c in deltas[4][0][deltas[4][0, :, 0] >= 0].tolist()}
+    lv1 = {tuple(c) for c in deltas[4][1][deltas[4][1, :, 0] >= 0].tolist()}
+    assert lv0 & lv1
+    multilevel = tk.topo_to_device(topo, "cpu")["cohort_multilevel"]
+    assert all(multilevel[c] for c, _, _ in lv0 & lv1)
+    assert deltas_on_card(topo, usage, cu, deltas, cuda_device)["form"] \
+        == form
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", ("flat", "deep3", "zero_levels",
+                                   "deep10"))
+def test_deltas_chains_on_card(chain, cuda_device):
+    """Flat cohorts (L = 1), trees 3 deep (L = 3), a tuple with no
+    levels (L = 0) and trees 10 deep (L = 10, past the register form's
+    levels)."""
+    if chain == "flat":
+        topo, usage, cu, _ = synth_solver_inputs(
+            num_cqs=2048, num_cohorts=256, num_flavors=32, num_resources=2,
+            num_workloads=8, seed=42)
+    elif chain == "deep10":
+        topo, usage, cu, _ = synth_nested_inputs(
+            num_cqs=512, num_leaf_cohorts=512, fanout=2, depth=10,
+            num_flavors=4, num_resources=2, num_workloads=8,
+            attach_up_every=5, seed=3)
+    else:
+        topo, usage, cu, _ = synth_nested_inputs(
+            num_cqs=2048, num_leaf_cohorts=256, fanout=4, depth=3,
+            num_flavors=32, num_resources=2, num_workloads=8,
+            no_cohort_every=16, seed=7)
+    deltas = synth_deltas(topo, usage, 256, seed=5)
+    if chain == "zero_levels":
+        deltas = deltas[:4] + (deltas[4][:0], deltas[5][:0])
+    plan = deltas_on_card(topo, usage, cu, deltas, cuda_device)
+    assert plan["form"] == ("shared" if chain == "deep10" else "register")
+
+
+def share_on_card(topo, usage, asg, wl_cq, device):
+    host = tk.topo_to_device(topo, "cpu")
+    args = [torch.from_numpy(a) for a in (usage, asg, wl_cq)]
+    want = tk.drf_share(host, *args)
+    before = tk.launch_counts()["drf_share"]
+    got = tk.drf_share({k: v.to(device) for k, v in host.items()},
+                       *(a.to(device) for a in args))
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["drf_share"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", (1, 32, 33))
+@pytest.mark.parametrize("R", (1, 2, 3, 17, 32))
+def test_drf_share_shapes_on_card(R, F, cuda_device):
+    """K3 at R = 1, 2, 3, 17 and 32 and F = 1, 32 and 33: lane groups of
+    1 to 32, resources that divide the group or not, up to 33 passes."""
+    want = share_on_card(*synth_share_inputs(F, R, seed=F * 100 + R),
+                         cuda_device)
+    assert (want != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", (1, 2**33, 2**45))
+def test_drf_share_weights_on_card(scale, cuda_device):
+    """Weights 0, 500, 1000 and 3000, a root lending nothing (drs -1:
+    -1000 // 3000 is -1, -1000 // 500 is -2, weight 0 NO_LIMIT), a root
+    lending in every other resource; at scale 2^33 borrowing x 1000 is
+    past 2^53 (the int64 division), at 2^45 past int64 (it wraps)."""
+    topo, usage, asg, wl_cq = synth_share_inputs(32, 2, scale=scale, seed=1,
+                                                 num_cqs=256,
+                                                 num_workloads=2048)
+    weights = topo["fair_weight"][wl_cq]
+    assert {0, 500, 1000, 3000} <= set(weights.tolist())
+    want = share_on_card(topo, usage, asg, wl_cq, cuda_device)
+    if scale == 1:
+        assert (want == -1).any() and (want == -2).any()
+        assert (want == tk.NO_LIMIT).any() and (want > 0).any()
+
+
+@pytest.mark.cuda
+def test_chain_tables_required_on_card(cuda_device):
+    """A topology dict without the chain tables is refused, never sent to
+    the plain version."""
+    topo, usage, asg, wl_cq = synth_share_inputs(4, 2, seed=2)
+    card = {k: v.to(cuda_device)
+            for k, v in tk.topo_to_device(topo, "cpu").items()
+            if k not in tk.CHAIN_FIELDS}
+    args = [torch.from_numpy(a).to(cuda_device) for a in (usage, asg, wl_cq)]
+    with pytest.raises(KeyError):
+        tk.drf_share(card, *args)
+    deltas = [torch.from_numpy(a).to(cuda_device)
+              for a in synth_deltas(topo, usage, 8, seed=2)]
+    cu = torch.zeros(card["cohort_guaranteed"].shape, dtype=torch.int64,
+                     device=cuda_device)
+    with pytest.raises(KeyError):
+        tk.apply_state_deltas(card, args[0], cu, *deltas)
