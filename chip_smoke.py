@@ -369,6 +369,18 @@ WIDE_K7B = {
                          num_flavors=5, num_resources=3, offset=0, seed=2),
     "misaligned": dict(slots=4096, num_workloads=2045, num_podsets=4,
                        num_flavors=32, num_resources=2, offset=1, seed=3)}
+# K7a beside the churn's rows (wide_phase): odd row bytes, the rows and
+# the twin one element off 16 bytes, and JAX's index rule: SCATTER_ROWS
+# distinct targets, half written as slot - cap (-1 and -cap among them),
+# the rest of the 512-row bucket padded with slots the scatter drops (cap,
+# cap + 5, -cap - 1, -2 cap, the int32 ends) in place of `cap`
+WIDE_K7A = {
+    "odd_p3_f5_r3": dict(num_podsets=3, num_flavors=5, num_resources=3,
+                         offset=0, out_of_range=False, seed=4),
+    "misaligned": dict(num_podsets=4, num_flavors=32, num_resources=2,
+                       offset=1, out_of_range=False, seed=5),
+    "out_of_range": dict(num_podsets=4, num_flavors=32, num_resources=2,
+                         offset=0, out_of_range=True, seed=6)}
 # K8 at W not a multiple of 32 or 8, odd P * R, chosen and chosen_borrow
 # one or three elements past a 16-byte boundary
 WIDE_K8 = {"w1": (1, 1, 1, 0), "w31_p3_r1_off1": (31, 3, 1, 1),
@@ -1082,6 +1094,9 @@ def kernel_phase(kind: str, device, results: dict) -> None:
     o_plan = dict(k.order_csr.last_plan)
     k.gather_arena(inp["twin"], inp["slots"])
     g_plan = dict(k.gather_arena.last_plan)
+    k.scatter_arena_rows({n: t.clone() for n, t in twin.items()}, upd_slots,
+                         upd_rows)
+    sc_plan = dict(k.scatter_arena_rows.last_plan)
     DC = topo["cq_chain"].shape[1]
     b_tick = k.phase_b_tick(device, min(DC, 4))
     k.drf_share(*s_args)
@@ -1134,6 +1149,17 @@ def kernel_phase(kind: str, device, results: dict) -> None:
                          "sm_clock_khz": clock,
                          "latency_bound_ms": 2 * b_tick["load_cycles"]
                          / clock},
+        # the same copy kernel, its row's slot then its fields
+        "arena_scatter": {"form": "warp a row, vectors of "
+                                  + "/".join(map(str, sc_plan["vec_bytes"]))
+                                  + " bytes",
+                          "vec_bytes": sc_plan["vec_bytes"],
+                          "passes": sc_plan["passes"],
+                          "global_round_trips": 2,
+                          "load_cycles": b_tick["load_cycles"],
+                          "sm_clock_khz": clock,
+                          "latency_bound_ms": 2 * b_tick["load_cycles"]
+                          / clock},
         # the launch and one global round trip: no load depends on another
         # a head's three dependent round trips, two divisions, shuffles
         "drf_share": share_latency(s_plan, ticks),
@@ -3044,6 +3070,79 @@ def gather_wide_inputs(device, slots: int, num_workloads: int,
     return twin, torch.from_numpy(batch).to(device)
 
 
+def scatter_wide_inputs(device, num_podsets: int, num_flavors: int,
+                        num_resources: int, offset: int, out_of_range: bool,
+                        seed: int) -> tuple:
+    """A twin of ARENA_SLOTS rows and 512 update rows, each field sliced
+    `offset` elements into a larger buffer, and the 512-row bucket of
+    slots: SCATTER_ROWS distinct targets, then padding (WIDE_K7A).
+    Returns (twin, upd_slots, upd_rows, targets)."""
+    import numpy as np
+    import torch
+    twin, _ = gather_wide_inputs(device, ARENA_SLOTS, 4, num_podsets,
+                                 num_flavors, num_resources, offset, seed)
+    rows, _ = gather_wide_inputs(device, 512, 4, num_podsets, num_flavors,
+                                 num_resources, offset, seed + 1)
+    rng = np.random.default_rng(seed)
+    S = ARENA_SLOTS
+    # distinct targets, 0 and S - 1 kept for the first two
+    targets = rng.choice(np.arange(1, S - 1), SCATTER_ROWS, replace=False)
+    slots = np.full(512, S, np.int64)
+    slots[:SCATTER_ROWS] = targets
+    if out_of_range:
+        targets[:2] = (S - 1, 0)
+        slots[:SCATTER_ROWS] = np.where(rng.uniform(size=SCATTER_ROWS) < 0.5,
+                                        targets, targets - S)
+        slots[:2] = (-1, -S)
+        slots[SCATTER_ROWS:] = rng.choice(
+            np.array([S, S + 5, -S - 1, -2 * S, 2**31 - 1, -2**31]),
+            512 - SCATTER_ROWS)
+    return (twin, torch.from_numpy(slots.astype(np.int32)).to(device), rows,
+            torch.from_numpy(targets).to(device))
+
+
+def wide_scatter_rows(device) -> dict:
+    """scatter_arena_rows on WIDE_K7A's twins against its plain version,
+    each on its own copy, and timed."""
+    import torch
+    from kueue_tpu_torch.solver import kernel as k
+    from kueue_tpu_torch.solver.arena import ARENA_FIELDS
+    rows = {}
+    for label, spec in WIDE_K7A.items():
+        twin, slots, upd, targets = scatter_wide_inputs(device, **spec)
+        got = {n: t.clone() for n, t in twin.items()}
+        want = {n: t.clone() for n, t in twin.items()}
+        lib = {n: t.clone() for n, t in twin.items()}
+        k.scatter_arena_rows(got, slots, upd)
+        k.scatter_arena_rows_plain(want, slots, upd)
+        row = {"max_abs_err": compare(
+            tuple(f"{n} ({label})" for n in ARENA_FIELDS),
+            [got[n] for n in ARENA_FIELDS], [want[n] for n in ARENA_FIELDS]),
+            "plan": dict(k.scatter_arena_rows.last_plan)}
+        row["form"] = row["plan"]["vec_bytes"]
+        torch.cuda.synchronize()
+        row["ms"] = profiled_device_ms(
+            lambda: k.scatter_arena_rows(got, slots, upd), 100,
+            "arena_scatter")
+        row["ms_source"] = "profiler"
+        row["call_ms"] = time_cuda(
+            lambda: k.scatter_arena_rows(got, slots, upd), 100)
+        row["plain_ms"] = time_cuda(
+            lambda: k.scatter_arena_rows_plain(want, slots, upd), 50)
+        real = targets.long()
+
+        def library():
+            for n in ARENA_FIELDS:
+                lib[n].index_copy_(0, real, upd[n][:SCATTER_ROWS])
+        row["library_ms"] = time_cuda(library, 50)
+        row["bytes"] = nbytes(slots) + 2 * SCATTER_ROWS * row_bytes(twin)
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"[kernels:arena_scatter:{label}] equal to plain: "
+            + json.dumps(row))
+        rows[f"arena_scatter_{label}"] = row
+    return rows
+
+
 def wide_order_rows(device) -> dict:
     """order_csr on WIDE_K4's shapes against its plain version run on the
     CPU (the order the JAX lexsort gives: torch.sort on the card puts NaNs
@@ -3124,7 +3223,7 @@ def wide_gather_rows(device) -> dict:
             lambda: [twin[n].index_select(0, clamped) for n in ARENA_FIELDS],
             50)
         W = spec["num_workloads"]
-        n_real = int(((slots >= 0) & (slots < spec["slots"])).sum())
+        n_real = int((slots >= 0).sum())  # a slot past cap reads row cap - 1
         row["bytes"] = nbytes(slots) + (n_real + W) * row_bytes(twin)
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
         log(f"[kernels:arena_gather:{label}] equal to plain: "
@@ -3238,6 +3337,7 @@ def wide_phase(device) -> dict:
             resources, True)
     rows.update(wide_order_rows(device))
     rows.update(wide_gather_rows(device))
+    rows.update(wide_scatter_rows(device))
     rows.update(wide_pack_rows(device))
     rows.update(wide_share_rows(device))
     rows["wall_s"] = time.perf_counter() - t_phase
@@ -3247,6 +3347,10 @@ def wide_phase(device) -> dict:
 
 ORACLE_KEYS = ("admitted", "fit", "borrows", "chosen", "chosen_borrow",
                "usage", "cohort_usage")
+# global_scan's dependent global round trips before its first step
+# (csrc/global_scan.cu): the prologue's count (order, fit) and its list
+# (order, fit, wl_cq, the CQ's chain), the first entry and its constants
+GLOBAL_SCAN_ROUND_TRIPS = 8
 
 
 def oracle_phase(device) -> dict:
@@ -3314,6 +3418,11 @@ def oracle_phase(device) -> dict:
             err = compare([f"{kind}/{variant} global_scan {key}" for key in
                            ("admitted", "usage", "cohort_usage")],
                           k.global_scan(*s_args), want)
+            plan = dict(k.global_scan.last_plan)
+            for form in k.GLOBAL_SCAN_FORMS:
+                compare([f"{kind}/{variant} global_scan ({form} form) {key}"
+                         for key in ("admitted", "usage", "cohort_usage")],
+                        k.global_scan(*s_args, form=form), want)
             admitted = int(seq["admitted"].sum())
             fits = int(seq["fit"].sum())
             if not 0 < admitted < fits:
@@ -3323,11 +3432,12 @@ def oracle_phase(device) -> dict:
             check = {"kind": kind, "variant": variant, "W": W, "fit": fits,
                      "admitted": admitted, "drive_ms": drive_s * 1e3,
                      "plain_once_ms": plain_once_s * 1e3,
-                     "max_abs_err": err}
+                     "max_abs_err": err, "plan": plan}
             checks.append(check)
             log(f"[{phase}] {kind}/{variant}: solve_cycle == "
                 "solve_cycle_cohort_parallel == solve_cycle_fused on 7 "
-                "outputs; global_scan equal to plain; " + json.dumps(check))
+                "outputs; global_scan equal to plain in both forms; "
+                + json.dumps(check))
             if variant != "plain":
                 continue
             b_args = (topo, usage, cu, asg, fit, wl["wl_cq"], offsets,
@@ -3346,17 +3456,45 @@ def oracle_phase(device) -> dict:
             moved = phase_b_bytes(topo, usage, cu, asg, fit, wl["wl_cq"],
                                   order, None, want)
             steps = int((offsets[1:] - offsets[:-1]).max().item())
+            forms = {}
+            for form in k.GLOBAL_SCAN_FORMS:
+                def run(form=form):
+                    return k.global_scan(*s_args, form=form)
+                forms[form] = {
+                    "ms": profiled_device_ms(run, 10, "global_scan"),
+                    "call_ms": time_cuda(run, iters=20)}
+                run()
+                forms[form]["plan"] = dict(k.global_scan.last_plan)
+            # the code's least chain: the prologue's and the first step's
+            # GLOBAL_SCAN_ROUND_TRIPS dependent global round trips, then a
+            # step a fit workload, each at least phase_b's least step at
+            # the chain's depth (the same walk of shared-memory state, a
+            # vote and the writes)
+            fit_steps = int(k.global_scan_steps(fit, wl["wl_cq"], order,
+                                                topo["cq_cohort"])[0].numel())
+            DC = topo["cq_chain"].shape[1]
+            tick = k.phase_b_tick(device, min(DC, 4))
             rows[kind] = {
                 "max_abs_err": err, "ms": ms, "ms_source": source,
                 "call_ms": call_ms, "plain_ms": plain_ms,
                 "library_ms": None, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
                 "bytes": moved, "dependent_steps": W, "fit_steps": fits,
                 "phase_b_ms": pb_ms, "phase_b_dependent_steps": steps,
-                "global_over_phase_b": ms / pb_ms}
+                "global_over_phase_b": ms / pb_ms,
+                "form": plan["form"], "plan": plan, "forms": forms,
+                "global_round_trips": GLOBAL_SCAN_ROUND_TRIPS,
+                "step_cycles": tick["step_cycles"],
+                "load_cycles": tick["load_cycles"],
+                "sm_clock_khz": tick["clock_khz"],
+                "latency_bound_ms": (GLOBAL_SCAN_ROUND_TRIPS
+                                     * tick["load_cycles"] + fit_steps
+                                     * tick["step_cycles"])
+                / tick["clock_khz"]}
             log(f"[{phase}] {kind} global_scan: ms={ms:.5f} ({source}) "
                 f"call_ms={call_ms:.4f} plain_ms={plain_ms:.2f} bound_ms="
                 f"{rows[kind]['bound_ms']:.6f} ({moved} bytes / 3.35 TB/s); "
-                f"latency-bound: {W} dependent steps ({fits} fit); "
+                f"latency bound {rows[kind]['latency_bound_ms']:.5f} ms "
+                f"({W} steps, {fits} fit); forms {json.dumps(forms)}; "
                 f"phase_b on the same inputs {pb_ms:.5f} ms ({steps} steps): "
                 f"global scan / cohort-parallel = "
                 f"{rows[kind]['global_over_phase_b']:.1f}x")
@@ -3765,13 +3903,15 @@ def main() -> int:
             # (phase_a) in the least cycles measured on this card
             **({key: row[key] for key in ("form", "latency_bound_ms")}
                if name in ("phase_a", "phase_b", "order", "arena_gather",
-                           "pack", "drf_share", "deltas")
+                           "arena_scatter", "pack", "drf_share", "deltas",
+                           "global_scan")
                else {}),
             **({"nested_form": results["nested"][name]["form"],
                 "nested_latency_bound_ms":
                     results["nested"][name]["latency_bound_ms"]}
                if name in ("phase_a", "phase_b", "order", "arena_gather",
-                           "pack", "drf_share", "deltas")
+                           "arena_scatter", "pack", "drf_share", "deltas",
+                           "global_scan")
                else {}),
             # K3 on the fair cell's captured inputs and WIDE_K3's shapes,
             # K6 on WIDE_K6's
@@ -3802,6 +3942,15 @@ def main() -> int:
                                                          "library_ms")}
                          for label in WIDE_K7B}}
                if name == "arena_gather" else {}),
+            **({"wide": {label: {key: wide[f"arena_scatter_{label}"][key]
+                                 for key in WIDE_KEYS + ("form",
+                                                         "library_ms")}
+                         for label in WIDE_K7A}}
+               if name == "arena_scatter" else {}),
+            # K14 in each form, forced, on the same inputs
+            **({"forms": row["forms"],
+                "nested_forms": results["nested"][name]["forms"]}
+               if name == "global_scan" else {}),
             **({"occupied_columns": row["occupied_columns"],
                 "nested_occupied_columns":
                     results["nested"][name]["occupied_columns"]}

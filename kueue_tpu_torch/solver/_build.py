@@ -51,7 +51,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(part.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"

@@ -57,26 +57,3 @@ __device__ __forceinline__ long long kq_cq_avail(
   return kq_avail_level(nominal[qe], guaranteed[qe], borrow_limit[qe],
                         usage[qe], a);
 }
-
-// The encode arena's seven row fields (kueue_tpu_torch/solver/arena.py
-// ARENA_FIELDS), as byte rows: a copy loop over bytes serves every dtype
-// (bools are bytes).
-#define KQ_ARENA_FIELDS 7
-
-struct KqArenaRows {
-  const unsigned char* src[KQ_ARENA_FIELDS];
-  unsigned char* dst[KQ_ARENA_FIELDS];
-  long long row_bytes[KQ_ARENA_FIELDS];
-};
-
-// Fill a KqArenaRows from the launchers' flat argument lists.
-inline KqArenaRows kq_arena_rows(const void* const* src, void* const* dst,
-                                 const long long* row_bytes) {
-  KqArenaRows rows;
-  for (int k = 0; k < KQ_ARENA_FIELDS; ++k) {
-    rows.src[k] = (const unsigned char*)src[k];
-    rows.dst[k] = (unsigned char*)dst[k];
-    rows.row_bytes[k] = row_bytes[k];
-  }
-  return rows;
-}

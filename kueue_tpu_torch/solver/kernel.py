@@ -1061,14 +1061,68 @@ def phase_b_tick(device, depth: int, iters: int = 4096) -> dict:
 # is the semantic oracle the cohort-parallel cycle (phase_b over the
 # conflict-domain CSR) is held to, so it shares no code with phase_b.cu:
 # the step follows admit_step, one head at a time across every domain.
-# Bound on the H100: latency — W dependent steps, each a walk of DC
-# chain levels; the bytes are small. Design: one thread block, one
-# thread per (f,r) lane (looping when F*R exceeds the block). Each lane
-# only ever reads and writes its own (f,r) column of usage and
-# cohort_usage, so the lanes share nothing but the step's decision, a
-# __syncthreads_and. usage/cohort_usage are updated in global memory on
-# copies of the inputs ([Q,F,R] int64 is 1 MB at the north star). A head
-# that did not fit never admits; the kernel skips its step.
+# Bound on the H100: latency — a dependent step a fit workload; the bytes
+# are small. Only usage and cohort_usage depend on earlier steps, so the
+# design (csrc/global_scan.cu) takes everything else off the chain: one
+# thread block, a thread per (f,r) lane (a lane only ever touches its own
+# column, so the lanes share nothing but the step's vote); a prologue in
+# the same launch compacts the fit steps of the order, with their CQ and
+# chain, into a scratch list (`global_scan_steps` is its model);
+# cohort_usage in shared memory for the walk where it fits (the "shared"
+# form, else "global"); in the register form (F*R <= 256, chains of at
+# most 8 levels) a thread a lane walks, holding the next step's constants
+# and usage[q] in registers, loaded while the current step runs (the value
+# forwarded when the next step's CQ repeats), voting with __all_sync for
+# one warp, else a barrier's AND over the walking warps, a step without
+# branches so that the next step's loads interleave with its chain; past
+# it every thread walks, a column at a time, voting with
+# __syncthreads_and.
+# usage/cohort_usage are updated on copies of the inputs.
+
+GLOBAL_SCAN_SMEM = 200 * 1024      # shared memory the shared form may take
+GLOBAL_SCAN_THREADS = 256          # the register form's block (its prologue)
+GLOBAL_SCAN_REGISTER_DC = (1, 2, 4, 8)  # its compiled chain depths
+GLOBAL_SCAN_FORMS = ("shared", "global")
+
+
+def global_scan_plan(W: int, C: int, FR: int, DC: int,
+                     form: str = None) -> dict:
+    """global_scan's launch for W steps, C cohorts, F*R lanes and chains
+    of DC: the form ("shared": cohort_usage's C*FR*8 bytes in shared
+    memory, where they fit GLOBAL_SCAN_SMEM; "global"; `form` forces one),
+    the register form's compiled chain depth (`register_dc`; 0 for the
+    looping form, past F*R = GLOBAL_SCAN_THREADS or 8 levels), the
+    threads, the vote (__all_sync for one warp of lanes, else a barrier's
+    AND), the dynamic shared memory and the scratch list's ints."""
+    state = C * FR * 8
+    if form is None:
+        form = "shared" if state <= GLOBAL_SCAN_SMEM else "global"
+    if form not in GLOBAL_SCAN_FORMS:
+        raise ValueError(f"global_scan: unknown form {form!r}")
+    if form == "shared" and state > GLOBAL_SCAN_SMEM:
+        raise ValueError(f"global_scan: cohort_usage's {state} bytes do not "
+                         f"fit the shared form's {GLOBAL_SCAN_SMEM}")
+    lanes = min(max(-(-FR // 32) * 32, 32), 1024)
+    dct = next((d for d in GLOBAL_SCAN_REGISTER_DC if d >= DC), 0) \
+        if FR <= GLOBAL_SCAN_THREADS else 0
+    return {"form": form, "register_dc": dct,
+            "threads": GLOBAL_SCAN_THREADS if dct else lanes,
+            "vote": "warp" if lanes == 32 else "block",
+            "smem": state if form == "shared" else 0,
+            "scratch_ints": W * (3 + DC)}
+
+
+def global_scan_steps(fit, wl_cq, order, cq_cohort):
+    """The prologue's list (csrc/global_scan.cu kq_scan_prologue) as
+    plain tensors: the fit steps of `order` in its order, w and q (int64)
+    with has_cohort and repeat (bool); repeat marks a step whose CQ is the
+    previous fit step's (the register form forwards its usage)."""
+    w = order.long()[fit[order.long()]]
+    q = wl_cq.long()[w]
+    repeat = torch.zeros_like(q, dtype=torch.bool)
+    repeat[1:] = q[1:] == q[:-1]
+    return w, q, cq_cohort.long()[q] >= 0, repeat
+
 
 def global_scan_plain(topo, usage, cohort_usage, asg_usage, fit, wl_cq,
                       order):
@@ -1117,15 +1171,22 @@ def global_scan_plain(topo, usage, cohort_usage, asg_usage, fit, wl_cq,
     return admitted, usage, cohort
 
 
-def global_scan(topo, usage, cohort_usage, asg_usage, fit, wl_cq, order):
+def global_scan(topo, usage, cohort_usage, asg_usage, fit, wl_cq, order,
+                form: str = None):
+    """`form` forces global_scan_plan's form ("shared" or "global")."""
     if _is_cpu(fit):
         return global_scan_plain(topo, usage, cohort_usage, asg_usage, fit,
                                  wl_cq, order)
-    W = fit.shape[0]
+    W = order.shape[0]
     Q, F, R = usage.shape
+    C = cohort_usage.shape[0]
+    DC = topo["cq_chain"].shape[1]
+    plan = global_scan_plan(W, C, F * R, DC, form)
     usage_out = usage.clone()
     cohort_out = cohort_usage.clone()
-    admitted = torch.zeros(W, dtype=torch.bool, device=fit.device)
+    admitted = torch.zeros(fit.shape[0], dtype=torch.bool, device=fit.device)
+    steps = torch.empty(plan["scratch_ints"], dtype=torch.int32,
+                        device=fit.device)
     _launch("global_scan", [
         _ptr(topo["cq_cohort"], torch.int32, "cq_cohort"),
         _ptr(topo["cq_chain"], torch.int32, "cq_chain"),
@@ -1142,9 +1203,15 @@ def global_scan(topo, usage, cohort_usage, asg_usage, fit, wl_cq, order):
         _ptr(wl_cq, torch.int32, "wl_cq"),
         _ptr(order, torch.int32, "order"),
         _ptr(admitted, torch.bool, "admitted"),
-    ], [order.shape[0], F * R, topo["cq_chain"].shape[1]], fit.device)
+        steps.data_ptr(),
+    ], [W, F * R, DC, C, int(plan["form"] == "shared"), plan["register_dc"],
+        plan["threads"], plan["smem"]], fit.device)
     global_scan.launches += 1
+    global_scan.last_plan = plan
     return admitted, usage_out, cohort_out
+
+
+global_scan.last_plan = None  # the last launch's global_scan_plan
 
 
 # ---------------------------------------------------------------------------
@@ -1329,17 +1396,20 @@ def deltas_tick(device, threads: int = 512, iters: int = 4096) -> float:
 # ---------------------------------------------------------------------------
 #
 # Replace kueue_tpu/solver/kernel.py:863 scatter_arena_rows_impl (and its
-# donated form, :888) and :892 gather_arena_impl. The twin holds the
-# ARENA_FIELDS rows of every arena slot; bools are bytes. Bound on the
-# H100: bytes — each row (217 B at P=4, F=32, R=2) is read once and
-# written once — but at <= 512 scattered rows and 2048 gathered rows the
-# launch latency dominates. The scatter: one block per row, its threads
-# copying the row's bytes of every field, one byte loop for every dtype.
-# The gather (csrc/arena_gather.cu): a warp a row (a warp a
-# pass of 32 vectors for a wider row), every field's loads before any
-# store (two round trips a row), each field in the widest vector that
-# divides its row bytes and the alignment of its source and destination
-# (`arena_gather_plan`); a padding slot's row is zeroed without a load.
+# donated form, :888) and :892 gather_arena_impl, with their index rules:
+# the scatter wraps a slot in [-cap, 0) to row cap + slot and drops any
+# other slot outside [0, cap); the gather reads row min(slot, cap - 1)
+# for a slot >= 0 and gives a zero row for a slot < 0. The twin holds
+# the ARENA_FIELDS rows of every arena slot; bools are bytes. Bound on
+# the H100: latency — a row (217 B at P=4, F=32, R=2) is read once and
+# written once, but at <= 512 scattered rows and 2048 gathered rows the
+# launch and two dependent global round trips (the slot, then the
+# fields) are the time. Both kernels are csrc/arena.cuh's one copy
+# kernel: a warp a row (a warp a pass of 32 vectors for a wider row),
+# every field's loads before any store, each field in the widest vector
+# that divides its row bytes and the alignment of its source and
+# destination (`arena_copy_plan`); a dropped scatter slot returns before
+# any load, a gather padding row is zeroed without one.
 
 ARENA_DTYPES = {"requests": torch.int64, "podset_active": torch.bool,
                 "wl_cq": torch.int32, "priority": torch.int64,
@@ -1352,11 +1422,15 @@ def _row_bytes(t: torch.Tensor) -> int:
 
 
 def scatter_arena_rows_plain(arena: dict, upd_slots, upd_rows: dict) -> None:
-    """In place: arena[f][upd_slots[d]] = upd_rows[f][d] for every field;
-    slots outside [0, cap) (the padding, which is `cap`) are dropped."""
+    """In place: arena[f][slot] = upd_rows[f][d] for every field, under
+    JAX's `.at[upd_slots].set(mode="drop")` index rule: a slot in [-cap,
+    0) writes row cap + slot, a slot in [0, cap) its row, and any other
+    slot (the padding, which is `cap`) is dropped. Two slots that reach
+    one row write it in no set order (XLA leaves it unspecified;
+    production sends distinct slots)."""
     cap = arena["wl_cq"].shape[0]
-    keep = (upd_slots >= 0) & (upd_slots < cap)
-    idx = upd_slots[keep].long()
+    keep = (upd_slots >= -cap) & (upd_slots < cap)
+    idx = upd_slots[keep].long() % max(cap, 1)
     for name in ARENA_FIELDS:
         arena[name][idx] = upd_rows[name][keep]
 
@@ -1375,19 +1449,26 @@ def scatter_arena_rows(arena: dict, upd_slots, upd_rows: dict) -> None:
         srcs.append(_ptr(src, ARENA_DTYPES[name], f"rows.{name}"))
         dsts.append(_ptr(dst, ARENA_DTYPES[name], f"arena.{name}"))
         sizes.append(_row_bytes(dst))
+    plan = arena_copy_plan(sizes, srcs, dsts)
+    lgs = [v.bit_length() - 1 for v in plan["vec_bytes"]]
     _launch("arena_scatter", [_ptr(upd_slots, torch.int32, "upd_slots"),
-                              *srcs, *dsts], [D, cap, *sizes],
+                              *srcs, *dsts], [D, cap, *sizes, *lgs],
             upd_slots.device)
     scatter_arena_rows.launches += 1
+    scatter_arena_rows.last_plan = plan
+
+
+scatter_arena_rows.last_plan = None  # the last launch's arena_copy_plan
 
 
 def gather_arena_plain(arena: dict, slots) -> tuple:
     """[W] slots (-1 = padding) -> the batch tensors (requests,
-    podset_active, wl_cq, priority, timestamp, eligible, solvable);
-    padding rows are all zero / False."""
+    podset_active, wl_cq, priority, timestamp, eligible, solvable), under
+    JAX's gather rule: a slot < 0 gives a row of zeros / False, a slot >=
+    0 reads row min(slot, cap - 1)."""
     cap = arena["wl_cq"].shape[0]
-    valid = (slots >= 0) & (slots < cap)
-    s = torch.where(valid, slots, 0).long()
+    valid = slots >= 0
+    s = slots.long().clamp(0, max(cap - 1, 0))
     requests = torch.where(valid[:, None, None], arena["requests"][s], 0)
     podset_active = arena["podset_active"][s] & valid[:, None]
     wl_cq = torch.where(valid, arena["wl_cq"][s], 0)
@@ -1399,32 +1480,32 @@ def gather_arena_plain(arena: dict, slots) -> tuple:
             solvable)
 
 
-ARENA_GATHER_WARPS = 8  # warps of a gather block
-# the vector widths (bytes) csrc/arena_gather.cu has instances for, by
-# field, widest first: the bool fields 16, 4 or 1; the others their
-# dtype's size (requests also 16)
-ARENA_GATHER_WIDTHS = {"requests": (16, 8), "podset_active": (16, 4, 1),
-                       "wl_cq": (4,), "priority": (8,), "timestamp": (8,),
-                       "eligible": (16, 4, 1), "solvable": (1,)}
+ARENA_COPY_WARPS = 8  # warps of a copy block (csrc/arena.cuh)
+# the vector widths (bytes) csrc/arena.cuh has instances for, by field,
+# widest first: the bool fields 16, 4 or 1; the others their dtype's size
+# (requests also 16)
+ARENA_COPY_WIDTHS = {"requests": (16, 8), "podset_active": (16, 4, 1),
+                     "wl_cq": (4,), "priority": (8,), "timestamp": (8,),
+                     "eligible": (16, 4, 1), "solvable": (1,)}
 
 
-def arena_gather_plan(row_bytes, src_ptrs, dst_ptrs) -> dict:
-    """arena_gather's launch over the fields' (ARENA_FIELDS order) row
-    bytes and base addresses (as csrc/arena_gather.cu's launcher derives
-    it): each field's vector bytes (the widest of its ARENA_GATHER_WIDTHS
-    dividing its row bytes and both addresses), the passes a row takes (a
-    lane a vector, 32 a pass), the warps a row takes (its passes, rounded
-    up to 1, 2, 4 or 8) and the rows a block copies."""
+def arena_copy_plan(row_bytes, src_ptrs, dst_ptrs) -> dict:
+    """The arena copy's launch (scatter and gather alike) over the fields'
+    (ARENA_FIELDS order) row bytes and base addresses, as csrc/arena.cuh's
+    launcher derives it: each field's vector bytes (the widest of its
+    ARENA_COPY_WIDTHS dividing its row bytes and both addresses), the
+    passes a row takes (a lane a vector, 32 a pass), the warps a row takes
+    (its passes, rounded up to 1, 2, 4 or 8) and the rows a block copies."""
     vec = []
     for name, rb, src, dst in zip(ARENA_FIELDS, row_bytes, src_ptrs,
                                   dst_ptrs):
-        vec.append(next(v for v in ARENA_GATHER_WIDTHS[name]
+        vec.append(next(v for v in ARENA_COPY_WIDTHS[name]
                         if rb % v == 0 and src % v == 0 and dst % v == 0))
     most = max((rb // v for rb, v in zip(row_bytes, vec)), default=0)
     passes = -(-most // 32)
     warps = next(w for w in (1, 2, 4, 8) if w >= min(passes, 8))
     return {"vec_bytes": vec, "passes": passes, "warps_per_row": warps,
-            "rows_per_block": ARENA_GATHER_WARPS // warps}
+            "rows_per_block": ARENA_COPY_WARPS // warps}
 
 
 def gather_arena(arena: dict, slots) -> tuple:
@@ -1441,7 +1522,7 @@ def gather_arena(arena: dict, slots) -> tuple:
         srcs.append(_ptr(src, ARENA_DTYPES[name], f"arena.{name}"))
         dsts.append(_ptr(out, ARENA_DTYPES[name], name))
         sizes.append(_row_bytes(src))
-    plan = arena_gather_plan(sizes, srcs, dsts)
+    plan = arena_copy_plan(sizes, srcs, dsts)
     lgs = [v.bit_length() - 1 for v in plan["vec_bytes"]]
     _launch("arena_gather", [_ptr(slots, torch.int32, "slots"), *srcs,
                              *dsts], [W, cap, *sizes, *lgs], slots.device)
@@ -1450,7 +1531,7 @@ def gather_arena(arena: dict, slots) -> tuple:
     return tuple(outs)
 
 
-gather_arena.last_plan = None  # the last launch's arena_gather_plan
+gather_arena.last_plan = None  # the last launch's arena_copy_plan
 
 
 # ---------------------------------------------------------------------------

@@ -1143,6 +1143,116 @@ def test_global_scan_on_card_equals_plain(kind, fair, cuda_device):
         assert torch.equal(fused[k], seq[k]), k
 
 
+def scan_card_args(topo, usage, cu, wl, device, fair=False, order=None):
+    """global_scan's arguments on the card: Phase A and the global order
+    of the card's cycle, or `order` (numpy) in its place."""
+    if fair:
+        rng = np.random.default_rng(9)
+        Q = topo["cq_cohort"].shape[0]
+        topo["fair_weight"] = np.array([0, 500, 1000, 3000], np.int64)[
+            rng.integers(0, 4, size=Q)]
+    P = wl["requests"].shape[1]
+    ctopo = tk.topo_to_device(topo, device)
+    cusage, ccu = tk.state_to_device(usage, cu, device)
+    cwl = {k: torch.from_numpy(np.array(wl[k])).to(device) for k in WL_KEYS}
+    fit, borrows, _, _, asg, share = tk.solve_phase_a(
+        ctopo, cusage, ccu, cwl["requests"], cwl["podset_active"],
+        cwl["wl_cq"], cwl["eligible"], cwl["solvable"], num_podsets=P,
+        fair_sharing=fair)
+    if order is None:
+        order = tk.order_csr(ctopo, fit, borrows, cwl["priority"],
+                             cwl["timestamp"], cwl["wl_cq"],
+                             share if fair else None, with_order=True)[2]
+    else:
+        order = torch.from_numpy(order.astype(np.int32)).to(device)
+    return ctopo, cusage, ccu, asg, fit, cwl["wl_cq"], order
+
+
+def scan_on_card(args, form):
+    """global_scan in `form` against global_scan_plain on the same card
+    tensors; returns the launch's plan."""
+    before = tk.launch_counts()["global_scan"]
+    got = tk.global_scan(*args, form=form)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["global_scan"] == before + 1
+    plan = tk.global_scan.last_plan
+    assert plan["form"] == form
+    for name, a, b in zip(("admitted", "usage", "cohort_usage"), got,
+                          tk.global_scan_plain(*args)):
+        assert torch.equal(a, b), name
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", tk.GLOBAL_SCAN_FORMS)
+@pytest.mark.parametrize("fair", (False, True))
+@pytest.mark.parametrize("kind", ("flat", "nested", "north_star",
+                                  "nested_large"))
+def test_global_scan_forms_on_card(kind, fair, form, cuda_device):
+    """K14 in each form, forced, against global_scan_plain on the cycle's
+    own Phase A and global order: the small flat and nested trees (F*R =
+    120: four warps of lanes, a barrier's vote), the north star (64
+    lanes, cohort_usage 131,072 bytes) and nested_large (336 cohorts,
+    172,032 bytes), all in the register form."""
+    args = scan_card_args(*oracle_inputs(kind), cuda_device, fair)
+    plan = scan_on_card(args, form)
+    assert plan["register_dc"] >= args[0]["cq_chain"].shape[1]
+    assert args[4].any() and not torch.equal(tk.global_scan_plain(*args)[0],
+                                             args[4])
+
+
+def scan_random_inputs(kind: str):
+    """Inputs whose order interleaves fit and non-fit steps at random and
+    repeats a CQ on runs of consecutive steps: flat and nested (the
+    register form at F*R = 16, one warp's vote), a chain of 10 levels (the looping
+    form in one warp) and F*R = 320 (the looping form, a block vote)."""
+    if kind == "deep":
+        topo, usage, cu, wl = synth_nested_inputs(
+            num_cqs=512, num_leaf_cohorts=512, fanout=2, depth=10,
+            num_flavors=8, num_resources=2, num_workloads=300, num_podsets=2,
+            no_cohort_every=7, seed=5)
+    elif kind == "wide":
+        topo, usage, cu, wl = synth_solver_inputs(
+            num_cqs=64, num_cohorts=8, num_flavors=40, num_resources=8,
+            num_workloads=300, num_podsets=2, seed=5)
+    else:
+        make = synth_solver_inputs if kind == "flat" else synth_nested_inputs
+        extra = {"num_cohorts": 8} if kind == "flat" else {
+            "num_leaf_cohorts": 8, "fanout": 2, "depth": 3,
+            "no_cohort_every": 5}
+        topo, usage, cu, wl = make(num_cqs=64, num_flavors=8,
+                                   num_resources=2, num_workloads=300,
+                                   num_podsets=2, seed=5, **extra)
+    rng = np.random.default_rng(13)
+    W = wl["wl_cq"].shape[0]
+    # runs of up to 6 workloads on one CQ, in a random order of runs
+    wl["wl_cq"] = np.repeat(rng.integers(0, topo["cq_cohort"].shape[0],
+                                         size=W), rng.integers(1, 7, size=W)
+                            )[:W].astype(np.int32)
+    wl["solvable"] = wl["solvable"] & (rng.uniform(size=W) < 0.7)
+    order = rng.permutation(W)
+    return (topo, usage + topo["nominal"] // 4, cu, wl), \
+        np.concatenate([np.sort(order[:W // 2]), order[W // 2:]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", tk.GLOBAL_SCAN_FORMS)
+@pytest.mark.parametrize("kind", ("flat", "nested", "deep", "wide"))
+def test_global_scan_random_order_on_card(kind, form, cuda_device):
+    """K14 on an order that is not the admit order (fit and non-fit steps
+    interleaved, CQs repeated on consecutive steps: the forwarded usage),
+    in both forms and, for a 10-level chain and F*R = 320, the looping
+    form."""
+    inputs_, order = scan_random_inputs(kind)
+    args = scan_card_args(*inputs_, cuda_device, order=order)
+    w, _, has_cohort, repeat = tk.global_scan_steps(
+        args[4].cpu(), args[5].cpu(), torch.from_numpy(order),
+        args[0]["cq_cohort"].cpu())
+    assert 0 < w.numel() < len(order) and repeat.any() and has_cohort.any()
+    plan = scan_on_card(args, form)
+    assert (plan["register_dc"] == 0) == (kind in ("deep", "wide"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("start_rank", (False, True))
 @pytest.mark.parametrize("fair", (False, True))
@@ -1731,9 +1841,10 @@ def gather_twin(S, W, P, F, R, seed, offset=0):
 @pytest.mark.parametrize("shape", ((4, 32, 2), (3, 5, 3), (4, 32, 32)))
 @pytest.mark.parametrize("W", (1, 203, 2045))
 def test_gather_arena_on_card(W, shape, offset, cuda_device):
-    """Slots -1, -7, cap and cap - 1 (zero rows), P=3 F=5 R=3 (odd row
-    bytes), R = 32 (two passes), sources sliced one element off a 16-byte
-    boundary, W not a multiple of 8."""
+    """Slots -1 and -7 (zero rows), cap and cap + 1 (clamped to row cap -
+    1) and cap - 1, P=3 F=5 R=3 (odd row bytes), R = 32 (two passes),
+    sources sliced one element off a 16-byte boundary, W not a multiple
+    of 8."""
     P, F, R = shape
     S = 512
     bufs, shapes, slots = gather_twin(S, W, P, F, R, W + P, offset)
@@ -1751,8 +1862,91 @@ def test_gather_arena_on_card(W, shape, offset, cuda_device):
     torch.cuda.synchronize()
     for name, a, b in zip(tk.ARENA_FIELDS, got, want):
         assert torch.equal(a.cpu(), b), name
-    pad = min(W, 3)  # slots -1, -7 and cap: zero rows
+    pad = min(W, 2)  # slots -1 and -7: zero rows
     assert not want[0][:pad].any() and not want[5][:pad].any()
+    if W > 2:  # slot cap: the last row
+        assert torch.equal(want[0][2], host["requests"][S - 1])
+
+
+def twin_views(bufs, shapes, S, offset, device):
+    """Each field of gather_twin's buffers as S rows `offset` elements
+    into its buffer, on `device`."""
+    out = {}
+    for name, buf in bufs.items():
+        size = int(np.prod((S,) + shapes[name]))
+        out[name] = buf.to(device)[offset:offset + size].view(
+            (S,) + shapes[name])
+        assert out[name].is_contiguous()
+    return out
+
+
+# the slots JAX's scatter drops: cap and past it, below -cap, the int32 ends
+SCATTER_DROPS = (512, 517, -513, -1024, 2**31 - 1, -2**31)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("shape", ((4, 32, 2), (3, 5, 3), (4, 32, 32)))
+@pytest.mark.parametrize("D", (1, 203, 512))
+def test_scatter_arena_on_card(D, shape, offset, cuda_device):
+    """K7a against its plain version: P=3 F=5 R=3 (odd row bytes), R = 32
+    (two passes), D not a multiple of 8, the rows and the twin one element
+    off a 16-byte boundary; distinct targets, each written as its slot or
+    slot - cap (-1 and -cap among them), a quarter of the slots dropped
+    (cap, cap + 5, -cap - 1, -2 cap, the int32 ends)."""
+    P, F, R = shape
+    S = 512
+    twin_bufs, shapes, _ = gather_twin(S, 1, P, F, R, D + P, offset)
+    row_bufs, _, _ = gather_twin(D, 1, P, F, R, D + P + 1, offset)
+    rng = np.random.default_rng(D + 7 * P + offset)
+    perm = rng.permutation(S)
+    targets = np.concatenate([[S - 1, 0], perm[(perm != S - 1)
+                                                & (perm != 0)]])[:D]
+    slots = np.where(rng.uniform(size=D) < 0.5, targets, targets - S)
+    slots[:2] = (-1, -S)[:D]
+    drop = rng.uniform(size=D) < 0.25
+    drop[:2] = False
+    slots[drop] = rng.choice(SCATTER_DROPS, size=int(drop.sum()))
+    slots = torch.from_numpy(slots.astype(np.int32))
+    host = twin_views(twin_bufs, shapes, S, offset, "cpu")
+    card = twin_views(twin_bufs, shapes, S, offset, cuda_device)
+    rows = twin_views(row_bufs, shapes, D, offset, "cpu")
+    if offset:
+        assert card["requests"].data_ptr() % 16 == 8
+    before = tk.launch_counts()["arena_scatter"]
+    tk.scatter_arena_rows(card, slots.to(cuda_device),
+                          {k: v.to(cuda_device) for k, v in rows.items()})
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["arena_scatter"] == before + 1
+    tk.scatter_arena_rows(host, slots, rows)
+    for name in tk.ARENA_FIELDS:
+        assert torch.equal(card[name].cpu(), host[name]), name
+    assert torch.equal(host["requests"][S - 1], rows["requests"][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+def test_gather_arena_clamps_on_card(offset, cuda_device):
+    """K7b under JAX's gather rule: a slot >= cap (cap, cap + 5, the int32
+    maximum) reads row cap - 1; a slot < 0 (-1, -cap - 1, the int32
+    minimum) gives a zero row."""
+    S, W = 512, 64
+    bufs, shapes, _ = gather_twin(S, 1, 3, 5, 3, 17, offset)
+    host = twin_views(bufs, shapes, S, offset, "cpu")
+    card = twin_views(bufs, shapes, S, offset, cuda_device)
+    rng = np.random.default_rng(offset)
+    slots = rng.integers(0, S, size=W).astype(np.int32)
+    edges = (S, S + 5, 2**31 - 1, -1, -S - 1, -2**31)
+    slots[:len(edges)] = edges
+    slots = torch.from_numpy(slots)
+    want = tk.gather_arena(host, slots)
+    got = tk.gather_arena(card, slots.to(cuda_device))
+    torch.cuda.synchronize()
+    for name, a, b in zip(tk.ARENA_FIELDS, got, want):
+        assert torch.equal(a.cpu(), b), name
+    for i in range(3):
+        assert torch.equal(want[0][i], host["requests"][S - 1])
+    assert not want[0][3:6].any() and not want[6][3:6].any()
 
 
 def deltas_on_card(topo, usage, cu, deltas, device):

@@ -1,9 +1,9 @@
-"""The admit order's and the arena gather's launch plans, and numpy models
+"""The admit order's and the arena copy's launch plans, and numpy models
 of csrc/order.cu, against the plain versions and the JAX lexsort.
 
 The CUDA kernels run only on the card (tests/test_torch_cuda.py). Here:
 `kernel.order_plan`'s form choice and shared-memory arithmetic;
-`kernel.arena_gather_plan`'s vector widths; the packed key (four 64-bit
+`kernel.arena_copy_plan`'s vector widths; the packed key (four 64-bit
 words whose unsigned order is the admit key's order) as a numpy model,
 whose order equals order_csr_plain's and the JAX lexsort's on keys with
 signed zeros, NaNs of both signs and several payloads, subnormals of
@@ -354,16 +354,16 @@ def test_order_plan_follows_smem_cap(monkeypatch):
 ])
 def test_arena_gather_plan_widths(row_bytes, src_off, vec, passes):
     base = 1 << 20
-    plan = tk.arena_gather_plan(row_bytes, [base + o for o in src_off],
-                                [base] * 7)
+    plan = tk.arena_copy_plan(row_bytes, [base + o for o in src_off],
+                              [base] * 7)
     assert tuple(plan["vec_bytes"]) == vec
     assert plan["passes"] == passes
     assert plan["warps_per_row"] == {1: 1, 2: 2, 4: 4}[passes]
     assert plan["rows_per_block"] * plan["warps_per_row"] == 8
     for name, rb, v in zip(tk.ARENA_FIELDS, row_bytes, plan["vec_bytes"]):
-        assert rb % v == 0 and v in tk.ARENA_GATHER_WIDTHS[name]
+        assert rb % v == 0 and v in tk.ARENA_COPY_WIDTHS[name]
     # a bool field's destination 4 bytes off narrows it as a source does
-    plan = tk.arena_gather_plan(row_bytes, [base] * 7,
-                                [base, base + 4, base, base, base, base + 4,
-                                 base])
+    plan = tk.arena_copy_plan(row_bytes, [base] * 7,
+                              [base, base + 4, base, base, base, base + 4,
+                               base])
     assert plan["vec_bytes"][1] <= 4 and plan["vec_bytes"][5] <= 4
