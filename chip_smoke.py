@@ -57,11 +57,11 @@ versions:
    and the batch every cycle (1 warm-up and 3 timed cycles);
 2. bound fill: the solver bound to the Cache and the Manager, usage
    resident on the card and the batch gathered from the encode arena's
-   device twin, filling an empty cluster (1 + 10 cycles);
+   device twin, filling an empty cluster (1 + 5 cycles);
 3. bound churn: the same on a cluster whose flavors are all full, where
    128 admitted workloads finish before each cycle, so the journal's
    corrections and the arena's changed rows reach the card as the
-   sparse delta prologue and the row scatter (1 + 10 cycles). Every
+   sparse delta prologue and the row scatter (1 + 5 cycles). Every
    bound cycle's resident usage is also held against the host mirror
    and a fresh encode of the cache.
 4. scheduler fair: the port's own Scheduler with fair sharing on, its
@@ -69,7 +69,7 @@ versions:
    the JAX package's fair-sharing benchmark configuration (2048 CQs in
    256 cohorts, one flavor of 2 units per CQ, 4-unit workloads, 30,720
    pending; the last cycle's admissions finish before each cycle):
-   1 + 10 cycles, every one on the device route with drf_share launched,
+   1 + 5 cycles, every one on the device route with drf_share launched,
    each bound cycle's resident usage held against the mirror and a
    fresh encode; drf_share's inputs in the first timed cycle are kept
    and its shares there held against the plain version on the same card
@@ -83,7 +83,7 @@ versions:
    bench_preemption_reclaim: 2048 CQs, 256 child cohorts under 128
    roots, one flavor of 8 units per CQ, 64,512 admitted victims, one
    8-unit preemptor per CQ, every head in preempt mode): 1 warm-up and
-   2 timed cycles, each the first cycle of a fresh build, every one on
+   1 timed cycle, each the first cycle of a fresh build, every one on
    the device route with the work gate choosing the device and every
    preempt-mode head solved by the K9 kernel (solve_preempt) after the
    fit sync; its inputs in the first timed cycle are kept and held
@@ -99,7 +99,7 @@ versions:
    configuration (bench.py bench_fair_preemption at 2048 CQs in 256
    cohorts: one flavor of 8 units per CQ, member 0 of each cohort idle
    with one 8-unit preemptor, the other 7 each holding 12 admitted
-   victims, 21,504 in all): 1 warm-up and 2 timed cycles, each the
+   victims, 21,504 in all): 1 warm-up and 1 timed cycle, each the
    first cycle of a fresh build, every one on the device route with the
    work gate choosing the device and 256 fair problems solved by the K11
    kernel (solve_fair) after the fit sync, with one sync for the
@@ -123,7 +123,7 @@ versions:
    256 cohorts, 32 flavors of 40 units, 51,200 pending 40-unit
    workloads, the MultiKueue check on every even CQ, five worker
    clusters w0..w4 bucketed to 8 columns, w2 lost, w1 lost from the
-   sixth timed cycle on): 1 + 10 cycles, each on the device route with
+   sixth timed cycle on): 1 + 6 cycles, each on the device route with
    cluster_cols launched once in the bound cycle, the placements handed
    to on_placement never on a lost cluster and on at least three; its
    inputs in the first timed cycle are kept and held against the plain
@@ -138,10 +138,10 @@ versions:
 8. scheduler sharded: the sharded cycle (kueue_tpu_torch/parallel/mesh.py,
    K13) under the port's Scheduler, BatchSolver(mesh=make_mesh()): world
    size 1 over NCCL on the one card. (a) the north star's fill (2048 CQs
-   in 256 cohorts, 32 flavors of 40 units, 51,200 pending): 1 + 5
+   in 256 cohorts, 32 flavors of 40 units, 51,200 pending): 1 + 2
    cycles; (b) the preemption reclaim configuration: 1 warm-up and 1
    timed fresh build, every preempt-mode head solved by K9 over its
-   problem slots (solve_preempt_sharded); (c) the MultiKueue cell: 1 + 3
+   problem slots (solve_preempt_sharded); (c) the MultiKueue cell: 1 + 2
    cycles, K12 after the combine. Each launches its kernels, mesh_combine
    included, and equals the same builds on the single-device route
    (BatchSolver(device="cuda")): admissions and usage per CQ, evictions
@@ -153,6 +153,37 @@ versions:
    K9, and phase_b with columns, K9 with slots and mesh_combine their
    plain versions on the same tensors. The process group is destroyed at
    the end of the phase.
+9. scheduler faults: device-fault containment (kueue_tpu_torch/
+   resilience under the port's Scheduler, its solver bound to the card)
+   on the north star's fill, then six trickle steps (128 admitted
+   workloads finish and 128 new ones are staged a step: the arena
+   scatter's and the delta prologue's traffic), in fresh builds of the
+   same step schedule: R with no injector; A with one fault at a time:
+   (a) a dispatch raise, whose cycle finishes on the CPU; (b) three in a
+   row, the breaker opens, the next cycle routes cpu-breaker, the clock
+   passes the backoff and a half-open probe on the card closes it; (c) a
+   corrupt collect, caught by the decisions' checks; (e) a journal-
+   replay raise; (f) a dispatch hang past the supervised deadline (a
+   SupervisedTimeout, the hang not sat out); (g) a collect delay past
+   the watchdog's deadline (a DispatchTimeout from the event poll); (d)
+   on the first trickle step a scrambled arena scatter, which K7a writes
+   and collect raises as an InjectedFault, the next step re-establishing
+   residency; every step of A admits what R's does and A ends with R's
+   usage per CQ; H with a seeded FaultInjector.scripted burst over every
+   site through the fill and the trickle, then quiet steps until
+   settled, with R's admissions and usage per CQ. Each step prints its
+   route, fault counts and breaker state.
+
+The bound and Scheduler phases print their snapshot_stats and the
+snapshot phase's p50: the Cache takes incremental snapshots by default,
+and bound fill, bound churn and scheduler fair must take the
+incremental path on every timed cycle and hold the last one's handout
+equal to a rebuild of the same cache (usage per CQ and cohort, workload
+keys, epochs). Bound churn runs its cycles once more with
+Cache(incremental_snapshots=False), which must decide the same; both
+snapshot p50s are printed. Every Scheduler phase but the faults phase
+must see no device fault, its breaker closed and every cycle on the
+device route.
 
 Every phase raises on failure; nothing is caught. The last lines are
 the card's name and power limit, one JSON line with the kernels'
@@ -183,7 +214,7 @@ NESTED = dict(num_cqs=2048, num_leaf_cohorts=256, fanout=4, depth=3,
 E2E_WAVES = 25          # 25 x 2048 = 51,200 pending workloads
 E2E_WARMUP = 1
 UNBOUND_TIMED = 3
-BOUND_TIMED = 10
+BOUND_TIMED = 5
 NOMINAL_UNITS = 40      # per flavor and CQ; workloads are one flavor's size
 CHURN_FINISHES = 128    # admitted workloads finishing before a churn cycle
 # The kernel phase's shapes for the resident kernels, as the churn gives
@@ -257,18 +288,23 @@ SHARDED_KERNELS = {
 }
 PHASE_KERNELS["scheduler_sharded"] = SHARDED_KERNELS["preempt"] + (
     "cluster_cols",)
-SHARDED_TIMED = {"fill": 5, "preempt": 1, "multikueue": 3}
+# the faults phase: the fill, then the trickle's finishes (K6) and
+# changed rows (K7a)
+PHASE_KERNELS["scheduler_faults"] = ("arena_gather", "arena_scatter",
+                                     "avail", "phase_a", "order", "phase_b",
+                                     "pack", "deltas")
+SHARDED_TIMED = {"fill": 2, "preempt": 1, "multikueue": 2}
 SHARDED_RANKS = 4  # the rank check's plan, each rank's body run in turn
 # The fair-sharing benchmark configuration (bench.py bench_fair_sharing,
 # builders bench.py:107-214): every admission borrows, 1024 per cycle.
 FAIR = dict(num_cqs=2048, num_cohorts=256, nominal_units=2, cpu_units=4)
-FAIR_TIMED = 10
+FAIR_TIMED = 5
 FAIR_WAVES = 15         # cycles + 4, as the bench stages: 30,720 pending
 # The preemption-heavy configuration (bench.py bench_preemption_reclaim,
 # bench.py:1807-1850; sim/northstar.build_preempt_reclaim).
 PREEMPT = dict(num_roots=128, children_per_root=2, cqs_per_child=8,
                victims_per_borrower=36)
-PREEMPT_TIMED = 2
+PREEMPT_TIMED = 1
 # K9's synthetic check: trees 3 deep (CQs attached at two depths),
 # within-CQ, reclaim and threshold problems, 124 padding rows
 PREEMPT_NESTED = dict(num_problems=900, max_candidates=120,
@@ -286,7 +322,7 @@ PREEMPT_GLOBAL = dict(num_problems=256, max_candidates=1500,
 # bench_fair_preemption, bench.py:1727-1775; sim/northstar
 # build_fair_preemption) at the north star's 2048 CQs.
 FAIR_PREEMPT = dict(num_cqs=2048, num_cohorts=256, victims_per_cq=12)
-FAIR_PREEMPT_TIMED = 2
+FAIR_PREEMPT_TIMED = 1
 # K11's synthetic check: trees 3 deep (CQs attached at two depths), two
 # flavors per problem, weight 0, roots lending nothing, thresholds, 124
 # padding rows, under every strategy order
@@ -315,7 +351,7 @@ MIXED_SHARES = (-2, -1, 0, 0, 125, 125, 333, 2**62)
 # north star: w1 is lost from the sixth timed cycle on.
 MK = dict(num_cqs=2048, num_cohorts=256, num_flavors=32, nominal_units=40,
           cpu_units=40, waves=25)
-MK_TIMED = 10
+MK_TIMED = 6
 MK_LOST = ("w1", E2E_WARMUP + 5)
 # K12's synthetic check: lost clusters, partial offers, capacity that runs
 # out mid-scan
@@ -411,8 +447,21 @@ FETCH_REPS = 200
 PARTIAL = dict(num_cqs=2048, num_cohorts=256, num_flavors=32,
                nominal_units=40, cpu_units=40, partial_cohorts=128,
                count=512, min_count=64)
-PARTIAL_TIMED = 5
+PARTIAL_TIMED = 3
 PARTIAL_WAVES = E2E_WARMUP + PARTIAL_TIMED + 2  # a head on every CQ
+# The faults phase (scheduler_faults_phase): the north star's fill, then
+# FAULTS_TRICKLE steps that finish 128 admitted workloads and stage 128
+# new ones (the arena scatter's traffic); the chaos run goes on until
+# FAULTS_SETTLE steps in a row admit nothing.
+FAULTS_TRICKLE = 6
+FAULTS_SETTLE = 3
+FAULTS_STEPS = E2E_WAVES + FAULTS_TRICKLE
+FAULTS_CLOCK_S = 0.25   # the FakeClock's advance a step (A and R)
+FAULTS_CHAOS_CLOCK_S = 2.0  # the chaos run's, past doubled backoffs
+FAULTS_CHAOS = dict(seed=1234, horizon=40, delay_s=0.2,
+                    rates={"device_dispatch": 0.5, "device_collect": 0.3,
+                           "arena_scatter": 0.4, "journal_replay": 0.2})
+FAULTS_MAX_STEPS = 80
 
 
 def log(msg: str) -> None:
@@ -518,9 +567,9 @@ def fetch_timing(solver, out: dict):
     FETCH_REPS calls of each; `out` gets their p50 and the bytes."""
     calls, real = [], solver.collect
 
-    def record(plan, result, keys, snapshot):
-        calls.append((result, tuple(keys)))
-        return real(plan, result, keys, snapshot)
+    def record(inflight, snapshot):
+        calls.append((inflight.result, tuple(inflight.keys)))
+        return real(inflight, snapshot)
     solver.collect = record
     try:
         yield
@@ -1227,6 +1276,81 @@ def kernel_phase(kind: str, device, results: dict) -> None:
         f"{occ_ms} ms")
 
 
+def check_healthy(phase: str, sched, cycle: int) -> None:
+    """A card Scheduler's cycle outside the faults phase: on the device
+    route, no device fault contained, the breaker closed, and no cycle
+    of the run on another route."""
+    if sched.last_route != "device" or sched.solver_faults \
+            or sched.breaker.state != "closed" \
+            or set(sched.cycle_counts) != {"device"}:
+        raise AssertionError(
+            f"{phase} cycle {cycle}: route {sched.last_route!r}, "
+            f"{sched.solver_faults} device faults, breaker "
+            f"{sched.breaker.state}, cycles {sched.cycle_counts}")
+
+
+def check_handout(snap, cache, ctx: str) -> None:
+    """A snapshot handout against a from-scratch build of the same cache
+    (Cache._build_snapshot): every CQ's usage and workload keys, every
+    cohort's usage, the epochs and the journal position."""
+    want = cache._build_snapshot()
+    got_e = (snap.cohort_epoch, snap.flavor_spec_epoch, snap.topology_epoch,
+             snap.journal_seq)
+    want_e = (want.cohort_epoch, want.flavor_spec_epoch,
+              want.topology_epoch, want.journal_seq)
+    if got_e != want_e or set(snap.cluster_queues) != set(want.cluster_queues):
+        raise AssertionError(f"{ctx}: handout epochs {got_e} or CQs differ "
+                             f"from a rebuild's {want_e}")
+    cohorts = {}
+    for name, cq in snap.cluster_queues.items():
+        ref = want.cluster_queues[name]
+        if cq.resource_node.usage != ref.resource_node.usage \
+                or set(cq.workloads) != set(ref.workloads):
+            raise AssertionError(f"{ctx}: CQ {name}'s usage or workloads "
+                                 "differ from a rebuild's")
+        if cq.cohort is not None:
+            cohorts[cq.cohort.name] = (cq.cohort, ref.cohort)
+    for name, (c, ref) in cohorts.items():
+        if c.resource_node.usage != ref.resource_node.usage:
+            raise AssertionError(f"{ctx}: cohort {name}'s usage differs "
+                                 "from a rebuild's")
+
+
+class HandoutCheck:
+    """Within the block, every full snapshot the cache hands out is held
+    against a rebuild (check_handout) as it is taken; `spent` is the
+    seconds the checks took, for the caller to take out of its times."""
+
+    def __init__(self, cache, ctx: str):
+        self.cache, self.ctx = cache, ctx
+        self.spent = 0.0
+        self.checked = 0
+
+    def __enter__(self):
+        real = self.cache.snapshot
+
+        def snapshot(light=False):
+            snap = real(light=light)
+            if not light:
+                t0 = time.perf_counter()
+                check_handout(snap, self.cache, self.ctx)
+                self.spent += time.perf_counter() - t0
+                self.checked += 1
+            return snap
+        self.cache.snapshot = snapshot
+        return self
+
+    def __exit__(self, *exc):
+        del self.cache.snapshot
+
+
+def snapshot_mode(stats: dict, before: dict) -> str:
+    """Which path (full, incremental, partial, light) served the one
+    snapshot taken between the two readings of cache.snapshot_stats."""
+    moved = [m for m in stats if stats[m] != before[m]]
+    return moved[0] if len(moved) == 1 else "+".join(moved)
+
+
 def normalize(decisions: dict) -> dict:
     out = {}
     for i, (a, admitted) in decisions.items():
@@ -1250,7 +1374,9 @@ def check_resident(solver, cache, topo, host_admitted=()) -> None:
     rs = solver.resident
     if rs.device_backlog:
         raise AssertionError("corrections left unshipped after a cycle")
-    truth = encode.encode_state(cache.snapshot(), topo)
+    # a from-scratch build, not a handout: the incremental maintainer's
+    # replay stays inside the next cycle's timed snapshot
+    truth = encode.encode_state(cache._build_snapshot(), topo)
     corr = {}
     for wl in host_admitted:
         adm = wl.status.admission
@@ -1270,12 +1396,18 @@ def check_resident(solver, cache, topo, host_admitted=()) -> None:
             raise AssertionError(f"resident {name} differs from the host")
 
 
-def e2e_phase(device, phase: str) -> dict:
+def e2e_phase(device, phase: str, incremental: bool = True) -> dict:
     """One main path, cycle after cycle: heads from the Manager, a cache
-    snapshot, BatchSolver(device), the admissions applied as the
-    scheduler applies them. Every cycle's decisions are held against the
-    CPU plain path on the same snapshot and heads, outside the timed
-    window."""
+    snapshot (incremental, as the Cache takes them by default, unless
+    told otherwise), BatchSolver(device), the admissions applied as the
+    scheduler applies them and the snapshot released. Every cycle's
+    decisions are held against the CPU plain path on the same snapshot
+    and heads, outside the timed window; the bound phases' timed
+    snapshots must take the incremental path, and the last one's
+    handout must equal a rebuild of the cache. With incremental False
+    (a rerun of a phase with Cache(incremental_snapshots=False)) the
+    CPU check, the fetch timing and the trace are left out: the caller
+    holds its decisions to the incremental run's."""
     from collections import deque
 
     from kueue_tpu_torch.api import kueue as api
@@ -1290,7 +1422,9 @@ def e2e_phase(device, phase: str) -> dict:
     # so the heads that do not fit come back unchanged every cycle.
     cache, queues = ns.build_cluster(
         num_cqs, num_cohorts, flavors, NOMINAL_UNITS,
-        api.STRICT_FIFO if churn else api.BEST_EFFORT_FIFO)
+        api.STRICT_FIFO if churn else api.BEST_EFFORT_FIFO,
+        incremental_snapshots=incremental)
+    label = phase if incremental else f"{phase} (full rebuild)"
     admitted = deque() if churn else None
     if churn:  # every flavor of every CQ full, oldest first by flavor
         for f in flavors:
@@ -1300,7 +1434,7 @@ def e2e_phase(device, phase: str) -> dict:
                 cache.assume_workload(wl)
                 admitted.append(wl)
     staged = ns.stage_waves(queues, E2E_WAVES, num_cqs, NOMINAL_UNITS)
-    log(f"[{phase}] cluster: {num_cqs} CQs, {num_cohorts} cohorts, "
+    log(f"[{label}] cluster: {num_cqs} CQs, {num_cohorts} cohorts, "
         f"{len(flavors)} flavors x {NOMINAL_UNITS} units; "
         f"{len(admitted or ())} admitted and {staged} pending staged in "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -1314,6 +1448,7 @@ def e2e_phase(device, phase: str) -> dict:
             "fetch", "decode", "admit", "gc", "cycle", "upload_bytes")
     phases = {p: [] for p in keys}
     admitted_timed = 0
+    modes, decided = [], []
     gc_clock = GcClock()
     gc.callbacks.append(gc_clock)
 
@@ -1332,20 +1467,30 @@ def e2e_phase(device, phase: str) -> dict:
             if churn else 0
         g0, t0 = gc_clock.total, time.perf_counter()
         heads = queues.heads_nonblocking()
+        stats0 = dict(cache.snapshot_stats)
         t1 = time.perf_counter()
         snapshot = cache.snapshot()
         t2 = time.perf_counter()
         decisions = solver.solve(snapshot, heads)
         g3, t3 = gc_clock.total, time.perf_counter()
-        expected = reference.solve(snapshot, heads)
-        if normalize(decisions) != normalize(expected):
-            raise AssertionError(f"{phase} cycle {cycle}: CUDA decisions "
-                                 "differ from the CPU plain path")
-        del expected
+        mode = snapshot_mode(cache.snapshot_stats, stats0)
+        if cycle == E2E_WARMUP + timed - 1:
+            check_handout(snapshot, cache, f"{label} cycle {cycle}")
+        if incremental:
+            expected = reference.solve(snapshot, heads)
+            if normalize(decisions) != normalize(expected):
+                raise AssertionError(f"{phase} cycle {cycle}: CUDA "
+                                     "decisions differ from the CPU plain "
+                                     "path")
+            del expected
+        decided.append(sorted((heads[i].key, a.pod_sets[0].flavors["cpu"]
+                               .name, ok)
+                              for i, (a, ok) in decisions.items()))
         gc.collect()
         g4, t4 = gc_clock.total, time.perf_counter()
         n = ns.apply_decisions(cache, queues, solver if bound else None,
                                heads, decisions, 1000.0 + cycle, admitted)
+        cache.release_snapshot(snapshot)
         g5, t5 = gc_clock.total, time.perf_counter()
         row = {"heads": t1 - t0, "snapshot": t2 - t1, **solver.last_phase_s,
                "admit": t5 - t4, "gc": (g3 - g0) + (g5 - g4),
@@ -1354,9 +1499,10 @@ def e2e_phase(device, phase: str) -> dict:
         depth = sorted({ps.flavors["cpu"].name for a, ok in decisions.values()
                         if ok for ps in a.pod_sets})
         arena = solver.arena
-        log(f"[{phase}] cycle {cycle}"
+        log(f"[{label}] cycle {cycle}"
             f"{' (warm-up)' if cycle < E2E_WARMUP else ''}: finished="
-            f"{finished} heads={len(heads)} fit={len(decisions)} admitted="
+            f"{finished} snapshot={mode} heads={len(heads)} "
+            f"fit={len(decisions)} admitted="
             f"{n} flavors={depth if len(depth) < 4 else len(depth)} "
             f"pending={queues.pending_total()} cycle_ms="
             f"{row['cycle'] * 1e3:.1f} gc_ms={row['gc'] * 1e3:.1f} "
@@ -1367,19 +1513,25 @@ def e2e_phase(device, phase: str) -> dict:
             + json.dumps({k: round(row[k] * 1e3, 3) for k in keys
                           if k not in ("gc", "cycle", "upload_bytes")}))
         row["admitted"] = n
+        row["mode"] = mode
         return row
 
     fetch = {}
     kernel.reset_launch_counts()
     for cycle in range(E2E_WARMUP + timed):
-        with fetch_timing(solver, fetch) if cycle == E2E_WARMUP \
+        with fetch_timing(solver, fetch) \
+                if cycle == E2E_WARMUP and incremental \
                 else contextlib.nullcontext():
             row = run_cycle(cycle)
         if cycle < E2E_WARMUP:
             continue
         admitted_timed += row["admitted"]
+        modes.append(row["mode"])
         for k in keys:
             phases[k].append(row[k])
+    if bound and incremental and set(modes) != {"incremental"}:
+        raise AssertionError(f"{phase}: the timed snapshots took {modes}, "
+                             "not the incremental path")
     launches = kernel.launch_counts()
     for name in PHASE_KERNELS[phase]:
         if launches[name] <= 0:
@@ -1399,13 +1551,17 @@ def e2e_phase(device, phase: str) -> dict:
     summary["arena"] = {"cap": arena.cap, "full_uploads": arena.full_uploads,
                         "row_uploads": arena.row_uploads,
                         "encoded_rows": arena.encoded_rows}
+    summary["snapshot_stats"] = dict(cache.snapshot_stats)
+    summary["snapshot_modes"] = modes
     check()
-    summary["traced_cycle"] = traced_cycle(phase, run_cycle,
-                                           E2E_WARMUP + timed)
-    check()
+    if incremental:
+        summary["traced_cycle"] = traced_cycle(phase, run_cycle,
+                                               E2E_WARMUP + timed)
+        check()
     gc.callbacks.remove(gc_clock)
     summary["wall_s"] = time.perf_counter() - t_phase
-    log(f"[{phase}] " + json.dumps(summary))
+    log(f"[{label}] " + json.dumps(summary))
+    summary["decided"] = decided
     return summary
 
 
@@ -1456,7 +1612,7 @@ def scheduler_phase(device) -> dict:
     topo = encode.encode_topology(cache.snapshot())
     keys = SCHED_PHASES + ("gc", "other", "cycle")
     phases = {p: [] for p in keys}
-    records = []
+    records, modes = [], []
     admitted_timed = 0
     gc_clock = GcClock()
     gc.callbacks.append(gc_clock)
@@ -1469,21 +1625,33 @@ def scheduler_phase(device) -> dict:
         t_finish = time.perf_counter() - t0
         gc.collect()
         before = client.admitted
-        g0, t0 = gc_clock.total, time.perf_counter()
-        sched.schedule(timeout=0)
-        g1, t1 = gc_clock.total, time.perf_counter()
-        if sched.last_route != "device":
-            raise AssertionError(f"{phase} cycle {cycle} took the "
-                                 f"{sched.last_route!r} route")
+        stats0 = dict(cache.snapshot_stats)
+        # the last timed cycle's handout is held against a rebuild as it
+        # is taken, its time taken out of the snapshot and the cycle
+        with HandoutCheck(cache, f"{phase} cycle {cycle}") \
+                if cycle == E2E_WARMUP + FAIR_TIMED - 1 \
+                else contextlib.nullcontext() as handout:
+            g0, t0 = gc_clock.total, time.perf_counter()
+            sched.schedule(timeout=0)
+            g1, t1 = gc_clock.total, time.perf_counter()
+        spent = handout.spent if handout is not None else 0.0
+        if handout is not None and handout.checked != 1:
+            raise AssertionError(f"{phase} cycle {cycle} took "
+                                 f"{handout.checked} full snapshots")
+        mode = snapshot_mode(cache.snapshot_stats, stats0)
+        check_healthy(phase, sched, cycle)
         records.append(cycle_record(client, cache))
         row = {**sched.last_phase_s, **solver.last_phase_s,
-               "gc": g1 - g0, "cycle": t1 - t0}
+               "gc": g1 - g0, "cycle": t1 - t0 - spent}
+        row["snapshot"] -= spent
         row["other"] = row["cycle"] - sum(row[p] for p in SCHED_PHASES)
         row["admitted"] = client.admitted - before
+        row["mode"] = mode
         log(f"[{phase}] cycle {cycle}"
             f"{' (warm-up)' if cycle < E2E_WARMUP else ''}: finished="
-            f"{finished} (finish_ms={t_finish * 1e3:.1f}) admitted="
-            f"{row['admitted']} pending={queues.pending_total()} cycle_ms="
+            f"{finished} (finish_ms={t_finish * 1e3:.1f}) snapshot={mode} "
+            f"admitted={row['admitted']} pending={queues.pending_total()} "
+            f"cycle_ms="
             f"{row['cycle'] * 1e3:.1f} upload_bytes="
             f"{solver.last_upload_bytes} ms="
             + json.dumps({p: round(row[p] * 1e3, 3) for p in keys
@@ -1502,8 +1670,12 @@ def scheduler_phase(device) -> dict:
         if cycle < E2E_WARMUP:
             continue
         admitted_timed += row["admitted"]
+        modes.append(row["mode"])
         for p in keys:
             phases[p].append(row[p])
+    if set(modes) != {"incremental"}:
+        raise AssertionError(f"{phase}: the timed snapshots took {modes}, "
+                             "not the incremental path")
     launches = kernel.launch_counts()
     for name in PHASE_KERNELS[phase]:
         if launches[name] <= 0:
@@ -1516,6 +1688,9 @@ def scheduler_phase(device) -> dict:
     summary["launches"] = launches
     summary["counters"] = dict(solver.counters)
     summary["cycle_counts"] = dict(sched.cycle_counts)
+    summary["snapshot_stats"] = dict(cache.snapshot_stats)
+    summary["snapshot_modes"] = modes
+    summary["live_handouts"] = cache.live_handouts
     summary["drf_share_check"] = check_captured_share(captured, kernel)
     check_resident(solver, cache, topo)
     summary["traced_cycle"] = traced_cycle(
@@ -1792,6 +1967,7 @@ def scheduler_preempt_phase(device) -> dict:
     outcomes, plans = [], []
     evicted_timed = 0
     samples: list = []
+    snap_stats: list = []  # each build's Cache's snapshot_stats
     gc_clock = GcClock()
     gc.callbacks.append(gc_clock)
     t_phase = time.perf_counter()
@@ -1799,6 +1975,7 @@ def scheduler_preempt_phase(device) -> dict:
     def run_cycle(cycle: int, check_first: bool = True) -> dict:
         t0 = time.perf_counter()
         sched, cache, queues, client = preempt_env(device, samples)
+        snap_stats.append(cache.snapshot_stats)
         pending = []
         stage = sched._stage_preempt
 
@@ -1813,7 +1990,8 @@ def scheduler_preempt_phase(device) -> dict:
         g1, t1 = gc_clock.total, time.perf_counter()
         samples[:] = sched.solver._sync_samples
         plan = sched.last_preempt_plan.get("minimal", {})
-        if sched.last_route != "device" or sched.last_preempt_gate != "device":
+        check_healthy(phase, sched, cycle)
+        if sched.last_preempt_gate != "device":
             raise AssertionError(f"{phase} cycle {cycle}: route "
                                  f"{sched.last_route!r}, preemption gate "
                                  f"{sched.last_preempt_gate!r}")
@@ -1868,6 +2046,7 @@ def scheduler_preempt_phase(device) -> dict:
     summary["reasons"] = sorted({r for _, r in outcomes[0][0]})
     summary["preempt_plan"] = plans[-1]
     summary["launches"] = launches
+    summary["snapshot_stats"] = dict(snap_stats[-1])
     if captured.args is None:
         raise AssertionError("solve_preempt was not called in the captured "
                              "cycle")
@@ -2142,6 +2321,7 @@ def scheduler_fair_preempt_phase(device) -> dict:
     outcomes, plans = [], []
     evicted_timed = 0
     samples: list = []
+    snap_stats: list = []  # each build's Cache's snapshot_stats
     gc_clock = GcClock()
     gc.callbacks.append(gc_clock)
     t_phase = time.perf_counter()
@@ -2149,6 +2329,7 @@ def scheduler_fair_preempt_phase(device) -> dict:
     def run_cycle(cycle: int, check_first: bool = True) -> dict:
         t0 = time.perf_counter()
         sched, cache, queues, client = fair_preempt_env(device, samples)
+        snap_stats.append(cache.snapshot_stats)
         pending, calls = [], []
         stage = sched._stage_preempt
 
@@ -2164,7 +2345,8 @@ def scheduler_fair_preempt_phase(device) -> dict:
         g1, t1 = gc_clock.total, time.perf_counter()
         samples[:] = sched.solver._sync_samples
         plan = sched.last_preempt_plan
-        if sched.last_route != "device" or sched.last_preempt_gate != "device":
+        check_healthy(phase, sched, cycle)
+        if sched.last_preempt_gate != "device":
             raise AssertionError(f"{phase} cycle {cycle}: route "
                                  f"{sched.last_route!r}, preemption gate "
                                  f"{sched.last_preempt_gate!r}")
@@ -2226,6 +2408,7 @@ def scheduler_fair_preempt_phase(device) -> dict:
     summary["reasons"] = sorted({r for _, r in outcomes[0][0]})
     summary["preempt_plan"] = plans[-1]
     summary["launches"] = launches
+    summary["snapshot_stats"] = dict(snap_stats[-1])
     if captured.args is None:
         raise AssertionError("solve_fair was not called in the captured "
                              "cycle")
@@ -2503,9 +2686,7 @@ def scheduler_multikueue_phase(device) -> dict:
         g0, t0 = gc_clock.total, time.perf_counter()
         sched.schedule(timeout=0)
         g1, t1 = gc_clock.total, time.perf_counter()
-        if sched.last_route != "device":
-            raise AssertionError(f"{phase} cycle {cycle} took the "
-                                 f"{sched.last_route!r} route")
+        check_healthy(phase, sched, cycle)
         placements = tuple(remote.placements[start:])
         on_lost = [c for _, c in placements if c in lost]
         if on_lost:
@@ -2582,6 +2763,7 @@ def scheduler_multikueue_phase(device) -> dict:
         (Counter(m["by_cluster"]) for m in rows_mk), Counter()).items()))
     summary["launches"] = launches
     summary["counters"] = dict(solver.counters)
+    summary["snapshot_stats"] = dict(cache.snapshot_stats)
     summary["fetch_timing"] = fetch
     if captured.args is None:
         raise AssertionError("cluster_cols was not called in the captured "
@@ -2675,9 +2857,7 @@ def sharded_step(kind: str, env, cycle: int, mesh=None,
         t0 = time.perf_counter()
         sched.schedule(timeout=0)
         t1 = time.perf_counter()
-    if sched.last_route != "device":
-        raise AssertionError(f"sharded {kind} cycle {cycle} took the "
-                             f"{sched.last_route!r} route")
+    check_healthy(f"sharded {kind}", sched, cycle)
     if kind == "preempt":
         plan = sched.last_preempt_plan.get("minimal", {})
         if sched.last_preempt_gate != "device" or pending != [heads_n] \
@@ -2697,7 +2877,8 @@ def sharded_step(kind: str, env, cycle: int, mesh=None,
         solver = sched.solver
         row.update({**sched.last_phase_s, **solver.last_phase_s,
                     "cycle": t1 - t0,
-                    "upload_bytes": solver.last_upload_bytes})
+                    "upload_bytes": solver.last_upload_bytes,
+                    "snapshot_stats": dict(cache.snapshot_stats)})
         row["other"] = row["cycle"] - sum(row[p] for p in keys)
         dplan = solver.last_domain_plan
         row["mesh"] = {"collectives": mesh.collectives - before,
@@ -2961,6 +3142,7 @@ def scheduler_sharded_phase(device) -> dict:
             sub["mesh"] = timed[-1]["mesh"]
             sub["launches"] = launches
             sub["upload_bytes"] = timed[-1]["upload_bytes"]
+            sub["snapshot_stats"] = timed[-1]["snapshot_stats"]
             if trace is not None:
                 sub["traced_cycle"] = trace
             sub["ref_check_s"] = time.perf_counter() - t_ref
@@ -3587,9 +3769,7 @@ def scheduler_partial_phase(device) -> dict:
         g0, t0 = gc_clock.total, time.perf_counter()
         sched.schedule(timeout=0)
         g1, t1 = gc_clock.total, time.perf_counter()
-        if sched.last_route != "device":
-            raise AssertionError(f"{phase} cycle {cycle} took the "
-                                 f"{sched.last_route!r} route")
+        check_healthy(phase, sched, cycle)
         records.append(partial_record(client, msgs))
         row = {**sched.last_phase_s, **solver.last_phase_s,
                "gc": g1 - g0, "cycle": t1 - t0}
@@ -3655,6 +3835,7 @@ def scheduler_partial_phase(device) -> dict:
                                       for c in s["reduced_pods"]})
     summary["launches"] = launches
     summary["counters"] = dict(solver.counters)
+    summary["snapshot_stats"] = dict(cache.snapshot_stats)
     check_resident(solver, cache, topo, host_admitted())
     summary["traced_cycle"] = traced_cycle(
         phase, run_cycle, E2E_WARMUP + PARTIAL_TIMED)
@@ -3698,6 +3879,302 @@ def scheduler_partial_phase(device) -> dict:
     log(f"[{phase}] equal to the CPU run ({len(records)} cycles: "
         f"admissions, counts, Pending messages) and to the sequential "
         f"PodSetReducer (cycles 0-{E2E_WARMUP}); {client.admitted} admitted")
+    log(f"[{phase}] " + json.dumps(summary))
+    return summary
+
+
+def faults_env(device):
+    """The north star's fill (2048 CQs in 256 cohorts, 32 flavors of 40
+    units, 51,200 pending) under the port's Scheduler, its solver bound
+    to the card; the Scheduler's own breaker and watchdog."""
+    from kueue_tpu_torch.sim import northstar as ns
+    from kueue_tpu_torch.solver import BatchSolver
+    flavors = [f"f{i}" for i in range(NORTH_STAR["num_flavors"])]
+    env = ns.build_scheduler(NORTH_STAR["num_cqs"], NORTH_STAR["num_cohorts"],
+                             flavors, NOMINAL_UNITS,
+                             solver=BatchSolver(device=device))
+    ns.stage_waves(env[2], E2E_WAVES, NORTH_STAR["num_cqs"], NOMINAL_UNITS)
+    return env
+
+
+def wave_key(name: str) -> tuple:
+    """The finishing order: the waves' workloads w{wave}-{cq} by wave
+    and CQ, then the trickle's t{k}-{cq}."""
+    n, cq = name[1:].split("-")
+    return name[0] != "w", int(n), int(cq)
+
+
+class FaultsRun:
+    """One run of the faults phase's step schedule on a fresh build:
+    E2E_WAVES fill steps, then FAULTS_TRICKLE steps that first finish
+    the 128 oldest admitted workloads (wave_key) and stage one new
+    workload in each of their CQs, then (the chaos run) quiet steps.
+    A step may install a FaultInjector and set the watchdog for its
+    cycle."""
+
+    def __init__(self, device, label: str, clock_s: float):
+        from kueue_tpu_torch.sim import northstar as ns
+        self.ns = ns
+        t0 = time.perf_counter()
+        self.sched, self.cache, self.queues, self.client = faults_env(device)
+        self.label, self.clock_s = label, clock_s
+        self.admitted = {}   # name -> admitted workload
+        self.records = []    # per step: sorted admitted names
+        self.steps = []      # per step: the log row
+        self.trickled = 0
+        log(f"[scheduler_faults] {label}: {NORTH_STAR['num_cqs']} CQs, "
+            f"{self.queues.pending_total()} pending staged in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    def trickle(self) -> None:
+        ns = self.ns
+        done = sorted(self.admitted, key=wave_key)[:CHURN_FINISHES]
+        for name in done:
+            wl = self.admitted.pop(name)
+            self.cache.delete_workload(wl)
+            self.queues.queue_associated_inadmissible_workloads_after(wl)
+        for name in done:
+            cq = int(name.split("-")[1])
+            self.trickled += 1
+            wl = ns.make_workload(f"t{self.trickled}-{cq}", f"lq{cq}",
+                                  cpu_units=NOMINAL_UNITS,
+                                  creation=1e6 + self.trickled)
+            if not self.queues.add_or_update_workload(wl):
+                raise AssertionError(f"no queue for {wl.metadata.name}")
+
+    def step(self, n: int, injector=None, watchdog=None,
+             case: str = "") -> dict:
+        from kueue_tpu_torch.resilience import faultinject
+        from kueue_tpu_torch.resilience.watchdog import DispatchWatchdog
+        from kueue_tpu_torch.solver import kernel
+        sched, solver = self.sched, self.sched.solver
+        if E2E_WAVES <= n < E2E_WAVES + FAULTS_TRICKLE:
+            self.trickle()
+        counts0 = dict(sched.cycle_counts)
+        faults0, k0 = sched.solver_faults, kernel.launch_counts()
+        if watchdog is not None:
+            sched.watchdog = DispatchWatchdog(**watchdog)
+        if injector is not None:
+            faultinject.install(injector)
+        t0 = time.perf_counter()
+        try:
+            sched.schedule(timeout=0)
+        finally:
+            wall = time.perf_counter() - t0
+            faultinject.uninstall()
+            if watchdog is not None:
+                sched.watchdog = DispatchWatchdog()
+        new = self.client.drain_applied()
+        for wl in new:
+            self.admitted[wl.metadata.name] = wl
+        self.records.append(sorted(wl.metadata.name for wl in new))
+        route = [r for r, c in sched.cycle_counts.items()
+                 if c != counts0.get(r, 0)]
+        b = sched.breaker
+        launched = {k: v - k0[k] for k, v in kernel.launch_counts().items()
+                    if v != k0[k]}
+        row = {"step": n, "case": case, "route": route[0] if route else "",
+               "faults": sched.solver_faults,
+               "new_faults": sched.solver_faults - faults0,
+               "breaker": b.state, "consecutive": b.consecutive_faults,
+               "trips": b.trips, "recoveries": b.recoveries,
+               "counters": {k: solver.counters[k] for k in (
+                   "validation_faults", "scatter_faults",
+                   "supervised_timeouts", "dispatch_timeouts",
+                   "establishes", "collects")},
+               "orphaned": solver._supervisor.orphaned,
+               "admitted": len(new), "wall_ms": wall * 1e3,
+               "launched": launched}
+        if injector is not None:
+            row["fired"] = {k: v for k, v in injector.fired.items() if v}
+        self.steps.append(row)
+        log(f"[scheduler_faults] {self.label} step {n}"
+            f"{f' ({case})' if case else ''}: " + json.dumps(row))
+        sched.clock.advance(self.clock_s)
+        return row
+
+    def settle(self, start: int, injector=None, inject_until: int = 0,
+               case: str = "") -> int:
+        """Steps from `start` (with `injector` before `inject_until`)
+        until FAULTS_SETTLE in a row, past it, admit nothing; heads the
+        cohorts' intra-cycle accounting skipped retry in them. Returns
+        the steps run in all."""
+        settled, n = 0, start
+        while n < FAULTS_MAX_STEPS:
+            injecting = n < inject_until
+            row = self.step(n, injector if injecting else None,
+                            case=case if injecting else "")
+            settled = 0 if (injecting or row["admitted"]) else settled + 1
+            n += 1
+            if settled >= FAULTS_SETTLE:
+                return n
+        raise AssertionError(f"scheduler_faults {self.label} did not settle")
+
+    def usage(self) -> list:
+        return [sorted(self.cache.usage_for_cluster_queue(f"cq{i}")[0]
+                       .items()) for i in range(NORTH_STAR["num_cqs"])]
+
+    def close(self) -> list:
+        """Drop the build and return its usage per CQ; the records,
+        steps and admitted names stay."""
+        usage = self.usage()
+        self.sched.solver._supervisor.close(join_timeout=0.0)
+        self.admitted = dict.fromkeys(self.admitted)
+        self.sched = self.cache = self.queues = self.client = None
+        return usage
+
+
+def scheduler_faults_phase(device) -> dict:
+    """Device-fault containment on the card (resilience/ under the
+    port's Scheduler), on the north star's fill: R, the step schedule
+    with no injector; A, the same steps with one injected fault at a
+    time: (a) a dispatch raise, (b) three in a row (the breaker opens,
+    a cpu-breaker cycle, the clock past the backoff, a half-open probe
+    on the card closes it), (c) a corrupt collect, (e) a journal-replay
+    raise, (f) a dispatch hang past the supervised deadline, (g) a
+    collect delay past the watchdog's deadline, and, on the first
+    trickle step, (d) a scrambled arena scatter (K7a launches on the
+    mangled rows; collect raises the noted scramble; the next step
+    re-establishes residency); every step of A admits what R's does.
+    H: a seeded FaultInjector.scripted burst over every site through
+    the fill and the trickle, then quiet steps until settled: the same
+    admissions and usage per CQ as R."""
+    from kueue_tpu_torch.resilience import faultinject as fi
+    from kueue_tpu_torch.solver import encode, kernel
+    phase = "scheduler_faults"
+    t_phase = time.perf_counter()
+    kernel.reset_launch_counts()
+    ref = FaultsRun(device, "R", FAULTS_CLOCK_S)
+    for n in range(FAULTS_STEPS):
+        ref.step(n)
+    steps = ref.settle(FAULTS_STEPS)
+    for row in ref.steps:
+        # a quiet step with no head takes no route
+        if row["route"] not in ("device", "") or row["faults"]:
+            raise AssertionError(f"{phase} R step {row['step']}: {row}")
+    topo = encode.encode_topology(ref.cache.snapshot())
+    check_resident(ref.sched.solver, ref.cache, topo)
+    stats = {"R": dict(ref.cache.snapshot_stats)}
+    ref_usage = ref.close()
+
+    def one(site, action):
+        return fi.FaultInjector({site: {0: action}})
+    cases = {
+        1: ("a", lambda: one(fi.SITE_DISPATCH, fi.RAISE), None),
+        3: ("b", lambda: one(fi.SITE_DISPATCH, fi.RAISE), None),
+        4: ("b", lambda: one(fi.SITE_DISPATCH, fi.RAISE), None),
+        5: ("b", lambda: one(fi.SITE_DISPATCH, fi.RAISE), None),
+        8: ("c", lambda: one(fi.SITE_COLLECT, fi.CORRUPT), None),
+        10: ("e", lambda: one(fi.SITE_REPLAY, fi.RAISE), None),
+        12: ("f", lambda: one(fi.SITE_DISPATCH, (fi.DELAY, 8.0)),
+             dict(max_deadline_s=2.0)),
+        14: ("g", lambda: one(fi.SITE_COLLECT, (fi.DELAY, 1.0)),
+             dict(safety_factor=1.0, min_deadline_s=0.05,
+                  max_deadline_s=0.5)),
+        E2E_WAVES: ("d", lambda: one(fi.SITE_SCATTER, fi.CORRUPT), None),
+    }
+    run = FaultsRun(device, "A", FAULTS_CLOCK_S)
+    sched = run.sched
+    for n in range(steps):
+        case, make, watchdog = cases.get(n, ("", None, None))
+        if n == 7:
+            sched.clock.advance(10.0)  # past the backoff: a probe is due
+        row = run.step(n, make() if make else None, watchdog,
+                       case or ("probe" if n == 7 else ""))
+        if run.records[n] != ref.records[n]:
+            raise AssertionError(f"{phase} A step {n} ({case}): admitted "
+                                 "other workloads than R")
+        want_route = "cpu-breaker" if n == 6 else ref.steps[n]["route"]
+        want_new = 1 if case else 0
+        if row["route"] != want_route or row["new_faults"] != want_new:
+            raise AssertionError(f"{phase} A step {n} ({case}): {row}")
+        if case == "b" and n == 5 and (row["breaker"] != "open"
+                                       or row["trips"] != 1):
+            raise AssertionError(f"{phase} (b): the breaker did not open")
+        if n == 7 and (row["breaker"] != "closed" or row["recoveries"] != 1):
+            raise AssertionError(f"{phase}: the probe did not close the "
+                                 "breaker")
+        if case == "f" and (row["counters"]["supervised_timeouts"] != 1
+                            or row["wall_ms"] >= 8000.0):
+            raise AssertionError(f"{phase} (f): no supervised timeout, or "
+                                 "the cycle sat out the hang")
+        if case == "g" and row["counters"]["dispatch_timeouts"] != 1:
+            raise AssertionError(f"{phase} (g): no collect timeout")
+        if case == "c" and row["counters"]["validation_faults"] != 1:
+            raise AssertionError(f"{phase} (c): the corrupt collect was not "
+                                 "caught")
+        if case == "d" and (row["counters"]["scatter_faults"] != 1
+                            or not row["launched"].get("arena_scatter")):
+            raise AssertionError(f"{phase} (d): K7a did not launch on the "
+                                 "scrambled rows, or they were not caught")
+        if n == E2E_WAVES + 1 and row["counters"]["establishes"] \
+                <= run.steps[-2]["counters"]["establishes"]:
+            raise AssertionError(f"{phase}: residency was not re-established "
+                                 "after (d)")
+    if sched.breaker.state != "closed":
+        raise AssertionError(f"{phase} A: the breaker is not closed")
+    check_resident(sched.solver, run.cache, topo)
+    check_handout(run.cache.snapshot(), run.cache, f"{phase} A")
+    a_summary = {"faults": sched.solver_faults,
+                 "cycle_counts": dict(sched.cycle_counts),
+                 "breaker": sched.breaker.status(),
+                 "orphaned": sched.solver._supervisor.orphaned}
+    stats["A"] = dict(run.cache.snapshot_stats)
+    if run.close() != ref_usage:
+        raise AssertionError(f"{phase} A: usage per CQ differs from R")
+
+    from kueue_tpu_torch.resilience.watchdog import DispatchWatchdog
+    chaos = FaultsRun(device, "H", FAULTS_CHAOS_CLOCK_S)
+    csched = chaos.sched
+    # tests/test_chaos.py's watchdog: an injected 0.2 s collect delay
+    # passes the warm deadline
+    csched.watchdog = DispatchWatchdog(safety_factor=2.0, min_deadline_s=0.1,
+                                       max_deadline_s=10.0)
+    injector = fi.FaultInjector.scripted(**FAULTS_CHAOS)
+    n = chaos.settle(0, injector, FAULTS_STEPS, "h")
+    check_handout(chaos.cache.snapshot(), chaos.cache, f"{phase} H")
+    if injector.total_fired == 0 or csched.solver_faults == 0:
+        raise AssertionError(f"{phase} H: no fault fired")
+    h_summary = {"steps": n, "fired": {k: v for k, v in
+                                       injector.fired.items() if v},
+                 "faults": csched.solver_faults,
+                 "cycle_counts": dict(csched.cycle_counts),
+                 "breaker": csched.breaker.status(),
+                 "counters": dict(csched.solver.counters),
+                 "steps_equal_to_R": sum(
+                     chaos.records[i] == ref.records[i]
+                     for i in range(FAULTS_STEPS))}
+    stats["H"] = dict(chaos.cache.snapshot_stats)
+    if set(chaos.admitted) != set(ref.admitted) \
+            or chaos.close() != ref_usage:
+        raise AssertionError(f"{phase} H: the burst settled to other "
+                             "admissions or usage per CQ than R")
+    launches = kernel.launch_counts()
+    for name in PHASE_KERNELS[phase]:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{phase} path")
+    contained = [r["wall_ms"] for r in run.steps if r["case"]
+                 and r["case"] not in ("f", "g")]
+    healthy = [r["wall_ms"] for r in ref.steps[E2E_WARMUP:E2E_WAVES]]
+    summary = {
+        "launches": launches,
+        "cases": {r["case"] + str(r["step"]): {
+            k: r[k] for k in ("route", "new_faults", "breaker", "counters",
+                              "wall_ms", "launched")}
+            for r in run.steps if r["case"]},
+        "A": a_summary, "H": h_summary,
+        "contained_cycle_ms": {"p50": percentile(contained, 50),
+                               "max": max(contained)},
+        "probe_cycle_ms": run.steps[7]["wall_ms"],
+        "healthy_fill_cycle_ms": {"p50": percentile(healthy, 50),
+                                  "max": max(healthy)},
+        "hang_cycle_ms": run.steps[12]["wall_ms"],
+        "collect_timeout_cycle_ms": run.steps[14]["wall_ms"],
+        "snapshot_stats": stats,
+        "admitted_total": len(run.admitted),
+    }
+    summary["wall_s"] = time.perf_counter() - t_phase
     log(f"[{phase}] " + json.dumps(summary))
     return summary
 
@@ -3788,9 +4265,26 @@ def main() -> int:
                "scheduler_preempt": scheduler_preempt_phase,
                "scheduler_fair_preempt": scheduler_fair_preempt_phase,
                "scheduler_multikueue": scheduler_multikueue_phase,
-               "scheduler_sharded": scheduler_sharded_phase}
+               "scheduler_sharded": scheduler_sharded_phase,
+               "scheduler_faults": scheduler_faults_phase}
     e2e = {phase: runners[phase](device) if phase in runners
            else e2e_phase(device, phase) for phase in PHASE_KERNELS}
+    # bound churn again with the Cache's full rebuild each cycle: the
+    # same decisions, and the snapshot phase of each
+    full = e2e_phase(device, "bound_churn", incremental=False)
+    churn = e2e["bound_churn"]
+    cycles = E2E_WARMUP + BOUND_TIMED
+    if full["decided"][:cycles] != churn["decided"][:cycles]:
+        raise AssertionError("bound churn decided otherwise with full "
+                             "snapshot rebuilds")
+    churn["full_rebuild"] = {k: full[k] for k in (
+        "snapshot", "cycle", "snapshot_stats", "snapshot_modes", "wall_s")}
+    log("[bound_churn] the same decisions with full rebuilds; snapshot p50 "
+        f"(max) ms: incremental {churn['snapshot']['p50_ms']:.3f} "
+        f"({churn['snapshot']['max_ms']:.3f}), full rebuild "
+        f"{full['snapshot']['p50_ms']:.3f} ({full['snapshot']['max_ms']:.3f})"
+        f"; cycle p50 {churn['cycle']['p50_ms']:.1f} against "
+        f"{full['cycle']['p50_ms']:.1f}")
     for phase, summary in e2e.items():
         # the cluster columns ride only the MultiKueue cells' cycles, the
         # combine only the mesh's
@@ -4001,6 +4495,7 @@ def main() -> int:
                if name == "mesh_combine" else {})})
     log(f"[wall] {time.perf_counter() - t_start:.1f} s, phases "
         + json.dumps({p: round(e2e[p]["wall_s"], 1) for p in e2e})
+        + f", bound churn's full-rebuild run {full['wall_s']:.1f} s"
         + f", wide {wide['wall_s']:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

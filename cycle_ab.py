@@ -1,0 +1,175 @@
+"""Same-call cycle timings on one CUDA card, each comparison run in the
+order A, B, B, A so that a drift of the host cancels:
+
+- bound fill and bound churn (chip_smoke.e2e_phase at 1 + BOUND_TIMED
+  cycles, the solver driven without a Scheduler) on an earlier checkout
+  of the repo (`--parent DIR`, unpacked with `git archive`) against
+  this one, each run in a process of its own;
+- the port's Scheduler bound to the card on the north star's fill and
+  trickle (chip_smoke.FaultsRun, no injector) with its default watchdog
+  (supervised dispatch, the collect deadline polled on a CUDA event)
+  against `watchdog = None` (the dispatch on the caller's thread, an
+  event wait), in one process.
+
+Prints one JSON line a run and, last, a JSON summary of the p50s; the
+children's logs and the summary go to chiprun_out/cycle_ab/.
+
+    python3 cycle_ab.py --parent _archive/parent
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out" / "cycle_ab"
+E2E_PHASES = ("bound_fill", "bound_churn")
+E2E_KEYS = ("cycle", "snapshot", "heads", "encode", "upload", "device",
+            "fetch", "decode", "admit", "gc")
+TIMED = 5
+TAG = "CYCLE_AB "
+DEVICE = "cuda"
+
+
+def child_e2e() -> dict:
+    import chip_smoke as cs
+    import torch
+    cs.BOUND_TIMED = TIMED
+    out = {}
+    for phase in E2E_PHASES:
+        s = cs.e2e_phase(torch.device(DEVICE), phase)
+        out[phase] = {k: s[k]["p50_ms"] for k in E2E_KEYS}
+        out[phase]["cycle_max"] = s["cycle"]["max_ms"]
+        out[phase]["admitted"] = s["admitted_timed"]
+        # the decisions themselves, where the checkout's chip_smoke
+        # keeps them
+        out[phase]["decided"] = s.get("decided")
+    return out
+
+
+def child_sched(order: list) -> dict:
+    """The Scheduler's steps under each arm: the fill's steps after the
+    first (2048 admissions each) and the trickle's (128 finishes and 128
+    admissions each), every step's wall ms, the solver's device phase
+    and the admitted names; a full collection before each arm. Each
+    arm's line is printed as it ends."""
+    import gc
+
+    import chip_smoke as cs
+    import torch
+    device = torch.device(DEVICE)
+    out = []
+    for arm in order:
+        gc.collect()
+        run = cs.FaultsRun(device, f"ab {arm}", cs.FAULTS_CLOCK_S)
+        if arm == "none":
+            run.sched.watchdog = None
+        fill, trickle, device_ms = [], [], []
+        for n in range(cs.E2E_WAVES + cs.FAULTS_TRICKLE):
+            row = run.step(n)
+            if row["route"] != "device" or row["new_faults"]:
+                raise AssertionError(f"{arm} step {n}: {row}")
+            if n >= 1:
+                (fill if n < cs.E2E_WAVES else trickle).append(row["wall_ms"])
+                device_ms.append(run.sched.solver.last_phase_s["device"] * 1e3)
+        records = run.records
+        run.close()
+        out.append({"arm": arm, "fill_p50_ms": statistics.median(fill),
+                    "trickle_p50_ms": statistics.median(trickle),
+                    "device_p50_ms": statistics.median(device_ms),
+                    "fill_ms": fill, "trickle_ms": trickle,
+                    "records": records})
+        print("CYCLE_AB_ARM " + json.dumps({k: v for k, v in out[-1].items()
+                                          if k != "records"}), flush=True)
+    if any(o["records"] != out[0]["records"] for o in out):
+        raise AssertionError("the watchdog arms admitted differently")
+    for o in out:
+        del o["records"]
+    return out
+
+
+def spawn(label: str, root: Path, args: list) -> dict:
+    OUT.mkdir(parents=True, exist_ok=True)
+    logf = OUT / f"{label}.log"
+    t0 = time.perf_counter()
+    with open(logf, "w") as f:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--child",
+             *args, "--root", str(root)],
+            cwd=root, stdout=f, stderr=subprocess.STDOUT)
+    if proc.returncode != 0:
+        raise SystemExit(f"{label}: exit {proc.returncode}, see {logf}")
+    line = [ln for ln in logf.read_text().splitlines()
+            if ln.startswith(TAG)][-1]
+    result = json.loads(line[len(TAG):])
+    print(json.dumps({"run": label, "wall_s": time.perf_counter() - t0,
+                      "result": result if label.startswith("sched")
+                      else {p: {k: v for k, v in r.items() if k != "decided"}
+                            for p, r in result.items()}}), flush=True)
+    return result
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", help="an earlier checkout to time against")
+    ap.add_argument("--child", nargs="+")
+    ap.add_argument("--root")
+    a = ap.parse_args()
+    if a.child:
+        sys.path[0] = a.root
+        result = child_e2e() if a.child[0] == "e2e" \
+            else child_sched(a.child[1].split(","))
+        print(TAG + json.dumps(result), flush=True)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("cycle_ab: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    summary = {"card": smi, "timed_cycles": TIMED}
+    if a.parent:
+        parent = Path(a.parent).resolve()
+        # the same sources build the same libraries (named by their hash)
+        sys.path.insert(0, str(ROOT))
+        from kueue_tpu_torch.solver import _build
+        _build.build_all()
+        dst = parent / "kueue_tpu_torch" / "solver" / "_build"
+        dst.mkdir(parents=True, exist_ok=True)
+        for lib in _build.BUILD_DIR.glob("*.so"):
+            (dst / lib.name).write_bytes(lib.read_bytes())
+        runs = []
+        for i, (name, root) in enumerate((("parent", parent), ("change", ROOT),
+                                          ("change", ROOT),
+                                          ("parent", parent))):
+            runs.append((name, spawn(f"e2e{i}-{name}", root, ["e2e"])))
+        for phase in E2E_PHASES:
+            if len({r[phase]["admitted"] for _, r in runs}) != 1 or len(
+                    {json.dumps(r[phase]["decided"]) for n, r in runs
+                     if n == "change"}) != 1:
+                raise SystemExit(f"{phase}: the runs decided differently")
+        summary["e2e_phases"] = {
+            phase: {name: {k: [r[phase][k] for n, r in runs if n == name]
+                           for k in E2E_KEYS}
+                    for name in ("parent", "change")}
+            for phase in E2E_PHASES}
+    sched = spawn("sched", ROOT, ["sched", "default,none,none,default"])
+    summary["sched"] = {
+        arm: {k: [o[k] for o in sched if o["arm"] == arm]
+              for k in ("fill_p50_ms", "trickle_p50_ms", "device_p50_ms")}
+        for arm in ("default", "none")}
+    (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,26 +2,32 @@
 
 Equivalent of the reference's pkg/cache/cache.go:89-595: tracks
 ClusterQueues/cohorts/flavors/checks/local-queues plus assumed workloads
-(optimistic admission before the API write), and produces deep-copied
-Snapshots for lock-free scheduling cycles.
+(optimistic admission before the API write), and produces Snapshots for
+lock-free scheduling cycles. The port of kueue_tpu/cache/cache.py.
 
-The port keeps the full-rebuild path only (the JAX package's
-Cache(incremental_snapshots=False)) with the usage journal its solver
-consumes: no incremental snapshot maintainer (and so no snapshot
-consumer of the journal), no light snapshots, no handout recycling.
-Each snapshot carries the MultiKueue remote-cluster capacity columns of
+Full snapshots go through the incremental maintainer
+(cache/incremental.py, on by default as in the JAX package): one
+persistent snapshot advanced by replaying the usage journal, handed
+out as copy-on-write shells; `Cache(incremental_snapshots=False)`
+deep-clones every CQ each cycle instead. `snapshot(light=True)` shares
+the live trees (read-only consumers). The usage journal has two
+consumers, each with its own cursor: the solver's device-resident
+state ("solver") and the maintainer ("snapshot"). Each snapshot carries
+the MultiKueue remote-cluster capacity columns of
 `remote_capacity_source` when one is set (`_stamp_remote`).
 """
 
 from __future__ import annotations
 
 import threading
+import time as _time
 from dataclasses import dataclass
 from typing import Optional
 
 from kueue_tpu_torch.api import kueue as api
 from kueue_tpu_torch.api.meta import is_condition_true
 from kueue_tpu_torch.cache.clusterqueue import (
+    ACTIVE,
     TERMINATING,
     ClusterQueueCache,
     CohortCache,
@@ -33,7 +39,10 @@ from kueue_tpu_torch.cache.snapshot import ClusterQueueSnapshot, CohortSnapshot,
 from kueue_tpu_torch.core import workload as wlpkg
 from kueue_tpu_torch.core.hierarchy import Manager as HierarchyManager
 
-# The journal consumer the solver's device-resident state registers as.
+
+# Journal-consumer names (see the usage-journal block in Cache.__init__).
+SNAPSHOT_CONSUMER = "snapshot"
+SOLVER_CONSUMER = "solver"
 SOLVER_CONSUMER = "solver"
 
 
@@ -46,7 +55,8 @@ class AdmissionCheckEntry:
 
 class Cache:
     def __init__(self, pods_ready_tracking: bool = False,
-                 excluded_resource_prefixes: Optional[list] = None):
+                 excluded_resource_prefixes: Optional[list] = None,
+                 incremental_snapshots: bool = True):
         self._lock = threading.RLock()
         self._pods_ready_cond = threading.Condition(self._lock)
         self.hm: HierarchyManager = HierarchyManager(cohort_factory=self._new_cohort)
@@ -77,24 +87,62 @@ class Cache:
         # invalidate flavor-resume state).
         self.topology_epoch = 0
         # Usage journal: every usage-moving workload mutation appends
-        # (seq, kind, cq, key, usage) so a consumer can reconcile derived
-        # state with tiny deltas instead of a full rebuild per cycle.
-        # Consumers read through per-consumer cursors; entries are pruned
-        # once every cursor has passed them. kinds: 'add'/'del' move
-        # usage; 'cq'/'ready' (non-structural ClusterQueue updates,
-        # pods-ready flips) carry usage=None. Off until a consumer
-        # registers (enable_usage_journal).
+        # (seq, kind, cq, key, usage, aux) so consumers can reconcile
+        # derived state with tiny deltas instead of a full rebuild per
+        # cycle. Two consumers share it through per-consumer cursors
+        # (entries are pruned once EVERY cursor has passed them): the
+        # solver's device-resident state ("solver", registered by
+        # enable_usage_journal) and the incremental snapshot maintainer
+        # ("snapshot", registered below). kinds: 'add'/'del' move usage;
+        # 'cq'/'ready' are snapshot-replay-only records (non-structural
+        # ClusterQueue updates, pods-ready flips) with usage=None.
         self.usage_journal_enabled = False
         self._journal: list = []
         self._journal_seq = 0
         self._journal_cap = 200_000
-        self._journal_cursors: dict = {}  # consumer -> consumed-up-to seq
-        self._journal_overflowed: set = set()  # consumers that lost entries
         # MultiKueue remote-cluster capacity source: a callable returning
         # (columns tuple, MultiKueue check-name frozenset), stamped on
-        # every snapshot (Snapshot.remote_clusters, mk_check_names) so the
-        # solver scores cross-cluster placement inside the fused solve.
+        # every snapshot handout, full and light (Snapshot.remote_clusters,
+        # mk_check_names), so the solver scores cross-cluster placement
+        # inside the fused solve.
         self.remote_capacity_source = None
+        self._remote_columns_cache = None  # last FULL snapshot's stamp
+        self._journal_cursors: dict = {}  # consumer -> consumed-up-to seq
+        self._journal_overflowed: set = set()  # consumers that lost entries
+        self._journal_aux_stripped = 0  # aux dropped for seqs <= this
+        # Incremental snapshot maintenance (see incremental.py): keep one
+        # persistent full Snapshot advanced by journal replay instead of
+        # deep-cloning 2k CQ trees per cycle.
+        self._maintainer = None
+        if incremental_snapshots:
+            from kueue_tpu_torch.cache.incremental import SnapshotMaintainer
+            self._maintainer = SnapshotMaintainer(self)
+            self._journal_cursors[SNAPSHOT_CONSUMER] = 0
+            self.usage_journal_enabled = True
+        # Structural-dirty bookkeeping for the maintainer's per-CQ
+        # partial rebuild (incremental.py): a single-CQ structural edit
+        # (quota/resource-group change on ONE ClusterQueue, same cohort
+        # edge) records just that CQ's name, so the next snapshot sync
+        # rebuilds only that CQ's subtree instead of every master.
+        # Anything wider (CQ add/delete, cohort or flavor or check
+        # changes) sets the all-flag and keeps the full-rebuild path.
+        # Only maintained when a maintainer exists (the set would
+        # otherwise grow without a consumer).
+        self._structural_dirty_cqs: set = set()
+        self._structural_dirty_all = False
+        # Snapshot-build accounting: which path served each full
+        # snapshot() and how long the build took.
+        # "partial" = per-CQ structural rebuild + journal replay.
+        self.snapshot_stats = {"full": 0, "incremental": 0, "light": 0,
+                               "partial": 0}
+        self.snapshot_build_s: list = []
+        # Handout accounting: every FULL snapshot handed out through
+        # snapshot() counts as taken, every
+        # release_snapshot of one counts as released (idempotent — a
+        # double release counts once). live_handouts is the leak
+        # detector.
+        self.handouts_taken = 0
+        self.handouts_released = 0
 
     def _new_cohort(self, name: str) -> CohortCache:
         cohort = CohortCache(name)
@@ -109,13 +157,18 @@ class Cache:
             self._journal_cursors.setdefault(consumer, self._journal_seq)
 
     def _journal_usage(self, kind: str, cq_name: str, key: str,
-                       usage: Optional[dict]) -> None:
-        """kind: 'add' | 'del' (usage-moving) | 'cq' | 'ready'
-        (usage=None). Caller holds the lock."""
+                       usage: Optional[dict], aux=None) -> None:
+        """kind: 'add' | 'del' (usage-moving, consumed by solver AND
+        snapshot maintainer) | 'cq' | 'ready' (snapshot-replay-only,
+        usage=None). aux: (Info, not_ready) for 'add' entries so snapshot
+        replay can reconstruct workload maps. Caller holds the lock."""
         if not self.usage_journal_enabled:
             return
+        if self._maintainer is None:
+            aux = None  # only snapshot replay reads it
         self._journal_seq += 1
-        self._journal.append((self._journal_seq, kind, cq_name, key, usage))
+        self._journal.append((self._journal_seq, kind, cq_name, key,
+                              usage, aux))
         if len(self._journal) > self._journal_cap:
             # Bound memory when a consumer stops draining: only the
             # laggards lose their backlog (and see the overflow flag on
@@ -140,10 +193,81 @@ class Cache:
         first = self._journal[0][0]
         if low >= first:
             del self._journal[:low - first + 1]
+        # Entries the snapshot maintainer has consumed can never be read
+        # for replay again — drop their aux payload so a lagging solver
+        # consumer doesn't pin deleted workloads' Info objects (full pod
+        # sets/conditions) for up to a journal-cap of entries. Each
+        # entry is stripped at most once (amortized O(1) per append).
+        if not self._journal:
+            return
+        snap_cur = self._journal_cursors.get(SNAPSHOT_CONSUMER)
+        if snap_cur is None:
+            return
+        first = self._journal[0][0]
+        upto = min(snap_cur, self._journal[-1][0])
+        for seq in range(max(self._journal_aux_stripped + 1, first),
+                         upto + 1):
+            entry = self._journal[seq - first]
+            if entry[5] is not None:
+                self._journal[seq - first] = entry[:5] + (None,)
+        self._journal_aux_stripped = max(self._journal_aux_stripped, upto)
+
+    def _mark_structural(self, cq_name: Optional[str] = None) -> None:
+        """Record the scope of a structural (epoch-bumping) change for
+        the snapshot maintainer: a CQ name when the change is contained
+        to that ClusterQueue's subtree, None for anything wider. Caller
+        holds the lock and has already bumped the epoch."""
+        if self._maintainer is None:
+            return
+        if cq_name is None:
+            self._structural_dirty_all = True
+        else:
+            self._structural_dirty_cqs.add(cq_name)
+
+    def take_structural_dirty(self) -> tuple:
+        """Consume the structural-dirty scope accumulated since the last
+        call: (dirty CQ names, all-flag). Caller holds the lock (the
+        maintainer's _sync runs under Cache.snapshot's lock)."""
+        dirty, dirty_all = (self._structural_dirty_cqs,
+                            self._structural_dirty_all)
+        self._structural_dirty_cqs = set()
+        self._structural_dirty_all = False
+        return dirty, dirty_all
+
+    def generation_token(self) -> tuple:
+        """The structural generation stamp for speculative solves
+        (scheduler/stages.SpeculationToken): three epoch ints, read
+        under the lock. Workload churn does NOT move any of these —
+        usage movement reconciles through the journal; only structural
+        edits (CQ/cohort/flavor-spec changes) invalidate an in-flight
+        speculative result."""
+        with self._lock:
+            return (self.topology_epoch, self.cohort_epoch,
+                    self.flavor_spec_epoch)
+
+    def generation_lag(self, token: tuple) -> int:
+        """How many structural generations a consumer's stamped token
+        lags the live cache: the sum of per-epoch deltas (each epoch is
+        monotonic, so the sum is 0 iff the token is current)."""
+        with self._lock:
+            cur = (self.topology_epoch, self.cohort_epoch,
+                   self.flavor_spec_epoch)
+        return sum(abs(c - t) for c, t in zip(cur, tuple(token)))
+
+    def snapshot_current(self, snap: Snapshot) -> bool:
+        """Cheap generation-token check: True iff no structural epoch
+        moved since ``snap`` was produced (see
+        incremental.generations_current)."""
+        from kueue_tpu_torch.cache.incremental import generations_current
+        with self._lock:
+            return generations_current(snap, self)
 
     def journal_overflowed(self, consumer: str = SOLVER_CONSUMER) -> bool:
         """Peek (without clearing) whether ``consumer`` lost journal
-        entries since its last drain."""
+        entries since its last drain — a speculative result computed on
+        residency whose corrections were dropped is unsound and must
+        abort (the flag itself still resets at the next drain, which
+        falls back to a full rebuild)."""
         with self._lock:
             return consumer in self._journal_overflowed
 
@@ -152,7 +276,8 @@ class Cache:
         """Return (entries with cursor < seq <= upto_seq, overflowed) for
         `consumer` and advance its cursor; the overflow flag resets once
         observed. Entries stay visible to the other registered consumers
-        until everyone's cursor has passed them."""
+        until everyone's cursor has passed them — draining for one
+        consumer never loses entries for another."""
         with self._lock:
             cursor = self._journal_cursors.get(consumer, 0)
             upto = min(upto_seq, self._journal_seq)
@@ -175,6 +300,7 @@ class Cache:
         with self._lock:
             self._capacity_version += 1
             self.topology_epoch += 1
+            self._mark_structural()  # may materialize a new cohort node
             cqc = ClusterQueueCache(cq)
             self.hm.add_cluster_queue(cqc.name, cqc)
             self.hm.update_cluster_queue_edge(cqc.name, cq.spec.cohort)
@@ -219,9 +345,17 @@ class Cache:
             self._refresh_cohort(cqc)
             if self._topo_signature(cqc) != old_sig:
                 self.topology_epoch += 1
+                # Same cohort payload => the cohort graph's SHAPE is
+                # unchanged (quota edits only move this CQ's node and
+                # the tree's aggregates): the maintainer may rebuild
+                # just this CQ's subtree. An edge move (or to/from a
+                # fresh cohort) invalidates the master cohort graph.
+                self._mark_structural(
+                    cqc.name if old_cohort is cqc.cohort else None)
             else:
                 # Non-structural update (namespace selector, preemption
-                # policy, fungibility knobs): invisible to every epoch.
+                # policy, fungibility knobs): invisible to every epoch,
+                # so snapshot replay must refresh this CQ explicitly.
                 self._journal_usage("cq", cqc.name, "", None)
 
     def terminate_cluster_queue(self, name: str) -> None:
@@ -233,11 +367,13 @@ class Cache:
             if cqc is not None:
                 cqc.status = TERMINATING
                 self.topology_epoch += 1
+                self._mark_structural(name)  # an activity flip, CQ-local
 
     def delete_cluster_queue(self, name: str) -> None:
         with self._lock:
             self._capacity_version += 1
             self.topology_epoch += 1
+            self._mark_structural()  # cohort membership/GC changes
             cqc = self.hm.cluster_queues.get(name)
             if cqc is None:
                 return
@@ -283,6 +419,7 @@ class Cache:
             self.cohort_epoch += 1
             self._capacity_version += 1
             self.topology_epoch += 1
+            self._mark_structural()
             node = self.hm.add_cohort(cohort.metadata.name)
             node.payload.resource_node.quotas = build_quotas(cohort.spec.resource_groups)
             old_root = node.payload.root()
@@ -302,6 +439,7 @@ class Cache:
             self.cohort_epoch += 1
             self._capacity_version += 1
             self.topology_epoch += 1
+            self._mark_structural()
             node = self.hm.cohorts.get(name)
             if node is None:
                 return
@@ -336,6 +474,7 @@ class Cache:
         self._capacity_version += 1
         self.flavor_spec_epoch += 1
         self.topology_epoch += 1
+        self._mark_structural()
         affected = set()
         for cqc in self.hm.cluster_queues.values():
             was = cqc.active
@@ -362,6 +501,7 @@ class Cache:
 
     def _refresh_check_dependents(self) -> set:
         self.topology_epoch += 1
+        self._mark_structural()
         affected = set()
         for cqc in self.hm.cluster_queues.values():
             was = cqc.active
@@ -420,7 +560,8 @@ class Cache:
             not_ready = (self.pods_ready_tracking and not is_condition_true(
                 wl.status.conditions, api.WORKLOAD_PODS_READY))
             self._journal_usage("add", cqc.name, info.key,
-                                info.flavor_resource_usage())
+                                info.flavor_resource_usage(),
+                                (info, not_ready))
             if not_ready:
                 cqc.workloads_not_ready.add(info.key)
             self._pods_ready_cond.notify_all()
@@ -479,7 +620,8 @@ class Cache:
             not_ready = (self.pods_ready_tracking and not is_condition_true(
                 wl.status.conditions, api.WORKLOAD_PODS_READY))
             self._journal_usage("add", cqc.name, key,
-                                info.flavor_resource_usage())
+                                info.flavor_resource_usage(),
+                                (info, not_ready))
             if not_ready:
                 cqc.workloads_not_ready.add(key)
             self.assumed_workloads[key] = cqc.name
@@ -530,49 +672,123 @@ class Cache:
 
     # --- snapshot (reference: snapshot.go:79-142) ---
 
-    def snapshot(self) -> Snapshot:
-        """A full deep-cloned snapshot (the JAX package's
-        incremental_snapshots=False path), stamped with the remote-cluster
-        columns."""
+    def snapshot(self, light: bool = False) -> Snapshot:
+        # light=True shares the cache trees instead of deep-copying (see
+        # ClusterQueueSnapshot): READ-ONLY cycles only (the pipelined
+        # all-fit path, whose usage truth is the device-resident state).
+        # Full snapshots go through the incremental maintainer when one
+        # is attached: the persistent snapshot is advanced by journal
+        # replay and handed out under copy-on-write
+        # instead of deep-cloning every CQ's trees per cycle.
         with self._lock:
-            snap = self._build_snapshot()
-        # Outside the cache lock: the capacity source reads other state
-        # (the remote clusters' caches), whose locks must never be taken
-        # under this one.
-        return self._stamp_remote(snap)
+            if light:
+                self.snapshot_stats["light"] += 1
+                if self._maintainer is not None:
+                    # Periodic background advance: a long pipelined
+                    # all-fit stretch takes only light snapshots, so the
+                    # snapshot consumer's journal backlog would hit the
+                    # cursor cap and pay a surprise full rebuild on the
+                    # next sync cycle. Catch up (replay, no handout)
+                    # once the backlog passes half the cap.
+                    backlog = self._journal_seq - self._journal_cursors.get(
+                        SNAPSHOT_CONSUMER, 0)
+                    if backlog > self._journal_cap // 2:
+                        self._maintainer.catch_up()
+                snap = self._build_snapshot(light=True)
+            else:
+                t0 = _time.perf_counter()
+                if self._maintainer is not None:
+                    snap, mode = self._maintainer.advance()
+                else:
+                    snap, mode = self._build_snapshot(), "full"
+                self.snapshot_stats[mode] += 1
+                if len(self.snapshot_build_s) >= (1 << 20):
+                    # Bound the sample buffer on very long runs; late
+                    # samples (steady state) are the ones the
+                    # percentiles should reflect anyway.
+                    del self.snapshot_build_s[:1 << 19]
+                self.snapshot_build_s.append(_time.perf_counter() - t0)
+                self.handouts_taken += 1
+                snap._handout_live = True
+        # OUTSIDE the cache lock: the capacity source reads the local
+        # Store and the remote managers' caches — taking Store._lock
+        # while holding Cache._lock would invert the store-watch
+        # handlers' Store._lock -> Cache._lock order (AB-BA risk in
+        # threaded deployments).
+        return self._stamp_remote(snap, light=light)
 
-    def _stamp_remote(self, snap: Snapshot) -> Snapshot:
-        """Attach the current remote-cluster capacity columns (the full
-        branch of kueue_tpu/cache/cache.py:714; the port has no light
-        snapshots). Called without the cache lock held."""
+    def _stamp_remote(self, snap: Snapshot, light: bool = False) -> Snapshot:
+        """Attach the current remote-cluster capacity columns (read-only
+        per handout; the source rebuilds the tuple on change). Called
+        WITHOUT the cache lock held — see snapshot(). LIGHT snapshots
+        (the depth-2 pipelined all-fit hot path takes one per cycle)
+        reuse the last FULL snapshot's columns instead of re-walking
+        every remote cache + the plan table — capacity is an advisory
+        score, stale by at most one sync cycle there."""
         src = self.remote_capacity_source
         if src is None:
+            return snap
+        cached = self._remote_columns_cache
+        if light and cached is not None:
+            snap.remote_clusters, snap.mk_check_names = cached
             return snap
         try:
             cols, checks = src()
         except Exception:  # noqa: BLE001 — capacity is advisory
-            # A torn read during remote churn stamps "no columns this
-            # cycle" rather than failing the cycle.
+            # A torn read during remote churn degrades to "no columns
+            # this cycle" (placement falls back to the controller's
+            # mirror-to-all race), never a failed cycle.
             cols, checks = (), frozenset()
+        self._remote_columns_cache = (cols, checks)
         snap.remote_clusters = cols
         snap.mk_check_names = checks
         return snap
 
-    def _build_snapshot(self) -> Snapshot:
-        """From-scratch snapshot construction: a deep clone of every
-        active CQ's trees and of every cohort's resource node."""
+    def release_snapshot(self, snap: Snapshot) -> None:
+        """Optional hint that the caller will never read or mutate
+        `snap` again: the incremental maintainer may then recycle its
+        un-materialized copy-on-write shells into the NEXT handout,
+        skipping the O(CQs) shell rebuild per cycle. Safe to omit —
+        unreleased snapshots are simply never reused. Releasing a
+        snapshot that is still read afterwards is a caller bug (its
+        shells may start reflecting a newer cycle)."""
+        if getattr(snap, "light", False):
+            return
+        with self._lock:
+            if getattr(snap, "_handout_live", False):
+                snap._handout_live = False
+                self.handouts_released += 1
+            if self._maintainer is not None:
+                self._maintainer.release(snap)
+
+    @property
+    def live_handouts(self) -> int:
+        """Full snapshots handed out and not yet released — the leak
+        detector for abandoned cycles. Consumers
+        that legitimately never release (debug oracles) keep their
+        handouts counted here; the scheduler/solver paths all
+        release."""
+        return self.handouts_taken - self.handouts_released
+
+    def _build_snapshot(self, light: bool = False) -> Snapshot:
+        """From-scratch snapshot construction (the full deep clone, or
+        the shared-tree light view). The incremental maintainer uses the
+        same building blocks; this stays the equivalence oracle."""
         with self._lock:
             snap = Snapshot()
+            snap.light = light
             for name, cqc in self.hm.cluster_queues.items():
                 if not cqc.active:
                     snap.inactive_cluster_queue_sets.add(name)
                     continue
-                snap.cluster_queues[name] = ClusterQueueSnapshot(cqc)
+                snap.cluster_queues[name] = ClusterQueueSnapshot(cqc,
+                                                                light=light)
             snap.resource_flavors = dict(self.resource_flavors)
             cohort_snaps: dict = {}
             for cname, node in self.hm.cohorts.items():
                 cohort_snap = CohortSnapshot(
-                    cname, node.payload.resource_node.clone())
+                    cname, node.payload.resource_node if light
+                    else node.payload.resource_node.clone())
                 # The monotonic capacity version: any capacity change
                 # anywhere (including in sibling subtrees of a tree)
                 # invalidates stored flavor-resume state via a `>` check.

@@ -2,7 +2,9 @@
 
 Equivalent of the reference's pkg/cache/snapshot.go:79-142 +
 clusterqueue_snapshot.go + cohort_snapshot.go + the DRF share math
-(clusterqueue.go:503-564).
+(clusterqueue.go:503-564); the port of kueue_tpu/cache/snapshot.py, with
+its copy-on-write shells for the incremental maintainer
+(cache/incremental.py) and its light (shared, read-only) snapshots.
 """
 
 from __future__ import annotations
@@ -18,6 +20,13 @@ from kueue_tpu_torch.core.resources import FlavorResource
 
 
 class CohortSnapshot:
+    # Copy-on-write flag (incremental snapshots, see incremental.py):
+    # marks a handout shell sharing the maintainer's usage node until
+    # first mutation. The class-level default keeps plain deep-clone
+    # snapshots zero-cost; the maintainer tracks which of ITS containers
+    # are shared with handouts on its own side (name sets, not flags).
+    _shared = False
+
     def __init__(self, name: str, resource_node: rnode.ResourceNode):
         self.name = name
         self.resource_node = resource_node
@@ -25,6 +34,22 @@ class CohortSnapshot:
         self.child_cohorts: set = set()  # direct CohortSnapshot children
         self.parent: Optional["CohortSnapshot"] = None
         self.allocatable_resource_generation = 0
+
+    def clone_shell(self) -> "CohortSnapshot":
+        """Shallow copy-on-write view for an incremental-snapshot
+        handout: shares the usage node until first mutation (the tree
+        wiring — members/parent/child_cohorts — is rebuilt per handout
+        so each snapshot's cohort graph is self-contained)."""
+        shell = CohortSnapshot.__new__(CohortSnapshot)
+        shell.name = self.name
+        shell.resource_node = self.resource_node
+        shell.members = set()
+        shell.child_cohorts = set()
+        shell.parent = None
+        shell.allocatable_resource_generation = \
+            self.allocatable_resource_generation
+        shell._shared = True
+        return shell
 
     def parent_node(self) -> Optional["CohortSnapshot"]:
         return self.parent
@@ -44,23 +69,66 @@ class CohortSnapshot:
 
 
 class ClusterQueueSnapshot:
-    def __init__(self, cq: ClusterQueueCache):
-        """A deep clone of the CQ's mutable trees: preemption simulation
-        and intra-cycle accounting write to the snapshot, never to the
-        cache."""
+    # Copy-on-write flag, as on CohortSnapshot. The maintainer stamps
+    # _shared=True onto its master objects once, so the hot handout loop
+    # (incremental.py:_handout) propagates it through a plain __dict__
+    # copy — masters are never mutated through add_usage, so the flag is
+    # only ever honored on handed-out shells.
+    _shared = False
+
+    def __init__(self, cq: ClusterQueueCache, light: bool = False):
+        """light=True shares the cache's structures instead of cloning
+        (READ-ONLY consumers only): pipelined all-fit cycles never
+        simulate on the snapshot — they read selectors, generations and
+        admission checks — and cloning 2k resource trees per cycle was
+        measurable. Any path that mutates snapshot state (preemption
+        simulation, intra-cycle accounting) must use a full snapshot.
+
+        Thread-safety contract: light readers may race cache mutators,
+        so they may only read (a) scalar fields and (b) container fields
+        the cache replaces WHOLESALE on update (resource_groups, quotas,
+        admission_checks, selectors — see ClusterQueueCache.update);
+        in-place-mutated containers (resource_node.usage, workloads) must
+        not be iterated through a light snapshot (the solver's establish
+        path re-takes a full snapshot for exactly this reason)."""
         self.name = cq.name
         self.cohort: Optional[CohortSnapshot] = None
-        self.resource_groups = [rg.clone() for rg in cq.resource_groups]
-        self.workloads = dict(cq.workloads)
-        self.workloads_not_ready = set(cq.workloads_not_ready)
-        self.admission_checks = {k: set(v)
-                                 for k, v in cq.admission_checks.items()}
-        self.resource_node = cq.resource_node.clone()
+        self.light = light
+        if light:
+            self.resource_groups = cq.resource_groups
+            self.workloads = cq.workloads
+            self.workloads_not_ready = cq.workloads_not_ready
+            self.admission_checks = cq.admission_checks
+            self.resource_node = cq.resource_node
+        else:
+            self.resource_groups = [rg.clone() for rg in cq.resource_groups]
+            self.workloads = dict(cq.workloads)
+            self.workloads_not_ready = set(cq.workloads_not_ready)
+            self.admission_checks = {k: set(v)
+                                     for k, v in cq.admission_checks.items()}
+            self.resource_node = cq.resource_node.clone()
         self.namespace_selector = cq.namespace_selector
         self.preemption = cq.preemption
         self.fair_weight = cq.fair_weight
         self.flavor_fungibility = cq.flavor_fungibility
         self.allocatable_resource_generation = cq.allocatable_resource_generation
+
+    def _materialize(self) -> None:
+        """First mutation of a copy-on-write shell: privatize this CQ's
+        containers and the cohort chain's usage nodes, so preemption
+        simulation and intra-cycle accounting never write through to the
+        maintainer's persistent snapshot. Bounds per-cycle cloning to
+        the CQs a cycle actually touches. resource_groups and
+        admission_checks stay shared — no cycle path mutates them."""
+        self.workloads = dict(self.workloads)
+        self.workloads_not_ready = set(self.workloads_not_ready)
+        self.resource_node = self.resource_node.clone()
+        self._shared = False
+        cohort = self.cohort
+        while cohort is not None and cohort._shared:
+            cohort.resource_node = cohort.resource_node.clone()
+            cohort._shared = False
+            cohort = cohort.parent
 
     # --- hierarchicalResourceNode protocol ---
 
@@ -97,10 +165,20 @@ class ClusterQueueSnapshot:
         return all(self.available(fr) >= q for fr, q in usage.items())
 
     def add_usage(self, usage: dict) -> None:
+        if self.light:
+            # writing through a light snapshot would mutate the LIVE
+            # cache's trees — corruption, not simulation
+            raise RuntimeError("mutating a light (shared) snapshot")
+        if self._shared:
+            self._materialize()
         for fr, q in usage.items():
             rnode.add_usage(self, fr, q)
 
     def remove_usage(self, usage: dict) -> None:
+        if self.light:
+            raise RuntimeError("mutating a light (shared) snapshot")
+        if self._shared:
+            self._materialize()
         for fr, q in usage.items():
             rnode.remove_usage(self, fr, q)
 
@@ -165,6 +243,7 @@ class Snapshot:
     # The cache's usage-journal position when the snapshot was taken:
     # the solver drains the journal up to here before each cycle.
     journal_seq: int = 0
+    light: bool = False  # shared (not cloned) state; read-only consumers
     # MultiKueue remote-cluster capacity columns: an ordered tuple of
     # (cluster_name, {(flavor, resource): available}, active), stamped
     # by Cache.snapshot() from its remote_capacity_source. A lost
@@ -177,11 +256,19 @@ class Snapshot:
 
     def remove_workload(self, wl: wlpkg.Info) -> None:
         """Simulate removal (reference: snapshot.go:39)."""
+        if self.light:
+            raise RuntimeError("mutating a light (shared) snapshot")
         cq = self.cluster_queues[wl.cluster_queue]
+        if cq._shared:
+            cq._materialize()
         cq.workloads.pop(wl.key, None)
         cq.remove_usage(wl.flavor_resource_usage())
 
     def add_workload(self, wl: wlpkg.Info) -> None:
+        if self.light:
+            raise RuntimeError("mutating a light (shared) snapshot")
         cq = self.cluster_queues[wl.cluster_queue]
+        if cq._shared:
+            cq._materialize()
         cq.workloads[wl.key] = wl
         cq.add_usage(wl.flavor_resource_usage())

@@ -5,7 +5,8 @@ The port of kueue_tpu/scheduler/scheduler.py's synchronous cycle
 path):
 
 1. queues.heads(): one head per ClusterQueue
-2. cache.snapshot()
+2. cache.snapshot(): by default an incremental one (cache/incremental.py),
+   released back to the cache when the cycle ends
 3. nominate: per-head validation, flavor assignment, preemption targets
 4. sort by borrows -> DRF share -> priority -> FIFO
 5. sequential admit with intra-cycle usage accounting: skip overlapping
@@ -34,6 +35,24 @@ Phase A on the card once per lockstep round, against that same usage)
 and get one flavor assignment each at the counts found.
 Otherwise (route "cpu-forced") the CPU path runs the whole cycle.
 
+Device-fault containment (the port of kueue_tpu/resilience, as the JAX
+Scheduler wires it, kueue_tpu/scheduler/scheduler.py:1073-1193): a
+Scheduler has a CircuitBreaker (`breaker`), a DispatchWatchdog
+(`watchdog`) and a DegradationLadder (`ladder`, off at its default
+budget of 0). The solver's dispatch runs supervised under the
+watchdog's cold clamp and its collect under the watchdog's deadline. A
+DeviceFault on the device route (an injected fault, a DispatchTimeout or
+SupervisedTimeout, a corrupt output caught by the solver's checks, an
+abandoned dispatch) is counted in `solver_faults`, fed to the breaker,
+drops the solver's resident state and sends the cycle's heads to CPU
+nomination: the cycle finishes on the CPU, on the route it was given.
+Three consecutive faults open the breaker: cycles take the
+"cpu-breaker" route until the backoff passes and a half-open probe
+cycle on the device closes it. Under load the ladder caps the heads
+and defers preemption planning ("shed"), then also pins the cycle to
+the CPU ("cpu-survival"). `on_fault(kind, message)` hears of faults,
+trips, recoveries and the ladder's moves.
+
 Differences from the JAX Scheduler, on this synchronous path:
 - The JAX Scheduler predicts the non-fit heads before the sync with a
   host-side router (its solver's `_route`) and runs their preemption
@@ -45,21 +64,36 @@ Differences from the JAX Scheduler, on this synchronous path:
   the work gate is ported unchanged, so it still counts the sync as
   shared when fit heads dispatch (never under a mesh, as the JAX
   Scheduler's).
-- An encode or launch failure of the preemption solve propagates; the
-  JAX Scheduler hands the entries to the CPU Preemptor instead
-  (scheduler.py:2064-2068, :2084-2088).
-- An exception of the batched partial admission propagates; the JAX
-  Scheduler hands its heads to the CPU reducer instead
-  (scheduler.py:2186-2191).
-- A solver exception propagates instead of rerunning the cycle on the
-  CPU: nothing hides a device fault.
+- Containment is narrowed to DeviceFault and its subclasses
+  (InjectedFault, DispatchTimeout, SupervisedTimeout, the solver's
+  output and scatter checks, the abandoned dispatch). The JAX Scheduler
+  sends any Exception of the device path to the CPU: of the solver's
+  prepare (scheduler.py:1905, and :1392 on its pipelined path), of the
+  device solve (:2084), of the preemption encode (:2064) and of the
+  batched partial admission (:2189). Here every other exception
+  propagates: an nvcc build failure, a kernel wrapper's raise on a
+  CUDA tensor, a CUDA launch or runtime error from torch, a host bug.
+  A counted CPU route for those would be a fallback that hides the
+  kernel.
+- A device solve fault sends every validated head to CPU nomination;
+  the JAX Scheduler had already nominated the heads its router
+  predicted would not fit (with the device-NoFit shortcut's generic
+  message), so the admissions are the same and some Pending messages
+  are the per-flavor ones.
+- The collect deadline is the watchdog's over the solver's recent
+  launch-to-sync times; the JAX Scheduler reads its adaptive router's
+  samples first, which its "always" routing never takes.
+- A scrambled arena scatter is a counted fault here (the arena notes
+  the injected scramble and collect raises InjectedFault); the JAX
+  Scheduler's host router sends the heads the mangled rows deny to the
+  CPU without a fault.
 - Not ported: the speculative pipeline (and its pipelined preemption
   collect), adaptive routing (the route is the JAX Scheduler's "always"
-  one), the degradation ladder (and its deferred preemption), breaker,
-  warm governor and watchdog, journeys, the flight recorder (and its
-  preempt-plan annotation), the query plane, aging, metrics,
-  leader_check and cq_filter. At their defaults each is a no-op on the
-  synchronous path.
+  one), the starvation bound ("cpu-strict"), the warm governor,
+  journeys, the flight recorder (and its fault, breaker, shed and
+  preempt-plan annotations), the query plane and the seal of the
+  cycle's snapshot to it, aging, metrics, leader_check and cq_filter.
+  At their defaults each is a no-op on the synchronous path.
 
 With a mesh solver (`BatchSolver(mesh=...)`, the sharded cycle of
 parallel/mesh.py) the Scheduler takes the JAX Scheduler's two mesh
@@ -89,7 +123,7 @@ from __future__ import annotations
 
 import time as _time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 from kueue_tpu_torch import features
 from kueue_tpu_torch.api import kueue as api
@@ -102,6 +136,10 @@ from kueue_tpu_torch.core import priority as prioritypkg
 from kueue_tpu_torch.core import workload as wlpkg
 from kueue_tpu_torch.core.resources import container_limits_violations
 from kueue_tpu_torch.queue import Manager, RequeueReason
+from kueue_tpu_torch.resilience.breaker import CircuitBreaker
+from kueue_tpu_torch.resilience.degrade import NORMAL, DegradationLadder
+from kueue_tpu_torch.resilience.faultinject import DeviceFault
+from kueue_tpu_torch.resilience.watchdog import DispatchWatchdog
 from kueue_tpu_torch.scheduler import flavorassigner as fa
 from kueue_tpu_torch.scheduler import stages
 from kueue_tpu_torch.scheduler.podset_reducer import PodSetReducer
@@ -219,6 +257,27 @@ class Scheduler:
         self.last_preempt_gate = ""
         self.cycle_counts: dict = {}  # route -> cycles
         self.last_route = ""
+        # Device-fault containment (kueue_tpu/scheduler/scheduler.py:
+        # 103-138): the breaker pins cycles to "cpu-breaker" after
+        # consecutive faults and re-admits the device through half-open
+        # probes; the watchdog gives the dispatch and the collect their
+        # deadlines (None: neither is bounded); the ladder, off at its
+        # default budget of 0, sheds heads and preemption planning under
+        # load and pins "cpu-survival".
+        self.breaker = CircuitBreaker()
+        self.watchdog: Optional[DispatchWatchdog] = DispatchWatchdog()
+        self.ladder = DegradationLadder()
+        self.solver_faults = 0      # device faults contained (total)
+        self._cycle_faults = 0      # device faults within this cycle
+        self.preemption_fallbacks = 0  # preemption solves sent to the CPU
+        # on_fault(kind, message): "fault", "breaker-open",
+        # "breaker-closed", "degrade", "degrade-recovered"
+        self.on_fault: Optional[Callable[[str, str], None]] = None
+        self.shed_heads_requeued = 0   # heads re-heaped by the cap (total)
+        self.preempt_plans_deferred = 0  # deferred preempt plans (total)
+        # The cycle's snapshot handout between its take and its release,
+        # so that the next cycle releases one a raise left behind.
+        self._cycle_snapshot = None
         self.last_phase_s = dict.fromkeys(CYCLE_PHASES, 0.0)
         self.preemptor = Preemptor(
             ordering=self.ordering,
@@ -246,17 +305,43 @@ class Scheduler:
         heads = self.queues.heads(timeout=timeout)
         self._span("heads", t_ph)
         if not heads:
+            self._observe_idle()
             return KeepGoing
+        wall0 = _time.perf_counter()
+        self._cycle_faults = 0
+        self._release_cycle_snapshot()
+        # The ladder moves only at the cycle's end (_observe_budget):
+        # shed and survival cap the heads now, the extras re-heap
+        # untouched.
+        heads_popped = len(heads)
+        cap = self.ladder.head_cap()
+        if cap is not None and len(heads) > cap:
+            heads = self._shed_extra_heads(heads, cap)
+        collects0 = (self.solver.counters["collects"]
+                     if self.solver is not None else 0)
         route = self._route_mode(heads)
+        if route == "device" and self.ladder.pin_cpu:
+            # survival: the cycle is pinned to the CPU, consulted before
+            # the breaker so that it never takes a half-open probe
+            route = "cpu-survival"
+        if route == "device" \
+                and not self.breaker.allow_device(self.clock.now()):
+            route = "cpu-breaker"
 
         t_ph = _time.perf_counter()
         snapshot = self.cache.snapshot()
+        self._cycle_snapshot = snapshot
         self._span("snapshot", t_ph)
         nom = self._stage_nominate(heads, snapshot, route, timeout)
         self._stage_apply(nom, timeout)
         applied = self._stage_requeue(nom)
         self.cycle_counts[route] = self.cycle_counts.get(route, 0) + 1
         self.last_route = route
+        if route == "device":
+            self._note_device_cycle(collects0)
+        self._retire_cycle_snapshot(snapshot)
+        self._observe_budget(_time.perf_counter() - wall0, heads_popped,
+                             applied.admitted)
         return KeepGoing if applied.success else SlowDown
 
     def _span(self, name: str, t0: float) -> float:
@@ -272,6 +357,145 @@ class Scheduler:
             return "cpu-forced"
         return "device"
 
+    # --- the cycle's snapshot handout ---
+
+    def _release_cycle_snapshot(self) -> None:
+        """A cycle snapshot still held here means the previous cycle
+        raised between its take and its release: release it now
+        (kueue_tpu/scheduler/scheduler.py:903-917)."""
+        snap, self._cycle_snapshot = self._cycle_snapshot, None
+        if snap is not None:
+            self.cache.release_snapshot(snap)
+
+    def _retire_cycle_snapshot(self, snapshot: Snapshot) -> None:
+        """The cycle is done with its snapshot handout: back to the
+        maintainer, which may recycle its untouched shells into the next
+        handout (kueue_tpu/scheduler/scheduler.py:919-933; without a
+        query plane, which the port does not have yet)."""
+        self._cycle_snapshot = None
+        self.cache.release_snapshot(snapshot)
+
+    # --- the cycle deadline budget (resilience/degrade.py) ---
+
+    def _shed_extra_heads(self, heads: list, cap: int) -> list:
+        """Shed/survival head cap (kueue_tpu/scheduler/scheduler.py:
+        945-974): keep the top `cap` heads by priority (when the gate is
+        on) then queue-order timestamp, and re-heap the rest untouched,
+        with no status patch."""
+        prio_on = features.enabled(features.PRIORITY_SORTING_WITHIN_COHORT)
+        heads.sort(key=lambda w: (
+            -prioritypkg.priority(w.obj) if prio_on else 0,
+            self.ordering.queue_order_timestamp(w.obj)))
+        keep, extra = heads[:cap], heads[cap:]
+        for w in extra:
+            self.queues.requeue_workload(
+                w, RequeueReason.FAILED_AFTER_NOMINATION)
+        self.shed_heads_requeued += len(extra)
+        return keep
+
+    def _defer_preempt_plans(self, entries: list) -> None:
+        """Shed/survival: the entries nominated with deferred preemption
+        (targets None) get no target selection this cycle; they keep the
+        reserve-capacity semantics in the apply stage and re-heap."""
+        for e in entries:
+            if e.preemption_targets is None:
+                e.preemption_targets = []
+                e.inadmissible_msg = ("Preemption planning deferred "
+                                      "(load shedding)")
+                e.requeue_reason = RequeueReason.FAILED_AFTER_NOMINATION
+                self.preempt_plans_deferred += 1
+
+    def _observe_budget(self, duration_s: float, heads: int,
+                        admitted: int) -> None:
+        """Feed the cycle's wall seconds and its backlog pressure (heads
+        popped minus admissions) to the ladder; a move is reported to
+        on_fault."""
+        lad = self.ladder
+        if not lad.enabled:
+            return
+        prev = lad.state
+        backlog = heads - admitted
+        if not lad.observe_cycle(duration_s, backlog=backlog):
+            return
+        if self.on_fault is not None:
+            self.on_fault(
+                "degrade-recovered" if lad.state == NORMAL else "degrade",
+                f"degraded-mode {prev}->{lad.state}: cycle ewma "
+                f"{(lad.ewma_s or 0) * 1e3:.1f}ms vs budget "
+                f"{lad.budget_s * 1e3:.1f}ms, backlog {backlog}")
+
+    def _observe_idle(self) -> None:
+        """An idle tick (no heads): the ladder counts it as healthy."""
+        lad = self.ladder
+        if not lad.enabled or lad.state == NORMAL:
+            return
+        prev = lad.state
+        if lad.observe_idle() and self.on_fault is not None:
+            self.on_fault(
+                "degrade-recovered" if lad.state == NORMAL else "degrade",
+                f"degraded-mode {prev}->{lad.state}: idle")
+
+    # --- device-fault containment (resilience/) ---
+
+    def _solver_invalidate(self) -> None:
+        self.solver.invalidate_resident()
+
+    def _solver_fault(self, where: str, exc: DeviceFault) -> None:
+        """A device fault: count it, feed the breaker and drop the
+        solver's resident state and arena twin (the host mirrors are the
+        truth; the device state is a rebuildable cache), so the next
+        device cycle re-establishes from a full snapshot
+        (kueue_tpu/scheduler/scheduler.py:1073-1110)."""
+        self.solver_faults += 1
+        self._cycle_faults += 1
+        tripped = self.breaker.record_fault(self.clock.now())
+        if self.on_fault is not None:
+            self.on_fault("fault", f"{where}: {exc}")
+            if tripped:
+                self.on_fault("breaker-open",
+                              f"device route suspended after {where}: {exc}")
+        self._solver_invalidate()
+
+    def _prepare_failed(self, exc: DeviceFault) -> None:
+        """A DeviceFault out of the solver's prepare (a journal-replay
+        fault): a fault like the dispatch's. The JAX Scheduler also sends
+        a host exception of the encode to the CPU, dropping residency
+        without a fault (scheduler.py:1112-1121); here it propagates."""
+        self._solver_fault("prepare", exc)
+
+    def _note_device_cycle(self, collects_before: int) -> None:
+        """A device-routed cycle ended (kueue_tpu/scheduler/scheduler.py:
+        1123-1151). A collect with no fault is a breaker success (it
+        closes a half-open probe); a cycle that never collected proves
+        nothing, and a pending probe is re-armed."""
+        if self._cycle_faults:
+            return
+        if self.solver.counters["collects"] <= collects_before:
+            self.breaker.probe_inconclusive(self.clock.now())
+            return
+        if self.breaker.record_success(self.clock.now()) \
+                and self.on_fault is not None:
+            self.on_fault("breaker-closed",
+                          f"device route restored after "
+                          f"{self.breaker.last_recovery_cycles} cycle(s)")
+
+    def _dispatch_deadline(self) -> Optional[float]:
+        """The collect's deadline: the watchdog's over the largest of
+        the solver's recent launch-to-sync times (its cold clamp before
+        any); None without a watchdog."""
+        if self.watchdog is None:
+            return None
+        sync = self.solver._sync_samples
+        return self.watchdog.deadline_s(max(sync) / 1e3 if sync else None)
+
+    def _supervise_deadline(self) -> Optional[float]:
+        """The supervised dispatch's deadline: the watchdog's cold clamp
+        (the kernels built when the solver was made, so no dispatch
+        carries a build); None without a watchdog."""
+        if self.watchdog is None:
+            return None
+        return self.watchdog.max_deadline_s
+
     # --- the stage machine (contracts in scheduler/stages.py) ---
 
     def _stage_nominate(self, heads: list, snapshot: Snapshot, route: str,
@@ -285,7 +509,11 @@ class Scheduler:
             solver_entries, pre_entries, heads = self._stage_solve(
                 heads, snapshot, timeout)
         t_ph = _time.perf_counter()
-        entries = pre_entries + self.nominate(heads, snapshot)
+        defer_shed = self.ladder.defer_preemption
+        entries = pre_entries + self.nominate(heads, snapshot,
+                                              defer_preemption=defer_shed)
+        if defer_shed:
+            self._defer_preempt_plans(entries)
         entries.sort(key=self._entry_sort_key())
         self._span("nominate", t_ph)
         return stages.NominatedCycle(snapshot=snapshot, entries=entries,
@@ -393,11 +621,22 @@ class Scheduler:
                 e.inadmissible_msg, e.requeue_reason = err
                 invalid_entries.append(e)
 
-        plan = self.solver.prepare(snapshot, valid_heads)
+        try:
+            plan = self.solver.prepare(snapshot, valid_heads)
+        except DeviceFault as exc:
+            self._prepare_failed(exc)
+            return invalid_entries, [], valid_heads
         if plan is None:
             return invalid_entries, [], valid_heads
-        decisions, _ = self.solver.solve_prepared(
-            plan, snapshot, fair_sharing=self.fair_sharing_enabled)
+        try:
+            decisions, _ = self.solver.solve_prepared(
+                plan, snapshot, fair_sharing=self.fair_sharing_enabled,
+                deadline_s=self._dispatch_deadline(),
+                supervise_deadline_s=self._supervise_deadline())
+        except DeviceFault as exc:
+            # the cycle finishes on the CPU: every head to nomination
+            self._solver_fault("solve", exc)
+            return invalid_entries, [], valid_heads
 
         # Entries the device did not fit get their CPU nomination (flavor
         # assignment; preemption targets deferred) before any admission
@@ -431,11 +670,16 @@ class Scheduler:
         # minimal preemption (kueue_tpu/scheduler/scheduler.py:1952-1957),
         # so the CPU Preemptor picks them here.
         defer = not (self.fair_sharing_enabled
-                     and self.solver.mesh is not None)
+                     and self.solver.mesh is not None) \
+            or self.ladder.defer_preemption
         t_ph = _time.perf_counter()
         pre_entries = nofit_entries + self.nominate(rest, snapshot,
                                                     defer_preemption=defer)
         pending = [e for e in pre_entries if e.preemption_targets is None]
+        if pending and self.ladder.defer_preemption:
+            # shed/survival: no target selection this cycle
+            self._defer_preempt_plans(pending)
+            pending = []
         for e in pending:
             e.preemption_targets = []
         self._span("nominate", t_ph)
@@ -493,7 +737,12 @@ class Scheduler:
         the problems and their encode, or the CPU Preemptor), then on the
         device route the solver's "preempt" and "decode-targets"."""
         t_ph = _time.perf_counter()
-        found = self._device_preempt_batch(pending, snapshot, plan, fit_count)
+        try:
+            found = self._device_preempt_batch(pending, snapshot, plan,
+                                               fit_count)
+        except DeviceFault:
+            self.preemption_fallbacks += 1
+            found = None
         if found is None:
             self.last_preempt_gate = "cpu"
             self._cpu_preempt_targets(pending, snapshot)
@@ -502,9 +751,20 @@ class Scheduler:
         self.last_preempt_gate = "device"
         pbatch, fbatch, cq_by = found
         self._span("preempt-plan", t_ph)
-        aux = self.solver.solve_preemptions(
-            pbatch, fbatch, fairpreempt.strategy_flags(
-                self.preemptor.fs_strategies))
+        try:
+            aux = self.solver.solve_preemptions(
+                pbatch, fbatch, fairpreempt.strategy_flags(
+                    self.preemptor.fs_strategies))
+        except DeviceFault as exc:
+            # the CPU Preemptor picks the targets instead
+            # (kueue_tpu/scheduler/scheduler.py:2084-2091)
+            self._solver_fault("solve", exc)
+            self.preemption_fallbacks += 1
+            self.last_preempt_gate = "cpu"
+            t_ph = _time.perf_counter()
+            self._cpu_preempt_targets(pending, snapshot)
+            self._span("preempt-plan", t_ph)
+            return
         t_ph = _time.perf_counter()
         self._note_preempt_stats(aux, pbatch, fbatch)
         by_entry: dict = {}
@@ -653,8 +913,13 @@ class Scheduler:
         it is, for CPU nomination. The assigner runs count as nominate
         time, the search as the solver's "partial"."""
         from kueue_tpu_torch.solver.service import CPU_FALLBACK
-        results = self.solver.batched_partial_admission(plan, snapshot,
-                                                        partial_ws)
+        try:
+            results = self.solver.batched_partial_admission(plan, snapshot,
+                                                            partial_ws)
+        except DeviceFault:
+            # the CPU reducer searches them instead
+            # (kueue_tpu/scheduler/scheduler.py:2186-2191)
+            return list(partial_ws)
         t_ph = _time.perf_counter()
         out: list = []
         oracle = make_reclaim_oracle(self.preemptor, snapshot)

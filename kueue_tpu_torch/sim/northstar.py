@@ -108,13 +108,14 @@ def build_cluster(num_cqs: int, num_cohorts: int, flavors: list,
                   queueing_strategy: str = api.BEST_EFFORT_FIFO,
                   queues: Manager = None, fair_weights: tuple = None,
                   preemption: api.ClusterQueuePreemption = None,
-                  cq_checks=None) -> tuple:
+                  cq_checks=None, incremental_snapshots: bool = True) -> tuple:
     """cq{i} in cohort-{i % num_cohorts}, every flavor at nominal_units,
     fed by lq{i}; with fair_weights, cq{i} weighs
     fair_weights[i % len(fair_weights)]; every CQ takes `preemption`;
-    with cq_checks, cq{i} carries the AdmissionChecks cq_checks(i).
+    with cq_checks, cq{i} carries the AdmissionChecks cq_checks(i); the
+    Cache takes incremental snapshots unless told otherwise.
     Returns (Cache, Manager)."""
-    cache = Cache()
+    cache = Cache(incremental_snapshots=incremental_snapshots)
     queues = Manager() if queues is None else queues
     for f in flavors:
         cache.add_or_update_resource_flavor(make_flavor(f))

@@ -23,10 +23,12 @@ deleted:
 - Only `start_rank` — the one genuinely per-cycle input (flavor-resume
   state moves with capacity generations) — is recomputed each cycle,
   by encode.fill_start_ranks.
-
-Left out of this slice (the JAX package has them): the scatter's
-fault-injection site and its row scrambler, which belong to the
-resilience layer.
+- The scatter is a fault site (resilience/faultinject.SITE_SCATTER,
+  kueue_tpu/solver/arena.py:63, :551-552): CORRUPT mangles the rows in
+  transit (`_scramble_rows`) and K7a scatters them. The port has no
+  host-side router to send the heads it denies to the CPU, so the
+  arena notes the injector's hit (`last_scramble`) and the solver's
+  collect raises InjectedFault for that cycle.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 
 from kueue_tpu_torch.api.corev1 import RESOURCE_PODS
 from kueue_tpu_torch.core import priority as prioritypkg
+from kueue_tpu_torch.resilience import faultinject
 from kueue_tpu_torch.solver import encode
 
 # The host/device twin field list — the arena ABI, owned here and
@@ -56,6 +59,15 @@ _UPD_BUCKETS = (8, 512)
 # (_encode_rows) instead of the per-row path: below it, the batch
 # bookkeeping costs more than the per-row numpy dispatch it saves.
 _BATCH_ENCODE_MIN = 8
+
+
+def _scramble_rows(upd_rows: dict) -> dict:
+    """The scatter site's CORRUPT action (kueue_tpu/solver/arena.py:63):
+    requests inflated past any real quota, so a mangled row can only
+    fail Phase A on the card (deny), never admit."""
+    out = dict(upd_rows)
+    out["requests"] = np.full_like(upd_rows["requests"], 1 << 40)
+    return out
 
 
 class WorkloadArena:
@@ -112,6 +124,9 @@ class WorkloadArena:
         self.dev = None          # {field: device array} or None
         self.dev_cap = -1
         self.dev_token = -1
+        # the injector's hit that scrambled the last prepare_device's
+        # scatter, or None
+        self.last_scramble = None
         # engagement counters (perf artifacts)
         self.encoded_rows = 0
         self.gathers = 0
@@ -502,6 +517,7 @@ class WorkloadArena:
         kernel.scatter_arena_rows, padded to one of two fixed row
         buckets with the out-of-range slot `cap`, which the scatter
         drops."""
+        self.last_scramble = None
         if (self.dev is None or self.dev_cap != self.cap
                 or self.dev_token != self.token):
             return self._full_upload(device)
@@ -523,10 +539,21 @@ class WorkloadArena:
             host = getattr(self, name)
             arr = np.zeros((D,) + host.shape[1:], host.dtype)
             arr[: len(rows)] = host[rows]
-            upd_rows[name] = torch.from_numpy(arr).to(device)
+            upd_rows[name] = arr
             nbytes += arr.nbytes
         self.row_uploads += len(rows)
+        # Fault site: a raise is a failed upload (the dispatch's fault
+        # path owns it: the twin is dropped and re-uploaded whole from
+        # the host rows, which faults never touch); CORRUPT mangles the
+        # rows in transit, and K7a scatters the mangled rows.
+        sent = upd_rows
+        upd_rows = faultinject.site(faultinject.SITE_SCATTER, upd_rows,
+                                    corrupt=_scramble_rows)
+        if upd_rows is not sent:
+            injector = faultinject.active(faultinject.current_scope())
+            self.last_scramble = injector.hits[faultinject.SITE_SCATTER] - 1
         from kueue_tpu_torch.solver.kernel import scatter_arena_rows
         scatter_arena_rows(self.dev, torch.from_numpy(upd_slots).to(device),
-                           upd_rows)
+                           {name: torch.from_numpy(a).to(device)
+                            for name, a in upd_rows.items()})
         return self.dev, nbytes

@@ -60,6 +60,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -245,9 +246,23 @@ def _ptr(t: torch.Tensor, dtype: torch.dtype, name: str) -> int:
     return t.data_ptr()
 
 
+# The launching thread's guard: the solver's supervised dispatch sets
+# `check` on its worker thread (BatchSolver._check_epoch), so that a
+# dispatch the supervisor abandoned raises before its next launch.
+launch_guard = threading.local()
+
+
 def _launch(name: str, ptrs: list, ints: list, device,
             symbol: str = None) -> None:
+    check = getattr(launch_guard, "check", None)
+    if check is not None:
+        check()
     fn = _build.entry(name, len(ptrs), len(ints), symbol)
+    # The current stream is per thread. The Scheduler's thread and the
+    # supervised dispatch's worker both launch on the device's default
+    # stream (neither enters a torch.cuda.stream context), so a launch
+    # from the worker is ordered with the uploads, copies and syncs of
+    # the Scheduler's thread.
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(*[ctypes.c_void_p(p) for p in ptrs],
             *[ctypes.c_longlong(i) for i in ints], ctypes.c_void_p(stream))

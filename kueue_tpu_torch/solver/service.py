@@ -62,13 +62,34 @@ and runs Phase A alone on them (kernel.solve_phase_a, which on the card
 launches avail and phase_a) against the usage the last dispatch read,
 with one sync a round, timed as last_phase_s["partial"].
 
+Device-fault containment (kueue_tpu/resilience's port, driven by the
+Scheduler): with `supervise_deadline_s`, the dispatch runs on the
+persistent supervised worker thread (resilience/supervisor.py) and a
+dispatch past it raises SupervisedTimeout and moves the dispatch epoch,
+which an orphaned dispatch checks before each launch
+(kernel.launch_guard) and before any write to the arena twin or the
+resident state; with `deadline_s`, collect polls the CUDA event
+recorded after the cycle's launches and raises DispatchTimeout past
+the deadline instead of blocking. The fault sites of
+resilience/faultinject.py: the dispatch (SITE_DISPATCH), the decision
+outputs at collect (SITE_COLLECT, whose corruption `_validate_fetched`
+catches), the arena scatter (SITE_SCATTER, solver/arena.py) and the
+journal replay (SITE_REPLAY). On the card the kernels build when the
+solver is made, outside any deadline; a build failure raises there.
+
+A light snapshot (`Cache.snapshot(light=True)`) is read-only and shares
+the live trees: a topology encode or an establishing state encode off
+one takes the solver's own full snapshot and releases it
+(kueue_tpu/solver/service.py:916-943, :1062-1065).
+
 Left out of these slices (the JAX package has them): the host-side
-router (`_route`, Plan.fit_pred), the dispatch supervisor and watchdog,
-the background fetch pool, fault injection and the flight recorder.
+router (`_route`, Plan.fit_pred), the background fetch pool and the
+flight recorder.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Optional
 
@@ -81,12 +102,16 @@ from kueue_tpu_torch.cache.snapshot import Snapshot
 from kueue_tpu_torch.core import workload as wlpkg
 from kueue_tpu_torch.core.resources import FlavorResource
 from kueue_tpu_torch.device import resolve
+from kueue_tpu_torch.resilience import faultinject
+from kueue_tpu_torch.resilience.faultinject import DeviceFault, InjectedFault
+from kueue_tpu_torch.resilience.supervisor import SupervisedWorker
+from kueue_tpu_torch.resilience.watchdog import DispatchTimeout
 from kueue_tpu_torch.scheduler import flavorassigner as fa
 from kueue_tpu_torch.scheduler.podset_reducer import (
     counts_for_index,
     reduction_space,
 )
-from kueue_tpu_torch.solver import encode, kernel
+from kueue_tpu_torch.solver import _build, encode, kernel
 from kueue_tpu_torch.solver.arena import WorkloadArena
 from kueue_tpu_torch.solver.fairpreempt import fair_args
 from kueue_tpu_torch.solver.kernel import (
@@ -160,6 +185,32 @@ def preempt_aux(fetched: dict) -> Optional[dict]:
     return aux or None
 
 
+def _scramble_outputs(outputs: dict) -> dict:
+    """The collect site's CORRUPT action (kueue_tpu/solver/service.py:
+    159): garbage decision outputs, as a bit-flipped copy would give,
+    deliberately against the invariants (admitted rows without the fit
+    bit), which _validate_fetched must catch. The compact format gets
+    its fit plane zeroed and its admitted plane all ones, the dense one
+    the same on its bool arrays. It scrambles copies of the device
+    outputs, before the fetch."""
+    out = dict(outputs)
+    if "dec_bits" in outputs:
+        bits = outputs["dec_bits"].clone()
+        bits[0, :] = 0     # fit plane
+        bits[1, :] = 0xFF  # admitted plane
+        out["dec_bits"] = bits
+        return out
+    out["admitted"] = torch.ones_like(outputs["admitted"])
+    out["fit"] = torch.zeros_like(outputs["fit"])
+    return out
+
+
+# collect's event poll: spin on the event this many times, then sleep
+# between polls (a healthy cycle completes within the spins)
+POLL_SPINS = 2000
+POLL_SLEEP_S = 50e-6
+
+
 def unpack_decisions(fetched: dict, num_podsets: int,
                      num_resources: int) -> dict:
     """Host-side inverse of kernel.pack: the compact wire format back to
@@ -196,6 +247,25 @@ class Plan:
         self.rs = None          # the ResidentState the plan was built on
         self.backlog_gen = 0
         self.cluster = None     # encode.ClusterColumns or None
+
+
+class InFlight:
+    """A dispatched cycle: its outputs on the device, the keys collect
+    fetches, the CUDA event recorded after its launches (None on the
+    CPU), the collect deadline and when the launches started and the
+    dispatch ended; with the injector's hit that scrambled the arena's
+    scatter, if one did."""
+
+    def __init__(self, plan, result, keys, event, deadline_s, t_launch,
+                 scramble=None):
+        self.plan = plan
+        self.scramble = scramble  # the arena's last_scramble, or None
+        self.result = result
+        self.keys = keys
+        self.event = event
+        self.deadline_s = deadline_s
+        self.t_launch = t_launch
+        self.t_dispatch = time.perf_counter()
 
 
 class ResidentState:
@@ -253,7 +323,9 @@ class BatchSolver:
         self._arena = WorkloadArena(max_podsets)
         self.counters = {"dispatches": 0, "collects": 0, "upload_bytes": 0,
                          "fetch_bytes": 0, "resident_cycles": 0,
-                         "establishes": 0, "syncs": 0}
+                         "establishes": 0, "syncs": 0,
+                         "dispatch_timeouts": 0, "validation_faults": 0,
+                         "scatter_faults": 0, "supervised_timeouts": 0}
         self.last_upload_bytes = 0
         self.last_phase_s = dict.fromkeys(PHASES, 0.0)
         # workload key -> remote cluster name, for the admitted heads the
@@ -269,6 +341,22 @@ class BatchSolver:
         self.last_partial_rounds = 0
         self._sync_samples: list = []  # recent launch-to-sync times (ms)
         self._probe_sync_ms: Optional[float] = None  # estimated_sync_ms
+        # Supervised dispatch (kueue_tpu/solver/service.py:300-316): with
+        # a deadline, the dispatch runs on a persistent worker thread and
+        # a hang is abandoned instead of freezing the scheduler. Every
+        # abandonment moves the epoch, which an orphaned dispatch checks
+        # before each launch and each write to the arena twin or the
+        # resident state; the lock keeps at most one dispatch inside the
+        # arena upload.
+        self.supervise_dispatch = True
+        self._supervisor = SupervisedWorker("solver-dispatch")
+        self._dispatch_epoch = 0
+        self._arena_lock = threading.Lock()
+        if self.device.type == "cuda":
+            # Build every kernel now, outside any dispatch deadline: the
+            # first supervised dispatch must not carry fourteen nvcc
+            # builds, and a build failure raises here.
+            _build.build_all()
 
     # --- binding to the control plane ---
 
@@ -357,9 +445,21 @@ class BatchSolver:
         # alters the encoded tensors, never on workload churn
         key = snapshot.topology_epoch
         if key != self._topo_key or self._topo_cache is None:
-            topo = encode.encode_topology(snapshot)
-            self._topo_cache = (topo, topo_to_device(topo, self.device))
-            self._topo_key = key
+            own_snap = None
+            try:
+                if snapshot.light and self._cache is not None:
+                    # the topology encode walks whole resource trees:
+                    # never off a light snapshot's shared live ones
+                    snapshot = own_snap = self._cache.snapshot()
+                    key = snapshot.topology_epoch
+                topo = encode.encode_topology(snapshot)
+                self._topo_cache = (topo, topo_to_device(topo, self.device))
+                # stamped after the cache tuple is built: a fault in the
+                # encode leaves the old (key, cache) pair consistent
+                self._topo_key = key
+            finally:
+                if own_snap is not None:
+                    self._cache.release_snapshot(own_snap)
         return self._topo_cache
 
     def prepare(self, snapshot: Snapshot, entries: list) -> Optional[Plan]:
@@ -372,19 +472,28 @@ class BatchSolver:
             return None
         t0 = time.perf_counter()
         topo, topo_dev = self._topology(snapshot)
-        state, deltas, resident = self._state_for_cycle(snapshot, topo)
-        if resident:
-            self.counters["resident_cycles"] += 1
-        slots = None
-        if self._queues is not None:
-            self._arena.begin_cycle(topo)
-            batch, slots = self._arena.assemble(entries, snapshot, topo,
-                                                self.ordering,
-                                                self.max_podsets)
-        else:
-            batch = encode.encode_workloads(entries, snapshot, topo,
-                                            max_podsets=self.max_podsets)
-        cluster = encode.encode_cluster_columns(snapshot, topo)
+        cycle_snapshot = snapshot
+        state, deltas, resident, snapshot = self._state_for_cycle(snapshot,
+                                                                  topo)
+        # An establish off a light snapshot took a full one of its own:
+        # released on every exit, fault paths included.
+        own_snap = snapshot if snapshot is not cycle_snapshot else None
+        try:
+            if resident:
+                self.counters["resident_cycles"] += 1
+            slots = None
+            if self._queues is not None:
+                self._arena.begin_cycle(topo)
+                batch, slots = self._arena.assemble(entries, snapshot, topo,
+                                                    self.ordering,
+                                                    self.max_podsets)
+            else:
+                batch = encode.encode_workloads(entries, snapshot, topo,
+                                                max_podsets=self.max_podsets)
+        finally:
+            if own_snap is not None:
+                self._cache.release_snapshot(own_snap)
+        cluster = encode.encode_cluster_columns(cycle_snapshot, topo)
         self.last_phase_s["encode"] = time.perf_counter() - t0
         if not batch.solvable.any():
             return None
@@ -403,10 +512,12 @@ class BatchSolver:
 
     def _state_for_cycle(self, snapshot: Snapshot, topo):
         """Returns (state-with-mirror-arrays, encoded deltas or None,
-        resident?). Establishes residency on the first cycle (full
-        encode + upload), reconciles via the journal afterwards."""
+        resident?, the snapshot the cycle encodes against: an establish
+        replaces a light one by a full one of its own). Establishes
+        residency on the first cycle (full encode + upload), reconciles
+        via the journal afterwards."""
         if not self.resident_capable:
-            return encode.encode_state(snapshot, topo), None, False
+            return encode.encode_state(snapshot, topo), None, False, snapshot
         rs = self._resident
         if rs is not None and rs.token == topo.token \
                 and self._reconcile(snapshot, topo):
@@ -429,16 +540,23 @@ class BatchSolver:
                           if rs.device_backlog else None)
                 if deltas is None:
                     rs.device_backlog = {}
-            return state, deltas, True
+            return state, deltas, True, snapshot
         # (re)establish: the snapshot is the full truth — drop any journal
-        # history up to it, encode once, upload once.
+        # history up to it, encode once, upload once. A light snapshot's
+        # usage is live, not frozen at its journal_seq: take a full one,
+        # and bail out if the topology moved in between.
+        if snapshot.light:
+            snapshot = self._cache.snapshot()
+            if snapshot.topology_epoch != self._topo_key:
+                self._cache.release_snapshot(snapshot)
+                raise RuntimeError("topology moved during establish")
         self._cache.drain_usage_journal(snapshot.journal_seq)
         state = encode.encode_state(snapshot, topo)
         rs = ResidentState(topo.token)
         rs.mirror_usage = state.usage
         rs.mirror_cohort = state.cohort_usage
         self._resident = rs
-        return state, None, True
+        return state, None, True, snapshot
 
     def _reconcile(self, snapshot: Snapshot, topo) -> bool:
         """Drain the cache journal up to the snapshot: device admissions
@@ -447,6 +565,11 @@ class BatchSolver:
         becomes a sparse correction applied to the mirror now and shipped
         to the device at the next dispatch. False = residency must be
         dropped (journal overflow)."""
+        # Fault site: a replay fault propagates out of prepare(); the
+        # Scheduler drops residency and the cycle re-establishes from a
+        # fresh full snapshot. The mirror is only written after the
+        # whole drain below succeeds.
+        faultinject.site(faultinject.SITE_REPLAY)
         rs = self._resident
         entries, overflow = self._cache.drain_usage_journal(
             snapshot.journal_seq)
@@ -454,7 +577,8 @@ class BatchSolver:
             self._resident = None
             return False
         corr: dict = {}
-        for _seq, kind, cq_name, key, usage in entries:
+        for entry in entries:
+            kind, cq_name, key, usage = entry[1], entry[2], entry[3], entry[4]
             if kind == "add":
                 p = rs.pending.pop(key, None)
                 if p is not None:
@@ -528,19 +652,108 @@ class BatchSolver:
 
     def dispatch(self, plan: Plan, fair_sharing: bool = False,
                  preempt_batch=None, fair_batch=None,
-                 fs_flags: tuple = ()) -> tuple:
-        """Upload what the cycle needs and run it. Returns (device
-        outputs, keys to fetch). Bound, the upload is the heads' slot
-        indices, the arena's changed rows, the delta prologue and the
-        flavor-resume ranks; unbound, the state and the whole batch.
-        fair_sharing orders the admits by DRF share (kernel.drf_share);
-        a preempt_batch (solver/preempt.py) and a fair_batch
-        (solver/fairpreempt.py, solved with the strategy flags fs_flags)
-        are solved in the same call against the same usage
+                 fs_flags: tuple = (), deadline_s: Optional[float] = None,
+                 supervise_deadline_s: Optional[float] = None) -> InFlight:
+        """Upload what the cycle needs and launch it, without waiting for
+        it. Returns the InFlight that collect takes. Bound, the upload is
+        the heads' slot indices, the arena's changed rows, the delta
+        prologue and the flavor-resume ranks; unbound, the state and the
+        whole batch. fair_sharing orders the admits by DRF share
+        (kernel.drf_share); a preempt_batch (solver/preempt.py) and a
+        fair_batch (solver/fairpreempt.py, solved with the strategy flags
+        fs_flags) are solved in the same call against the same usage
         (kernel.solve_cycle_with_preempt). The usage the cycle read is
         kept for solve_preemptions. Under a mesh the cycle is
         parallel.mesh.solve_cycle_sharded and a preempt_batch is solved by
-        solve_preempt_sharded; a fair_batch raises."""
+        solve_preempt_sharded; a fair_batch raises.
+
+        deadline_s bounds the collect (stamped on the InFlight). With
+        supervise_deadline_s (and supervise_dispatch on) the dispatch
+        runs on the supervised worker thread and one past it raises
+        SupervisedTimeout (kueue_tpu/solver/service.py:1294-1331);
+        whatever else the dispatch raises reaches the caller unchanged."""
+        if supervise_deadline_s is None or not self.supervise_dispatch:
+            return self._dispatch_impl(plan, fair_sharing, preempt_batch,
+                                       fair_batch, fs_flags, deadline_s)
+        epoch = self._dispatch_epoch
+        index = None
+        if self.device.type == "cuda":
+            # the worker thread's current device is 0 whatever the
+            # caller's is: it launches on the solver's device, or on the
+            # caller's current one for a bare "cuda"
+            index = self.device.index
+            if index is None:
+                index = torch.cuda.current_device()
+        try:
+            return self._supervisor.run(
+                self._dispatch_on, index, plan, fair_sharing, preempt_batch,
+                fair_batch, fs_flags, deadline_s, epoch,
+                deadline_s=supervise_deadline_s)
+        except DispatchTimeout:
+            self._dispatch_epoch = epoch + 1
+            self.counters["supervised_timeouts"] += 1
+            raise
+
+    def _dispatch_on(self, index: Optional[int], *args) -> InFlight:
+        """_dispatch_impl on the supervised worker, under the CUDA device
+        `index` (None off the card)."""
+        if index is None:
+            return self._dispatch_impl(*args)
+        with torch.cuda.device(index):
+            return self._dispatch_impl(*args)
+
+    def _check_epoch(self, epoch: Optional[int]) -> None:
+        """A dispatch the supervisor abandoned must not launch or write
+        what the live cycle owns: it raises a DeviceFault that nobody
+        sees (it parks on the orphaned request)."""
+        if epoch is not None and epoch != self._dispatch_epoch:
+            raise DeviceFault("dispatch abandoned by supervisor")
+
+    def _dispatch_impl(self, plan: Plan, fair_sharing: bool = False,
+                       preempt_batch=None, fair_batch=None,
+                       fs_flags: tuple = (),
+                       deadline_s: Optional[float] = None,
+                       epoch: Optional[int] = None) -> InFlight:
+        # Fault site: a raise is a failed dispatch, a delay the hang the
+        # supervised deadline bounds.
+        faultinject.site(faultinject.SITE_DISPATCH)
+        self._check_epoch(epoch)
+        if epoch is None:
+            return self._dispatch_body(plan, fair_sharing, preempt_batch,
+                                       fair_batch, fs_flags, deadline_s,
+                                       epoch)
+        kernel.launch_guard.check = lambda: self._check_epoch(epoch)
+        try:
+            return self._dispatch_body(plan, fair_sharing, preempt_batch,
+                                       fair_batch, fs_flags, deadline_s,
+                                       epoch)
+        finally:
+            kernel.launch_guard.check = None
+
+    def _prepare_arena(self, epoch: Optional[int]) -> tuple:
+        """(The arena twin, current as of the host rows, its changed rows
+        scattered by K7a; the bytes uploaded; arena.last_scramble), under
+        the arena lock: at most one dispatch,
+        live or orphaned, is ever inside the upload
+        (kueue_tpu/solver/service.py:1422-1451)."""
+        if not self._arena_lock.acquire(timeout=1.0):
+            raise DeviceFault("arena upload busy: a previous dispatch is "
+                              "wedged in the device upload")
+        try:
+            self._check_epoch(epoch)
+            arena_dev, up = self._arena.prepare_device(self.device)
+            scramble = self._arena.last_scramble
+            if epoch is not None and epoch != self._dispatch_epoch:
+                # abandoned while inside the upload: the twin is stale
+                self._arena.drop_device()
+                raise DeviceFault("dispatch abandoned by supervisor")
+        finally:
+            self._arena_lock.release()
+        return arena_dev, up, scramble
+
+    def _dispatch_body(self, plan: Plan, fair_sharing, preempt_batch,
+                       fair_batch, fs_flags, deadline_s,
+                       epoch) -> InFlight:
         if self.mesh is not None:
             if fair_batch is not None:
                 raise ValueError(_NO_FAIR_UNDER_MESH)
@@ -549,6 +762,7 @@ class BatchSolver:
                                                        plan.batch.wl_cq)
             self.last_phase_s["plan"] = time.perf_counter() - tp
         t0 = time.perf_counter()
+        scramble = None
         topo, batch, state = plan.topo, plan.batch, plan.state
         compact = topo.nominal.shape[1] <= MAX_COMPACT_FLAVORS
         start_rank = None if plan.start_rank is None else \
@@ -591,13 +805,15 @@ class BatchSolver:
             if plan.slots is not None:
                 # Arena dispatch: the batch rows already live on the
                 # device — ship the head slots and the changed rows.
-                arena_dev, up = self._arena.prepare_device(self.device)
+                arena_dev, up, scramble = self._prepare_arena(epoch)
                 slots_w = np.full(batch.requests.shape[0], -1, np.int32)
                 slots_w[:batch.n] = plan.slots
                 slots_dev = self._upload(slots_w)
                 up += slots_w.nbytes
                 self._sync()
                 t1 = time.perf_counter()
+                # the delta prologue writes the resident usage in place
+                self._check_epoch(epoch)
                 result = solve_cycle_resident_arena(
                     plan.topo_dev, usage_in, cohort_in, deltas, arena_dev,
                     slots_dev, preempt_args=pargs, **kwargs)
@@ -606,9 +822,11 @@ class BatchSolver:
                 up = sum(a.nbytes for a in batch_np)
                 self._sync()
                 t1 = time.perf_counter()
+                self._check_epoch(epoch)
                 result = solve_cycle_resident(
                     plan.topo_dev, usage_in, cohort_in, deltas, *dev,
                     preempt_args=pargs, **kwargs)
+            self._check_epoch(epoch)
             # usage_in/cohort_in now hold the corrected pre-cycle usage
             # (the prologue ran in place; phase_b wrote copies)
             self._cycle_state = (plan.topo_dev, usage_in, cohort_in)
@@ -624,6 +842,7 @@ class BatchSolver:
             up = sum(a.nbytes for a in batch_np)
             self._sync()
             t1 = time.perf_counter()
+            self._check_epoch(epoch)
             if self.mesh is not None:
                 result = meshpkg.solve_cycle_sharded(
                     self.mesh, plan.topo_dev, *dev, plan=self.last_domain_plan,
@@ -640,11 +859,15 @@ class BatchSolver:
             else:
                 result = solve_cycle_with_preempt(plan.topo_dev, *dev, pargs,
                                                   **kwargs)
+            self._check_epoch(epoch)
             self._cycle_state = (plan.topo_dev, dev[0], dev[1])
-        self._sync()
+        event = None
+        if self.device.type == "cuda":
+            # recorded on this thread's current stream, the device's
+            # default one (see kernel._launch), after the cycle's launches
+            event = torch.cuda.Event()
+            event.record()
         self.last_phase_s["upload"] = t1 - t0
-        self.last_phase_s["device"] = time.perf_counter() - t1
-        self._observe_sync(self.last_phase_s["device"] * 1e3)
         for host in (host_pargs, host_fargs, host_cargs):
             if host is not None:
                 up += sum(a.nbytes for a in host)
@@ -666,22 +889,94 @@ class BatchSolver:
             keys = keys + PREEMPT_KEYS
         if fargs is not None:
             keys = keys + FAIR_KEYS
-        return result, keys
+        return InFlight(plan, result, keys, event, deadline_s, t1,
+                        scramble=scramble)
 
-    def collect(self, plan: Plan, result: dict, keys, snapshot: Snapshot):
-        """Fetch the decisions only, unpack and decode them, and update
-        the residency bookkeeping. Returns (decisions, aux): aux holds the
-        preemption outputs when the cycle had preemption batches
+    def _await_device(self, inflight: InFlight) -> None:
+        """Wait for the cycle's launches: one sync, counted in
+        counters["syncs"], whose time from the first launch is the
+        cycle's "device" phase. With a deadline the event recorded after
+        the launches is polled, and past the deadline (counted from the
+        dispatch's end, as kueue_tpu/solver/service.py:1655-1665 does)
+        DispatchTimeout is raised and the outputs are abandoned: nothing
+        waits on them, and the next establish allocates fresh tensors on
+        the same stream, ordered after them."""
+        self.counters["syncs"] += 1
+        event, deadline = inflight.event, inflight.deadline_s
+        if deadline is None:
+            if event is not None:
+                event.synchronize()
+        else:
+            t_end = inflight.t_dispatch + deadline
+            spins = 0
+            while event is not None and not event.query():
+                if time.perf_counter() > t_end:
+                    break
+                spins += 1
+                if spins > POLL_SPINS:
+                    time.sleep(POLL_SLEEP_S)
+            waited = time.perf_counter() - inflight.t_dispatch
+            if waited > deadline:
+                self.counters["dispatch_timeouts"] += 1
+                raise DispatchTimeout(deadline, waited)
+        self.last_phase_s["device"] = time.perf_counter() - inflight.t_launch
+        self._observe_sync(self.last_phase_s["device"] * 1e3)
+
+    def _validate_fetched(self, plan: Plan, fetched: dict) -> None:
+        """The decisions' invariants (kueue_tpu/solver/service.py:
+        1590-1616): a few [W]-bool checks. Outputs against them are
+        corrupt: raise DeviceFault, so the Scheduler drops the resident
+        state and nominates the heads on the CPU instead of turning
+        garbage into admissions."""
+        n = plan.batch.n
+        fit = fetched.get("fit")
+        admitted = fetched.get("admitted")
+        if fit is None or admitted is None \
+                or np.asarray(fit).shape[0] < n \
+                or np.asarray(admitted).shape[0] < n:
+            self.counters["validation_faults"] += 1
+            raise DeviceFault("solve output missing/short decision arrays")
+        fit = np.asarray(fit)[:n].astype(bool)
+        admitted = np.asarray(admitted)[:n].astype(bool)
+        if bool(np.any(admitted & ~fit)):
+            self.counters["validation_faults"] += 1
+            raise DeviceFault("solve output corrupt: admitted without fit")
+        if bool(np.any(fit & ~plan.batch.solvable[:n])):
+            self.counters["validation_faults"] += 1
+            raise DeviceFault("solve output corrupt: fit on unsolvable row")
+
+    def collect(self, inflight: InFlight, snapshot: Snapshot):
+        """Wait for the cycle (under its deadline), fetch the decisions
+        only, check their invariants, unpack and decode them, and update
+        the residency bookkeeping. Returns (decisions, aux): aux holds
+        the preemption outputs when the cycle had preemption batches
         (preempt_aux), else None."""
-        t0 = time.perf_counter()
+        plan, result = inflight.plan, inflight.result
+        # Fault site: CORRUPT scrambles the decision outputs (caught by
+        # _validate_fetched), DELAY holds the collect past its deadline.
+        outputs = faultinject.site(faultinject.SITE_COLLECT,
+                                   {k: result[k] for k in inflight.keys},
+                                   corrupt=_scramble_outputs)
+        self._await_device(inflight)
+        t1 = time.perf_counter()
         # a copy per key: on the H100 it beats _fetch's one copy of the
         # two or three decision arrays (chip_smoke's fetch_timing)
-        fetched = {k: result[k].cpu().numpy() for k in keys}
+        fetched = {k: v.cpu().numpy() for k, v in outputs.items()}
         self.counters["fetch_bytes"] += sum(v.nbytes for v in fetched.values())
-        self.counters["collects"] += 1
         fetched = unpack_decisions(fetched, self.max_podsets,
                                    plan.topo.nominal.shape[2])
-        t1 = time.perf_counter()
+        self._validate_fetched(plan, fetched)
+        if inflight.scramble is not None:
+            # rows scrambled on their way to the card (SITE_SCATTER's
+            # CORRUPT) would only deny their heads, and the port sends a
+            # head the card denies to its NoFit shortcut, not to the
+            # CPU: the cycle is a fault, so the Scheduler drops the
+            # resident state and the twin, which the next dispatch
+            # uploads whole
+            self.counters["scatter_faults"] += 1
+            raise InjectedFault(faultinject.SITE_SCATTER, inflight.scramble)
+        self.counters["collects"] += 1
+        t2 = time.perf_counter()
         # Mirror/pending updates only apply when the plan's ResidentState
         # is still the live one (not invalidated+re-established since).
         resident_ok = plan.resident and plan.rs is self._resident
@@ -689,23 +984,28 @@ class BatchSolver:
             plan.batch.infos, snapshot, plan.topo, plan.batch, fetched,
             resident=resident_ok,
             cluster_names=plan.cluster.names if plan.cluster else None)
-        self.last_phase_s["fetch"] = t1 - t0
-        self.last_phase_s["decode"] = time.perf_counter() - t1
+        self.last_phase_s["fetch"] = t2 - t1
+        self.last_phase_s["decode"] = time.perf_counter() - t2
         return decisions, preempt_aux(fetched)
 
     def solve_prepared(self, plan: Plan, snapshot: Snapshot,
                        preempt_batch=None, fair_sharing: bool = False,
-                       fair_batch=None, fs_flags: tuple = ()) -> tuple:
+                       fair_batch=None, fs_flags: tuple = (),
+                       deadline_s: Optional[float] = None,
+                       supervise_deadline_s: Optional[float] = None) -> tuple:
         """Dispatch the prepared cycle, sync once, decode
         (kueue_tpu/solver/service.py:1219, single chip). A preempt_batch
         and a fair_batch (with its strategy flags fs_flags) are solved in
-        the same dispatch against the same pre-cycle usage. Returns
-        (decisions, aux), aux as collect returns it."""
-        result, keys = self.dispatch(plan, fair_sharing=fair_sharing,
-                                     preempt_batch=preempt_batch,
-                                     fair_batch=fair_batch,
-                                     fs_flags=fs_flags)
-        return self.collect(plan, result, keys, snapshot)
+        the same dispatch against the same pre-cycle usage. deadline_s
+        bounds the collect (DispatchTimeout), supervise_deadline_s the
+        dispatch (SupervisedTimeout). Returns (decisions, aux), aux as
+        collect returns it."""
+        inflight = self.dispatch(plan, fair_sharing=fair_sharing,
+                                 preempt_batch=preempt_batch,
+                                 fair_batch=fair_batch, fs_flags=fs_flags,
+                                 deadline_s=deadline_s,
+                                 supervise_deadline_s=supervise_deadline_s)
+        return self.collect(inflight, snapshot)
 
     def _fetch(self, result: dict, keys) -> dict:
         """The outputs `keys` in one device-to-host copy: their bytes side

@@ -2100,3 +2100,174 @@ def test_chain_tables_required_on_card(cuda_device):
                      device=cuda_device)
     with pytest.raises(KeyError):
         tk.apply_state_deltas(card, args[0], cu, *deltas)
+
+
+# --- device-fault containment on the card ---
+
+def bound_pair(device, num_cqs=32, waves=4):
+    """A bound solver on `device` over a 4-flavor cluster with staged
+    waves, and its cache and queues."""
+    flavors = [f"f{i}" for i in range(4)]
+    cache, queues = ns.build_cluster(num_cqs, 4, flavors, 40)
+    ns.stage_waves(queues, waves, num_cqs, 40)
+    solver = BatchSolver(device=device)
+    solver.bind_cache(cache)
+    solver.bind_queues(queues)
+    return solver, cache, queues
+
+
+def bound_cycle(solver, cache, queues, cycle, **kwargs):
+    heads = queues.heads_nonblocking()
+    snapshot = cache.snapshot()
+    plan = solver.prepare(snapshot, heads)
+    got = solver.solve_prepared(plan, snapshot, **kwargs)[0]
+    ns.apply_decisions(cache, queues, solver, heads, got, float(cycle))
+    return {heads[i].key: (a.pod_sets, ok) for i, (a, ok) in got.items()}
+
+
+@pytest.mark.cuda
+def test_collect_deadline_through_the_event_poll(cuda_device, monkeypatch):
+    """The card still runs the cycle (a sleep kernel queued after the
+    dispatch's uploads, ahead of its launches) when the collect's
+    deadline passes: collect polls the event, raises DispatchTimeout and
+    copies nothing; the next cycle, on fresh resident state, decides as
+    the CPU does."""
+    import time
+    from kueue_tpu_torch.resilience.watchdog import DispatchTimeout
+    solver, cache, queues = bound_pair(cuda_device)
+    ref, rcache, rqueues = bound_pair("cpu")
+    assert bound_cycle(solver, cache, queues, 0) \
+        == bound_cycle(ref, rcache, rqueues, 0)
+    heads = queues.heads_nonblocking()
+    snapshot = cache.snapshot()
+    plan = solver.prepare(snapshot, heads)
+    real_sync = solver._sync
+
+    def sync_then_stall():
+        real_sync()
+        torch.cuda._sleep(int(2e9))  # about a second of the card's time
+    monkeypatch.setattr(solver, "_sync", sync_then_stall)
+    inflight = solver.dispatch(plan, deadline_s=0.05)
+    monkeypatch.undo()
+    assert not inflight.event.query()
+    t0 = time.perf_counter()
+    with pytest.raises(DispatchTimeout):
+        solver.collect(inflight, snapshot)
+    assert time.perf_counter() - t0 < 0.5
+    assert solver.counters["dispatch_timeouts"] == 1
+    for info in heads:
+        queues.requeue_workload(info, ns.RequeueReason.GENERIC)
+    solver.invalidate_resident()
+    rheads = rqueues.heads_nonblocking()
+    for info in rheads:
+        rqueues.requeue_workload(info, ns.RequeueReason.GENERIC)
+    assert bound_cycle(solver, cache, queues, 1, deadline_s=5.0) \
+        == bound_cycle(ref, rcache, rqueues, 1)
+
+
+@pytest.mark.cuda
+def test_supervised_dispatch_launches_from_the_worker(cuda_device,
+                                                      monkeypatch):
+    """The supervised dispatch's kernels launch from the solver's worker
+    thread, on the default stream, and decide as a main-thread dispatch."""
+    import threading
+    threads = []
+    real = tk._launch
+
+    def launch(*args, **kwargs):
+        threads.append(threading.current_thread().name)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(tk, "_launch", launch)
+    sup, scache, squeues = bound_pair(cuda_device)
+    inline, icache, iqueues = bound_pair(cuda_device)
+    for cycle in range(3):
+        n = len(threads)
+        got = bound_cycle(sup, scache, squeues, cycle, deadline_s=30.0,
+                          supervise_deadline_s=30.0)
+        assert set(threads[n:]) == {"solver-dispatch"}
+        n = len(threads)
+        want = bound_cycle(inline, icache, iqueues, cycle)
+        assert threading.current_thread().name in set(threads[n:])
+        assert got == want
+    assert sup._supervisor.calls == 3
+
+
+@pytest.mark.cuda
+def test_kernel_error_in_the_worker_propagates_unwrapped(cuda_device):
+    """A kernel wrapper's raise on a CUDA tensor (the arena twin in the
+    wrong dtype) inside the supervised dispatch reaches the caller of
+    schedule() as it is: no fault counted, the breaker closed."""
+    sched, cache, queues, client = ns.build_scheduler(
+        32, 4, ["f0"], 40, solver=BatchSolver(device=cuda_device))
+    ns.stage_waves(queues, 3, 32, 40)
+    sched.schedule(timeout=0)
+    assert sched.last_route == "device" and client.admitted == 32
+    twin = sched.solver.arena.dev
+    twin["wl_cq"] = twin["wl_cq"].to(torch.int64)
+    with pytest.raises(TypeError, match="wl_cq|expected"):
+        sched.schedule(timeout=0)
+    assert sched.solver_faults == 0 and sched.breaker.state == "closed"
+    assert sched.solver._supervisor.calls == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wedge", ("site", "before_launch"))
+def test_abandoned_worker_writes_nothing(wedge, cuda_device, monkeypatch):
+    """A supervised dispatch wedged past its deadline (at the dispatch's
+    fault site, or after its uploads, before its first launch) is
+    abandoned; when it wakes it launches no kernel and writes neither
+    the resident usage nor the arena twin."""
+    import threading
+    import time
+    from kueue_tpu_torch.resilience import faultinject
+    from kueue_tpu_torch.resilience.supervisor import SupervisedTimeout
+    solver, cache, queues = bound_pair(cuda_device)
+    bound_cycle(solver, cache, queues, 0)
+    rs = solver.resident
+    woke = threading.Event()
+    if wedge == "site":
+        faultinject.install(faultinject.FaultInjector(
+            {faultinject.SITE_DISPATCH: {0: (faultinject.DELAY, 1.0)}}))
+    else:
+        real_sync = solver._sync
+
+        def sync():
+            real_sync()
+            if threading.current_thread().name == "solver-dispatch":
+                time.sleep(1.0)
+        monkeypatch.setattr(solver, "_sync", sync)
+    real_check = solver._check_epoch
+
+    def check(epoch):
+        try:
+            real_check(epoch)
+        except Exception:
+            woke.set()
+            raise
+    monkeypatch.setattr(solver, "_check_epoch", check)
+    heads = queues.heads_nonblocking()
+    snapshot = cache.snapshot()
+    plan = solver.prepare(snapshot, heads)
+    try:
+        with pytest.raises(SupervisedTimeout):
+            solver.solve_prepared(plan, snapshot, deadline_s=5.0,
+                                  supervise_deadline_s=0.2)
+    finally:
+        faultinject.uninstall()
+    # the state when the dispatch was abandoned (the orphan sleeps on)
+    torch.cuda.synchronize()
+    assert not woke.is_set()
+    launched = sum(tk.launch_counts().values())
+    before = (rs.usage_dev.clone(), rs.cohort_dev.clone(),
+              {k: v.clone() for k, v in solver.arena.dev.items()})
+    assert solver._dispatch_epoch == 1
+    assert woke.wait(5.0)  # the orphan woke and met the moved epoch
+    time.sleep(0.1)
+    torch.cuda.synchronize()
+    assert sum(tk.launch_counts().values()) == launched
+    assert solver.resident is rs
+    assert torch.equal(rs.usage_dev, before[0])
+    assert torch.equal(rs.cohort_dev, before[1])
+    if solver.arena.dev is not None:
+        for k, v in before[2].items():
+            assert torch.equal(solver.arena.dev[k], v), k

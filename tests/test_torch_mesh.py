@@ -405,14 +405,16 @@ def test_mesh_refuses_other_devices(mesh_solvers, monkeypatch):
 
 
 def test_mesh_solver_is_unbound_and_refuses_fair_batches(mesh_solvers):
-    """Under a mesh: no usage journal, no resident state, and a fair
-    batch raises (the Scheduler sends fair preemption to the CPU)."""
+    """Under a mesh: no solver consumer of the usage journal (the
+    journal has only the incremental snapshot's), no resident state, and
+    a fair batch raises (the Scheduler sends fair preemption to the
+    CPU)."""
     from kueue_tpu_torch.sim import northstar as ns
     from kueue_tpu_torch.solver.synth import synth_fair_problems
     solver = mesh_solvers["kueue_tpu_torch"]()
     sched, cache, queues, _ = ns.build_scheduler(8, 2, ["f0"], 4,
                                                  solver=solver)
-    assert not cache.usage_journal_enabled
+    assert set(cache._journal_cursors) == {"snapshot"}
     assert not solver.resident_capable and solver._cache is cache
     ns.stage_waves(queues, 1, 8, 4)
     heads = queues.heads_nonblocking()

@@ -188,14 +188,15 @@ def set_preempt_gate(sched, pkg: str, preempt: str) -> None:
     """The preemption work gate, alike on both packages: "cpu" sends
     every preempt-mode entry to the CPU Preemptor, "device" every one
     with candidates to the batched solves (no sync floor to cover), with
-    fair sharing on too. The JAX Scheduler also gets no watchdog deadline
-    on its first compile."""
+    fair sharing on too. Neither Scheduler gets a watchdog: the JAX
+    Scheduler's first compile runs under no deadline, and the port's
+    dispatch runs inline as the JAX one does then (the deadlines are
+    held alike in tests/test_torch_resilience.py)."""
     sched.solver_sync_floor_ms = 0.0
     if preempt == "cpu":
         sched.preempt_cand_us = 0.0
         sched.fair_cand_us = 0.0
-    if pkg == "kueue_tpu":
-        sched.watchdog = None
+    sched.watchdog = None
 
 
 def conditions(wl):
@@ -509,6 +510,7 @@ def bench_env(pkg: str, route: str, num_cqs: int, num_cohorts: int,
             fair_weights=weights)
         if route == "cpu":
             sched.solver_min_heads = num_cqs + 1
+        sched.watchdog = None  # as the JAX side's below
         ns.stage_waves(queues, 6, num_cqs, 4)
         return sched, cache, queues, client, ns.finish_applied
     from kueue_tpu.api.meta import FakeClock
