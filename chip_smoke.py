@@ -54,14 +54,14 @@ decisions held against the same solve on the CPU with the plain
 versions:
 
 1. unbound: BatchSolver(device="cuda") re-encodes and uploads the state
-   and the batch every cycle (1 warm-up and 3 timed cycles);
+   and the batch every cycle (1 warm-up and 2 timed cycles);
 2. bound fill: the solver bound to the Cache and the Manager, usage
    resident on the card and the batch gathered from the encode arena's
-   device twin, filling an empty cluster (1 + 5 cycles);
+   device twin, filling an empty cluster (1 + 3 cycles);
 3. bound churn: the same on a cluster whose flavors are all full, where
    128 admitted workloads finish before each cycle, so the journal's
    corrections and the arena's changed rows reach the card as the
-   sparse delta prologue and the row scatter (1 + 5 cycles). Every
+   sparse delta prologue and the row scatter (1 + 3 cycles). Every
    bound cycle's resident usage is also held against the host mirror
    and a fresh encode of the cache.
 4. scheduler fair: the port's own Scheduler with fair sharing on, its
@@ -69,7 +69,7 @@ versions:
    the JAX package's fair-sharing benchmark configuration (2048 CQs in
    256 cohorts, one flavor of 2 units per CQ, 4-unit workloads, 30,720
    pending; the last cycle's admissions finish before each cycle):
-   1 + 5 cycles, every one on the device route with drf_share launched,
+   1 + 3 cycles, every one on the device route with drf_share launched,
    each bound cycle's resident usage held against the mirror and a
    fresh encode; drf_share's inputs in the first timed cycle are kept
    and its shares there held against the plain version on the same card
@@ -82,8 +82,8 @@ versions:
    the JAX package's preemption-heavy configuration (bench.py
    bench_preemption_reclaim: 2048 CQs, 256 child cohorts under 128
    roots, one flavor of 8 units per CQ, 64,512 admitted victims, one
-   8-unit preemptor per CQ, every head in preempt mode): 1 warm-up and
-   1 timed cycle, each the first cycle of a fresh build, every one on
+   8-unit preemptor per CQ, every head in preempt mode): 1 timed
+   cycle, each the first cycle of a fresh build, every one on
    the device route with the work gate choosing the device and every
    preempt-mode head solved by the K9 kernel (solve_preempt) after the
    fit sync; its inputs in the first timed cycle are kept and held
@@ -99,7 +99,7 @@ versions:
    configuration (bench.py bench_fair_preemption at 2048 CQs in 256
    cohorts: one flavor of 8 units per CQ, member 0 of each cohort idle
    with one 8-unit preemptor, the other 7 each holding 12 admitted
-   victims, 21,504 in all): 1 warm-up and 1 timed cycle, each the
+   victims, 21,504 in all): 1 timed cycle, the
    first cycle of a fresh build, every one on the device route with the
    work gate choosing the device and 256 fair problems solved by the K11
    kernel (solve_fair) after the fit sync, with one sync for the
@@ -123,7 +123,7 @@ versions:
    256 cohorts, 32 flavors of 40 units, 51,200 pending 40-unit
    workloads, the MultiKueue check on every even CQ, five worker
    clusters w0..w4 bucketed to 8 columns, w2 lost, w1 lost from the
-   sixth timed cycle on): 1 + 6 cycles, each on the device route with
+   third timed cycle on): 1 + 3 cycles, each on the device route with
    cluster_cols launched once in the bound cycle, the placements handed
    to on_placement never on a lost cluster and on at least three; its
    inputs in the first timed cycle are kept and held against the plain
@@ -138,14 +138,15 @@ versions:
 8. scheduler sharded: the sharded cycle (kueue_tpu_torch/parallel/mesh.py,
    K13) under the port's Scheduler, BatchSolver(mesh=make_mesh()): world
    size 1 over NCCL on the one card. (a) the north star's fill (2048 CQs
-   in 256 cohorts, 32 flavors of 40 units, 51,200 pending): 1 + 2
-   cycles; (b) the preemption reclaim configuration: 1 warm-up and 1
-   timed fresh build, every preempt-mode head solved by K9 over its
-   problem slots (solve_preempt_sharded); (c) the MultiKueue cell: 1 + 2
+   in 256 cohorts, 32 flavors of 40 units, 51,200 pending): 1 + 1
+   cycles; (b) the preemption reclaim configuration: 1 timed fresh
+   build, every preempt-mode head solved by K9 over its
+   problem slots (solve_preempt_sharded); (c) the MultiKueue cell: 1 + 1
    cycles, K12 after the combine. Each launches its kernels, mesh_combine
    included, and equals the same builds on the single-device route
-   (BatchSolver(device="cuda")): admissions and usage per CQ, evictions
-   and reasons, placements. Then each rank's body of a 4-way plan in
+   (BatchSolver(device="cuda"); for (b) and (c) the scheduler preempt
+   and multikueue phases' own cycles on those builds): admissions and
+   usage per CQ, evictions and reasons, placements. Then each rank's body of a 4-way plan in
    turn, on the card: on (a)'s first timed cycle, phase_a on the rank's
    slice, phase_b on its columns and the combine's pack, the four
    buffers summed and unpacked; on (b)'s K9 batch, K9 on each rank's
@@ -173,17 +174,35 @@ versions:
    site through the fill and the trickle, then quiet steps until
    settled, with R's admissions and usage per CQ. Each step prints its
    route, fault counts and breaker state.
+10. scheduler pipelined: the speculative pipeline (the port's Scheduler
+   with pipeline_enabled, its solver bound to the card, the default
+   watchdog; the router's Phase A on the card against the host mirror,
+   the decisions' fetch started at dispatch) on the faults phase's
+   traffic (the north star's fill, the trickle, then quiet steps until
+   settled), steps 1-5 timed: (a) depth 1 and (b) depth 2, each with a
+   workload of the cycle in flight updated after step 8 (an arena-slots
+   abort) and a mis-speculation injected at SITE_SPECULATION; (c) the
+   same traffic under the synchronous Scheduler must give the same
+   admitted set and usage per CQ, and no run reserves a workload twice;
+   (d) a mixed north star (mixed_env: one eighth of the CQs
+   LowerPriority and full, with priority-10 heads),
+   where the predicted non-fit heads ride the pipelined dispatch as a
+   K9 batch and their evictions issue at collect: each step's
+   admissions, evictions and reasons equal the same Scheduler's on the
+   CPU. Each part prints its step p50 and max, the router's ms, the hit
+   rate, the aborts by reason, the collect's device phase read from the
+   CUDA events, and the Cache's live handouts after the drain (0).
 
 The bound and Scheduler phases print their snapshot_stats and the
 snapshot phase's p50: the Cache takes incremental snapshots by default,
 and bound fill, bound churn and scheduler fair must take the
 incremental path on every timed cycle and hold the last one's handout
 equal to a rebuild of the same cache (usage per CQ and cohort, workload
-keys, epochs). Bound churn runs its cycles once more with
+keys, epochs). Bound churn runs its first 1 + 2 cycles once more with
 Cache(incremental_snapshots=False), which must decide the same; both
-snapshot p50s are printed. Every Scheduler phase but the faults phase
-must see no device fault, its breaker closed and every cycle on the
-device route.
+snapshot p50s are printed. Every Scheduler phase but the faults and
+pipelined phases must see no device fault, its breaker closed and every
+cycle on the device route; the pipelined phase sees no device fault.
 
 Every phase raises on failure; nothing is caught. The last lines are
 the card's name and power limit, one JSON line with the kernels'
@@ -213,8 +232,9 @@ NESTED = dict(num_cqs=2048, num_leaf_cohorts=256, fanout=4, depth=3,
               num_podsets=3, no_cohort_every=16)
 E2E_WAVES = 25          # 25 x 2048 = 51,200 pending workloads
 E2E_WARMUP = 1
-UNBOUND_TIMED = 3
-BOUND_TIMED = 5
+UNBOUND_TIMED = 2
+BOUND_TIMED = 3
+FULL_REBUILD_TIMED = 1  # bound churn's rerun with full snapshot rebuilds
 NOMINAL_UNITS = 40      # per flavor and CQ; workloads are one flavor's size
 CHURN_FINISHES = 128    # admitted workloads finishing before a churn cycle
 # The kernel phase's shapes for the resident kernels, as the churn gives
@@ -293,17 +313,26 @@ PHASE_KERNELS["scheduler_sharded"] = SHARDED_KERNELS["preempt"] + (
 PHASE_KERNELS["scheduler_faults"] = ("arena_gather", "arena_scatter",
                                      "avail", "phase_a", "order", "phase_b",
                                      "pack", "deltas")
-SHARDED_TIMED = {"fill": 2, "preempt": 1, "multikueue": 2}
+# the pipelined phase: the faults phase's traffic (the router's avail and
+# phase_a beside the cycle's), and K9 riding the mixed cycle's dispatch
+PHASE_KERNELS["scheduler_pipelined"] = PHASE_KERNELS["scheduler_faults"] \
+    + ("solve_preempt",)
+SHARDED_TIMED = {"fill": 1, "preempt": 1, "multikueue": 1}
+# the preempt cell's cycles are fresh builds' first: no warm-up build
+SHARDED_WARMUP = {"fill": E2E_WARMUP, "preempt": 0,
+                  "multikueue": E2E_WARMUP}
 SHARDED_RANKS = 4  # the rank check's plan, each rank's body run in turn
 # The fair-sharing benchmark configuration (bench.py bench_fair_sharing,
 # builders bench.py:107-214): every admission borrows, 1024 per cycle.
 FAIR = dict(num_cqs=2048, num_cohorts=256, nominal_units=2, cpu_units=4)
-FAIR_TIMED = 5
+FAIR_TIMED = 3
 FAIR_WAVES = 15         # cycles + 4, as the bench stages: 30,720 pending
 # The preemption-heavy configuration (bench.py bench_preemption_reclaim,
 # bench.py:1807-1850; sim/northstar.build_preempt_reclaim).
 PREEMPT = dict(num_roots=128, children_per_root=2, cqs_per_child=8,
                victims_per_borrower=36)
+# each preempt (and fair preempt) cycle is a fresh build's first: no
+# warm-up build runs before the timed ones
 PREEMPT_TIMED = 1
 # K9's synthetic check: trees 3 deep (CQs attached at two depths),
 # within-CQ, reclaim and threshold problems, 124 padding rows
@@ -348,11 +377,11 @@ SYNC_CALLS = 25
 # negative shares (a root lending nothing) and NO_LIMIT (weight 0)
 MIXED_SHARES = (-2, -1, 0, 0, 125, 125, 333, 2**62)
 # The MultiKueue manager cluster (sim/northstar build_multikueue) on the
-# north star: w1 is lost from the sixth timed cycle on.
+# north star: w1 is lost from the third timed cycle on.
 MK = dict(num_cqs=2048, num_cohorts=256, num_flavors=32, nominal_units=40,
           cpu_units=40, waves=25)
-MK_TIMED = 6
-MK_LOST = ("w1", E2E_WARMUP + 5)
+MK_TIMED = 3
+MK_LOST = ("w1", E2E_WARMUP + 2)
 # K12's synthetic check: lost clusters, partial offers, capacity that runs
 # out mid-scan
 MK_SYNTH = dict(num_clusters=8, num_flavors=32, num_resources=2,
@@ -462,6 +491,18 @@ FAULTS_CHAOS = dict(seed=1234, horizon=40, delay_s=0.2,
                     rates={"device_dispatch": 0.5, "device_collect": 0.3,
                            "arena_scatter": 0.4, "journal_replay": 0.2})
 FAULTS_MAX_STEPS = 80
+# The pipelined phase (scheduler_pipelined_phase): the faults phase's
+# traffic at depth 1 and 2, steps 1-5 timed;
+# a workload of the cycle in flight updated after step 8 (an
+# arena-slots abort); a mis-speculation injected at the 25th validation
+# at depth 1 and the 41st at depth 2 (a depth-2 step validates three
+# times): in the fill's steady stretch. The
+# mixed cycle's north star (mixed_env): 2 preemptors a class-0 CQ, 4
+# waves of heads in classes 1-6, 1 + 3 steps, then the drain.
+PIPELINE_TIMED = 5
+PIPELINE_UPDATE_STEP = 8
+PIPELINE_INJECT_HIT = {1: 24, 2: 40}
+MIXED = dict(waves=4, preemptors=2, steps=4, max_steps=10)
 
 
 def log(msg: str) -> None:
@@ -603,6 +644,23 @@ class GcClock:
         elif self._start is not None:
             self.total += time.perf_counter() - self._start
             self._start = None
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """Set-up only (a decorator or a with block around an environment's
+    build): the cyclic collector off while the build makes objects that
+    all live on, since each collection it would trigger scans the whole
+    heap for nothing; then one full collection, so that no timed cycle
+    pays for promoting the build's objects."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+        gc.collect()
 
 
 def kernel_record(key: str, name: str) -> bool:
@@ -1396,7 +1454,8 @@ def check_resident(solver, cache, topo, host_admitted=()) -> None:
             raise AssertionError(f"resident {name} differs from the host")
 
 
-def e2e_phase(device, phase: str, incremental: bool = True) -> dict:
+def e2e_phase(device, phase: str, incremental: bool = True,
+              timed: int = None) -> dict:
     """One main path, cycle after cycle: heads from the Manager, a cache
     snapshot (incremental, as the Cache takes them by default, unless
     told otherwise), BatchSolver(device), the admissions applied as the
@@ -1414,26 +1473,28 @@ def e2e_phase(device, phase: str, incremental: bool = True) -> dict:
     from kueue_tpu_torch.sim import northstar as ns
     from kueue_tpu_torch.solver import BatchSolver, encode, kernel
     bound, churn = phase != "unbound", phase == "bound_churn"
-    timed = BOUND_TIMED if bound else UNBOUND_TIMED
+    if timed is None:
+        timed = BOUND_TIMED if bound else UNBOUND_TIMED
     num_cqs, num_cohorts = NORTH_STAR["num_cqs"], NORTH_STAR["num_cohorts"]
     flavors = [f"f{i}" for i in range(NORTH_STAR["num_flavors"])]
     t_phase = time.perf_counter()
     # StrictFIFO in the churn keeps a requeued head at its queue's front,
     # so the heads that do not fit come back unchanged every cycle.
-    cache, queues = ns.build_cluster(
-        num_cqs, num_cohorts, flavors, NOMINAL_UNITS,
-        api.STRICT_FIFO if churn else api.BEST_EFFORT_FIFO,
-        incremental_snapshots=incremental)
+    with collector_paused():
+        cache, queues = ns.build_cluster(
+            num_cqs, num_cohorts, flavors, NOMINAL_UNITS,
+            api.STRICT_FIFO if churn else api.BEST_EFFORT_FIFO,
+            incremental_snapshots=incremental)
+        admitted = deque() if churn else None
+        if churn:  # every flavor of every CQ full, oldest first by flavor
+            for f in flavors:
+                for i in range(num_cqs):
+                    wl = ns.admitted_workload(f"pre-{f}-{i}", f"cq{i}", f,
+                                              NOMINAL_UNITS, 0.0)
+                    cache.assume_workload(wl)
+                    admitted.append(wl)
+        staged = ns.stage_waves(queues, E2E_WAVES, num_cqs, NOMINAL_UNITS)
     label = phase if incremental else f"{phase} (full rebuild)"
-    admitted = deque() if churn else None
-    if churn:  # every flavor of every CQ full, oldest first by flavor
-        for f in flavors:
-            for i in range(num_cqs):
-                wl = ns.admitted_workload(f"pre-{f}-{i}", f"cq{i}", f,
-                                          NOMINAL_UNITS, 0.0)
-                cache.assume_workload(wl)
-                admitted.append(wl)
-    staged = ns.stage_waves(queues, E2E_WAVES, num_cqs, NOMINAL_UNITS)
     log(f"[{label}] cluster: {num_cqs} CQs, {num_cohorts} cohorts, "
         f"{len(flavors)} flavors x {NOMINAL_UNITS} units; "
         f"{len(admitted or ())} admitted and {staged} pending staged in "
@@ -1569,6 +1630,7 @@ SCHED_PHASES = ("heads", "snapshot", "nominate", "encode",
                 "upload", "device", "fetch", "decode", "apply", "requeue")
 
 
+@collector_paused()
 def fair_env(device):
     """The fair-sharing configuration through the port's Scheduler, its
     solver on `device`. Returns (scheduler, cache, queues, client)."""
@@ -1808,6 +1870,7 @@ PREEMPT_PHASES = ("heads", "snapshot", "nominate", "encode", "upload",
                   "decode-targets", "apply", "requeue")
 
 
+@collector_paused()
 def preempt_env(device, samples=()):
     """The preemption-heavy configuration, its Scheduler's solver on
     `device` (None: no solver, the cpu-forced route); `samples` carry
@@ -1950,8 +2013,8 @@ def preempt_kernel_check(label: str, k, args: tuple, got, n_real: int,
 def scheduler_preempt_phase(device) -> dict:
     """The port's Scheduler with device preemption on the preemption-
     heavy configuration: each cycle is the first schedule() of a fresh
-    build (the build, outside the timed window), 1 warm-up and
-    PREEMPT_TIMED timed; every one must take the device route, the work
+    build (the build, outside the timed window), PREEMPT_TIMED of
+    them; every one must take the device route, the work
     gate must choose the device and every preempt-mode head must be
     solved there. solve_preempt's inputs in the first timed cycle are
     kept and held against the plain version; then the same scenario with
@@ -1984,7 +2047,6 @@ def scheduler_preempt_phase(device) -> dict:
             return stage(entries, *a, **kw)
         sched._stage_preempt = counted
         t_build = time.perf_counter() - t0
-        gc.collect()
         g0, t0 = gc_clock.total, time.perf_counter()
         sched.schedule(timeout=0)
         g1, t1 = gc_clock.total, time.perf_counter()
@@ -2005,26 +2067,19 @@ def scheduler_preempt_phase(device) -> dict:
         row["evicted"] = client.evicted
         row["outcome"] = cycle_outcome(client)
         row["plan"] = plan
-        log(f"[{phase}] cycle {cycle}"
-            f"{' (warm-up)' if cycle < E2E_WARMUP else ''}: build_s="
-            f"{t_build:.1f} evicted={client.evicted} admitted="
-            f"{client.admitted} plan={json.dumps(plan)} cycle_ms="
-            f"{row['cycle'] * 1e3:.1f} upload_bytes="
-            f"{sched.solver.last_upload_bytes} ms="
+        log(f"[{phase}] cycle {cycle}: build_s={t_build:.1f} evicted="
+            f"{client.evicted} admitted={client.admitted} plan="
+            f"{json.dumps(plan)} cycle_ms={row['cycle'] * 1e3:.1f} "
+            f"upload_bytes={sched.solver.last_upload_bytes} ms="
             + json.dumps({p: round(row[p] * 1e3, 3) for p in keys
                           if p != "cycle"}))
         return row
 
     captured = Captured(kernel, "solve_preempt")
     kernel.reset_launch_counts()
-    for cycle in range(E2E_WARMUP + PREEMPT_TIMED):
-        if cycle == E2E_WARMUP:
-            with captured:
-                row = run_cycle(cycle)
-        else:
+    for cycle in range(PREEMPT_TIMED):
+        with captured if cycle == 0 else contextlib.nullcontext():
             row = run_cycle(cycle)
-        if cycle < E2E_WARMUP:
-            continue
         evicted_timed += row["evicted"]
         outcomes.append(row["outcome"])
         plans.append(row["plan"])
@@ -2074,7 +2129,7 @@ def scheduler_preempt_phase(device) -> dict:
         raise AssertionError(f"{phase}: K9's every-slot K = 2048 batch did "
                              "not take the global-scratch rule")
     summary["traced_cycle"] = traced_cycle(
-        phase, run_cycle, E2E_WARMUP + PREEMPT_TIMED, kernel="solve_preempt")
+        phase, run_cycle, PREEMPT_TIMED, kernel="solve_preempt")
     gc.callbacks.remove(gc_clock)
     # the same scenario on the CPU: the plain K9, then the CPU Preemptor
     t_cpu = time.perf_counter()
@@ -2100,9 +2155,12 @@ def scheduler_preempt_phase(device) -> dict:
         f" {len(outcomes[0][1])} admitted")
     log(f"[{phase}] " + json.dumps(
         {k: v for k, v in summary.items() if k != "kernel_rows"}))
+    # the single-device record the sharded phase's preempt cell must equal
+    summary["records"] = [(outcomes[0], plans[0])]
     return summary
 
 
+@collector_paused()
 def fair_preempt_env(device, samples=()):
     """The fair-sharing preemption configuration, its Scheduler's solver
     on `device` (None: no solver, the cpu-forced route); `samples` carry
@@ -2304,8 +2362,8 @@ def mixed_cycle_check(device) -> dict:
 def scheduler_fair_preempt_phase(device) -> dict:
     """The port's Scheduler with fair sharing and device preemption on
     the fair-sharing preemption configuration: each cycle is the first
-    schedule() of a fresh build (the build, outside the timed window), 1
-    warm-up and FAIR_PREEMPT_TIMED timed; every one must take the device
+    schedule() of a fresh build (the build, outside the timed window),
+    FAIR_PREEMPT_TIMED of them; every one must take the device
     route, the work gate must choose the device, every preempt-mode head
     must be a fair problem solved there and the preemption solves must
     make one sync. solve_fair's inputs in the first timed cycle are kept
@@ -2339,7 +2397,6 @@ def scheduler_fair_preempt_phase(device) -> dict:
         sched._stage_preempt = counted
         count_preemption_syncs(sched.solver, calls)
         t_build = time.perf_counter() - t0
-        gc.collect()
         g0, t0 = gc_clock.total, time.perf_counter()
         sched.schedule(timeout=0)
         g1, t1 = gc_clock.total, time.perf_counter()
@@ -2364,26 +2421,19 @@ def scheduler_fair_preempt_phase(device) -> dict:
         row["evicted"] = client.evicted
         row["outcome"] = cycle_outcome(client)
         row["plan"] = plan["fair"]
-        log(f"[{phase}] cycle {cycle}"
-            f"{' (warm-up)' if cycle < E2E_WARMUP else ''}: build_s="
-            f"{t_build:.1f} evicted={client.evicted} admitted="
-            f"{client.admitted} plan={json.dumps(plan)} cycle_ms="
-            f"{row['cycle'] * 1e3:.1f} upload_bytes="
-            f"{sched.solver.last_upload_bytes} ms="
+        log(f"[{phase}] cycle {cycle}: build_s={t_build:.1f} evicted="
+            f"{client.evicted} admitted={client.admitted} plan="
+            f"{json.dumps(plan)} cycle_ms={row['cycle'] * 1e3:.1f} "
+            f"upload_bytes={sched.solver.last_upload_bytes} ms="
             + json.dumps({p: round(row[p] * 1e3, 3) for p in keys
                           if p != "cycle"}))
         return row
 
     captured = Captured(kernel, "solve_fair")
     kernel.reset_launch_counts()
-    for cycle in range(E2E_WARMUP + FAIR_PREEMPT_TIMED):
-        if cycle == E2E_WARMUP:
-            with captured:
-                row = run_cycle(cycle)
-        else:
+    for cycle in range(FAIR_PREEMPT_TIMED):
+        with captured if cycle == 0 else contextlib.nullcontext():
             row = run_cycle(cycle)
-        if cycle < E2E_WARMUP:
-            continue
         evicted_timed += row["evicted"]
         outcomes.append(row["outcome"])
         plans.append(row["plan"])
@@ -2394,7 +2444,7 @@ def scheduler_fair_preempt_phase(device) -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"{phase} path")
-    if launches["solve_fair"] != E2E_WARMUP + FAIR_PREEMPT_TIMED:
+    if launches["solve_fair"] != FAIR_PREEMPT_TIMED:
         raise AssertionError(f"{phase}: solve_fair launched "
                              f"{launches['solve_fair']} times")
     if len(set(outcomes)) != 1 or not outcomes[0][0]:
@@ -2458,7 +2508,7 @@ def scheduler_fair_preempt_phase(device) -> dict:
                              "narrow instance")
     summary["kernel_rows"]["ql64"] = row
     summary["traced_cycle"] = traced_cycle(
-        phase, run_cycle, E2E_WARMUP + FAIR_PREEMPT_TIMED, kernel="solve_fair")
+        phase, run_cycle, FAIR_PREEMPT_TIMED, kernel="solve_fair")
     gc.callbacks.remove(gc_clock)
     # the same scenario on the CPU: the plain K11, then the CPU Preemptor
     t_cpu = time.perf_counter()
@@ -2487,6 +2537,7 @@ def scheduler_fair_preempt_phase(device) -> dict:
     return summary
 
 
+@collector_paused()
 def mk_env(device):
     """The MultiKueue cell, its Scheduler's solver on `device`. Returns
     (scheduler, cache, queues, client, remote capacity)."""
@@ -2807,9 +2858,13 @@ def scheduler_multikueue_phase(device) -> dict:
         f"{client.admitted} admitted, {len(remote.placements)} placements")
     log(f"[{phase}] " + json.dumps(
         {k: v for k, v in summary.items() if k != "kernel_rows"}))
+    # the single-device records the sharded phase's multikueue cell must
+    # equal (the same build and cycles, before a cluster is lost)
+    summary["records"] = records[:MK_LOST[1]]
     return summary
 
 
+@collector_paused()
 def sharded_env(kind: str, solver):
     """The sharded phase's cells, the Scheduler's solver `solver`:
     (scheduler, cache, queues, client, remote capacity or None)."""
@@ -2886,7 +2941,7 @@ def sharded_step(kind: str, env, cycle: int, mesh=None,
                        "imbalance": dplan.imbalance,
                        "fingerprint": dplan.fingerprint}
         log(f"[scheduler_sharded:{kind}] cycle {cycle}"
-            f"{' (warm-up)' if cycle < E2E_WARMUP else ''}: admitted="
+            f"{' (warm-up)' if cycle < SHARDED_WARMUP[kind] else ''}: admitted="
             f"{client.admitted} evicted={client.evicted} cycle_ms="
             f"{row['cycle'] * 1e3:.1f} upload_bytes="
             f"{solver.last_upload_bytes} mesh={json.dumps(row['mesh'])} ms="
@@ -2896,11 +2951,13 @@ def sharded_step(kind: str, env, cycle: int, mesh=None,
 
 
 def sharded_cycles(kind: str, make_solver, cycles: int, mesh=None,
-                   log_rows: bool = False, capture=None) -> tuple:
+                   log_rows: bool = False, capture=None,
+                   warmup: int = E2E_WARMUP) -> tuple:
     """`cycles` sharded_step cycles of the cell `kind` on the solvers
     `make_solver()` gives: one environment stepped cycle after cycle, or
     (preempt) a fresh build's first cycle each; `capture` is entered for
-    the first timed cycle. Returns (rows, the last environment)."""
+    the first cycle after `warmup`. Returns (rows, the last
+    environment)."""
     env, rows = None, []
     for cycle in range(cycles):
         if env is None or kind == "preempt":
@@ -2908,7 +2965,7 @@ def sharded_cycles(kind: str, make_solver, cycles: int, mesh=None,
             gc.collect()
             env = sharded_env(kind, make_solver())
         rows.append(sharded_step(kind, env, cycle, mesh, log_rows,
-                                 capture if cycle == E2E_WARMUP else None))
+                                 capture if cycle == warmup else None))
     return rows, env
 
 
@@ -3074,13 +3131,17 @@ def sharded_preempt_check(captured, k) -> dict:
     return out
 
 
-def scheduler_sharded_phase(device) -> dict:
+def scheduler_sharded_phase(device, refs: dict) -> dict:
     """The sharded cycle under the port's Scheduler at world size 1 over
-    NCCL: the fill, preempt and multikueue cells (a warm-up, then
+    NCCL: the fill, preempt and multikueue cells (SHARDED_WARMUP, then
     SHARDED_TIMED cycles), each launching SHARDED_KERNELS and equal to
-    the same cells on the single-device route; the 4-way rank checks on
-    the fill's and the preempt cell's first timed cycle. The mesh's
-    process group is destroyed at the end."""
+    the same cells on the single-device route: run here for the fill;
+    for the preempt and multikueue cells, the records `refs` gives (the
+    scheduler preempt and multikueue phases' own cycles on the same
+    builds; a preempt cycle is a fresh build's first, so every one is
+    held to the one record). The 4-way rank checks on the fill's and the
+    preempt cell's first timed cycle. The mesh's process group is
+    destroyed at the end."""
     from kueue_tpu_torch.parallel import mesh as meshpkg
     from kueue_tpu_torch.solver import BatchSolver, kernel
     t_phase = time.perf_counter()
@@ -3093,11 +3154,13 @@ def scheduler_sharded_phase(device) -> dict:
     try:
         for kind, want in SHARDED_KERNELS.items():
             t_sub = time.perf_counter()
-            cycles = E2E_WARMUP + SHARDED_TIMED[kind]
+            warmup = SHARDED_WARMUP[kind]
+            cycles = warmup + SHARDED_TIMED[kind]
             kernel.reset_launch_counts()
             rows, env = sharded_cycles(kind, lambda: BatchSolver(mesh=mesh),
                                        cycles, mesh, log_rows=True,
-                                       capture=captures.get(kind))
+                                       capture=captures.get(kind),
+                                       warmup=warmup)
             launches = kernel.launch_counts()
             exact = {"mesh_combine": 2 * cycles}
             exact.update({"solve_preempt": cycles} if kind == "preempt"
@@ -3122,18 +3185,20 @@ def scheduler_sharded_phase(device) -> dict:
                                      cycles, kernel="mesh_combine",
                                      kernels=want)
             env = None
-            # the same cells on the single-device route (a fresh build's
-            # first cycle is the same every time: one does)
+            # the same cells on the single-device route
             t_ref = time.perf_counter()
-            ref, _ = sharded_cycles(kind, lambda: BatchSolver(device=device),
-                                    1 if kind == "preempt" else len(rows))
+            if kind == "fill":
+                ref = [r["record"] for r in sharded_cycles(
+                    kind, lambda: BatchSolver(device=device), len(rows))[0]]
+            else:
+                ref = refs[kind]
             for cycle, row in enumerate(rows):
-                if row["record"] != ref[min(cycle, len(ref) - 1)]["record"]:
+                if row["record"] != ref[0 if kind == "preempt" else cycle]:
                     raise AssertionError(
                         f"sharded {kind} cycle {cycle}: the mesh route "
                         "admitted, evicted or placed other workloads than "
                         "the single-device route")
-            timed = rows[E2E_WARMUP:cycles]
+            timed = rows[warmup:cycles]
             keys = (PREEMPT_PHASES if kind == "preempt" else SCHED_PHASES) \
                 + ("plan", "other", "cycle")
             sub = {p: {"p50_ms": percentile([r[p] for r in timed], 50) * 1e3,
@@ -3691,6 +3756,7 @@ def oracle_phase(device) -> dict:
     return summary
 
 
+@collector_paused()
 def partial_env(device):
     """The partial-admission cell (sim/northstar build_partial_admission),
     its Scheduler's solver on `device` (None: no solver, the cpu-forced
@@ -3883,6 +3949,7 @@ def scheduler_partial_phase(device) -> dict:
     return summary
 
 
+@collector_paused()
 def faults_env(device):
     """The north star's fill (2048 CQs in 256 cohorts, 32 flavors of 40
     units, 51,200 pending) under the port's Scheduler, its solver bound
@@ -3912,6 +3979,8 @@ class FaultsRun:
     A step may install a FaultInjector and set the watchdog for its
     cycle."""
 
+    phase = "scheduler_faults"
+
     def __init__(self, device, label: str, clock_s: float):
         from kueue_tpu_torch.sim import northstar as ns
         self.ns = ns
@@ -3922,7 +3991,7 @@ class FaultsRun:
         self.records = []    # per step: sorted admitted names
         self.steps = []      # per step: the log row
         self.trickled = 0
-        log(f"[scheduler_faults] {label}: {NORTH_STAR['num_cqs']} CQs, "
+        log(f"[{self.phase}] {label}: {NORTH_STAR['num_cqs']} CQs, "
             f"{self.queues.pending_total()} pending staged in "
             f"{time.perf_counter() - t0:.1f} s")
 
@@ -3943,7 +4012,7 @@ class FaultsRun:
                 raise AssertionError(f"no queue for {wl.metadata.name}")
 
     def step(self, n: int, injector=None, watchdog=None,
-             case: str = "") -> dict:
+             case: str = "", quiet: bool = False) -> dict:
         from kueue_tpu_torch.resilience import faultinject
         from kueue_tpu_torch.resilience.watchdog import DispatchWatchdog
         from kueue_tpu_torch.solver import kernel
@@ -3988,8 +4057,9 @@ class FaultsRun:
         if injector is not None:
             row["fired"] = {k: v for k, v in injector.fired.items() if v}
         self.steps.append(row)
-        log(f"[scheduler_faults] {self.label} step {n}"
-            f"{f' ({case})' if case else ''}: " + json.dumps(row))
+        if not quiet:
+            log(f"[scheduler_faults] {self.label} step {n}"
+                f"{f' ({case})' if case else ''}: " + json.dumps(row))
         sched.clock.advance(self.clock_s)
         return row
 
@@ -4179,6 +4249,355 @@ def scheduler_faults_phase(device) -> dict:
     return summary
 
 
+class PipelineRun(FaultsRun):
+    """The faults phase's step schedule (the north star's fill, then the
+    trickle, then quiet steps until settled) under a Scheduler that
+    pipelines at `depth` (0: the synchronous Scheduler), with the default
+    watchdog. After step `update_step` one workload of the cycle just
+    dispatched is updated (a new priority, the same creation), and
+    `injector` is installed for every step. Each step's row is kept, not
+    logged, and each device collect's launch span is read from the CUDA
+    events the dispatch records around its launches: the pipelined
+    collects' (the solver's own "device" phase there) and the
+    synchronous ones' (where that phase reads the host clock from the
+    first launch to the end of the wait)."""
+
+    phase = "scheduler_pipelined"
+
+    def __init__(self, device, label: str, depth: int):
+        super().__init__(device, label, FAULTS_CLOCK_S)
+        self.sched.pipeline_enabled = depth > 0
+        self.sched.pipeline_depth = max(depth, 1)
+        self.reserved = {}  # name -> admissions seen
+        self.route_ms, self.collect_device_ms = [], []
+        self.sync_device_ms = []  # the synchronous device cycles'
+        self.events_ms = None  # the last collect's launch span
+        solver = self.sched.solver
+        await_device = solver._await_device
+
+        def await_and_read(inflight):
+            await_device(inflight)
+            if inflight.start_event is not None:
+                self.events_ms = inflight.start_event.elapsed_time(
+                    inflight.event)
+        solver._await_device = await_and_read
+        # The trickle's finishes are fixed by name (the waves in
+        # wave_key order), so that the traffic is the same whatever the
+        # lag: a workload not admitted yet finishes at a later step, and
+        # its replacement is named after its place in that order.
+        self.finish_order = [f"w{w}-{c}" for w in range(E2E_WAVES)
+                             for c in range(NORTH_STAR["num_cqs"])]
+        self.to_finish, self.finish_next = [], 0
+        self.t_start = time.perf_counter()
+        self.wall_s = None
+
+    def trickle(self) -> None:
+        k = self.finish_next
+        self.to_finish += self.finish_order[k:k + CHURN_FINISHES]
+        self.finish_next = k + CHURN_FINISHES
+        self.finish_due()
+
+    def finish_due(self) -> None:
+        ns = self.ns
+        due = [n for n in self.to_finish if n in self.admitted]
+        self.to_finish = [n for n in self.to_finish if n not in self.admitted]
+        for name in due:
+            wl = self.admitted.pop(name)
+            self.cache.delete_workload(wl)
+            self.queues.queue_associated_inadmissible_workloads_after(wl)
+        for name in due:
+            cq = int(name.split("-")[1])
+            idx = self.finish_order.index(name)
+            wl = ns.make_workload(f"t{idx}-{cq}", f"lq{cq}",
+                                  cpu_units=NOMINAL_UNITS,
+                                  creation=1e6 + idx)
+            if not self.queues.add_or_update_workload(wl):
+                raise AssertionError(f"no queue for {wl.metadata.name}")
+
+    def run(self, update_step: int, update_name: str = None,
+            injector=None) -> str:
+        """Every step, the collector's time in each kept in its row
+        ("gc_ms"); returns the updated workload's name (none is updated
+        when update_step is not a step)."""
+        gc_clock = GcClock()
+        gc.callbacks.append(gc_clock)
+        try:
+            return self._run(update_step, update_name, injector, gc_clock)
+        finally:
+            gc.callbacks.remove(gc_clock)
+
+    def _run(self, update_step, update_name, injector, gc_clock) -> str:
+        sched, solver = self.sched, self.sched.solver
+        n = settled = 0
+        while n < FAULTS_MAX_STEPS:
+            solver.last_phase_s["route"] = 0.0
+            pipelined0 = sched.cycle_counts.get("device-pipelined", 0)
+            if n >= FAULTS_STEPS and self.to_finish:
+                self.finish_due()
+            g0 = gc_clock.total
+            self.events_ms = None
+            row = self.step(n, injector, quiet=True)
+            row["gc_ms"] = (gc_clock.total - g0) * 1e3
+            if solver.last_phase_s["route"]:
+                self.route_ms.append(solver.last_phase_s["route"] * 1e3)
+            if sched.cycle_counts.get("device-pipelined", 0) > pipelined0:
+                self.collect_device_ms.append(
+                    solver.last_phase_s["device"] * 1e3)
+            elif row["route"] == "device" and self.events_ms is not None:
+                self.sync_device_ms.append(self.events_ms)
+            for name in self.records[-1]:
+                self.reserved[name] = self.reserved.get(name, 0) + 1
+            if n == update_step:
+                update_name = self.update(update_name)
+            n += 1
+            quiet = n > FAULTS_STEPS and not row["admitted"] \
+                and sched._inflight is None and not self.to_finish
+            settled = settled + 1 if quiet else 0
+            if settled >= FAULTS_SETTLE:
+                self.wall_s = time.perf_counter() - self.t_start
+                return update_name
+        raise AssertionError(f"scheduler_pipelined {self.label} did not "
+                             "settle")
+
+    def update(self, name: str = None) -> str:
+        """Update `name`, or the first head of the cycle in flight: a
+        priority of 9, the same creation time."""
+        from kueue_tpu_torch.sim import northstar as ns
+        if name is None:
+            info = self.sched._inflight_q[-1].inflight.plan.batch.infos[0]
+            name = info.obj.metadata.name
+        cq = int(name.split("-")[1])
+        wave = int(name[1:].split("-")[0])
+        n = wave * NORTH_STAR["num_cqs"] + cq
+        wl = ns.make_workload(name, f"lq{cq}", cpu_units=NOMINAL_UNITS,
+                              priority=9, creation=float(n))
+        if not self.queues.add_or_update_workload(wl):
+            raise AssertionError(f"no queue for {name}")
+        return name
+
+    def summary(self, timed: range) -> dict:
+        sched = self.sched
+        cc = dict(sched.cycle_counts)
+        walls = [self.steps[n]["wall_ms"] for n in timed]
+        pipelined = cc.get("device-pipelined", 0)
+        return {
+            "step_ms": {"p50": percentile(walls, 50), "max": max(walls),
+                        "timed": walls,
+                        "gc_timed": [self.steps[n]["gc_ms"] for n in timed],
+                        "gc_max": max(r["gc_ms"] for r in self.steps)},
+            "route_ms": {"p50": percentile(self.route_ms, 50)
+                         if self.route_ms else None,
+                         "max": max(self.route_ms, default=None)},
+            "collect_device_ms_from_events": {
+                "p50": percentile(self.collect_device_ms, 50)
+                if self.collect_device_ms else None,
+                "max": max(self.collect_device_ms, default=None)},
+            "sync_device_ms_from_events": {
+                "p50": percentile(self.sync_device_ms, 50)
+                if self.sync_device_ms else None,
+                "max": max(self.sync_device_ms, default=None)},
+            "hit_rate": pipelined / max(pipelined + cc.get("device", 0), 1),
+            "speculation_hits": sched.speculation_hits,
+            "speculation_aborts": sched.speculation_aborts,
+            "abort_reasons": dict(sched.speculation_abort_reasons),
+            "cycle_counts": cc, "steps": len(self.steps),
+            "faults": sched.solver_faults,
+            "live_handouts": self.cache.live_handouts,
+            "wall_s": self.wall_s,
+            "admitted": len(self.reserved),
+            "reserved_twice": sorted(k for k, v in self.reserved.items()
+                                     if v > 1)}
+
+
+@collector_paused()
+def mixed_env(device):
+    """The north star's 2048 CQs in 256 cohorts, 32 flavors of 40 units,
+    in eight classes by CQ index mod 8 (every cohort in one class). Class
+    0 (256 CQs): LowerPriority within the CQ, every flavor held by a
+    priority-0 workload, MIXED["preemptors"] priority-10 heads each;
+    class 7: Never/Never, full, one head each (the device-NoFit
+    shortcut); classes 1-6: Never/Never, empty, MIXED["waves"] heads
+    each. At most a quarter of a cycle's heads are preempt rows, so K9
+    rides the pipelined dispatch. Returns (the pipelined Scheduler,
+    cache, queues, client, the prefilled workloads by name)."""
+    from kueue_tpu_torch.api import kueue as api
+    from kueue_tpu_torch.api.meta import FakeClock
+    from kueue_tpu_torch.cache import Cache
+    from kueue_tpu_torch.queue import Manager
+    from kueue_tpu_torch.scheduler.scheduler import Scheduler
+    from kueue_tpu_torch.sim import northstar as ns
+    from kueue_tpu_torch.solver import BatchSolver
+    Q, C = NORTH_STAR["num_cqs"], NORTH_STAR["num_cohorts"]
+    flavors = [f"f{i}" for i in range(NORTH_STAR["num_flavors"])]
+    clock = FakeClock(1000.0)
+    cache, queues = Cache(), Manager(clock=clock)
+    for f in flavors:
+        cache.add_or_update_resource_flavor(ns.make_flavor(f))
+    lower = api.ClusterQueuePreemption(
+        within_cluster_queue=api.PREEMPTION_LOWER_PRIORITY)
+    held = {}
+    for i in range(Q):
+        cls = i % 8
+        cq = ns.make_cq(f"cq{i}", f"cohort-{i % C}", flavors, NOMINAL_UNITS,
+                        preemption=lower if cls == 0 else None)
+        cache.add_cluster_queue(cq)
+        queues.add_cluster_queue(cq)
+        queues.add_local_queue(ns.make_local_queue(f"lq{i}", f"cq{i}"))
+        if cls in (0, 7):
+            for f in flavors:
+                wl = ns.admitted_workload(f"v{i}-{f}", f"cq{i}", f,
+                                          NOMINAL_UNITS, 0.0)
+                cache.add_or_update_workload(wl)
+                held[wl.metadata.name] = wl
+    n = 0
+    for wave in range(MIXED["waves"]):
+        for i in range(Q):
+            cls = i % 8
+            if cls == 7 and wave or cls == 0 and wave >= MIXED["preemptors"]:
+                continue
+            wl = ns.make_workload(f"w{wave}-{i}", f"lq{i}",
+                                  cpu_units=NOMINAL_UNITS,
+                                  priority=10 if cls == 0 else n % 5,
+                                  creation=float(n))
+            queues.add_or_update_workload(wl)
+            n += 1
+    client = ns.SimClient()
+    sched = Scheduler(queues, cache, client, clock=clock,
+                      solver=BatchSolver(device=device), solver_min_heads=0)
+    sched.pipeline_enabled = True
+    return sched, cache, queues, client, held
+
+
+def mixed_run(device) -> tuple:
+    """MIXED["steps"] steps of mixed_env on `device`, then steps until the
+    pipeline is empty; before each step the workloads evicted so far
+    finish (the workload controller's delete). Returns (per step: the
+    admitted names, the evictions with their reasons, the routes taken;
+    the Scheduler's summary; the cycles' kernel launches on the card)."""
+    from kueue_tpu_torch.solver import kernel
+    t_run = time.perf_counter()
+    sched, cache, queues, client, held = mixed_env(device)
+    k0 = kernel.launch_counts()
+    steps, finished, walls = [], set(), []
+    for n in range(MIXED["max_steps"]):
+        for name, _reason in client.evictions:
+            if name not in finished:
+                finished.add(name)
+                wl = held[name]
+                cache.delete_workload(wl)
+                queues.queue_associated_inadmissible_workloads_after(wl)
+        counts0, ev0 = dict(sched.cycle_counts), len(client.evictions)
+        t0 = time.perf_counter()
+        sched.schedule(timeout=0)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        steps.append((sorted(wl.metadata.name
+                             for wl in client.drain_applied()),
+                      client.evictions[ev0:],
+                      sorted(r for r, c in sched.cycle_counts.items()
+                             if c != counts0.get(r, 0))))
+        if n + 1 >= MIXED["steps"] and sched._inflight is None:
+            break
+    else:
+        raise AssertionError("scheduler_pipelined mixed: the pipeline did "
+                             "not drain")
+    launched = {k: v - k0[k] for k, v in kernel.launch_counts().items()
+                if v != k0[k]}
+    summary = {"steps": len(steps), "step_ms": walls,
+               "cycle_counts": dict(sched.cycle_counts),
+               "speculation_hits": sched.speculation_hits,
+               "abort_reasons": dict(sched.speculation_abort_reasons),
+               "evicted": len(client.evictions),
+               "preempt_plan": sched.last_preempt_plan,
+               "faults": sched.solver_faults,
+               "live_handouts": cache.live_handouts,
+               "wall_s": time.perf_counter() - t_run}
+    sched.solver._supervisor.close(join_timeout=0.0)
+    return steps, summary, launched
+
+
+def scheduler_pipelined_phase(device) -> dict:
+    """The speculative pipeline on the card (the port's Scheduler with
+    pipeline_enabled, its solver bound to the card, the default
+    watchdog): (a) depth 1 and (b) depth 2 on the faults phase's traffic
+    (the north star's fill, the trickle, quiet steps until settled), each
+    with a workload of the cycle in flight updated after step
+    PIPELINE_UPDATE_STEP (an arena-slots abort) and a mis-speculation
+    injected at SITE_SPECULATION (PIPELINE_INJECT_HIT); (c) the same
+    traffic under the synchronous Scheduler: the same admitted set and
+    usage per CQ, nothing reserved twice; (d) a mixed cycle's north star
+    (mixed_env), where K9 rides the pipelined dispatch, each step's
+    admissions, evictions and reasons equal to the same Scheduler on the
+    CPU. Steps 1-PIPELINE_TIMED are the timed ones; each step's
+    collector time is kept. Each run is closed once its admitted set and
+    usage per CQ are kept, so that one north star lives at a time."""
+    import torch
+    from kueue_tpu_torch.resilience import faultinject as fi
+    from kueue_tpu_torch.solver import kernel
+    phase = "scheduler_pipelined"
+    t_phase = time.perf_counter()
+    timed = range(E2E_WARMUP, E2E_WARMUP + PIPELINE_TIMED)
+    kernel.reset_launch_counts()
+    admitted = {}  # label -> (admitted set, usage per CQ)
+    summary = {}
+    name = None
+    for label, depth in (("depth1", 1), ("depth2", 2)):
+        gc.collect()
+        run = PipelineRun(device, label, depth)
+        name = run.run(PIPELINE_UPDATE_STEP, name, fi.FaultInjector(
+            {fi.SITE_SPECULATION: {PIPELINE_INJECT_HIT[depth]: fi.RAISE}}))
+        summary[label] = run.summary(timed)
+        admitted[label] = (set(run.reserved), run.close())
+        reasons = summary[label]["abort_reasons"]
+        if not reasons.get("arena-slots") or not reasons.get("injected") \
+                or summary[label]["live_handouts"] \
+                or summary[label]["faults"] \
+                or summary[label]["reserved_twice"]:
+            raise AssertionError(f"{phase} {label}: {summary[label]}")
+        log(f"[{phase}:{label}] " + json.dumps(summary[label]))
+    mixed_steps, summary["mixed"], mixed_launched = mixed_run(device)
+    launches = kernel.launch_counts()
+    for name_k in PHASE_KERNELS[phase]:
+        if launches[name_k] <= 0:
+            raise AssertionError(f"kernel {name_k} never launched on the "
+                                 f"{phase} path")
+    summary["mixed"]["launched"] = mixed_launched
+    cpu_steps, cpu_summary, _ = mixed_run(torch.device("cpu"))
+    summary["mixed"]["cpu_wall_s"] = cpu_summary["wall_s"]
+    if mixed_steps != cpu_steps:
+        first = next(i for i, (a, b) in enumerate(zip(mixed_steps,
+                                                       cpu_steps)) if a != b)
+        raise AssertionError(f"{phase} mixed step {first}: the card "
+                             "admitted or evicted otherwise than the CPU")
+    m = summary["mixed"]
+    if not m["cycle_counts"].get("pipelined-preempt") \
+            or not mixed_launched.get("solve_preempt") or not m["evicted"] \
+            or m["live_handouts"] or m["faults"] \
+            or cpu_summary["cycle_counts"] != m["cycle_counts"]:
+        raise AssertionError(f"{phase} mixed: {m}")
+    log(f"[{phase}:mixed] equal to the CPU, step by step; "
+        + json.dumps(m))
+    gc.collect()
+    sync = PipelineRun(device, "sync", 0)
+    sync.run(PIPELINE_UPDATE_STEP, name)
+    summary["sync"] = sync.summary(timed)
+    if summary["sync"]["reserved_twice"] or summary["sync"]["faults"] \
+            or set(summary["sync"]["cycle_counts"]) != {"device"}:
+        raise AssertionError(f"{phase} sync: {summary['sync']}")
+    ref = (set(sync.reserved), sync.close())
+    for label, got in admitted.items():
+        if got != ref:
+            raise AssertionError(f"{phase} {label}: another admitted set or "
+                                 "usage per CQ than the synchronous run")
+    log(f"[{phase}:sync] " + json.dumps(summary["sync"]))
+    summary["launches"] = launches
+    summary["updated"] = name
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[{phase}] depth 1 and 2 admitted the synchronous run's set with "
+        "its usage per CQ; " + json.dumps(
+            {k: summary[k] for k in ("launches", "updated", "wall_s")}))
+    return summary
+
+
 def traced_cycle(phase: str, run_cycle, cycle: int,
                  kernel: str = None, kernels: tuple = None) -> dict:
     """One more main-path cycle under torch.profiler (after the timed
@@ -4265,15 +4684,24 @@ def main() -> int:
                "scheduler_preempt": scheduler_preempt_phase,
                "scheduler_fair_preempt": scheduler_fair_preempt_phase,
                "scheduler_multikueue": scheduler_multikueue_phase,
-               "scheduler_sharded": scheduler_sharded_phase,
-               "scheduler_faults": scheduler_faults_phase}
-    e2e = {phase: runners[phase](device) if phase in runners
-           else e2e_phase(device, phase) for phase in PHASE_KERNELS}
-    # bound churn again with the Cache's full rebuild each cycle: the
-    # same decisions, and the snapshot phase of each
-    full = e2e_phase(device, "bound_churn", incremental=False)
+               "scheduler_faults": scheduler_faults_phase,
+               "scheduler_pipelined": scheduler_pipelined_phase}
+    e2e, full = {}, None
+    for phase in PHASE_KERNELS:
+        if phase == "scheduler_sharded":
+            e2e[phase] = scheduler_sharded_phase(device, {
+                "preempt": e2e["scheduler_preempt"].pop("records"),
+                "multikueue": e2e["scheduler_multikueue"].pop("records")})
+        else:
+            e2e[phase] = runners[phase](device) if phase in runners \
+                else e2e_phase(device, phase)
+        if phase == "bound_churn":
+            # bound churn again with the Cache's full rebuild each cycle:
+            # the same decisions, and the snapshot phase of each
+            full = e2e_phase(device, "bound_churn", incremental=False,
+                             timed=FULL_REBUILD_TIMED)
     churn = e2e["bound_churn"]
-    cycles = E2E_WARMUP + BOUND_TIMED
+    cycles = E2E_WARMUP + FULL_REBUILD_TIMED
     if full["decided"][:cycles] != churn["decided"][:cycles]:
         raise AssertionError("bound churn decided otherwise with full "
                              "snapshot rebuilds")

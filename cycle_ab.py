@@ -9,11 +9,19 @@ order A, B, B, A so that a drift of the host cancels:
   trickle (chip_smoke.FaultsRun, no injector) with its default watchdog
   (supervised dispatch, the collect deadline polled on a CUDA event)
   against `watchdog = None` (the dispatch on the caller's thread, an
-  event wait), in one process.
+  event wait), in one process;
+- the same Scheduler pipelined (depth 1) against synchronous, both with
+  the default watchdog, on the same traffic run until settled
+  (chip_smoke.PipelineRun, its trickle's finishes fixed by name), in one
+  process: each run's fill and trickle step p50, the p50 of its device
+  collects' launch span read from the CUDA events recorded around the
+  launches (the same measure on both arms), the router's p50, and the
+  admitted set, which must be the same.
 
 Prints one JSON line a run and, last, a JSON summary of the p50s; the
 children's logs and the summary go to chiprun_out/cycle_ab/.
 
+    python3 cycle_ab.py                        # the Scheduler pairs
     python3 cycle_ab.py --parent _archive/parent
 """
 
@@ -94,6 +102,43 @@ def child_sched(order: list) -> dict:
     return out
 
 
+def child_pipe(order: list) -> dict:
+    """The pipelined and synchronous Scheduler on the same traffic (no
+    update, no injector), each arm's line printed as it ends."""
+    import gc
+
+    import chip_smoke as cs
+    import torch
+    device = torch.device(DEVICE)
+    out, admitted = [], []
+    for arm in order:
+        gc.collect()
+        run = cs.PipelineRun(device, f"ab {arm}",
+                             1 if arm == "pipelined" else 0)
+        run.run(update_step=-1)
+        walls = [r["wall_ms"] for r in run.steps]
+        # each arm's device collects, both read from the CUDA events
+        device_ms = run.collect_device_ms if arm == "pipelined" \
+            else run.sync_device_ms
+        out.append({
+            "arm": arm,
+            "fill_p50_ms": statistics.median(walls[1:cs.E2E_WAVES]),
+            "trickle_p50_ms": statistics.median(
+                walls[cs.E2E_WAVES:cs.FAULTS_STEPS]),
+            "device_events_p50_ms": statistics.median(device_ms),
+            "route_p50_ms": (statistics.median(run.route_ms)
+                             if run.route_ms else None),
+            "steps": len(walls), "admitted": len(run.reserved),
+            "cycle_counts": dict(run.sched.cycle_counts),
+            "fill_ms": walls[1:cs.E2E_WAVES]})
+        admitted.append(sorted(run.reserved))
+        run.close()
+        print("CYCLE_AB_ARM " + json.dumps(out[-1]), flush=True)
+    if any(a != admitted[0] for a in admitted):
+        raise AssertionError("the pipeline arms admitted differently")
+    return out
+
+
 def spawn(label: str, root: Path, args: list) -> dict:
     OUT.mkdir(parents=True, exist_ok=True)
     logf = OUT / f"{label}.log"
@@ -109,7 +154,7 @@ def spawn(label: str, root: Path, args: list) -> dict:
             if ln.startswith(TAG)][-1]
     result = json.loads(line[len(TAG):])
     print(json.dumps({"run": label, "wall_s": time.perf_counter() - t0,
-                      "result": result if label.startswith("sched")
+                      "result": result if not label.startswith("e2e")
                       else {p: {k: v for k, v in r.items() if k != "decided"}
                             for p, r in result.items()}}), flush=True)
     return result
@@ -123,8 +168,10 @@ def main() -> int:
     a = ap.parse_args()
     if a.child:
         sys.path[0] = a.root
-        result = child_e2e() if a.child[0] == "e2e" \
-            else child_sched(a.child[1].split(","))
+        children = {"e2e": lambda: child_e2e(),
+                    "sched": lambda: child_sched(a.child[1].split(",")),
+                    "pipe": lambda: child_pipe(a.child[1].split(","))}
+        result = children[a.child[0]]()
         print(TAG + json.dumps(result), flush=True)
         return 0
     import torch
@@ -166,6 +213,12 @@ def main() -> int:
         arm: {k: [o[k] for o in sched if o["arm"] == arm]
               for k in ("fill_p50_ms", "trickle_p50_ms", "device_p50_ms")}
         for arm in ("default", "none")}
+    pipe = spawn("pipe", ROOT, ["pipe", "pipelined,sync,sync,pipelined"])
+    summary["pipe"] = {
+        arm: {k: [o[k] for o in pipe if o["arm"] == arm]
+              for k in ("fill_p50_ms", "trickle_p50_ms",
+                        "device_events_p50_ms", "route_p50_ms", "admitted")}
+        for arm in ("pipelined", "sync")}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary), flush=True)
     return 0

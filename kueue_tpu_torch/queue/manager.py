@@ -68,6 +68,15 @@ class Manager:
     def _new_info(self, wl: api.Workload) -> wlpkg.Info:
         return wlpkg.Info(wl, excluded_resource_prefixes=self.excluded_resource_prefixes)
 
+    def any_strict_fifo(self) -> bool:
+        """True when any CQ uses StrictFIFO: its requeued head must block
+        the queue, so the scheduler may not pop the next cycle's heads
+        before the previous cycle's requeues (the pipeline's gate,
+        kueue_tpu/queue/manager.py:83-89)."""
+        with self._lock:
+            return any(cqh.queueing_strategy == api.STRICT_FIFO
+                       for cqh in self.cluster_queues.values())
+
     # --- ClusterQueues ---
 
     def add_cluster_queue(self, cq: api.ClusterQueue) -> None:

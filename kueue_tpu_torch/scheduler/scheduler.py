@@ -87,13 +87,56 @@ Differences from the JAX Scheduler, on this synchronous path:
   the injected scramble and collect raises InjectedFault); the JAX
   Scheduler's host router sends the heads the mangled rows deny to the
   CPU without a fault.
-- Not ported: the speculative pipeline (and its pipelined preemption
-  collect), adaptive routing (the route is the JAX Scheduler's "always"
-  one), the starvation bound ("cpu-strict"), the warm governor,
-  journeys, the flight recorder (and its fault, breaker, shed and
-  preempt-plan annotations), the query plane and the seal of the
-  cycle's snapshot to it, aging, metrics, leader_check and cq_filter.
-  At their defaults each is a no-op on the synchronous path.
+- Not ported: adaptive routing (the route is the JAX Scheduler's
+  "always" one), the starvation bound ("cpu-strict"), the warm governor,
+  journeys, the flight recorder (and its fault, breaker, shed,
+  preempt-plan, speculation-abort and pipeline-flush annotations), the
+  query plane and the seal of the cycle's snapshot to it, aging,
+  metrics, leader_check, cq_filter, and the start/stop loop. At their
+  defaults each is a no-op on both paths.
+
+The speculative pipeline (kueue_tpu/scheduler/scheduler.py:1207-1876,
+kueue_tpu/scheduler/PIPELINE.md): with `pipeline_enabled` (off by
+default, as in the JAX package) a device cycle that passes the gate
+(_pipeline_ok: the breaker closed, the ladder below survival, a bound
+solver, no pods-ready tracking, no StrictFIFO CQ) takes a light
+snapshot, prepares with the fit router (BatchSolver.prepare(...,
+route=True): Phase A on the card against the host mirror), dispatches
+without waiting, starts the decisions' fetch, stamps a
+stages.SpeculationToken and collects the oldest in-flight cycle a call
+later (`pipeline_depth` 1 or 2). The token is validated before the next
+dispatch and again before commit; an abort requeues the cycle's heads
+undecoded (and every later queued cycle's, "chained"), drops the
+resident state and cools the next cycle down to the synchronous path.
+Predicted non-fit heads that may preempt (at most a quarter of the
+heads, no fair sharing, no partial admission) ride the dispatch as a K9
+batch (kernel.solve_cycle_with_preempt) and their evictions are issued
+at collect (_collect_pipelined_preempt). `speculation_hits`,
+`speculation_aborts` and `speculation_abort_reasons` count the
+outcomes; `cycle_counts` adds "device-pipelined" (collected cycles),
+"device-dispatch-only", "device-nofit" and "pipelined-preempt", and
+`last_route` is the pipelined cycle's shape.
+
+Differences from the JAX Scheduler on the pipelined path:
+- Containment is narrowed to DeviceFault, as on the synchronous path:
+  the JAX Scheduler sends any Exception of the pipelined prepare
+  (scheduler.py:1286), dispatch (:1392), preemption encode (:1526) and
+  collect (:1604) to its fallback; here every other exception
+  propagates (the preemption encode's releases its snapshot first).
+- The router is Phase A on the solver's device (avail and phase_a on
+  the card), not a program on a local CPU backend; its fit bits are the
+  same. The synchronous path still reads the non-fit heads after its
+  sync and runs no router.
+- The started fetch is pinned copies and an event on the launches'
+  stream, not a thread pool: an abandoned cycle's event is never waited
+  on again, so nothing is orphaned (no _abandon_fetch).
+- A drained cycle is no routing sample (_drain_one records nothing; the
+  JAX Scheduler's _route_record takes none under "always" routing
+  either).
+- `last_route` names the pipelined cycle's shape, where the JAX
+  Scheduler's trace does; _abandon_pipeline has no caller yet (stop()
+  and leader_check are not ported), and the synchronous path does not
+  feed `_blocked_preempt_streak`, which nothing reads.
 
 With a mesh solver (`BatchSolver(mesh=...)`, the sharded cycle of
 parallel/mesh.py) the Scheduler takes the JAX Scheduler's two mesh
@@ -122,6 +165,7 @@ preemption solves' stats are in `last_preempt_plan`.
 from __future__ import annotations
 
 import time as _time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -136,7 +180,8 @@ from kueue_tpu_torch.core import priority as prioritypkg
 from kueue_tpu_torch.core import workload as wlpkg
 from kueue_tpu_torch.core.resources import container_limits_violations
 from kueue_tpu_torch.queue import Manager, RequeueReason
-from kueue_tpu_torch.resilience.breaker import CircuitBreaker
+from kueue_tpu_torch.resilience import faultinject
+from kueue_tpu_torch.resilience.breaker import CLOSED, CircuitBreaker
 from kueue_tpu_torch.resilience.degrade import NORMAL, DegradationLadder
 from kueue_tpu_torch.resilience.faultinject import DeviceFault
 from kueue_tpu_torch.resilience.watchdog import DispatchWatchdog
@@ -290,6 +335,45 @@ class Scheduler:
         # of a CQ with a MultiKueue check, resolved by the cycle's flush.
         self.on_placement = None
         self._mk_admits: list = []  # (Info, cq snapshot) this cycle
+        # The speculative pipeline (kueue_tpu/scheduler/scheduler.py:
+        # 146-179, kueue_tpu/scheduler/PIPELINE.md): overlap the solve of
+        # cycle N with the apply of cycle N-1. Every dispatch carries a
+        # generation stamp (stages.SpeculationToken), validated before
+        # the result may commit; a mis-speculation abandons the in-flight
+        # result and the next cycle runs synchronously. Off by default,
+        # as in the JAX package: decisions land one cycle later.
+        self.pipeline_enabled = False
+        # In-flight speculative cycles, oldest first. Depth 1 reproduces
+        # the single-slot pipeline; depth 2 lets dispatch N+2 launch while
+        # N's decisions are still on their way. Deeper than 1 only when
+        # every queued dispatch carries a token; one mis-speculation
+        # aborts every queued cycle (they chain on the same device state).
+        self._inflight_q: deque = deque()
+        self.pipeline_depth = 1
+        self._pipeline_cooldown = 0
+        # hits: validated and committed speculative cycles; aborts:
+        # mis-speculations, by validation reason
+        self.speculation_hits = 0
+        self.speculation_aborts = 0
+        self.speculation_abort_reasons: dict = {}
+        # the shape the last _schedule_pipelined call took:
+        # device-pipelined, device-dispatch-only or device-nofit
+        self._pipeline_trace_route = "device-pipelined"
+        self._drained_admitted = None  # last _drain_pipeline's admissions
+        self._last_cycle_admitted = 0
+        self._cycle_evictions = 0  # evictions issued within this cycle
+        self._cycle_regime = "fit"  # regime of the cycle collected
+        self._last_regime = "fit"
+        # The starvation bound's feed (kueue_tpu/scheduler/scheduler.py:
+        # 192-205), kept by the pipelined preemption collect. Nothing
+        # reads them yet: the bound ("cpu-strict") is not ported.
+        self._blocked_preempt_streak = 0
+        self._preemptless_cycles = 0
+        # fencing_check() -> bool: False aborts an in-flight speculation
+        # at its commit point ("fenced"; kueue_tpu/scheduler/
+        # scheduler.py:338-344). Its setters (replicas, shards) are not
+        # ported yet.
+        self.fencing_check: Optional[Callable[[], bool]] = None
 
     # --- the cycle ---
 
@@ -305,10 +389,20 @@ class Scheduler:
         heads = self.queues.heads(timeout=timeout)
         self._span("heads", t_ph)
         if not heads:
+            if self._inflight is not None:
+                # The headless drain: no heads, a cycle in flight.
+                self._cycle_evictions = 0
+                self._cycle_faults = 0
+                self._release_cycle_snapshot()
+                return self._drain_pipeline()
             self._observe_idle()
             return KeepGoing
         wall0 = _time.perf_counter()
         self._cycle_faults = 0
+        self._cycle_evictions = 0
+        # Only the synchronous cycle's handout is held there; an
+        # in-flight cycle's light snapshot is never released and its
+        # pipelined preemption snapshot is released by its collect.
         self._release_cycle_snapshot()
         # The ladder moves only at the cycle's end (_observe_budget):
         # shed and survival cap the heads now, the extras re-heap
@@ -327,6 +421,26 @@ class Scheduler:
         if route == "device" \
                 and not self.breaker.allow_device(self.clock.now()):
             route = "cpu-breaker"
+        # The cooldown elapses per schedule() call, not per device cycle.
+        cooling = self._pipeline_cooldown > 0
+        if cooling:
+            self._pipeline_cooldown -= 1
+        if route == "device" and not cooling and self._pipeline_ok(heads):
+            signal = self._schedule_pipelined(heads)
+            if signal is not None:
+                self.last_route = self._pipeline_trace_route
+                self._note_device_cycle(collects0)
+                self._observe_budget(_time.perf_counter() - wall0,
+                                     heads_popped, self._last_cycle_admitted)
+                return signal
+            # Not applicable this cycle: the synchronous path below, with
+            # a fresh full snapshot (the pipelined attempt's light one
+            # shares the live trees and never reaches it).
+        elif self._inflight is not None:
+            # The gate closed (cooldown, StrictFIFO, pipeline off) with a
+            # cycle in flight: drain it before the synchronous snapshot,
+            # or its admissions would be invisible to nominate.
+            self._drain_pipeline()
 
         t_ph = _time.perf_counter()
         snapshot = self.cache.snapshot()
@@ -414,7 +528,7 @@ class Scheduler:
         if not lad.enabled:
             return
         prev = lad.state
-        backlog = heads - admitted
+        backlog = heads - (admitted or 0)
         if not lad.observe_cycle(duration_s, backlog=backlog):
             return
         if self.on_fault is not None:
@@ -495,6 +609,518 @@ class Scheduler:
         if self.watchdog is None:
             return None
         return self.watchdog.max_deadline_s
+
+    # --- the speculative pipeline (kueue_tpu/scheduler/scheduler.py:
+    # 1207-1876, kueue_tpu/scheduler/PIPELINE.md) ---
+    #
+    # The all-fit pipelined cycle dispatches cycle N+1 on the device
+    # state cycle N left there (resident chaining), before N's decisions
+    # reach the host; N is collected, decoded and admitted after N+1's
+    # dispatch. Deviations from the synchronous cycle, as in the JAX
+    # package: the heads of cycle N+1 are popped before N's requeues (a
+    # head skipped in N retries in N+2; StrictFIFO CQs close the gate),
+    # and the router predicts against a mirror that lags by the cycles
+    # in flight: a head it mispredicts is requeued and the next cycle
+    # runs synchronously.
+
+    @property
+    def _inflight(self) -> Optional[stages.InFlightCycle]:
+        """The oldest in-flight speculative cycle (the next collect's),
+        or None when the pipeline is empty."""
+        q = self._inflight_q
+        return q[0] if q else None
+
+    def _pipeline_ok(self, heads: list) -> bool:
+        """The pipeline's gate (kueue_tpu/scheduler/scheduler.py:
+        1216-1232). A breaker that is not closed means a half-open probe,
+        which runs synchronously so that its outcome is known by the
+        cycle's end; survival pins the CPU (ladder.allow_pipeline), while
+        shed keeps the pipeline for cycles that need no preempt planning
+        (_schedule_pipelined bails on the others)."""
+        s = self.solver
+        return (s is not None and self.pipeline_enabled
+                and self.breaker.state == CLOSED
+                and self.ladder.allow_pipeline
+                and s.resident_capable
+                and not self.cache.pods_ready_tracking
+                and len(heads) >= self.solver_min_heads
+                and not self.queues.any_strict_fifo())
+
+    def _schedule_pipelined(self, heads: list) -> Optional[SpeedSignal]:
+        """Dispatch this cycle and process the oldest in-flight one
+        (kueue_tpu/scheduler/scheduler.py:1234-1432). Returns None to
+        fall back to the synchronous path (any in-flight cycle drained
+        first)."""
+        solver = self.solver
+        self._pipeline_trace_route = "device-pipelined"
+        # Validate every in-flight speculation before the next dispatch
+        # chains on its device state, oldest first: an invalid token
+        # dooms its cycle and every later one (flushed as "chained"),
+        # while the validated predecessors collect normally first.
+        for early in tuple(self._inflight_q):
+            if early.token is None:
+                continue
+            ok, reason = self._validate_speculation(early)
+            if not ok:
+                while self._inflight_q and self._inflight_q[0] is not early:
+                    self._drain_one(self._inflight_q.popleft(), sample=True)
+                if self._inflight_q and self._inflight_q[0] is early:
+                    # (a predecessor's processing may have aborted and
+                    # flushed the queue already)
+                    self._inflight_q.popleft()
+                    self._abort_speculation(early, reason)
+                return None  # the synchronous path owns these heads
+        # A light snapshot: the all-fit pipelined cycle never simulates
+        # on it (its usage truth is the device-resident state).
+        t_ph = _time.perf_counter()
+        snapshot = self.cache.snapshot(light=True)
+        self._span("snapshot", t_ph)
+        valid_heads, invalid_entries = [], []
+        for w in heads:
+            if self.cache.is_assumed_or_admitted(w):
+                continue
+            err = self._validate_head(w, snapshot)
+            if err is None:
+                valid_heads.append(w)
+            else:
+                e = Entry(info=w)
+                e.inadmissible_msg, e.requeue_reason = err
+                invalid_entries.append(e)
+        if not valid_heads:
+            self._drain_pipeline()
+            return None  # the synchronous path handles the invalid heads
+        try:
+            plan = solver.prepare(snapshot, valid_heads, route=True)
+        except DeviceFault as exc:
+            self._prepare_failed(exc)
+            plan = None
+        prev = self._inflight
+        if (plan is not None and plan.resident and prev is not None
+                and plan.rs is not prev.inflight.plan.rs):
+            # Residency was re-established under the in-flight cycle: the
+            # fresh state cannot hold the in-flight admissions, and a
+            # dispatch on it would double-book quota.
+            self._drain_pipeline()
+            return None
+        nofit_entries, nofit_idx = [], set()
+        pend_ws, pend_idx = [], set()
+        bail = (plan is None or not plan.resident or plan.fit_pred is None)
+        if not bail and not plan.fit_pred.all():
+            # Predicted non-fit heads: the device-NoFit shortcut's are
+            # requeued at dispatch; preempt-capable ones ride the same
+            # dispatch as a K9 batch (the pipelined mixed cycle), their
+            # evictions issued at collect. Partial admission and
+            # fair-sharing preemption keep the synchronous path.
+            for i, w in enumerate(plan.batch.infos):
+                if plan.fit_pred[i]:
+                    continue
+                e = self._device_nofit_entry(w, snapshot)
+                if e is not None:
+                    nofit_entries.append(e)
+                    nofit_idx.add(i)
+                elif (not self.fair_sharing_enabled
+                      and not (features.enabled(features.PARTIAL_ADMISSION)
+                               and w.can_be_partially_admitted())):
+                    pend_ws.append(w)
+                    pend_idx.add(i)
+                else:
+                    bail = True
+                    break
+        if not bail and pend_ws and self.ladder.defer_preemption:
+            # shed: the synchronous path owns the deferral
+            bail = True
+        if not bail and len(pend_ws) * 4 > len(valid_heads):
+            # a preempt-dominated cycle: the synchronous path owns it
+            bail = True
+        pmeta, pbatch = None, None
+        prev_signal = None
+        if not bail and pend_ws:
+            if self._inflight is not None:
+                # Collect the in-flight cycles first: their admissions
+                # must be in the cache before the nomination snapshot,
+                # or the collect's fit re-check would run on state a
+                # cycle stale (over-eviction).
+                prev_signal = self._drain_pipeline(sample=False)
+            t_ph = _time.perf_counter()
+            pmeta, pbatch, bail = self._prepare_pipelined_preempt(plan,
+                                                                  pend_ws)
+            self._span("preempt-plan", t_ph)
+            if bail:
+                self._last_cycle_admitted = None
+        if bail:
+            # The synchronous path processes these popped heads with a
+            # fresh full snapshot; cool down one cycle so that sustained
+            # contention does not pay a discarded prepare every cycle.
+            self._drain_pipeline()
+            self._pipeline_cooldown = 1
+            return None
+        if len(nofit_idx) == len(plan.batch.infos):
+            # the whole cycle is device-proved NoFit: nothing to dispatch
+            for e in invalid_entries:
+                self.requeue_and_update(e)
+            for e in nofit_entries:
+                self.requeue_and_update(e)
+            self.cycle_counts["device-nofit"] = \
+                self.cycle_counts.get("device-nofit", 0) + 1
+            self._pipeline_trace_route = "device-nofit"
+            if self._inflight is not None:
+                return self._drain_pipeline()
+            self._last_cycle_admitted = None
+            return SlowDown
+        try:
+            inflight = solver.dispatch(
+                plan, fair_sharing=self.fair_sharing_enabled,
+                preempt_batch=pbatch, deadline_s=self._dispatch_deadline(),
+                supervise_deadline_s=self._supervise_deadline())
+            solver.start_fetch(inflight)
+        except DeviceFault as exc:
+            self._solver_fault("dispatch", exc)
+            if pmeta is not None:
+                self.cache.release_snapshot(pmeta[2])
+            self._drain_pipeline()
+            return None
+        for e in invalid_entries:
+            self.requeue_and_update(e)
+        for e in nofit_entries:
+            self.requeue_and_update(e)
+        token = stages.SpeculationToken.stamp(self.cache, solver, plan,
+                                              snapshot)
+        self._inflight_q.append(stages.InFlightCycle(
+            inflight=inflight, snapshot=snapshot, nofit_idx=nofit_idx,
+            pend_idx=pend_idx, pmeta=pmeta, token=token))
+        # A token-less dispatch collapses the depth to 1.
+        depth = max(1, self.pipeline_depth)
+        if any(ic.token is None for ic in self._inflight_q):
+            depth = 1
+        if len(self._inflight_q) <= depth:
+            if prev_signal is not None:
+                return prev_signal  # the mixed cycle's pre-drain
+            self._last_cycle_admitted = None
+            self.cycle_counts["device-dispatch-only"] = \
+                self.cycle_counts.get("device-dispatch-only", 0) + 1
+            self._pipeline_trace_route = "device-dispatch-only"
+            return KeepGoing  # results a call later
+        signal = KeepGoing
+        while len(self._inflight_q) > depth:
+            signal = self._process_inflight(self._inflight_q.popleft())
+        return signal
+
+    def _abandon_pipeline(self) -> None:
+        """Drop every in-flight cycle without applying its decisions
+        (kueue_tpu/scheduler/scheduler.py:1434-1444: leadership lost,
+        shutdown): requeue their heads and drop the resident state. Its
+        callers there, stop() and leader_check, are not ported yet."""
+        if not self._inflight_q:
+            return
+        while self._inflight_q:
+            self._requeue_inflight(self._inflight_q.popleft())
+        self._solver_invalidate()
+
+    def _requeue_inflight(self, prev: stages.InFlightCycle) -> None:
+        """The sweep of every discard path (abort, collect fault,
+        abandon): release the pipelined preemption's snapshot and re-heap
+        every batch row the device-NoFit shortcut did not requeue at
+        dispatch; the pend rows too, whose evictions never issued."""
+        if prev.pmeta is not None:
+            self.cache.release_snapshot(prev.pmeta[2])
+        for i, w in enumerate(prev.inflight.plan.batch.infos):
+            if i in prev.nofit_idx:
+                continue
+            self.queues.requeue_workload(
+                w, RequeueReason.FAILED_AFTER_NOMINATION)
+
+    def _flush_inflight_queue(self) -> None:
+        """Discard every still-queued cycle undecoded (a device fault on
+        an older chained cycle): not speculation aborts, nothing about
+        their state was proven stale (the JAX package's also annotates
+        its flight recorder, "pipeline-flush")."""
+        while self._inflight_q:
+            self._requeue_inflight(self._inflight_q.popleft())
+
+    def _prepare_pipelined_preempt(self, plan, pend_ws: list):
+        """Nominate the predicted-non-fit, preempt-capable heads against a
+        fresh full snapshot (the reclaim oracle simulates, never on a
+        light snapshot's live trees) and encode their problems to ride
+        the resident dispatch (kueue_tpu/scheduler/scheduler.py:
+        1482-1532). Returns (pmeta, pbatch, bail): pmeta = (pending
+        entries, cq_by, full snapshot) for the collect, pbatch the
+        encoded problems or None (every entry blocked), bail True when
+        the synchronous path must own the cycle. A DeviceFault bails;
+        any other exception propagates (the JAX package bails on any),
+        the snapshot released either way."""
+        full_snap = self.cache.snapshot()
+        try:
+            pre_entries = self.nominate(pend_ws, full_snap,
+                                        defer_preemption=True)
+            pending, ready = [], []
+            for e in pre_entries:
+                if e.preemption_targets is None:
+                    e.preemption_targets = []
+                    pending.append(e)
+                else:
+                    ready.append(e)  # NO_FIT on the true state (mirror lag)
+            for e in ready:
+                self.requeue_and_update(e)
+            if not pending:
+                self.cache.release_snapshot(full_snap)
+                return None, None, False
+            cand_index = candidate_index(full_snap, self.ordering,
+                                         self.clock.now())
+            problems, requests_by, cq_by, frs_by = [], {}, {}, {}
+            for i, e in enumerate(pending):
+                requests_by[i] = e.assignment.total_requests_for(e.info)
+                frs_by[i] = fa.flavor_resources_need_preemption(e.assignment)
+                cq_by[i] = e.info.cluster_queue
+                problems.extend(devpreempt.build_problems(
+                    i, e.info, requests_by[i], frs_by[i], full_snap,
+                    self.preemptor, cand_index))
+            pbatch = None
+            if problems:
+                pbatch = devpreempt.encode_problems(
+                    problems, full_snap, plan.topo, requests_by, cq_by,
+                    frs_by)
+            return (pending, cq_by, full_snap), pbatch, False
+        except DeviceFault:
+            self.preemption_fallbacks += 1
+            self.cache.release_snapshot(full_snap)
+            return None, None, True
+        except BaseException:
+            self.cache.release_snapshot(full_snap)
+            raise
+
+    def _drain_pipeline(self, sample: bool = True) -> SpeedSignal:
+        """Process every in-flight cycle, oldest first. sample=False: the
+        caller's cycle owns the drained admissions (the mixed cycle's
+        pre-drain), which stay in _last_cycle_admitted."""
+        if not self._inflight_q:
+            return KeepGoing
+        sig = KeepGoing
+        drained_total = None
+        while self._inflight_q:
+            sig, admitted = self._drain_one(self._inflight_q.popleft(),
+                                            sample)
+            if admitted is not None:
+                drained_total = (drained_total or 0) + admitted
+        self._drained_admitted = drained_total
+        if not sample:
+            self._last_cycle_admitted = drained_total
+        return sig
+
+    def _drain_one(self, prev: stages.InFlightCycle, sample: bool) -> tuple:
+        """Process one in-flight cycle; returns (signal, admitted or
+        None). With `sample` the JAX Scheduler records the drained cycle
+        as a device sample for its adaptive router and keeps its time
+        and evictions out of the enclosing cycle's sample; routing here
+        is its "always" route, so nothing is recorded: the drained
+        evictions and admissions are only kept out of the enclosing
+        cycle's counts (kueue_tpu/scheduler/scheduler.py:1557-1579)."""
+        ev0 = self._cycle_evictions
+        sig = self._process_inflight(prev)
+        admitted = self._last_cycle_admitted
+        if sample:
+            self._cycle_evictions = ev0
+            self._last_cycle_admitted = None  # consumed
+        return sig, admitted
+
+    def _process_inflight(self, prev: stages.InFlightCycle) -> SpeedSignal:
+        """Validate, collect, decode and apply one in-flight cycle
+        (kueue_tpu/scheduler/scheduler.py:1581-1698)."""
+        inflight, snapshot = prev.inflight, prev.snapshot
+        nofit_idx, pend_idx, pmeta = (prev.nofit_idx, prev.pend_idx,
+                                      prev.pmeta)
+        valid_heads = inflight.plan.batch.infos
+        # Validated again at the commit point, even after the check at
+        # the next dispatch: the cache may have moved in between.
+        ok, reason = self._validate_speculation(prev)
+        if not ok:
+            return self._abort_speculation(prev, reason)
+        try:
+            decisions, aux = self.solver.collect(inflight, snapshot)
+        except DeviceFault as exc:
+            # A timeout or a caught corruption: the result is abandoned
+            # undecoded, the heads re-heap, and every later cycle that
+            # chained on the dropped resident state is flushed.
+            self._solver_fault("collect", exc)
+            self._requeue_inflight(prev)
+            self._flush_inflight_queue()
+            self._pipeline_cooldown = 1
+            self._last_cycle_admitted = None
+            return SlowDown
+        if prev.token is not None:
+            self.speculation_hits += 1
+        entries = []
+        any_nonfit = False
+        t_ph = _time.perf_counter()
+        for i, w in enumerate(valid_heads):
+            if i in nofit_idx or i in pend_idx:
+                continue  # NoFit: requeued at dispatch; pend: below
+            decision = decisions.get(i)
+            e = Entry(info=w)
+            if decision is None:
+                # Predicted fit on the lagging mirror, denied by the
+                # device: re-heap, and run the next cycle synchronously
+                # so that preempt-mode nomination applies.
+                e.inadmissible_msg = "Workload didn't fit on the batched path"
+                e.requeue_reason = RequeueReason.FAILED_AFTER_NOMINATION
+                any_nonfit = True
+                entries.append(e)
+                continue
+            assignment, admitted = decision
+            e.assignment = assignment
+            w.last_assignment = assignment.last_state
+            if not admitted:
+                self._set_skipped(e, "Workload no longer fits after "
+                                     "processing another workload")
+                entries.append(e)
+                continue
+            cq = snapshot.cluster_queues[w.cluster_queue]
+            e.status = NOMINATED
+            try:
+                self.admit(e, cq)
+            except Exception as exc:  # noqa: BLE001 — cache/API races
+                e.inadmissible_msg = f"Failed to admit workload: {exc}"
+                self.solver.note_unapplied(w.key)
+            entries.append(e)
+        self._flush_mk_placements(snapshot)
+        self._span("apply", t_ph)
+        if any_nonfit:
+            self._pipeline_cooldown = 1
+        if pmeta is not None:
+            t_ph = _time.perf_counter()
+            entries.extend(self._collect_pipelined_preempt(
+                inflight, pmeta, aux, entries))
+            self._span("preempt-plan", t_ph)
+            self._cycle_regime = "preempt"
+        else:
+            self._cycle_regime = "fit"
+        self._last_regime = self._cycle_regime
+        result_success = False
+        admitted_n = 0
+        t_ph = _time.perf_counter()
+        for e in entries:
+            if e.status != ASSUMED:
+                self.requeue_and_update(e)
+            else:
+                result_success = True
+                admitted_n += 1
+                self.solver.release_workload(e.info.key)
+        self._span("requeue", t_ph)
+        self._last_cycle_admitted = admitted_n
+        self.cycle_counts["device-pipelined"] = \
+            self.cycle_counts.get("device-pipelined", 0) + 1
+        return KeepGoing if result_success else SlowDown
+
+    def _validate_speculation(self, prev: stages.InFlightCycle) -> tuple:
+        """(ok, reason) for the in-flight cycle's token, through the
+        SITE_SPECULATION injection site (an injected fault is reason
+        "injected") and the fencing check ("fenced"); a token-less
+        cycle validates trivially (kueue_tpu/scheduler/scheduler.py:
+        1700-1716)."""
+        if self.fencing_check is not None and not self.fencing_check():
+            return False, "fenced"
+        try:
+            faultinject.site(faultinject.SITE_SPECULATION)
+            if prev.token is not None:
+                return prev.token.validate(self.cache, self.solver)
+        except DeviceFault:
+            return False, "injected"
+        return True, ""
+
+    def _abort_speculation(self, prev: stages.InFlightCycle,
+                           reason: str) -> SpeedSignal:
+        """A mis-speculation (kueue_tpu/scheduler/scheduler.py:
+        1718-1760): abandon the result undecoded (nothing was assumed,
+        so nothing is forgotten), requeue its heads and every later
+        queued cycle's (counted as "chained" aborts), drop the resident
+        state, which chained Phase B usage for admissions that will never
+        be confirmed, and run the next cycle synchronously. Not a breaker
+        fault: nothing on the device failed."""
+        self.speculation_aborts += 1
+        self.speculation_abort_reasons[reason] = \
+            self.speculation_abort_reasons.get(reason, 0) + 1
+        self._requeue_inflight(prev)
+        while self._inflight_q:
+            chained = self._inflight_q.popleft()
+            self.speculation_aborts += 1
+            self.speculation_abort_reasons["chained"] = \
+                self.speculation_abort_reasons.get("chained", 0) + 1
+            self._requeue_inflight(chained)
+        self._solver_invalidate()
+        self._pipeline_cooldown = 1
+        self._last_cycle_admitted = None
+        return SlowDown
+
+    def _collect_pipelined_preempt(self, inflight, pmeta, aux,
+                                   fit_entries: list) -> list:
+        """The collect half of a pipelined mixed cycle
+        (kueue_tpu/scheduler/scheduler.py:1800-1876): decode the K9
+        targets and issue the evictions a cycle after they were chosen.
+        Against the lag: this cycle's device admissions are accounted on
+        the nomination snapshot before the fit re-check, overlapping
+        target sets are skipped as in the synchronous admit loop, and a
+        head one of whose victims completed in the window is requeued
+        (its capacity is already free). The full snapshot is released on
+        every exit. Returns the preempt-mode entries for the requeue."""
+        pending, cq_by, full_snap = pmeta
+        try:
+            targets_by: dict = {}
+            if aux is not None and "preempt" in aux \
+                    and inflight.preempt_batch is not None:
+                self._note_preempt_stats(aux, inflight.preempt_batch, None)
+                t, f = aux["preempt"]
+                targets_by = devpreempt.decode_targets(
+                    inflight.preempt_batch, t, f, full_snap, cq_by)
+            for e in fit_entries:
+                if e.status == ASSUMED:
+                    cq = full_snap.cluster_queues.get(e.info.cluster_queue)
+                    if cq is not None:
+                        cq.add_usage(e.assignment.usage)
+            preempted: set = set()
+            blocked_any = False
+            for i, e in enumerate(pending):
+                e.preemption_targets = targets_by.get(i, [])
+                if not e.preemption_targets:
+                    blocked_any = True  # no feasible targets
+                    continue
+                live = [t for t in e.preemption_targets
+                        if self.cache.is_assumed_or_admitted(
+                            t.workload_info)]
+                if len(live) != len(e.preemption_targets):
+                    # a victim completed during the lag
+                    e.preemption_targets = []
+                    e.requeue_reason = RequeueReason.FAILED_AFTER_NOMINATION
+                    continue
+                keys = {t.workload_info.key for t in e.preemption_targets}
+                if keys & preempted:
+                    self._set_skipped(e, "Workload has overlapping "
+                                         "preemption targets with another "
+                                         "workload")
+                    continue
+                cq = full_snap.cluster_queues[e.info.cluster_queue]
+                usage = e.net_usage()
+                if not cq.fits(usage):
+                    self._set_skipped(e, "Workload no longer fits after "
+                                         "processing another workload")
+                    continue
+                preempted.update(keys)
+                cq.add_usage(usage)
+                e.info.last_assignment = None
+                n = self.preemptor.issue_preemptions(e.info,
+                                                     e.preemption_targets)
+                self._cycle_evictions += n
+                if n:
+                    e.inadmissible_msg += (f". Pending the preemption of "
+                                           f"{n} workload(s)")
+                    e.requeue_reason = RequeueReason.PENDING_PREEMPTION
+            if pending:
+                self._blocked_preempt_streak = (
+                    self._blocked_preempt_streak + 1 if blocked_any else 0)
+                self._preemptless_cycles = 0
+                self.cycle_counts["pipelined-preempt"] = \
+                    self.cycle_counts.get("pipelined-preempt", 0) + 1
+        finally:
+            self.cache.release_snapshot(full_snap)
+        return pending
 
     # --- the stage machine (contracts in scheduler/stages.py) ---
 

@@ -82,9 +82,20 @@ the live trees: a topology encode or an establishing state encode off
 one takes the solver's own full snapshot and releases it
 (kueue_tpu/solver/service.py:916-943, :1062-1065).
 
-Left out of these slices (the JAX package has them): the host-side
-router (`_route`, Plan.fit_pred), the background fetch pool and the
-flight recorder.
+The speculative pipeline (the Scheduler's pipelined cycle):
+`prepare(snapshot, heads, route=True)` also runs the fit router
+(`_route`, kueue_tpu/solver/service.py:1183): Phase A through
+kernel.solve_phase_a (avail and phase_a on the card) against the host
+mirror of the resident usage, whose bits go into Plan.fit_pred;
+Plan.slot_gens holds the arena generations the speculation token
+witnesses. `dispatch` returns without waiting, `start_fetch` queues the
+decisions' copies into pinned host buffers behind the launches, and
+`collect` comes a cycle later: it waits on the copies' event, holds
+only its own time against the deadline and adds no sample to the
+watchdog's.
+
+Left out of these slices (the JAX package has them): the background
+fetch pool (the started fetch needs none) and the flight recorder.
 """
 
 from __future__ import annotations
@@ -138,10 +149,11 @@ DENSE_DECISION_KEYS = ("admitted", "fit", "chosen", "borrows",
                        "chosen_borrow")
 
 # the phases of one solve, timed per cycle (seconds) in last_phase_s;
-# "plan" is the mesh's domain plan, "preempt" solve_preemptions' upload,
+# "route" is the router's Phase A against the host mirror (prepare with
+# route=True), "plan" is the mesh's domain plan, "preempt" solve_preemptions' upload,
 # launches, sync and fetch, "partial" batched_partial_admission's rounds
-PHASES = ("encode", "plan", "upload", "device", "fetch", "decode", "preempt",
-          "partial")
+PHASES = ("encode", "route", "plan", "upload", "device", "fetch", "decode",
+          "preempt", "partial")
 
 # batched_partial_admission's answer for a head whose probe could not be
 # encoded: it goes back to CPU nomination and its sequential reducer
@@ -233,15 +245,27 @@ def unpack_decisions(fetched: dict, num_podsets: int,
 
 
 class Plan:
-    """One cycle's encoded inputs."""
+    """One cycle's encoded inputs, with the router's fit bits when the
+    caller asked for them (prepare(..., route=True))."""
 
-    def __init__(self, topo, topo_dev, state, batch, start_rank):
+    def __init__(self, topo, topo_dev, state, batch, start_rank,
+                 fit_pred=None):
         self.topo = topo
         self.topo_dev = topo_dev
         self.state = state
         self.batch = batch
         self.start_rank = start_rank
+        # fit_pred[i]: Phase A's fit bit for head i against the host
+        # mirror (BatchSolver._route). In a pipelined cycle the mirror
+        # lags by the cycles still in flight, so the bits are advisory:
+        # the dispatch's own Phase A decides (kueue_tpu/solver/
+        # service.py:218-223).
+        self.fit_pred = fit_pred
         self.slots = None       # arena slots of the heads (bound to queues)
+        # The slots' arena generations, captured at encode time (not at
+        # dispatch): the speculation token witnesses the state the rows
+        # were gathered from (kueue_tpu/solver/service.py:228-233).
+        self.slot_gens = None
         self.deltas = None      # the delta prologue (numpy tuple) or None
         self.resident = False   # dispatch on the device-resident state
         self.rs = None          # the ResidentState the plan was built on
@@ -251,21 +275,29 @@ class Plan:
 
 class InFlight:
     """A dispatched cycle: its outputs on the device, the keys collect
-    fetches, the CUDA event recorded after its launches (None on the
-    CPU), the collect deadline and when the launches started and the
-    dispatch ended; with the injector's hit that scrambled the arena's
-    scatter, if one did."""
+    fetches, the CUDA events recorded before and after its launches
+    (None on the CPU), the collect deadline and when the launches
+    started and the dispatch ended; the minimal-preemption batch it
+    solves (decoded by the pipelined preemption's collect); with the
+    injector's hit that scrambled the arena's scatter, if one
+    did. A started fetch (start_fetch) adds the host buffers the
+    decisions are copied into and the event recorded after the
+    copies."""
 
     def __init__(self, plan, result, keys, event, deadline_s, t_launch,
-                 scramble=None):
+                 scramble=None, start_event=None, preempt_batch=None):
         self.plan = plan
         self.scramble = scramble  # the arena's last_scramble, or None
         self.result = result
         self.keys = keys
         self.event = event
+        self.start_event = start_event
         self.deadline_s = deadline_s
         self.t_launch = t_launch
         self.t_dispatch = time.perf_counter()
+        self.preempt_batch = preempt_batch
+        self.host = None          # key -> host tensor, once fetch started
+        self.fetch_event = None   # recorded after the copies (card)
 
 
 class ResidentState:
@@ -462,11 +494,16 @@ class BatchSolver:
                     self._cache.release_snapshot(own_snap)
         return self._topo_cache
 
-    def prepare(self, snapshot: Snapshot, entries: list) -> Optional[Plan]:
+    def prepare(self, snapshot: Snapshot, entries: list,
+                route: bool = False) -> Optional[Plan]:
         """Encode the cycle; None when nothing is solvable. With a bound
         cache the usage state is device-resident and reconciled through
-        the journal; with bound queues the batch comes from the arena.
-        Starts the cycle's phase times (last_phase_s)."""
+        the journal; with bound queues the batch comes from the arena,
+        and the slots' generations are captured for the speculation
+        token (Plan.slot_gens). With route (the pipelined cycle's call)
+        the router's fit bits go into Plan.fit_pred (_route, timed as
+        last_phase_s["route"]). Starts the cycle's phase times
+        (last_phase_s)."""
         self.last_phase_s = dict.fromkeys(PHASES, 0.0)
         if not entries:
             return None
@@ -481,12 +518,14 @@ class BatchSolver:
         try:
             if resident:
                 self.counters["resident_cycles"] += 1
-            slots = None
+            slots = slot_gens = None
             if self._queues is not None:
                 self._arena.begin_cycle(topo)
                 batch, slots = self._arena.assemble(entries, snapshot, topo,
                                                     self.ordering,
                                                     self.max_podsets)
+                slot_gens = self._arena.gen[
+                    np.asarray(slots, np.int64)].copy()
             else:
                 batch = encode.encode_workloads(entries, snapshot, topo,
                                                 max_podsets=self.max_podsets)
@@ -494,19 +533,56 @@ class BatchSolver:
             if own_snap is not None:
                 self._cache.release_snapshot(own_snap)
         cluster = encode.encode_cluster_columns(cycle_snapshot, topo)
-        self.last_phase_s["encode"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.last_phase_s["encode"] = t1 - t0
         if not batch.solvable.any():
             return None
         start_rank = batch.start_rank if batch.start_rank.any() else None
-        plan = Plan(topo, topo_dev, state, batch, start_rank)
+        fit_pred = None
+        if route:
+            fit_pred = self._route(topo_dev, state, batch, start_rank)
+            self.last_phase_s["route"] = time.perf_counter() - t1
+        plan = Plan(topo, topo_dev, state, batch, start_rank, fit_pred)
         plan.cluster = cluster
         plan.slots = slots
+        plan.slot_gens = slot_gens
         plan.deltas = deltas
         plan.resident = resident
         if resident:
             plan.rs = self._resident  # identity-pinned: a residency reset
             plan.backlog_gen = self._resident.backlog_gen
         return plan
+
+    def _route(self, topo_dev, state, batch, start_rank) -> np.ndarray:
+        """The fit router (kueue_tpu/solver/service.py:1183-1217): Phase A
+        (kernel.solve_phase_a, fair sharing off, the batch's resume
+        ranks) against the host mirror of the resident usage
+        (state.usage, state.cohort_usage), with the batch's rows,
+        uploaded to the solver's device. One sync, counted in
+        counters["syncs"]; returns fit[:n] as a numpy bool array.
+
+        On the card it launches avail and phase_a (K1, K2), or raises;
+        on the CPU it runs their plain versions. There is no host-side
+        route: the JAX package runs the same program on its local CPU
+        backend. The launches share the device's default stream with
+        any dispatch still in flight, so the router's sync waits behind
+        that dispatch's kernels."""
+        host = (state.usage, state.cohort_usage, batch.requests,
+                batch.podset_active, batch.wl_cq, batch.eligible,
+                batch.solvable)
+        fit = kernel.solve_phase_a(
+            topo_dev, *(self._upload(a) for a in host),
+            num_podsets=self.max_podsets, fair_sharing=False,
+            start_rank=None if start_rank is None else
+            self._upload(start_rank))[0]
+        self._sync()
+        up = sum(a.nbytes for a in host)
+        if start_rank is not None:
+            up += start_rank.nbytes
+        self.counters["upload_bytes"] += up
+        fit = fit.cpu().numpy()
+        self.counters["fetch_bytes"] += fit.nbytes
+        return fit[:batch.n].astype(bool)
 
     # --- device-resident state management ---
 
@@ -811,7 +887,7 @@ class BatchSolver:
                 slots_dev = self._upload(slots_w)
                 up += slots_w.nbytes
                 self._sync()
-                t1 = time.perf_counter()
+                t1, start_event = self._launch_mark()
                 # the delta prologue writes the resident usage in place
                 self._check_epoch(epoch)
                 result = solve_cycle_resident_arena(
@@ -821,7 +897,7 @@ class BatchSolver:
                 dev = [self._upload(a) for a in batch_np]
                 up = sum(a.nbytes for a in batch_np)
                 self._sync()
-                t1 = time.perf_counter()
+                t1, start_event = self._launch_mark()
                 self._check_epoch(epoch)
                 result = solve_cycle_resident(
                     plan.topo_dev, usage_in, cohort_in, deltas, *dev,
@@ -841,7 +917,7 @@ class BatchSolver:
                    (state.usage, state.cohort_usage, *batch_np)]
             up = sum(a.nbytes for a in batch_np)
             self._sync()
-            t1 = time.perf_counter()
+            t1, start_event = self._launch_mark()
             self._check_epoch(epoch)
             if self.mesh is not None:
                 result = meshpkg.solve_cycle_sharded(
@@ -865,7 +941,7 @@ class BatchSolver:
         if self.device.type == "cuda":
             # recorded on this thread's current stream, the device's
             # default one (see kernel._launch), after the cycle's launches
-            event = torch.cuda.Event()
+            event = torch.cuda.Event(enable_timing=True)
             event.record()
         self.last_phase_s["upload"] = t1 - t0
         for host in (host_pargs, host_fargs, host_cargs):
@@ -890,37 +966,97 @@ class BatchSolver:
         if fargs is not None:
             keys = keys + FAIR_KEYS
         return InFlight(plan, result, keys, event, deadline_s, t1,
-                        scramble=scramble)
+                        scramble=scramble, start_event=start_event,
+                        preempt_batch=preempt_batch)
+
+    def _launch_mark(self) -> tuple:
+        """(host time, CUDA event or None) just before the cycle's
+        launches: the event, recorded on the launching thread's stream,
+        lets a pipelined collect read the launches' device time."""
+        if self.device.type != "cuda":
+            return time.perf_counter(), None
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        return time.perf_counter(), start
+
+    def start_fetch(self, inflight: InFlight) -> None:
+        """Start bringing the cycle's decisions home at dispatch (the
+        pipelined cycle; kueue_tpu/solver/service.py:1583-1588): on the
+        card, each decision tensor (inflight.keys) is copied into a
+        pinned host buffer with non_blocking=True on the device's
+        default stream, the one the launches ran on, and an event is
+        recorded after the copies. collect then only waits on that
+        event and reads the buffers. On the CPU the outputs already lie
+        in host memory and are the buffers.
+
+        No thread pool is needed, unlike the JAX package's _fetch_pool:
+        the copies are queued behind the launches on the stream, and an
+        abandoned cycle's event is simply never waited on again (the
+        JAX package's _abandon_fetch has no counterpart)."""
+        outputs = {k: inflight.result[k] for k in inflight.keys}
+        if self.device.type != "cuda":
+            inflight.host = outputs
+            return
+        index = self.device.index
+        if index is None:
+            index = torch.cuda.current_device()
+        with torch.cuda.device(index):
+            host = {}
+            for k, t in outputs.items():
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                buf.copy_(t, non_blocking=True)
+                host[k] = buf
+            event = torch.cuda.Event()
+            event.record()
+        inflight.host = host
+        inflight.fetch_event = event
 
     def _await_device(self, inflight: InFlight) -> None:
-        """Wait for the cycle's launches: one sync, counted in
-        counters["syncs"], whose time from the first launch is the
-        cycle's "device" phase. With a deadline the event recorded after
-        the launches is polled, and past the deadline (counted from the
-        dispatch's end, as kueue_tpu/solver/service.py:1655-1665 does)
-        DispatchTimeout is raised and the outputs are abandoned: nothing
-        waits on them, and the next establish allocates fresh tensors on
-        the same stream, ordered after them."""
+        """Wait for the cycle's launches (and its started fetch): one
+        sync, counted in counters["syncs"]. With a deadline the event is
+        polled, and a cycle whose event has not completed by the
+        deadline counted from the dispatch's end raises DispatchTimeout:
+        its outputs are abandoned, nothing waits on them, and the next
+        establish allocates fresh tensors on the same stream, ordered
+        after them. An event that has completed raises nothing, however
+        long ago the dispatch was (kueue_tpu/solver/service.py:
+        1644-1683): in a pipelined cycle a whole host cycle passes
+        between the dispatch and the collect.
+
+        The "device" phase: on a synchronous collect, the time from the
+        first launch to the end of the wait, which is also the sample
+        the watchdog's deadline reads (_observe_sync); on a collect with
+        a started fetch, the launches' device time read from the events
+        recorded around them (on the CPU the dispatch's own launch
+        time), and no sample: its launch-to-wait time holds a host
+        cycle."""
         self.counters["syncs"] += 1
-        event, deadline = inflight.event, inflight.deadline_s
+        event = inflight.fetch_event or inflight.event
+        deadline = inflight.deadline_s
         if deadline is None:
             if event is not None:
                 event.synchronize()
-        else:
+        elif event is not None:
             t_end = inflight.t_dispatch + deadline
             spins = 0
-            while event is not None and not event.query():
+            while not event.query():
                 if time.perf_counter() > t_end:
-                    break
+                    waited = time.perf_counter() - inflight.t_dispatch
+                    self.counters["dispatch_timeouts"] += 1
+                    raise DispatchTimeout(deadline, waited)
                 spins += 1
                 if spins > POLL_SPINS:
                     time.sleep(POLL_SLEEP_S)
-            waited = time.perf_counter() - inflight.t_dispatch
-            if waited > deadline:
-                self.counters["dispatch_timeouts"] += 1
-                raise DispatchTimeout(deadline, waited)
-        self.last_phase_s["device"] = time.perf_counter() - inflight.t_launch
-        self._observe_sync(self.last_phase_s["device"] * 1e3)
+        if inflight.host is None:
+            self.last_phase_s["device"] = \
+                time.perf_counter() - inflight.t_launch
+            self._observe_sync(self.last_phase_s["device"] * 1e3)
+        elif inflight.start_event is not None:
+            self.last_phase_s["device"] = inflight.start_event.elapsed_time(
+                inflight.event) / 1e3
+        else:
+            self.last_phase_s["device"] = \
+                inflight.t_dispatch - inflight.t_launch
 
     def _validate_fetched(self, plan: Plan, fetched: dict) -> None:
         """The decisions' invariants (kueue_tpu/solver/service.py:
@@ -947,20 +1083,33 @@ class BatchSolver:
 
     def collect(self, inflight: InFlight, snapshot: Snapshot):
         """Wait for the cycle (under its deadline), fetch the decisions
-        only, check their invariants, unpack and decode them, and update
-        the residency bookkeeping. Returns (decisions, aux): aux holds
-        the preemption outputs when the cycle had preemption batches
-        (preempt_aux), else None."""
-        plan, result = inflight.plan, inflight.result
+        only (or read the buffers of a started fetch), check their
+        invariants, unpack and decode them, and update the residency
+        bookkeeping. Returns (decisions, aux): aux holds the preemption
+        outputs when the cycle had preemption batches (preempt_aux),
+        else None. Past the wait only collect's own time (the wait and
+        any delay injected at SITE_COLLECT) is held against the
+        deadline, never the host's time between dispatch and collect."""
+        plan = inflight.plan
+        t0 = time.perf_counter()
+        self._await_device(inflight)
+        src = inflight.host
+        if src is None:
+            src = {k: inflight.result[k] for k in inflight.keys}
         # Fault site: CORRUPT scrambles the decision outputs (caught by
         # _validate_fetched), DELAY holds the collect past its deadline.
-        outputs = faultinject.site(faultinject.SITE_COLLECT,
-                                   {k: result[k] for k in inflight.keys},
+        outputs = faultinject.site(faultinject.SITE_COLLECT, src,
                                    corrupt=_scramble_outputs)
-        self._await_device(inflight)
+        deadline = inflight.deadline_s
+        if deadline is not None:
+            waited = time.perf_counter() - t0
+            if waited > deadline:
+                self.counters["dispatch_timeouts"] += 1
+                raise DispatchTimeout(deadline, waited)
         t1 = time.perf_counter()
         # a copy per key: on the H100 it beats _fetch's one copy of the
-        # two or three decision arrays (chip_smoke's fetch_timing)
+        # two or three decision arrays (chip_smoke's fetch_timing); a
+        # started fetch's buffers are host memory already
         fetched = {k: v.cpu().numpy() for k, v in outputs.items()}
         self.counters["fetch_bytes"] += sum(v.nbytes for v in fetched.values())
         fetched = unpack_decisions(fetched, self.max_podsets,

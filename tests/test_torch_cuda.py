@@ -2271,3 +2271,159 @@ def test_abandoned_worker_writes_nothing(wedge, cuda_device, monkeypatch):
     if solver.arena.dev is not None:
         for k, v in before[2].items():
             assert torch.equal(solver.arena.dev[k], v), k
+
+
+# --- the speculative pipeline: the router, the started fetch, the lag ---
+
+def routed_pair(device):
+    """bound_pair with more waves than the cluster holds, four cycles in
+    (every CQ full), then cohort 0's workloads finished: the next heads
+    fit in cohort 0 only."""
+    solver, cache, queues = bound_pair(device, waves=8)
+    admitted = deque()
+    for cycle in range(4):
+        heads = queues.heads_nonblocking()
+        snapshot = cache.snapshot()
+        plan = solver.prepare(snapshot, heads)
+        got = solver.solve_prepared(plan, snapshot)[0]
+        ns.apply_decisions(cache, queues, solver, heads, got, float(cycle),
+                           admitted)
+        cache.release_snapshot(snapshot)
+    for wl in admitted:
+        if int(wl.status.admission.cluster_queue[2:]) % 4 == 0:
+            cache.delete_workload(wl)
+    return solver, cache, queues
+
+
+@pytest.mark.cuda
+def test_router_on_card_equals_cpu(cuda_device):
+    """prepare(..., route=True) launches avail and phase_a once each on
+    the card (kernel.solve_phase_a against the host mirror) and its fit
+    bits equal the CPU solver's and solve_phase_a's plain versions on
+    the same mirror and batch."""
+    got, want = [], []
+    for device, out in ((cuda_device, got), ("cpu", want)):
+        solver, cache, queues = routed_pair(device)
+        heads = queues.heads_nonblocking()
+        snapshot = cache.snapshot()
+        before = tk.launch_counts()
+        syncs = solver.counters["syncs"]
+        plan = solver.prepare(snapshot, heads, route=True)
+        launched = {k: v - before[k] for k, v in tk.launch_counts().items()
+                    if v != before[k]}
+        out.append((plan.fit_pred, launched, solver.counters["syncs"] - syncs,
+                    solver.last_phase_s["route"]))
+        if device == "cpu":
+            b = plan.batch
+            plain = tk.solve_phase_a(
+                tk.topo_to_device(plan.topo, "cpu"),
+                *(torch.from_numpy(np.array(a)) for a in (
+                    plan.state.usage, plan.state.cohort_usage, b.requests,
+                    b.podset_active, b.wl_cq, b.eligible, b.solvable)),
+                num_podsets=solver.max_podsets, fair_sharing=False,
+                start_rank=None if plan.start_rank is None
+                else torch.from_numpy(plan.start_rank))[0]
+            out.append(plain.numpy()[:b.n])
+        cache.release_snapshot(snapshot)
+    (gfit, glaunched, gsyncs, gsec), (cfit, _, csyncs, _), plain = \
+        got[0], want[0], want[1]
+    assert gfit.dtype == np.bool_ and np.array_equal(gfit, cfit)
+    assert np.array_equal(gfit, plain)
+    assert not gfit.all() and gfit.any()
+    assert glaunched == {"avail": 1, "phase_a": 1}
+    assert gsyncs == csyncs == 1 and gsec > 0
+
+
+@pytest.mark.cuda
+def test_start_fetch_buffers_equal_the_per_key_fetch(cuda_device):
+    """start_fetch copies the decision tensors into pinned host buffers
+    behind the launches and records an event after them; the buffers
+    equal the per-key copies, and the collect decides as a collect with
+    no started fetch, adding no sync sample and reading the device phase
+    from the events."""
+    solver, cache, queues = routed_pair(cuda_device)
+    ref, rcache, rqueues = routed_pair(cuda_device)
+    heads = queues.heads_nonblocking()
+    rheads = rqueues.heads_nonblocking()
+    snapshot, rsnap = cache.snapshot(), rcache.snapshot()
+    plan = solver.prepare(snapshot, heads, route=True)
+    inflight = solver.dispatch(plan, deadline_s=5.0)
+    solver.start_fetch(inflight)
+    inflight.fetch_event.synchronize()
+    for k in inflight.keys:
+        buf = inflight.host[k]
+        assert buf.device.type == "cpu" and buf.is_pinned()
+        assert torch.equal(buf, inflight.result[k].cpu()), k
+    samples = list(solver._sync_samples)
+    got = solver.collect(inflight, snapshot)[0]
+    assert solver._sync_samples == samples
+    assert 0 < solver.last_phase_s["device"] < 1.0
+    want = ref.solve_prepared(ref.prepare(rsnap, rheads), rsnap,
+                              deadline_s=5.0)[0]
+    assert len(ref._sync_samples) > 0
+    assert {i: (a.pod_sets, ok) for i, (a, ok) in got.items()} \
+        == {i: (a.pod_sets, ok) for i, (a, ok) in want.items()}
+
+
+@pytest.mark.cuda
+def test_pipelined_collect_after_a_host_gap_raises_nothing(cuda_device):
+    """A collect a host cycle after its dispatch (longer than the
+    deadline) whose event completed long ago raises no DispatchTimeout
+    and adds no sample to the watchdog's."""
+    import time
+    solver, cache, queues = routed_pair(cuda_device)
+    heads = queues.heads_nonblocking()
+    snapshot = cache.snapshot()
+    plan = solver.prepare(snapshot, heads, route=True)
+    inflight = solver.dispatch(plan, deadline_s=0.05)
+    solver.start_fetch(inflight)
+    samples = list(solver._sync_samples)
+    time.sleep(0.3)
+    solver.collect(inflight, snapshot)
+    assert solver.counters["dispatch_timeouts"] == 0
+    assert solver._sync_samples == samples
+
+
+def pipelined_build(device, depth: int):
+    sched, cache, queues, client = ns.build_scheduler(
+        64, 8, [f"f{i}" for i in range(4)], 40,
+        solver=BatchSolver(device=device))
+    ns.stage_waves(queues, 6, 64, 40)
+    sched.pipeline_enabled = True
+    sched.pipeline_depth = depth
+    return sched, cache, queues, client
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", (1, 2))
+def test_pipelined_scheduler_on_card_equals_cpu(depth, cuda_device):
+    """The pipelined Scheduler (the default watchdog, an injected
+    mis-speculation on the third validation) on the card decides as on
+    the CPU, cycle by cycle: admissions, cycle counts, hits and aborts;
+    the router's kernels launch on the card."""
+    from kueue_tpu_torch.resilience import faultinject as fi
+    runs = []
+    for device in (cuda_device, "cpu"):
+        sched, cache, queues, client = pipelined_build(device, depth)
+        before = tk.launch_counts()
+        trace = []
+        fi.install(fi.FaultInjector({fi.SITE_SPECULATION: {2: fi.RAISE}}))
+        try:
+            for _ in range(10):
+                sched.schedule(timeout=0)
+                trace.append((sorted(wl.metadata.name
+                                     for wl in client.drain_applied()),
+                              dict(sched.cycle_counts),
+                              sched.speculation_hits,
+                              dict(sched.speculation_abort_reasons)))
+        finally:
+            fi.uninstall()
+        launched = {k: v - before[k] for k, v in tk.launch_counts().items()}
+        usage = [sorted(cache.usage_for_cluster_queue(f"cq{i}")[0].items())
+                 for i in range(64)]
+        runs.append((trace, usage, launched, cache.live_handouts))
+    (gt, gu, gl, gh), (ct, cu, _, ch) = runs
+    assert gt == ct and gu == cu
+    assert gt[-1][3].get("injected") == 1 and gt[-1][2] > 0
+    assert gh == ch == 0
+    assert gl["avail"] > gl["arena_gather"] > 0
