@@ -57,11 +57,11 @@ versions:
    and the batch every cycle (1 warm-up and 2 timed cycles);
 2. bound fill: the solver bound to the Cache and the Manager, usage
    resident on the card and the batch gathered from the encode arena's
-   device twin, filling an empty cluster (1 + 3 cycles);
+   device twin, filling an empty cluster (1 + 2 cycles);
 3. bound churn: the same on a cluster whose flavors are all full, where
    128 admitted workloads finish before each cycle, so the journal's
    corrections and the arena's changed rows reach the card as the
-   sparse delta prologue and the row scatter (1 + 3 cycles). Every
+   sparse delta prologue and the row scatter (1 + 2 cycles). Every
    bound cycle's resident usage is also held against the host mirror
    and a fresh encode of the cache.
 4. scheduler fair: the port's own Scheduler with fair sharing on, its
@@ -69,7 +69,7 @@ versions:
    the JAX package's fair-sharing benchmark configuration (2048 CQs in
    256 cohorts, one flavor of 2 units per CQ, 4-unit workloads, 30,720
    pending; the last cycle's admissions finish before each cycle):
-   1 + 3 cycles, every one on the device route with drf_share launched,
+   1 + 2 cycles, every one on the device route with drf_share launched,
    each bound cycle's resident usage held against the mirror and a
    fresh encode; drf_share's inputs in the first timed cycle are kept
    and its shares there held against the plain version on the same card
@@ -123,7 +123,7 @@ versions:
    256 cohorts, 32 flavors of 40 units, 51,200 pending 40-unit
    workloads, the MultiKueue check on every even CQ, five worker
    clusters w0..w4 bucketed to 8 columns, w2 lost, w1 lost from the
-   third timed cycle on): 1 + 3 cycles, each on the device route with
+   second timed cycle on): 1 + 2 cycles, each on the device route with
    cluster_cols launched once in the bound cycle, the placements handed
    to on_placement never on a lost cluster and on at least three; its
    inputs in the first timed cycle are kept and held against the plain
@@ -192,13 +192,30 @@ versions:
    CPU. Each part prints its step p50 and max, the router's ms, the hit
    rate, the aborts by reason, the collect's device phase read from the
    CUDA events, and the Cache's live handouts after the drain (0).
+11. scheduler observed: the faults phase's traffic under the JAX
+   package's production wiring (ObservedRun: adaptive routing, the
+   pipeline at depth 1, a CompileGovernor started before the first
+   cycle, a FlightRecorder, a metrics Registry, a JourneyLedger on the
+   Manager's journey listener, the manager's aging monitors but the
+   WAL's, a QueryPlane read by a thread during the run, and a
+   leader_check flip at the first trickle step): the governor is warm
+   from its start (nothing on the card is compiled per shape), so no
+   cycle runs cpu-warmup and no mid-traffic compile is counted, each
+   engine has two fit samples or more, the device cycles launch the
+   faults phase's kernels, the flip abandons its cycle in flight, and
+   the run reaches the faults phase's run R (admitted set and usage
+   per CQ), nothing admitted twice; the traces' phase_sums equal the
+   histograms, every admission sealed its journey, live_handouts ends
+   at what the query plane holds, no aging verdict fails. It prints the
+   routes, the governor's status, the router's median admitted/s per
+   engine and regime and each traced phase's p50.
 
 The bound and Scheduler phases print their snapshot_stats and the
 snapshot phase's p50: the Cache takes incremental snapshots by default,
 and bound fill, bound churn and scheduler fair must take the
 incremental path on every timed cycle and hold the last one's handout
 equal to a rebuild of the same cache (usage per CQ and cohort, workload
-keys, epochs). Bound churn runs its first 1 + 2 cycles once more with
+keys, epochs). Bound churn runs its first 1 + 1 cycles once more with
 Cache(incremental_snapshots=False), which must decide the same; both
 snapshot p50s are printed. Every Scheduler phase but the faults and
 pipelined phases must see no device fault, its breaker closed and every
@@ -233,7 +250,7 @@ NESTED = dict(num_cqs=2048, num_leaf_cohorts=256, fanout=4, depth=3,
 E2E_WAVES = 25          # 25 x 2048 = 51,200 pending workloads
 E2E_WARMUP = 1
 UNBOUND_TIMED = 2
-BOUND_TIMED = 3
+BOUND_TIMED = 2
 FULL_REBUILD_TIMED = 1  # bound churn's rerun with full snapshot rebuilds
 NOMINAL_UNITS = 40      # per flavor and CQ; workloads are one flavor's size
 CHURN_FINISHES = 128    # admitted workloads finishing before a churn cycle
@@ -317,6 +334,9 @@ PHASE_KERNELS["scheduler_faults"] = ("arena_gather", "arena_scatter",
 # phase_a beside the cycle's), and K9 riding the mixed cycle's dispatch
 PHASE_KERNELS["scheduler_pipelined"] = PHASE_KERNELS["scheduler_faults"] \
     + ("solve_preempt",)
+# the observed phase: the faults phase's traffic under the production
+# wiring (adaptive routing, the pipeline, the governor)
+PHASE_KERNELS["scheduler_observed"] = PHASE_KERNELS["scheduler_faults"]
 SHARDED_TIMED = {"fill": 1, "preempt": 1, "multikueue": 1}
 # the preempt cell's cycles are fresh builds' first: no warm-up build
 SHARDED_WARMUP = {"fill": E2E_WARMUP, "preempt": 0,
@@ -325,7 +345,7 @@ SHARDED_RANKS = 4  # the rank check's plan, each rank's body run in turn
 # The fair-sharing benchmark configuration (bench.py bench_fair_sharing,
 # builders bench.py:107-214): every admission borrows, 1024 per cycle.
 FAIR = dict(num_cqs=2048, num_cohorts=256, nominal_units=2, cpu_units=4)
-FAIR_TIMED = 3
+FAIR_TIMED = 2
 FAIR_WAVES = 15         # cycles + 4, as the bench stages: 30,720 pending
 # The preemption-heavy configuration (bench.py bench_preemption_reclaim,
 # bench.py:1807-1850; sim/northstar.build_preempt_reclaim).
@@ -380,8 +400,8 @@ MIXED_SHARES = (-2, -1, 0, 0, 125, 125, 333, 2**62)
 # north star: w1 is lost from the third timed cycle on.
 MK = dict(num_cqs=2048, num_cohorts=256, num_flavors=32, nominal_units=40,
           cpu_units=40, waves=25)
-MK_TIMED = 3
-MK_LOST = ("w1", E2E_WARMUP + 2)
+MK_TIMED = 2
+MK_LOST = ("w1", E2E_WARMUP + 1)
 # K12's synthetic check: lost clusters, partial offers, capacity that runs
 # out mid-scan
 MK_SYNTH = dict(num_clusters=8, num_flavors=32, num_resources=2,
@@ -476,7 +496,7 @@ FETCH_REPS = 200
 PARTIAL = dict(num_cqs=2048, num_cohorts=256, num_flavors=32,
                nominal_units=40, cpu_units=40, partial_cohorts=128,
                count=512, min_count=64)
-PARTIAL_TIMED = 3
+PARTIAL_TIMED = 2
 PARTIAL_WAVES = E2E_WARMUP + PARTIAL_TIMED + 2  # a head on every CQ
 # The faults phase (scheduler_faults_phase): the north star's fill, then
 # FAULTS_TRICKLE steps that finish 128 admitted workloads and stage 128
@@ -503,6 +523,12 @@ PIPELINE_TIMED = 5
 PIPELINE_UPDATE_STEP = 8
 PIPELINE_INJECT_HIT = {1: 24, 2: 40}
 MIXED = dict(waves=4, preemptors=2, steps=4, max_steps=10)
+# the faults phase's run R: its admitted names and usage per CQ at the
+# end, which the observed phase's run must reach
+FAULTS_R: dict = {}
+# the observed phase: the trickle step (from the first) at which the
+# leader check flips
+OBSERVED_FLIP = 0
 
 
 def log(msg: str) -> None:
@@ -651,9 +677,14 @@ def collector_paused():
     """Set-up only (a decorator or a with block around an environment's
     build): the cyclic collector off while the build makes objects that
     all live on, since each collection it would trigger scans the whole
-    heap for nothing; then one full collection, so that no timed cycle
-    pays for promoting the build's objects."""
+    heap for nothing; then one full collection, and the survivors
+    frozen (gc.freeze), so that no later collection scans the build
+    again: without it every full collection of a north-star run walked
+    its 51,200 staged workloads, a 2-4 s pause every few steps. The
+    previous build's objects are unfrozen first, so that what a closed
+    run left is collected."""
     was = gc.isenabled()
+    gc.unfreeze()
     gc.disable()
     try:
         yield
@@ -661,6 +692,7 @@ def collector_paused():
         if was:
             gc.enable()
         gc.collect()
+        gc.freeze()
 
 
 def kernel_record(key: str, name: str) -> bool:
@@ -3985,7 +4017,8 @@ class FaultsRun:
         from kueue_tpu_torch.sim import northstar as ns
         self.ns = ns
         t0 = time.perf_counter()
-        self.sched, self.cache, self.queues, self.client = faults_env(device)
+        self.sched, self.cache, self.queues, self.client = \
+            self.build_env(device)
         self.label, self.clock_s = label, clock_s
         self.admitted = {}   # name -> admitted workload
         self.records = []    # per step: sorted admitted names
@@ -3994,6 +4027,9 @@ class FaultsRun:
         log(f"[{self.phase}] {label}: {NORTH_STAR['num_cqs']} CQs, "
             f"{self.queues.pending_total()} pending staged in "
             f"{time.perf_counter() - t0:.1f} s")
+
+    def build_env(self, device):
+        return faults_env(device)
 
     def trickle(self) -> None:
         ns = self.ns
@@ -4126,6 +4162,8 @@ def scheduler_faults_phase(device) -> dict:
     check_resident(ref.sched.solver, ref.cache, topo)
     stats = {"R": dict(ref.cache.snapshot_stats)}
     ref_usage = ref.close()
+    # run R's end state, which the observed phase must reach
+    FAULTS_R.update(admitted=set(ref.admitted), usage=ref_usage)
 
     def one(site, action):
         return fi.FaultInjector({site: {0: action}})
@@ -4263,6 +4301,8 @@ class PipelineRun(FaultsRun):
     first launch to the end of the wait)."""
 
     phase = "scheduler_pipelined"
+    # the first replacement's number (FaultsRun counts them from 1)
+    trickle_base = 0
 
     def __init__(self, device, label: str, depth: int):
         super().__init__(device, label, FAULTS_CLOCK_S)
@@ -4307,7 +4347,7 @@ class PipelineRun(FaultsRun):
             self.queues.queue_associated_inadmissible_workloads_after(wl)
         for name in due:
             cq = int(name.split("-")[1])
-            idx = self.finish_order.index(name)
+            idx = self.finish_order.index(name) + self.trickle_base
             wl = ns.make_workload(f"t{idx}-{cq}", f"lq{cq}",
                                   cpu_units=NOMINAL_UNITS,
                                   creation=1e6 + idx)
@@ -4597,6 +4637,286 @@ def scheduler_pipelined_phase(device) -> dict:
             {k: summary[k] for k in ("launches", "updated", "wall_s")}))
     return summary
 
+def attach_observers(sched, cache, queues) -> tuple:
+    """The JAX package's manager wiring of the observers onto a port
+    Scheduler (kueue_tpu/manager.py:132-310): a metrics Registry, a
+    JourneyLedger on the Manager's journey listener (attach it before
+    workloads are queued, so that their arrivals open journeys), the
+    manager's AgingWatch monitors but the WAL's, sampled at every seal,
+    and a QueryPlane. The Scheduler's own FlightRecorder stays. Returns
+    (ledger, plane)."""
+    from kueue_tpu_torch import metrics as metricspkg
+    from kueue_tpu_torch.obs import AgingWatch, JourneyLedger, QueryPlane
+    from kueue_tpu_torch.obs.trend import rss_kb
+    solver = sched.solver
+    reg = metricspkg.Registry()
+    sched.metrics = reg
+    ledger = JourneyLedger(metrics=reg, clock=sched.clock,
+                           generation_source=cache.generation_token)
+    queues.add_journey_listener(ledger.note_queue_delta)
+    sched.journeys = ledger
+    watch = AgingWatch()
+    watch.add("live_handouts", lambda: cache.live_handouts,
+              slope_threshold=0.05)
+    watch.add("requeue_amplification", lambda: ledger.requeues_per_admission,
+              slope_threshold=0.02, window=32)
+    watch.add("arena_occupied",
+              lambda: solver._arena.size - len(solver._arena.free),
+              slope_threshold=1.0, window=64)
+    watch.add("mid_traffic_compiles",
+              lambda: solver.counters["mid_traffic_compiles"],
+              slope_threshold=0.01, window=16)
+    watch.add("rss_kb", rss_kb, slope_threshold=1024.0, window=64,
+              warmup=16)
+    sched.aging = watch
+    plane = QueryPlane(cache, queues, metrics=reg)
+    sched.query_plane = plane
+    return ledger, plane
+
+
+class ObservedRun(PipelineRun):
+    """The faults phase's traffic (PipelineRun, depth 1, no update, no
+    injector) under the port's Scheduler in the JAX package's production
+    wiring, as kueue_tpu/manager.py builds it: adaptive routing, the
+    pipeline at depth 1, a FlightRecorder, a metrics Registry, a
+    JourneyLedger on the Manager's journey listener (attached before the
+    waves are staged), the manager's AgingWatch monitors but the WAL's,
+    a QueryPlane, and a CompileGovernor started before the first cycle,
+    with the manager's arguments (kueue_tpu/manager.py:361-372): on the
+    card it is warm at once."""
+
+    phase = "scheduler_observed"
+    # the replacements named and timed as the faults phase's run R's
+    trickle_base = 1
+
+    @collector_paused()
+    def build_env(self, device):
+        from kueue_tpu_torch.scheduler.preemption import parse_strategies
+        from kueue_tpu_torch.sim import northstar as ns
+        from kueue_tpu_torch.solver import BatchSolver
+        from kueue_tpu_torch.solver.fairpreempt import strategy_flags
+        from kueue_tpu_torch.solver.warmgov import CompileGovernor
+        flavors = [f"f{i}" for i in range(NORTH_STAR["num_flavors"])]
+        sched, cache, queues, client = ns.build_scheduler(
+            NORTH_STAR["num_cqs"], NORTH_STAR["num_cohorts"], flavors,
+            NOMINAL_UNITS, solver=BatchSolver(device=device))
+        self.ledger, self.plane = attach_observers(sched, cache, queues)
+        solver = sched.solver
+        sched.solver_routing = "adaptive"
+        ns.stage_waves(queues, E2E_WAVES, NORTH_STAR["num_cqs"],
+                       NOMINAL_UNITS)
+        self.gov = CompileGovernor(
+            solver, cache, metrics=sched.metrics, recorder=sched.recorder,
+            max_width=NORTH_STAR["num_cqs"],
+            fs_flags=strategy_flags(parse_strategies(None)))
+        sched.warm_gov = self.gov
+        self.gov.start()
+        return sched, cache, queues, client
+
+
+def observed_reader(plane, stop, out: dict) -> None:
+    """A reader thread of the query plane during the run: acquire a
+    sealed view, read a CQ's pending table and a workload's status,
+    release; counts the reads a view answered."""
+    n = 0
+    while not stop.is_set():
+        view = plane.acquire()
+        if view is None:
+            time.sleep(0.001)
+            continue
+        try:
+            rows = plane.pending_cq(view, f"cq{n % NORTH_STAR['num_cqs']}",
+                                    16, 0)
+            plane.workload_status(view, "default", f"w0-{n % 64}")
+            if [r.position_in_cluster_queue for r in rows] \
+                    != list(range(len(rows))):
+                out["errors"].append(f"torn table in view {view.cycle_id}")
+            out["reads"] += 1
+            out["cycles"].add(view.cycle_id)
+        except Exception as exc:  # noqa: BLE001 — reported by the phase
+            out["errors"].append(repr(exc))
+        finally:
+            plane.release(view)
+        n += 1
+        time.sleep(0.02)
+
+
+def scheduler_observed_phase(device) -> dict:
+    """Adaptive routing, the warm governor's route gate and the
+    observability plane on the card (ObservedRun: the north star's fill,
+    6 trickle steps, quiet steps until settled). Checks: the governor is
+    warm before the first cycle (nothing on the card is compiled per
+    shape: no bucket, no walk), so no cycle runs cpu-warmup and
+    mid_traffic_compiles stays 0; each engine has 2 samples or more in
+    the fit regime; the device cycles launch the faults phase's kernels;
+    a leader_check flip at the OBSERVED_FLIP-th trickle step with a
+    cycle in flight abandons it, and the run (one extra cycle past the
+    flip, then until settled) reaches the faults phase's run R (the same
+    admitted set and usage per CQ), nothing admitted twice; every
+    trace's phase_sums equals the cycle_phase_seconds histograms; every
+    admission sealed its journey and the retained ones are complete; a
+    reader thread answered from sealed views; live_handouts ends at what
+    the query plane holds; no aging verdict fails. Prints the routes,
+    the governor's status, the router's median admitted/s per engine and
+    regime and each traced phase's p50."""
+    import threading
+
+    from kueue_tpu_torch.obs import router_status
+    from kueue_tpu_torch.solver import kernel
+    from kueue_tpu_torch.solver.warmgov import GOV_WARM
+    phase = "scheduler_observed"
+    t_phase = time.perf_counter()
+    kernel.reset_launch_counts()
+    gc.collect()
+    run = ObservedRun(device, "observed", 1)
+    sched, solver, gov = run.sched, run.sched.solver, run.gov
+    st = gov.status()
+    failures = []  # every failed check, raised after the summary prints
+    fail = failures.append
+    if gov.state != GOV_WARM or st["buckets"] \
+            or st["source"] not in ("fresh", "cache-hit"):
+        fail(f"the governor on the card is not warm from its start: {st}")
+    leader = {"on": True}
+    sched.leader_check = lambda: leader["on"]
+    stop = threading.Event()
+    reads = {"reads": 0, "errors": [], "cycles": set()}
+    reader = threading.Thread(target=observed_reader,
+                              args=(run.plane, stop, reads), daemon=True)
+    reader.start()
+    routes = []
+    flip = None
+    n = settled = 0
+    try:
+        while n < FAULTS_MAX_STEPS:
+            if n >= FAULTS_STEPS and run.to_finish:
+                run.finish_due()
+            trickle_k = n - E2E_WAVES
+            flipping = (flip is None and trickle_k >= OBSERVED_FLIP
+                        and n < FAULTS_STEPS and sched._inflight is not None)
+            if flipping:
+                flip = {"step": n, "inflight": len(sched._inflight_q)}
+                leader["on"] = False
+            try:
+                row = run.step(n, quiet=True)
+            finally:
+                leader["on"] = True
+            if flipping:
+                flip.update(after=len(sched._inflight_q),
+                            admitted=row["admitted"],
+                            resident=solver.resident is not None)
+            routes.append("non-leader" if flipping
+                          else row["route"] or sched.last_route)
+            for name in run.records[-1]:
+                run.reserved[name] = run.reserved.get(name, 0) + 1
+            n += 1
+            quiet = (n > FAULTS_STEPS and not row["admitted"]
+                     and sched._inflight is None and not run.to_finish
+                     and (flip is None or n > flip["step"] + 1))
+            settled = settled + 1 if quiet else 0
+            if settled >= FAULTS_SETTLE:
+                break
+        else:
+            raise AssertionError(f"{phase} did not settle")
+    finally:
+        stop.set()
+        reader.join(timeout=10)
+        gov.stop()
+    launches = kernel.launch_counts()
+    st = gov.status()
+    if "cpu-warmup" in routes or gov.unwarm_routed or gov.warmup_faults \
+            or st["buckets"]:
+        fail(f"routes {routes}, governor {st}")
+    if solver.counters["mid_traffic_compiles"]:
+        notes = [a for t in sched.recorder.traces() for a in t.annotations
+                 if a["kind"] == "compile"]
+        fail(f"{solver.counters['mid_traffic_compiles']} mid-traffic "
+             f"compiles on the card: {notes}")
+    router = router_status(sched)
+    for engine in ("device", "cpu"):
+        if len(sched._route_stats.get((engine, "fit"), ())) < 2:
+            fail(f"{engine} has fewer than 2 fit samples")
+    for name in PHASE_KERNELS[phase]:
+        if launches[name] <= 0:
+            fail(f"kernel {name} never launched")
+    if flip is None or not flip["inflight"] or flip["after"] \
+            or flip["admitted"] or flip["resident"]:
+        fail(f"the leader flip did not abandon a cycle in flight: {flip}")
+    twice = sorted(k for k, v in run.reserved.items() if v > 1)
+    if twice:
+        fail(f"admitted twice: {twice[:8]}")
+    traces = sched.recorder.traces()
+    want: dict = {}
+    for t in traces:
+        for ph, secs in t.phase_sums().items():
+            want[ph] = want.get(ph, 0.0) + secs
+    h = sched.metrics.cycle_phase_seconds
+    pi = h.label_names.index("phase")
+    got: dict = {}
+    for key, (_c, total, _n) in h.series.items():
+        got[key[pi]] = got.get(key[pi], 0.0) + total
+    if set(got) != set(want) or any(
+            abs(got[p] - want[p]) > 1e-9 * max(1.0, want[p]) for p in want):
+        fail(f"histograms {got} != traces {want}")
+    led = run.ledger
+    incomplete = [j.key for j in led.slowest()
+                  if not j.timeline_complete()[0]]
+    if led.journeys_completed != sum(run.reserved.values()) or incomplete:
+        fail(f"journeys {led.status()}, incomplete {incomplete[:8]}")
+    if not reads["reads"] or reads["errors"]:
+        fail(f"the reader read {reads['reads']} views, errors "
+             f"{reads['errors'][:4]}")
+    held = 1 if run.plane.status()["holds_snapshot_handout"] else 0
+    if run.cache.live_handouts != held:
+        fail(f"live_handouts {run.cache.live_handouts}, the plane holds "
+             f"{held}")
+    gate = sched.aging.gate()
+    if not gate["ok"]:
+        fail(f"aging {gate}")
+    run.plane.close()
+    admitted = set(run.admitted)
+    usage = run.close()
+    if FAULTS_R and (admitted != FAULTS_R["admitted"]
+                     or usage != FAULTS_R["usage"]):
+        fail(
+            f"another admitted set or usage per CQ than the faults phase's "
+            f"run R: {len(admitted)} admitted against "
+            f"{len(FAULTS_R['admitted'])}, only here "
+            f"{sorted(admitted - FAULTS_R['admitted'])[:6]}, only in R "
+            f"{sorted(FAULTS_R['admitted'] - admitted)[:6]}")
+    by_phase: dict = {}
+    for t in traces:
+        for ph, secs in t.phase_sums().items():
+            by_phase.setdefault(ph, []).append(secs * 1e3)
+    rates = {k: v["median_rate_per_s"] for k, v in router["regimes"].items()}
+    summary = {
+        "routes": routes,
+        "cycle_counts": dict(sched.cycle_counts),
+        "governor": {k: st[k] for k in (
+            "state", "source", "programs_warmed", "buckets",
+            "unwarm_routed_cycles", "warmup_faults")},
+        "median_admitted_per_s": rates,
+        "route_samples": {f"{e}/{r}": len(v) for (e, r), v in
+                          sched._route_stats.items()},
+        "trace_p50_ms": {ph: percentile(v, 50)
+                         for ph, v in sorted(by_phase.items())},
+        "flip": flip,
+        "reader": {"reads": reads["reads"],
+                   "views": len(reads["cycles"])},
+        "journeys": {k: led.status()[k] for k in (
+            "started", "completed", "requeues_per_admission",
+            "lru_evictions")},
+        "aging": gate["verdicts"],
+        "mid_traffic_compiles": solver.counters["mid_traffic_compiles"],
+        "admitted": len(run.reserved),
+        "steps": len(routes),
+        "launches": launches,
+    }
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[{phase}] {nvidia_smi()}; " + json.dumps(summary))
+    if failures:
+        raise AssertionError(f"{phase}: " + "; ".join(failures))
+    return summary
+
 
 def traced_cycle(phase: str, run_cycle, cycle: int,
                  kernel: str = None, kernels: tuple = None) -> dict:
@@ -4685,7 +5005,8 @@ def main() -> int:
                "scheduler_fair_preempt": scheduler_fair_preempt_phase,
                "scheduler_multikueue": scheduler_multikueue_phase,
                "scheduler_faults": scheduler_faults_phase,
-               "scheduler_pipelined": scheduler_pipelined_phase}
+               "scheduler_pipelined": scheduler_pipelined_phase,
+               "scheduler_observed": scheduler_observed_phase}
     e2e, full = {}, None
     for phase in PHASE_KERNELS:
         if phase == "scheduler_sharded":

@@ -16,13 +16,23 @@ order A, B, B, A so that a drift of the host cancels:
   process: each run's fill and trickle step p50, the p50 of its device
   collects' launch span read from the CUDA events recorded around the
   launches (the same measure on both arms), the router's p50, and the
-  admitted set, which must be the same.
+  admitted set, which must be the same;
+- the same synchronous Scheduler with the observability plane attached
+  as the JAX package's manager wires it ("observed":
+  chip_smoke.attach_observers: metrics, journeys, the aging watch, the
+  query plane; the flight recorder on), as it is made ("default": the
+  flight recorder on, no other observer) and with none of it ("bare":
+  the recorder disabled; each hook one is-None compare), on the fill
+  and trickle steps, in one process, in the order observed, default,
+  bare, bare, default, observed: each arm's fill and trickle step p50
+  and the admitted records, which must be the same.
 
 Prints one JSON line a run and, last, a JSON summary of the p50s; the
 children's logs and the summary go to chiprun_out/cycle_ab/.
 
     python3 cycle_ab.py                        # the Scheduler pairs
     python3 cycle_ab.py --parent _archive/parent
+    python3 cycle_ab.py --pairs obs            # the observer arms alone
 """
 
 from __future__ import annotations
@@ -139,6 +149,65 @@ def child_pipe(order: list) -> dict:
     return out
 
 
+def child_obs(order: list) -> dict:
+    """The synchronous Scheduler with every observer attached
+    ("observed"), as made ("default": its flight recorder on) and with
+    none ("bare"), on the fill and the trickle, each arm's line printed
+    as it ends."""
+    import gc
+
+    import chip_smoke as cs
+    import torch
+    device = torch.device(DEVICE)
+
+    class ObsRun(cs.FaultsRun):
+        def __init__(self, arm):
+            self.arm = arm
+            super().__init__(device, f"ab {arm}", cs.FAULTS_CLOCK_S)
+
+        def build_env(self, device):
+            from kueue_tpu_torch.sim import northstar as ns
+            from kueue_tpu_torch.solver import BatchSolver
+            flavors = [f"f{i}" for i in range(cs.NORTH_STAR["num_flavors"])]
+            env = ns.build_scheduler(cs.NORTH_STAR["num_cqs"],
+                                     cs.NORTH_STAR["num_cohorts"], flavors,
+                                     cs.NOMINAL_UNITS,
+                                     solver=BatchSolver(device=device))
+            sched, cache, queues, _client = env
+            if self.arm == "observed":
+                cs.attach_observers(sched, cache, queues)
+            elif self.arm == "bare":
+                sched.recorder.enabled = False
+            ns.stage_waves(queues, cs.E2E_WAVES, cs.NORTH_STAR["num_cqs"],
+                           cs.NOMINAL_UNITS)
+            return env
+
+    out, records = [], []
+    for arm in order:
+        gc.collect()
+        run = ObsRun(arm)
+        fill, trickle = [], []
+        for n in range(cs.E2E_WAVES + cs.FAULTS_TRICKLE):
+            row = run.step(n, quiet=True)
+            if row["route"] != "device" or row["new_faults"]:
+                raise AssertionError(f"{arm} step {n}: {row}")
+            if n >= 1:
+                (fill if n < cs.E2E_WAVES else trickle).append(row["wall_ms"])
+        traces = len(run.sched.recorder.traces())
+        records.append(run.records)
+        if run.sched.query_plane is not None:
+            run.sched.query_plane.close()
+        run.close()
+        out.append({"arm": arm, "fill_p50_ms": statistics.median(fill),
+                    "trickle_p50_ms": statistics.median(trickle),
+                    "traces": traces, "fill_ms": fill,
+                    "trickle_ms": trickle})
+        print("CYCLE_AB_ARM " + json.dumps(out[-1]), flush=True)
+    if any(r != records[0] for r in records):
+        raise AssertionError("the observer arms admitted differently")
+    return out
+
+
 def spawn(label: str, root: Path, args: list) -> dict:
     OUT.mkdir(parents=True, exist_ok=True)
     logf = OUT / f"{label}.log"
@@ -163,6 +232,9 @@ def spawn(label: str, root: Path, args: list) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="an earlier checkout to time against")
+    ap.add_argument("--pairs", default="sched,pipe,obs",
+                    help="the Scheduler comparisons to run (of sched, "
+                         "pipe, obs)")
     ap.add_argument("--child", nargs="+")
     ap.add_argument("--root")
     a = ap.parse_args()
@@ -170,7 +242,8 @@ def main() -> int:
         sys.path[0] = a.root
         children = {"e2e": lambda: child_e2e(),
                     "sched": lambda: child_sched(a.child[1].split(",")),
-                    "pipe": lambda: child_pipe(a.child[1].split(","))}
+                    "pipe": lambda: child_pipe(a.child[1].split(",")),
+                    "obs": lambda: child_obs(a.child[1].split(","))}
         result = children[a.child[0]]()
         print(TAG + json.dumps(result), flush=True)
         return 0
@@ -208,17 +281,29 @@ def main() -> int:
                            for k in E2E_KEYS}
                     for name in ("parent", "change")}
             for phase in E2E_PHASES}
-    sched = spawn("sched", ROOT, ["sched", "default,none,none,default"])
-    summary["sched"] = {
-        arm: {k: [o[k] for o in sched if o["arm"] == arm]
-              for k in ("fill_p50_ms", "trickle_p50_ms", "device_p50_ms")}
-        for arm in ("default", "none")}
-    pipe = spawn("pipe", ROOT, ["pipe", "pipelined,sync,sync,pipelined"])
-    summary["pipe"] = {
-        arm: {k: [o[k] for o in pipe if o["arm"] == arm]
-              for k in ("fill_p50_ms", "trickle_p50_ms",
-                        "device_events_p50_ms", "route_p50_ms", "admitted")}
-        for arm in ("pipelined", "sync")}
+    pairs = a.pairs.split(",")
+    if "sched" in pairs:
+        sched = spawn("sched", ROOT, ["sched", "default,none,none,default"])
+        summary["sched"] = {
+            arm: {k: [o[k] for o in sched if o["arm"] == arm]
+                  for k in ("fill_p50_ms", "trickle_p50_ms",
+                            "device_p50_ms")}
+            for arm in ("default", "none")}
+    if "pipe" in pairs:
+        pipe = spawn("pipe", ROOT, ["pipe", "pipelined,sync,sync,pipelined"])
+        summary["pipe"] = {
+            arm: {k: [o[k] for o in pipe if o["arm"] == arm]
+                  for k in ("fill_p50_ms", "trickle_p50_ms",
+                            "device_events_p50_ms", "route_p50_ms",
+                            "admitted")}
+            for arm in ("pipelined", "sync")}
+    if "obs" in pairs:
+        obs = spawn("obs", ROOT, [
+            "obs", "observed,default,bare,bare,default,observed"])
+        summary["obs"] = {
+            arm: {k: [o[k] for o in obs if o["arm"] == arm]
+                  for k in ("fill_p50_ms", "trickle_p50_ms", "traces")}
+            for arm in ("observed", "default", "bare")}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary), flush=True)
     return 0

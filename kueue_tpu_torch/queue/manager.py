@@ -8,9 +8,11 @@ reference's pkg/queue/manager.go:73-606:
 - cohort-wide inadmissible flush when usage changes
 - the workload delta feed that maintains the solver's encode arena
 
-Workloads are ordered by the default wlpkg.Ordering. Left out of this
-slice (the JAX package has them): the ordering parameter, the journey
-listeners of the observability layer, and the per-shard cq_filter.
+- the journey listeners of the observability layer (obs/journey.py)
+- the per-shard cq_filter on every heads pop
+
+Workloads are ordered by the default wlpkg.Ordering. Left out (the JAX
+package has it): the ordering parameter.
 """
 
 from __future__ import annotations
@@ -50,6 +52,11 @@ class Manager:
         # the registered listeners, so derived per-workload state is
         # maintained by deltas instead of rescanned per cycle.
         self._workload_listeners: list = []
+        # Info-carrying variant of the same feed (the journey ledger,
+        # obs/journey.py): cb(kind, key, info); the arrival hook needs the
+        # Info (creation timestamp, CQ), which the key-only arena feed
+        # omits (kueue_tpu/queue/manager.py:49-53).
+        self._journey_listeners: list = []
 
     def add_workload_listener(self, cb: Callable[[str, str], None]) -> None:
         """Register cb(kind, key): 'upsert' = the workload was added or
@@ -61,9 +68,19 @@ class Manager:
         with self._lock:
             self._workload_listeners.append(cb)
 
-    def _notify(self, kind: str, key: str) -> None:
+    def add_journey_listener(self, cb: Callable[[str, str, object], None]
+                             ) -> None:
+        """Like add_workload_listener, but cb(kind, key, info) carries
+        the Info (None when the mutator no longer holds it). Same
+        contract: fired under the manager lock, listeners only record."""
+        with self._lock:
+            self._journey_listeners.append(cb)
+
+    def _notify(self, kind: str, key: str, info=None) -> None:
         for cb in self._workload_listeners:
             cb(kind, key)
+        for cb in self._journey_listeners:
+            cb(kind, key, info)
 
     def _new_info(self, wl: api.Workload) -> wlpkg.Info:
         return wlpkg.Info(wl, excluded_resource_prefixes=self.excluded_resource_prefixes)
@@ -126,7 +143,7 @@ class Manager:
                 info = self._new_info(wl)
                 info.cluster_queue = items.cluster_queue
                 items.items[wlpkg.key(wl)] = info
-                self._notify("upsert", wlpkg.key(wl))
+                self._notify("upsert", wlpkg.key(wl), info)
             cqh = self.cluster_queues.get(items.cluster_queue)
             if cqh is not None:
                 added = False
@@ -153,7 +170,7 @@ class Manager:
             # the old CQ's row.
             for info in items.items.values():
                 info._solver_enc = None
-                self._notify("upsert", info.key)
+                self._notify("upsert", info.key, info)
             new_cq = self.cluster_queues.get(items.cluster_queue)
             if new_cq is not None:
                 added = False
@@ -172,7 +189,7 @@ class Manager:
             for info in items.items.values():
                 if cqh is not None:
                     cqh.delete(info.obj)
-                self._notify("del", info.key)
+                self._notify("del", info.key, info)
 
     # --- workload flow ---
 
@@ -187,7 +204,7 @@ class Manager:
         info = self._new_info(wl)
         info.cluster_queue = items.cluster_queue
         items.items[info.key] = info
-        self._notify("upsert", info.key)
+        self._notify("upsert", info.key, info)
         cqh = self.cluster_queues.get(items.cluster_queue)
         if cqh is None:
             return False
@@ -210,7 +227,7 @@ class Manager:
         if items is not None:
             info = items.items.pop(wlpkg.key(wl), None)
             if info is not None:
-                self._notify("del", wlpkg.key(wl))
+                self._notify("del", wlpkg.key(wl), info)
             cqh = self.cluster_queues.get(items.cluster_queue)
             if cqh is not None:
                 cqh.delete(wl)
@@ -283,26 +300,32 @@ class Manager:
 
     # --- heads (reference: manager.go:471-509) ---
 
-    def heads(self, timeout: Optional[float] = None) -> list:
+    def heads(self, timeout: Optional[float] = None,
+              cq_filter=None) -> list:
         """Block until any CQ has a head, then pop one head per CQ.
-        Returns [] when stopped (or on timeout if given)."""
+        Returns [] when stopped (or on timeout if given).
+        ``cq_filter(cq_name) -> bool`` restricts the pop to the CQs it
+        accepts (an admission shard's; kueue_tpu/queue/manager.py:
+        303-330)."""
         with self._cond:
             while not self._stopped:
-                h = self._heads_locked()
+                h = self._heads_locked(cq_filter)
                 if h:
                     return h
                 if not self._cond.wait(timeout=timeout):
                     return []
             return []
 
-    def heads_nonblocking(self) -> list:
+    def heads_nonblocking(self, cq_filter=None) -> list:
         with self._lock:
-            return self._heads_locked()
+            return self._heads_locked(cq_filter)
 
-    def _heads_locked(self) -> list:
+    def _heads_locked(self, cq_filter=None) -> list:
         out = []
         for cqh in self.cluster_queues.values():
             if not cqh.active:
+                continue
+            if cq_filter is not None and not cq_filter(cqh.name):
                 continue
             info = cqh.pop()
             if info is not None:

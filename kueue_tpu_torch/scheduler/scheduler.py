@@ -35,6 +35,52 @@ Phase A on the card once per lockstep round, against that same usage)
 and get one flavor assignment each at the counts found.
 Otherwise (route "cpu-forced") the CPU path runs the whole cycle.
 
+Routing (kueue_tpu/scheduler/scheduler.py:460-512, :1020-1071):
+`solver_routing` is "always" by default (the device route whenever the
+cycle is wide enough), "never" (the CPU path, "cpu-forced") or
+"adaptive": each cycle runs on the engine with the better median
+admitted/s over its last 8 samples for the predicted regime ("fit" or
+"preempt", the last cycle's), an engine with fewer than 2 samples
+first, the other one probed every 16 cycles of the regime (every 64
+when its rate is below a quarter of the best); an adaptive CPU cycle is
+"cpu". Degraded cycles and the intervention routes take no sample. The
+starvation bound: once a preempt-mode head has been blocked (no
+feasible targets) for `strict_after_blocked_cycles` observed cycles
+in a row (8 by default, 0 disables it), device-routed cycles run the
+CPU path as "cpu-strict" (full reference semantics: the blocked
+preemptor reserves before later heads admit) until it admits, turns
+infeasible or goes away; a cycle with no preempt-mode head keeps the
+evidence for a grace of the bound's length, then decays it by one a
+cycle (at once while the bound is engaged), and a plan the ladder
+deferred never counts. With a compile governor (`warm_gov`,
+solver/warmgov.py) a device cycle whose width bucket is not warm runs
+"cpu-warmup" and asks the governor to warm it; a solver on the card
+has nothing to warm, so its governor never diverts a cycle. The order
+of the gates: cpu-strict, cpu-survival, cpu-warmup, then the breaker
+(cpu-breaker), so that no other gate takes a half-open probe.
+
+The observability plane (obs/, metrics.py), as kueue_tpu/manager.py
+wires it: every cycle that pops heads leaves a CycleTrace in `recorder`
+(a FlightRecorder, made when none is given): route, regime, heads,
+admitted, evictions, faults, breaker, degraded rung, the transport
+deltas (upload and fetch bytes, dispatches, collects), the phase spans
+(the Scheduler's and, through `solver.bind_recorder`, the solver's) and
+the annotations (fault, breaker-closed, shed, degrade, preempt-plan,
+speculation-abort, pipeline-flush, the solver's compile). With
+`metrics` (a Registry) the cycle feeds the JAX Scheduler's metrics, the
+cycle_phase_seconds histograms from the trace's span sums. With
+`journeys` (a JourneyLedger on the Manager's journey listener) every
+admit, requeue, shed and preemption stamps its workload's journey, and
+the ledger is then the one producer of the wait-time histograms; with
+`aging` (an AgingWatch) the watch samples at every seal; with
+`query_plane` (a QueryPlane) every seal publishes a read view (the
+cycle's nominate order and, on a synchronous cycle, its snapshot
+handout, whose ownership passes to the plane: `cache.live_handouts`
+then counts what the plane holds). `leader_check` (a callable, None =
+standalone): a non-leader call abandons every in-flight cycle
+undecoded and returns SlowDown; `cq_filter` restricts every heads pop
+to the CQs it accepts; `admitted_total` counts the admissions.
+
 Device-fault containment (the port of kueue_tpu/resilience, as the JAX
 Scheduler wires it, kueue_tpu/scheduler/scheduler.py:1073-1193): a
 Scheduler has a CircuitBreaker (`breaker`), a DispatchWatchdog
@@ -80,20 +126,19 @@ Differences from the JAX Scheduler, on this synchronous path:
   predicted would not fit (with the device-NoFit shortcut's generic
   message), so the admissions are the same and some Pending messages
   are the per-flavor ones.
-- The collect deadline is the watchdog's over the solver's recent
-  launch-to-sync times; the JAX Scheduler reads its adaptive router's
-  samples first, which its "always" routing never takes.
 - A scrambled arena scatter is a counted fault here (the arena notes
   the injected scramble and collect raises InjectedFault); the JAX
   Scheduler's host router sends the heads the mangled rows deny to the
   CPU without a fault.
-- Not ported: adaptive routing (the route is the JAX Scheduler's
-  "always" one), the starvation bound ("cpu-strict"), the warm governor,
-  journeys, the flight recorder (and its fault, breaker, shed,
-  preempt-plan, speculation-abort and pipeline-flush annotations), the
-  query plane and the seal of the cycle's snapshot to it, aging,
-  metrics, leader_check, cq_filter, and the start/stop loop. At their
-  defaults each is a no-op on both paths.
+- The synchronous device cycle runs no fit router, so its trace has no
+  "route" span and the non-fit heads' "nominate" span comes after the
+  "fetch" and "decode" spans; the port's own intervals are dotted spans
+  (apply.device: the device admissions, which the JAX Scheduler times
+  in no span; preempt-plan.solve and preempt-plan.decode: K9/K11's
+  launch and their decode; fetch.device: the wait; nominate.partial).
+- Not ported yet: `fencing_check`'s setters, `standby_status`,
+  `shards_status`, `last_promotion` and the start/stop/_run loop; they
+  wait for the control plane (ROADMAP items 5 and 6).
 
 The speculative pipeline (kueue_tpu/scheduler/scheduler.py:1207-1876,
 kueue_tpu/scheduler/PIPELINE.md): with `pipeline_enabled` (off by
@@ -130,13 +175,8 @@ Differences from the JAX Scheduler on the pipelined path:
 - The started fetch is pinned copies and an event on the launches'
   stream, not a thread pool: an abandoned cycle's event is never waited
   on again, so nothing is orphaned (no _abandon_fetch).
-- A drained cycle is no routing sample (_drain_one records nothing; the
-  JAX Scheduler's _route_record takes none under "always" routing
-  either).
-- `last_route` names the pipelined cycle's shape, where the JAX
-  Scheduler's trace does; _abandon_pipeline has no caller yet (stop()
-  and leader_check are not ported), and the synchronous path does not
-  feed `_blocked_preempt_streak`, which nothing reads.
+- `last_route` names the pipelined cycle's shape, as the JAX
+  Scheduler's trace does.
 
 With a mesh solver (`BatchSolver(mesh=...)`, the sharded cycle of
 parallel/mesh.py) the Scheduler takes the JAX Scheduler's two mesh
@@ -158,8 +198,9 @@ continuing from the pinned rows' consumption.
 Each cycle's phase times (seconds) are in `last_phase_s`: heads,
 snapshot, nominate, preempt-plan, decode-targets, apply and requeue
 here, and on the device route the solver's own (encode, upload, device,
-fetch, decode, preempt) in `solver.last_phase_s`. The last device
-preemption solves' stats are in `last_preempt_plan`.
+fetch, decode, preempt) in `solver.last_phase_s`; the traces carry the
+same intervals as spans. The last device preemption solves' stats are
+in `last_preempt_plan`.
 """
 
 from __future__ import annotations
@@ -179,12 +220,17 @@ from kueue_tpu_torch.core import limitrange as limitrangepkg
 from kueue_tpu_torch.core import priority as prioritypkg
 from kueue_tpu_torch.core import workload as wlpkg
 from kueue_tpu_torch.core.resources import container_limits_violations
+from kueue_tpu_torch.obs.recorder import FlightRecorder
 from kueue_tpu_torch.queue import Manager, RequeueReason
 from kueue_tpu_torch.resilience import faultinject
 from kueue_tpu_torch.resilience.breaker import CLOSED, CircuitBreaker
 from kueue_tpu_torch.resilience.degrade import NORMAL, DegradationLadder
 from kueue_tpu_torch.resilience.faultinject import DeviceFault
-from kueue_tpu_torch.resilience.watchdog import DispatchWatchdog
+from kueue_tpu_torch.resilience.supervisor import SupervisedTimeout
+from kueue_tpu_torch.resilience.watchdog import (
+    DispatchTimeout,
+    DispatchWatchdog,
+)
 from kueue_tpu_torch.scheduler import flavorassigner as fa
 from kueue_tpu_torch.scheduler import stages
 from kueue_tpu_torch.scheduler.podset_reducer import PodSetReducer
@@ -204,6 +250,13 @@ NOT_NOMINATED = ""
 NOMINATED = "nominated"
 SKIPPED = "skipped"
 ASSUMED = "assumed"
+
+# The starvation bound's default (kueue_tpu/config.py:142).
+DEFAULT_STRICT_AFTER_BLOCKED_CYCLES = 8
+
+# Routes that are interventions, not engine choices: never a router
+# sample (kueue_tpu/scheduler/scheduler.py:1058-1071).
+ROUTABLE = ("device", "cpu")
 
 # the scheduler's own phases of a cycle, timed in last_phase_s
 CYCLE_PHASES = ("heads", "snapshot", "nominate", "preempt-plan",
@@ -264,13 +317,26 @@ class Scheduler:
                  fair_sharing_enabled: bool = False,
                  fs_preemption_strategies: Optional[list] = None,
                  clock: Clock = REAL_CLOCK,
-                 solver=None, solver_min_heads: int = 64):
+                 metrics=None,
+                 solver=None, solver_min_heads: int = 64,
+                 recorder: Optional[FlightRecorder] = None):
         self.queues = queues
         self.cache = cache
         self.client = client
         self.ordering = ordering or wlpkg.Ordering()
         self.fair_sharing_enabled = fair_sharing_enabled
         self.clock = clock
+        self.attempt_count = 0
+        # cumulative admissions of this scheduler's cycles
+        self.admitted_total = 0
+        # metrics.Registry, or None (kueue_tpu/scheduler/scheduler.py:126)
+        self.metrics = metrics
+        # The cycle flight recorder (obs/recorder.py): every schedule()
+        # that popped heads leaves a CycleTrace (route, regime, phase
+        # spans, annotations) in a bounded ring; the solver's phases land
+        # in the same trace.
+        self.recorder = recorder if recorder is not None \
+            else FlightRecorder()
         # Optional kueue_tpu_torch.solver.BatchSolver: the batched
         # fit-mode admission on the card, bound to this cache (resident
         # usage, reconciled through the usage journal) and these queues
@@ -280,11 +346,31 @@ class Scheduler:
         if solver is not None:
             solver.bind_cache(cache)
             solver.bind_queues(queues)
-        # Routing is the JAX Scheduler's "always" (adaptive routing is not
-        # ported): the device route whenever a solver is set and the
-        # cycle is wide enough. Below this head count the cycle runs on the CPU path even with
+            solver.bind_recorder(self.recorder)
+        # Below this head count the cycle runs on the CPU path even with
         # a solver (0 = always solve).
         self.solver_min_heads = solver_min_heads
+        # Routing (kueue_tpu/scheduler/scheduler.py:180-195): "always"
+        # pins the device route (the default), "never" the CPU, and
+        # "adaptive" runs each cycle on the engine with the better median
+        # admitted/s for its predicted regime ("fit" or "preempt"),
+        # exploring the other one every 16 cycles (64 when it loses by
+        # more than 4x). _route_stats: {(engine, regime): [(progress,
+        # seconds), ...]}, the last 8 samples.
+        self.solver_routing = "always"
+        self._route_stats: dict = {}
+        self._route_explore: dict = {"fit": 0, "preempt": 0}
+        # The starvation bound (kueue_tpu/scheduler/scheduler.py:208-221):
+        # once a preempt-mode head has been blocked (no feasible targets)
+        # for this many observed cycles in a row, device-routed cycles run
+        # the strict CPU path ("cpu-strict", full reference semantics:
+        # the blocked preemptor reserves before later heads admit) until
+        # it no longer blocks. 0 disables the bound.
+        self.strict_after_blocked_cycles = DEFAULT_STRICT_AFTER_BLOCKED_CYCLES
+        # The compile governor (solver/warmgov.py) when attached: a cycle
+        # whose width bucket has no warm programs runs "cpu-warmup" and
+        # the governor warms the bucket in the background.
+        self.warm_gov = None
         # The preemption work gate (kueue_tpu/scheduler/scheduler.py:
         # 401-410, ported with its constants): the device preemptor saves
         # about preempt_cand_us of CPU simulation per candidate, which
@@ -320,9 +406,34 @@ class Scheduler:
         self.on_fault: Optional[Callable[[str, str], None]] = None
         self.shed_heads_requeued = 0   # heads re-heaped by the cap (total)
         self.preempt_plans_deferred = 0  # deferred preempt plans (total)
-        # The cycle's snapshot handout between its take and its release,
+        self._cycle_degraded = NORMAL  # ladder state this cycle ran under
+        self._degrade_deferred = 0     # preempt plans deferred this cycle
+        self._drain_cost = 0.0  # pipeline-drain seconds within this cycle
+        # the solver's transport counters at the cycle's start
+        # (_io_counters): _finish_trace stamps the cycle's deltas
+        self._cycle_io0 = (0, 0, 0, 0)
+        # The cycle's snapshot handout between its take and its retire,
         # so that the next cycle releases one a raise left behind.
         self._cycle_snapshot = None
+        # The query plane (obs/queryplane.py) when attached: every cycle
+        # seal publishes a read view (the cycle's nominate order and, on
+        # a synchronous cycle, its snapshot handout, whose ownership
+        # passes to the plane instead of back to the cache).
+        self.query_plane = None
+        self._cycle_order: Optional[list] = None
+        self._seal_snapshot = None  # the handout awaiting the seal
+        # The journey ledger (obs/journey.py) and the aging watch
+        # (obs/trend.py) when attached; None costs one is-None compare at
+        # each site.
+        self.journeys = None
+        self.aging = None
+        # HA (kueue_tpu/scheduler/scheduler.py:335-337): only the leader
+        # runs cycles; a non-leader call abandons every in-flight cycle
+        # undecoded and returns SlowDown. None = standalone.
+        self.leader_check: Optional[Callable[[], bool]] = None
+        # cq_filter(cq name) -> bool, threaded into every heads() pop:
+        # the CQs an admission shard owns. None pops every CQ.
+        self.cq_filter: Optional[Callable[[str], bool]] = None
         self.last_phase_s = dict.fromkeys(CYCLE_PHASES, 0.0)
         self.preemptor = Preemptor(
             ordering=self.ordering,
@@ -362,11 +473,10 @@ class Scheduler:
         self._drained_admitted = None  # last _drain_pipeline's admissions
         self._last_cycle_admitted = 0
         self._cycle_evictions = 0  # evictions issued within this cycle
-        self._cycle_regime = "fit"  # regime of the cycle collected
-        self._last_regime = "fit"
-        # The starvation bound's feed (kueue_tpu/scheduler/scheduler.py:
-        # 192-205), kept by the pipelined preemption collect. Nothing
-        # reads them yet: the bound ("cpu-strict") is not ported.
+        self._cycle_regime = "fit"  # observed regime of the cycle run
+        self._last_regime = "fit"   # sticky regime predictor
+        # the starvation bound's feed: consecutive blocked cycles, and
+        # consecutive cycles without a preempt-mode head
         self._blocked_preempt_streak = 0
         self._preemptless_cycles = 0
         # fencing_check() -> bool: False aborts an in-flight speculation
@@ -378,35 +488,64 @@ class Scheduler:
     # --- the cycle ---
 
     def schedule(self, timeout: Optional[float] = None) -> SpeedSignal:
+        if self.leader_check is not None and not self.leader_check():
+            # A non-leader: an in-flight cycle is abandoned, not drained
+            # (the new leader may admit the same heads).
+            if self._inflight is not None:
+                self._abandon_pipeline()
+            return SlowDown
+        self.attempt_count += 1
         self.last_phase_s = dict.fromkeys(CYCLE_PHASES, 0.0)
         if self.solver is not None:
             # Solvers attached after construction still get the
-            # journal-backed resident state and the encode arena.
+            # journal-backed resident state, the encode arena and the
+            # recorder.
             if not self.solver.resident_capable:
                 self.solver.bind_cache(self.cache)
             self.solver.bind_queues(self.queues)
+            if self.solver._recorder is not self.recorder:
+                self.solver.bind_recorder(self.recorder)
         t_ph = _time.perf_counter()
-        heads = self.queues.heads(timeout=timeout)
+        heads = self.queues.heads(timeout=timeout, cq_filter=self.cq_filter)
         self._span("heads", t_ph)
         if not heads:
             if self._inflight is not None:
-                # The headless drain: no heads, a cycle in flight.
+                # The headless drain: no heads, a cycle in flight. Traced
+                # under its own route, with heads=0 (the drained cycle's
+                # heads were counted by the cycle that dispatched them).
+                trace = self.recorder.begin_cycle(self.attempt_count)
+                self._journey_begin_cycle("drain")
                 self._cycle_evictions = 0
                 self._cycle_faults = 0
-                self._release_cycle_snapshot()
-                return self._drain_pipeline()
+                self._cycle_io0 = self._io_counters()
+                self._cycle_order = None
+                self._flush_seal_snapshot()
+                self._cycle_degraded = self.ladder.state
+                sig = self._drain_pipeline()
+                self.last_route = "drain"
+                self._finish_trace(trace, "drain", heads=0,
+                                   admitted=self._drained_admitted)
+                return sig
             self._observe_idle()
             return KeepGoing
+        start = self.clock.now()
         wall0 = _time.perf_counter()
+        trace = self.recorder.begin_cycle(self.attempt_count)
+        self._journey_begin_cycle()
+        self._drain_cost = 0.0
         self._cycle_faults = 0
         self._cycle_evictions = 0
-        # Only the synchronous cycle's handout is held there; an
-        # in-flight cycle's light snapshot is never released and its
+        self._cycle_io0 = self._io_counters()
+        self._cycle_order = None
+        # A handout a raise left behind (the previous cycle's), released;
+        # an in-flight cycle's light snapshot is never released and its
         # pipelined preemption snapshot is released by its collect.
-        self._release_cycle_snapshot()
+        self._flush_seal_snapshot()
+        self._degrade_deferred = 0
         # The ladder moves only at the cycle's end (_observe_budget):
         # shed and survival cap the heads now, the extras re-heap
         # untouched.
+        self._cycle_degraded = self.ladder.state
         heads_popped = len(heads)
         cap = self.ladder.head_cap()
         if cap is not None and len(heads) > cap:
@@ -414,24 +553,52 @@ class Scheduler:
         collects0 = (self.solver.counters["collects"]
                      if self.solver is not None else 0)
         route = self._route_mode(heads)
-        if route == "device" and self.ladder.pin_cpu:
-            # survival: the cycle is pinned to the CPU, consulted before
-            # the breaker so that it never takes a half-open probe
+        if (route == "device" and self.strict_after_blocked_cycles
+                and self._blocked_preempt_streak
+                >= self.strict_after_blocked_cycles):
+            # The starvation bound is engaged: the strict CPU path, until
+            # the blocked preemptor admits, turns infeasible or goes away
+            # (a fairness intervention, never a router sample).
+            route = "cpu-strict"
+        if route in ROUTABLE and self.ladder.pin_cpu:
+            # survival: the cycle is pinned to the CPU (an adaptive "cpu"
+            # choice too), consulted before the breaker so that it never
+            # takes a half-open probe
             route = "cpu-survival"
+        if route == "device" and self.warm_gov is not None \
+                and not self.warm_gov.route_ready(len(heads)):
+            # The compile governor: this width's bucket is not warm. The
+            # CPU path runs the cycle and the governor warms the bucket in
+            # the background; consulted before the breaker, so that it
+            # never takes a half-open probe.
+            self.warm_gov.request(len(heads))
+            route = "cpu-warmup"
         if route == "device" \
                 and not self.breaker.allow_device(self.clock.now()):
             route = "cpu-breaker"
+        if self.journeys is not None:
+            self.journeys.set_route(route)
         # The cooldown elapses per schedule() call, not per device cycle.
         cooling = self._pipeline_cooldown > 0
         if cooling:
             self._pipeline_cooldown -= 1
         if route == "device" and not cooling and self._pipeline_ok(heads):
-            signal = self._schedule_pipelined(heads)
+            signal = self._schedule_pipelined(heads, start)
             if signal is not None:
+                # the sample lands under the regime of the collected cycle
+                progress = (None if self._last_cycle_admitted is None
+                            else self._last_cycle_admitted
+                            + self._cycle_evictions)
+                self._route_record("device", progress,
+                                   _time.perf_counter() - wall0
+                                   - self._drain_cost)
                 self.last_route = self._pipeline_trace_route
                 self._note_device_cycle(collects0)
                 self._observe_budget(_time.perf_counter() - wall0,
                                      heads_popped, self._last_cycle_admitted)
+                self._finish_trace(trace, self._pipeline_trace_route,
+                                   heads=len(heads),
+                                   admitted=self._last_cycle_admitted)
                 return signal
             # Not applicable this cycle: the synchronous path below, with
             # a fresh full snapshot (the pipelined attempt's light one
@@ -449,45 +616,211 @@ class Scheduler:
         nom = self._stage_nominate(heads, snapshot, route, timeout)
         self._stage_apply(nom, timeout)
         applied = self._stage_requeue(nom)
+        if self.query_plane is not None:
+            # the order the apply stage consumed: the solver-routed
+            # entries, then the admission-sorted CPU ones
+            self._cycle_order = [e.info.key for e in nom.entries]
+        # The observed regime feeds the router, and predicts the next
+        # cycle's.
+        regime = applied.regime
+        self._cycle_regime = regime
+        self._last_regime = regime
+        self._feed_starvation_bound(applied.blocked_preemptor, regime)
         self.cycle_counts[route] = self.cycle_counts.get(route, 0) + 1
         self.last_route = route
         if route == "device":
             self._note_device_cycle(collects0)
         self._retire_cycle_snapshot(snapshot)
+        if route in ROUTABLE:
+            # progress = admissions + evictions: a cycle that only evicts
+            # admits nothing on either engine
+            self._route_record(route, applied.admitted
+                               + self._cycle_evictions,
+                               _time.perf_counter() - wall0
+                               - self._drain_cost)
+        if self.metrics is not None:
+            self.metrics.admission_attempt(applied.success,
+                                           self.clock.now() - start)
+            for cq_name, count in nom.skipped_preemptions.items():
+                self.metrics.preemption_skips(cq_name, count)
         self._observe_budget(_time.perf_counter() - wall0, heads_popped,
                              applied.admitted)
+        self._finish_trace(trace, route, heads=len(nom.entries),
+                           admitted=applied.admitted)
         return KeepGoing if applied.success else SlowDown
 
-    def _span(self, name: str, t0: float) -> float:
-        """Add the seconds since t0 to phase `name`; returns now."""
+    def _feed_starvation_bound(self, blocked: bool, regime: str) -> None:
+        """The streak and its decay (kueue_tpu/scheduler/scheduler.py:
+        585-622). A preempt-mode entry is blocked only when it found no
+        feasible targets; one that selected targets is progressing. A
+        cycle with no preempt-mode entry keeps the evidence through a
+        grace of `strict_after_blocked_cycles` cycles (a parked
+        preemptor re-heaps between capacity releases), then decays it by
+        one a cycle; while the bound is engaged the decay is immediate.
+        A deferred preempt plan (shed) looks blocked but is not."""
+        if self._degrade_deferred:
+            blocked = False
+        if blocked:
+            self._blocked_preempt_streak += 1
+            self._preemptless_cycles = 0
+        elif regime == "preempt":
+            self._blocked_preempt_streak = 0  # preemptors made progress
+            self._preemptless_cycles = 0
+        elif self._blocked_preempt_streak > 0:
+            self._preemptless_cycles += 1
+            bound = self.strict_after_blocked_cycles
+            engaged = bound and self._blocked_preempt_streak >= bound
+            if engaged or self._preemptless_cycles > max(bound, 1):
+                self._blocked_preempt_streak -= 1
+
+    def _span(self, name: str, t0: float, trace_name: str = "") -> float:
+        """Add the seconds since t0 to phase `name` of last_phase_s and
+        record the span in the open trace, under `trace_name` when the
+        JAX Scheduler has no such span (a dotted name, nested under its
+        prefix). Returns now."""
         now = _time.perf_counter()
         self.last_phase_s[name] = self.last_phase_s.get(name, 0.0) + now - t0
+        self.recorder.span(trace_name or name, t0, now - t0)
         return now
 
     def _route_mode(self, heads: list) -> str:
-        """"device" (the solve stage) or "cpu-forced" (no solver, or a
-        cycle narrower than solver_min_heads)."""
-        if self.solver is None or len(heads) < self.solver_min_heads:
+        """Which engine runs this cycle (kueue_tpu/scheduler/scheduler.py:
+        1020-1056): "device" (the solve stage, pipelined or not), "cpu"
+        (adaptive routing chose the CPU path) or "cpu-forced" (no solver,
+        a cycle narrower than solver_min_heads, or routing "never").
+
+        Adaptive routing keys the choice by the predicted regime (the
+        last observed one): an engine with fewer than 2 samples in it is
+        taken first; then the better median per-sample rate, with the
+        other engine probed every 16 cycles of the regime, or every 64
+        when its rate is below a quarter of the best."""
+        if self.solver is None or len(heads) < self.solver_min_heads \
+                or self.solver_routing == "never":
             return "cpu-forced"
-        return "device"
+        if self.solver_routing != "adaptive":
+            return "device"
+        regime = self._last_regime
+        rates = {}
+        for m in ROUTABLE:
+            samples = self._route_stats.get((m, regime), ())
+            if len(samples) < 2:
+                return m
+            rs = sorted(a / max(t, 1e-9) for a, t in samples)
+            rates[m] = rs[len(rs) // 2]
+        best = "device" if rates["device"] >= rates["cpu"] else "cpu"
+        loser = "cpu" if best == "device" else "device"
+        self._route_explore[regime] += 1
+        period = 16 if rates[loser] * 4 >= rates[best] else 64
+        if self._route_explore[regime] % period == 0:
+            return loser
+        return best
+
+    def _route_record(self, mode: str, admitted, secs: float) -> None:
+        """One routing sample (progress, seconds) under (engine, the
+        cycle's regime), the last 8 kept; none unless routing is
+        adaptive, none for an intervention route or a degraded cycle
+        (kueue_tpu/scheduler/scheduler.py:1058-1071)."""
+        if self.solver_routing != "adaptive" or admitted is None \
+                or mode not in ROUTABLE:
+            return
+        if self._cycle_degraded != NORMAL:
+            return
+        lst = self._route_stats.setdefault((mode, self._cycle_regime), [])
+        lst.append((admitted, secs))
+        if len(lst) > 8:
+            lst.pop(0)
+
+    # --- the flight recorder, metrics and the seal (obs/) ---
+
+    def _io_counters(self) -> tuple:
+        """(upload_bytes, fetch_bytes, dispatches, collects) from the
+        solver's counters: the cycle's baseline for _finish_trace."""
+        if self.solver is None:
+            return (0, 0, 0, 0)
+        c = self.solver.counters
+        return (c["upload_bytes"], c["fetch_bytes"], c["dispatches"],
+                c["collects"])
+
+    def _journey_begin_cycle(self, route: str = "") -> None:
+        """The journey ledger's cycle context (attempt id and the cache's
+        structural generation token), so that every span of the cycle is
+        tagged; one is-None compare without a ledger."""
+        led = self.journeys
+        if led is None:
+            return
+        led.begin_cycle(self.attempt_count, self.cache.generation_token())
+        if route:
+            led.set_route(route)
+
+    def _finish_trace(self, trace, route: str, heads: int,
+                      admitted: Optional[int]) -> None:
+        """Seal the cycle (kueue_tpu/scheduler/scheduler.py:861-901): the
+        breaker and ladder gauges, the trace's fields and transport
+        deltas, the cycle_phase_seconds histograms fed from the trace's
+        span sums, then the query plane's publish, the journey ledger's
+        seal and the aging watch's sample."""
+        if self.metrics is not None:
+            self.metrics.set_breaker_state(self.breaker.state)
+            self.metrics.set_degraded_state(self.ladder.state)
+        if trace is not None:
+            trace.route = route
+            trace.regime = self._cycle_regime
+            trace.heads = heads
+            trace.admitted = admitted
+            trace.evictions = self._cycle_evictions
+            trace.faults = self._cycle_faults
+            trace.breaker = self.breaker.state
+            trace.degraded = self._cycle_degraded
+            io = self._io_counters()
+            base = self._cycle_io0
+            trace.upload_bytes = io[0] - base[0]
+            trace.fetch_bytes = io[1] - base[1]
+            trace.dispatches = io[2] - base[2]
+            trace.collects = io[3] - base[3]
+            self.recorder.finish(trace)
+            if self.metrics is not None:
+                self.metrics.cycle_observed(route, heads, trace.phase_sums())
+        self._publish_query_plane(route)
+        if self.journeys is not None:
+            self.journeys.seal_cycle()
+        if self.aging is not None:
+            self.aging.sample()
 
     # --- the cycle's snapshot handout ---
 
-    def _release_cycle_snapshot(self) -> None:
-        """A cycle snapshot still held here means the previous cycle
-        raised between its take and its release: release it now
-        (kueue_tpu/scheduler/scheduler.py:903-917)."""
+    def _flush_seal_snapshot(self) -> None:
+        """Release a handout parked for a seal that never happened, and
+        a cycle snapshot still tracked between take and retire: the
+        previous cycle raised in between (kueue_tpu/scheduler/
+        scheduler.py:903-917)."""
+        snap, self._seal_snapshot = self._seal_snapshot, None
+        if snap is not None:
+            self.cache.release_snapshot(snap)
         snap, self._cycle_snapshot = self._cycle_snapshot, None
         if snap is not None:
             self.cache.release_snapshot(snap)
 
     def _retire_cycle_snapshot(self, snapshot: Snapshot) -> None:
-        """The cycle is done with its snapshot handout: back to the
-        maintainer, which may recycle its untouched shells into the next
-        handout (kueue_tpu/scheduler/scheduler.py:919-933; without a
-        query plane, which the port does not have yet)."""
+        """The synchronous cycle is done with its handout
+        (kueue_tpu/scheduler/scheduler.py:919-931): without a query plane
+        it goes back to the cache, which may recycle its untouched shells;
+        with one, it passes to the plane at the seal and stays counted in
+        cache.live_handouts while the plane holds it."""
         self._cycle_snapshot = None
-        self.cache.release_snapshot(snapshot)
+        if self.query_plane is None:
+            self.cache.release_snapshot(snapshot)
+        else:
+            self._seal_snapshot = snapshot
+
+    def _publish_query_plane(self, route: str) -> None:
+        qp = self.query_plane
+        snap, self._seal_snapshot = self._seal_snapshot, None
+        order, self._cycle_order = self._cycle_order, None
+        if qp is None:
+            if snap is not None:  # the plane detached mid-cycle
+                self.cache.release_snapshot(snap)
+            return
+        qp.publish(self.attempt_count, route, order, snapshot=snap)
 
     # --- the cycle deadline budget (resilience/degrade.py) ---
 
@@ -502,9 +835,15 @@ class Scheduler:
             self.ordering.queue_order_timestamp(w.obj)))
         keep, extra = heads[:cap], heads[cap:]
         for w in extra:
+            if self.journeys is not None:
+                self.journeys.shed(w)
             self.queues.requeue_workload(
                 w, RequeueReason.FAILED_AFTER_NOMINATION)
         self.shed_heads_requeued += len(extra)
+        self.recorder.annotate(
+            "shed", f"head cap {self._cycle_degraded}: kept {cap} of "
+                    f"{cap + len(extra)} heads",
+            state=self._cycle_degraded, kept=cap, requeued=len(extra))
         return keep
 
     def _defer_preempt_plans(self, entries: list) -> None:
@@ -517,26 +856,35 @@ class Scheduler:
                 e.inadmissible_msg = ("Preemption planning deferred "
                                       "(load shedding)")
                 e.requeue_reason = RequeueReason.FAILED_AFTER_NOMINATION
+                self._degrade_deferred += 1
                 self.preempt_plans_deferred += 1
 
     def _observe_budget(self, duration_s: float, heads: int,
-                        admitted: int) -> None:
+                        admitted: Optional[int]) -> None:
         """Feed the cycle's wall seconds and its backlog pressure (heads
-        popped minus admissions) to the ladder; a move is reported to
-        on_fault."""
+        popped minus admissions) to the ladder; a move is annotated on
+        the still-open trace and reported to on_fault
+        (kueue_tpu/scheduler/scheduler.py:986-1016)."""
         lad = self.ladder
         if not lad.enabled:
             return
+        if self._cycle_degraded != NORMAL and self.metrics is not None:
+            self.metrics.cycle_shed(self._cycle_degraded)
         prev = lad.state
         backlog = heads - (admitted or 0)
         if not lad.observe_cycle(duration_s, backlog=backlog):
             return
+        msg = (f"degraded-mode {prev}->{lad.state}: cycle ewma "
+               f"{(lad.ewma_s or 0) * 1e3:.1f}ms vs budget "
+               f"{lad.budget_s * 1e3:.1f}ms, backlog {backlog}")
+        self.recorder.annotate("degrade", msg, state=lad.state,
+                               previous=prev,
+                               ewma_ms=round((lad.ewma_s or 0) * 1e3, 3),
+                               budget_ms=round(lad.budget_s * 1e3, 3))
         if self.on_fault is not None:
             self.on_fault(
                 "degrade-recovered" if lad.state == NORMAL else "degrade",
-                f"degraded-mode {prev}->{lad.state}: cycle ewma "
-                f"{(lad.ewma_s or 0) * 1e3:.1f}ms vs budget "
-                f"{lad.budget_s * 1e3:.1f}ms, backlog {backlog}")
+                msg)
 
     def _observe_idle(self) -> None:
         """An idle tick (no heads): the ladder counts it as healthy."""
@@ -544,10 +892,15 @@ class Scheduler:
         if not lad.enabled or lad.state == NORMAL:
             return
         prev = lad.state
-        if lad.observe_idle() and self.on_fault is not None:
+        if not lad.observe_idle():
+            return
+        if self.metrics is not None:
+            self.metrics.set_degraded_state(lad.state)
+        if self.on_fault is not None:
             self.on_fault(
                 "degrade-recovered" if lad.state == NORMAL else "degrade",
-                f"degraded-mode {prev}->{lad.state}: idle")
+                f"degraded-mode {prev}->{lad.state}: queue idle for "
+                f"{lad.recovery_cycles} scheduler tick(s)")
 
     # --- device-fault containment (resilience/) ---
 
@@ -563,6 +916,18 @@ class Scheduler:
         self.solver_faults += 1
         self._cycle_faults += 1
         tripped = self.breaker.record_fault(self.clock.now())
+        # exactly one of the two timeout counters per timeout: the
+        # supervised dispatch's, or the collect watchdog's
+        supervised = isinstance(exc, SupervisedTimeout)
+        timeout = isinstance(exc, DispatchTimeout) and not supervised
+        self.recorder.annotate(
+            "fault", f"{where}: {exc!r}"[:200], site=where,
+            timeout=timeout, tripped=tripped,
+            supervised=supervised, breaker=self.breaker.state,
+            consecutive=self.breaker.consecutive_faults)
+        if self.metrics is not None:
+            self.metrics.device_fault(where, timeout=timeout,
+                                      tripped=tripped, supervised=supervised)
         if self.on_fault is not None:
             self.on_fault("fault", f"{where}: {exc}")
             if tripped:
@@ -587,20 +952,37 @@ class Scheduler:
         if self.solver.counters["collects"] <= collects_before:
             self.breaker.probe_inconclusive(self.clock.now())
             return
-        if self.breaker.record_success(self.clock.now()) \
-                and self.on_fault is not None:
-            self.on_fault("breaker-closed",
-                          f"device route restored after "
-                          f"{self.breaker.last_recovery_cycles} cycle(s)")
+        if not self.breaker.record_success(self.clock.now()):
+            return
+        msg = (f"device route restored after "
+               f"{self.breaker.last_recovery_cycles} cycle(s)")
+        self.recorder.annotate(
+            "breaker-closed", msg,
+            recovery_cycles=self.breaker.last_recovery_cycles)
+        if self.metrics is not None:
+            self.metrics.fault_recovered(self.breaker.last_recovery_cycles)
+        if self.on_fault is not None:
+            self.on_fault("breaker-closed", msg)
 
     def _dispatch_deadline(self) -> Optional[float]:
-        """The collect's deadline: the watchdog's over the largest of
-        the solver's recent launch-to-sync times (its cold clamp before
-        any); None without a watchdog."""
+        """The collect's deadline (kueue_tpu/scheduler/scheduler.py:
+        1160-1182): the watchdog's over the median device cycle seconds
+        of the router's samples for the predicted regime (or "fit"),
+        else over the largest of the solver's recent launch-to-sync
+        times (its cold clamp before any); None without a watchdog."""
         if self.watchdog is None:
             return None
-        sync = self.solver._sync_samples
-        return self.watchdog.deadline_s(max(sync) / 1e3 if sync else None)
+        est = None
+        samples = (self._route_stats.get(("device", self._last_regime))
+                   or self._route_stats.get(("device", "fit")))
+        if samples:
+            secs = sorted(t for _a, t in samples)
+            est = secs[len(secs) // 2]
+        else:
+            sync = self.solver._sync_samples
+            if sync:
+                est = max(sync) / 1e3
+        return self.watchdog.deadline_s(est)
 
     def _supervise_deadline(self) -> Optional[float]:
         """The supervised dispatch's deadline: the watchdog's cold clamp
@@ -646,7 +1028,8 @@ class Scheduler:
                 and len(heads) >= self.solver_min_heads
                 and not self.queues.any_strict_fifo())
 
-    def _schedule_pipelined(self, heads: list) -> Optional[SpeedSignal]:
+    def _schedule_pipelined(self, heads: list,
+                            start) -> Optional[SpeedSignal]:
         """Dispatch this cycle and process the oldest in-flight one
         (kueue_tpu/scheduler/scheduler.py:1234-1432). Returns None to
         fall back to the synchronous path (any in-flight cycle drained
@@ -802,14 +1185,14 @@ class Scheduler:
             return KeepGoing  # results a call later
         signal = KeepGoing
         while len(self._inflight_q) > depth:
-            signal = self._process_inflight(self._inflight_q.popleft())
+            signal = self._process_inflight(self._inflight_q.popleft(), start)
         return signal
 
     def _abandon_pipeline(self) -> None:
         """Drop every in-flight cycle without applying its decisions
-        (kueue_tpu/scheduler/scheduler.py:1434-1444: leadership lost,
-        shutdown): requeue their heads and drop the resident state. Its
-        callers there, stop() and leader_check, are not ported yet."""
+        (kueue_tpu/scheduler/scheduler.py:1434-1444: leadership lost):
+        requeue their heads and drop the resident state (it holds
+        admissions that will never be confirmed)."""
         if not self._inflight_q:
             return
         while self._inflight_q:
@@ -826,16 +1209,27 @@ class Scheduler:
         for i, w in enumerate(prev.inflight.plan.batch.infos):
             if i in prev.nofit_idx:
                 continue
+            if self.journeys is not None:
+                self.journeys.requeued(
+                    w, NOMINATED, RequeueReason.FAILED_AFTER_NOMINATION,
+                    "in-flight speculative cycle abandoned")
             self.queues.requeue_workload(
                 w, RequeueReason.FAILED_AFTER_NOMINATION)
 
-    def _flush_inflight_queue(self) -> None:
+    def _flush_inflight_queue(self, why: str) -> None:
         """Discard every still-queued cycle undecoded (a device fault on
         an older chained cycle): not speculation aborts, nothing about
-        their state was proven stale (the JAX package's also annotates
-        its flight recorder, "pipeline-flush")."""
+        their state was proven stale; annotated "pipeline-flush"."""
+        if not self._inflight_q:
+            return
+        flushed = 0
         while self._inflight_q:
             self._requeue_inflight(self._inflight_q.popleft())
+            flushed += 1
+        self.recorder.annotate(
+            "pipeline-flush",
+            f"{flushed} chained in-flight cycle(s) discarded: {why}",
+            reason=why, flushed=flushed)
 
     def _prepare_pipelined_preempt(self, plan, pend_ws: list):
         """Nominate the predicted-non-fit, preempt-capable heads against a
@@ -908,21 +1302,26 @@ class Scheduler:
 
     def _drain_one(self, prev: stages.InFlightCycle, sample: bool) -> tuple:
         """Process one in-flight cycle; returns (signal, admitted or
-        None). With `sample` the JAX Scheduler records the drained cycle
-        as a device sample for its adaptive router and keeps its time
-        and evictions out of the enclosing cycle's sample; routing here
-        is its "always" route, so nothing is recorded: the drained
-        evictions and admissions are only kept out of the enclosing
-        cycle's counts (kueue_tpu/scheduler/scheduler.py:1557-1579)."""
+        None). With `sample` the drained cycle is a device routing sample
+        (even when the draining cycle runs on the CPU), and its time and
+        evictions are kept out of the enclosing cycle's own sample
+        (kueue_tpu/scheduler/scheduler.py:1557-1579)."""
+        t0 = _time.perf_counter()
         ev0 = self._cycle_evictions
-        sig = self._process_inflight(prev)
+        sig = self._process_inflight(prev, self.clock.now())
         admitted = self._last_cycle_admitted
         if sample:
+            dt = _time.perf_counter() - t0
+            drained_ev = self._cycle_evictions - ev0
             self._cycle_evictions = ev0
+            self._drain_cost += dt
+            if admitted is not None:
+                self._route_record("device", admitted + drained_ev, dt)
             self._last_cycle_admitted = None  # consumed
         return sig, admitted
 
-    def _process_inflight(self, prev: stages.InFlightCycle) -> SpeedSignal:
+    def _process_inflight(self, prev: stages.InFlightCycle,
+                          start) -> SpeedSignal:
         """Validate, collect, decode and apply one in-flight cycle
         (kueue_tpu/scheduler/scheduler.py:1581-1698)."""
         inflight, snapshot = prev.inflight, prev.snapshot
@@ -942,12 +1341,14 @@ class Scheduler:
             # chained on the dropped resident state is flushed.
             self._solver_fault("collect", exc)
             self._requeue_inflight(prev)
-            self._flush_inflight_queue()
+            self._flush_inflight_queue("collect-fault")
             self._pipeline_cooldown = 1
             self._last_cycle_admitted = None
             return SlowDown
         if prev.token is not None:
             self.speculation_hits += 1
+            if self.metrics is not None:
+                self.metrics.speculation_hit()
         entries = []
         any_nonfit = False
         t_ph = _time.perf_counter()
@@ -994,6 +1395,9 @@ class Scheduler:
         else:
             self._cycle_regime = "fit"
         self._last_regime = self._cycle_regime
+        if self.query_plane is not None:
+            # the collected cycle's processing order
+            self._cycle_order = [e.info.key for e in entries]
         result_success = False
         admitted_n = 0
         t_ph = _time.perf_counter()
@@ -1004,10 +1408,14 @@ class Scheduler:
                 result_success = True
                 admitted_n += 1
                 self.solver.release_workload(e.info.key)
+        self.admitted_total += admitted_n
         self._span("requeue", t_ph)
         self._last_cycle_admitted = admitted_n
         self.cycle_counts["device-pipelined"] = \
             self.cycle_counts.get("device-pipelined", 0) + 1
+        if self.metrics is not None:
+            self.metrics.admission_attempt(result_success,
+                                           self.clock.now() - start)
         return KeepGoing if result_success else SlowDown
 
     def _validate_speculation(self, prev: stages.InFlightCycle) -> tuple:
@@ -1038,12 +1446,20 @@ class Scheduler:
         self.speculation_aborts += 1
         self.speculation_abort_reasons[reason] = \
             self.speculation_abort_reasons.get(reason, 0) + 1
+        self.recorder.annotate(
+            "speculation-abort",
+            f"speculative result abandoned: {reason}", reason=reason,
+            aborts=self.speculation_aborts)
+        if self.metrics is not None:
+            self.metrics.speculation_abort(reason)
         self._requeue_inflight(prev)
         while self._inflight_q:
             chained = self._inflight_q.popleft()
             self.speculation_aborts += 1
             self.speculation_abort_reasons["chained"] = \
                 self.speculation_abort_reasons.get("chained", 0) + 1
+            if self.metrics is not None:
+                self.metrics.speculation_abort("chained")
             self._requeue_inflight(chained)
         self._solver_invalidate()
         self._pipeline_cooldown = 1
@@ -1155,6 +1571,7 @@ class Scheduler:
         snapshot = nom.snapshot
         t_ph = _time.perf_counter()
         preempted_workloads: set = set()
+        skipped_preemptions = nom.skipped_preemptions
         for e in nom.entries:
             mode = e.assignment.representative_mode()
             if mode == fa.NO_FIT:
@@ -1171,12 +1588,17 @@ class Scheduler:
             if pending & preempted_workloads:
                 self._set_skipped(e, "Workload has overlapping preemption "
                                      "targets with another workload")
+                skipped_preemptions[cq.name] = \
+                    skipped_preemptions.get(cq.name, 0) + 1
                 continue
 
             usage = e.net_usage()
             if not cq.fits(usage):
                 self._set_skipped(e, "Workload no longer fits after "
                                      "processing another workload")
+                if mode == fa.PREEMPT:
+                    skipped_preemptions[cq.name] = \
+                        skipped_preemptions.get(cq.name, 0) + 1
                 continue
             preempted_workloads.update(pending)
             cq.add_usage(usage)
@@ -1187,6 +1609,7 @@ class Scheduler:
                     e.info.last_assignment = None
                     preempted = self.preemptor.issue_preemptions(
                         e.info, e.preemption_targets)
+                    self._cycle_evictions += preempted
                     if preempted:
                         e.inadmissible_msg += (f". Pending the preemption of "
                                                f"{preempted} workload(s)")
@@ -1207,7 +1630,9 @@ class Scheduler:
     def _stage_requeue(self, nom: stages.NominatedCycle) -> stages.AppliedCycle:
         """Requeue sweep closing the apply stage: re-heap every
         non-admitted entry (solver-routed entries rejoin here), count
-        admissions, release the admitted heads' encode-arena slots."""
+        admissions, release the admitted heads' encode-arena slots, and
+        report the observed regime and whether a preempt-mode entry was
+        blocked (no feasible targets), the starvation bound's evidence."""
         entries = nom.solver_entries + nom.entries
         nom.entries = entries
         admitted_n = 0
@@ -1219,9 +1644,20 @@ class Scheduler:
                 admitted_n += 1
                 if self.solver is not None:
                     self.solver.release_workload(e.info.key)
+        self.admitted_total += admitted_n
         self._span("requeue", t_ph)
+        regime = "preempt" if any(
+            e.preemption_targets
+            or e.assignment.representative_mode() == fa.PREEMPT
+            for e in entries) else "fit"
+        blocked = any(
+            e.status != ASSUMED
+            and e.assignment.representative_mode() == fa.PREEMPT
+            and not e.preemption_targets
+            for e in entries)
         return stages.AppliedCycle(admitted=admitted_n,
-                                   success=admitted_n > 0)
+                                   success=admitted_n > 0, regime=regime,
+                                   blocked_preemptor=blocked)
 
     def _stage_solve(self, heads: list, snapshot: Snapshot, timeout):
         """SOLVE stage: run the batched solver over the validated heads.
@@ -1312,6 +1748,9 @@ class Scheduler:
         if pending:
             self._stage_preempt(pending, snapshot, plan,
                                 fit_count=len(decisions))
+        else:
+            # the JAX Scheduler's preempt-plan span is there every cycle
+            self._span("preempt-plan", _time.perf_counter())
 
         t_ph = _time.perf_counter()
         solver_entries = list(invalid_entries)
@@ -1345,7 +1784,8 @@ class Scheduler:
                 e.inadmissible_msg = f"Failed to admit workload: {exc}"
                 self.solver.note_unapplied(w.key)
             solver_entries.append(e)
-        self._span("apply", t_ph)
+        # (the JAX Scheduler times this admission in no span)
+        self._span("apply", t_ph, "apply.device")
         return solver_entries, pre_entries, []
 
     def _stage_preempt(self, pending: list, snapshot: Snapshot, plan,
@@ -1403,7 +1843,7 @@ class Scheduler:
         for i, e in enumerate(pending):
             e.preemption_targets = by_entry.get(i, [])
         self._retry_partial_admission(pending, snapshot)
-        self._span("decode-targets", t_ph)
+        self._span("decode-targets", t_ph, "preempt-plan.decode")
 
     def _device_preempt_batch(self, pending: list, snapshot: Snapshot,
                               plan, fit_count: int):
@@ -1494,8 +1934,12 @@ class Scheduler:
                 "fillback_rounds_max": int(st[:, 2].max()),
                 "filled_back": int(st[:, 3].sum()),
             }
-        if agg:
-            self.last_preempt_plan = agg
+        if not agg:
+            return
+        self.last_preempt_plan = agg
+        flat = {f"{n}_{k}": v for n, d in agg.items() for k, v in d.items()}
+        self.recorder.annotate("preempt-plan",
+                               "batched preemption solve stats", **flat)
 
     def _device_nofit_entry(self, w: wlpkg.Info,
                             snapshot: Snapshot) -> Optional[Entry]:
@@ -1568,7 +2012,7 @@ class Scheduler:
             e.inadmissible_msg = e.assignment.message()
             w.last_assignment = e.assignment.last_state
             out.append(e)
-        self._span("nominate", t_ph)
+        self._span("nominate", t_ph, "nominate.partial-assign")
         return out
 
     def _cpu_preempt_targets(self, pending: list, snapshot: Snapshot) -> None:
@@ -1760,6 +2204,17 @@ class Scheduler:
                               f"Quota reserved in ClusterQueue "
                               f"{admission.cluster_queue}, wait time since "
                               f"queued was {wait_time:.0f}s")
+            if self.journeys is not None:
+                # the ledger observes the wait-time histograms and
+                # stamps the journey (one producer for both)
+                self.journeys.quota_reserved(
+                    new_wl, admission.cluster_queue, wait_time,
+                    wlpkg.is_admitted(new_wl))
+            elif self.metrics is not None:
+                self.metrics.quota_reserved(admission.cluster_queue,
+                                            wait_time)
+                if wlpkg.is_admitted(new_wl):
+                    self.metrics.admitted(admission.cluster_queue, wait_time)
             if wlpkg.is_admitted(new_wl):
                 self.client.event(new_wl, "Normal", "Admitted",
                                   f"Admitted by ClusterQueue "
@@ -1807,6 +2262,11 @@ class Scheduler:
         wlpkg.set_preempted_condition(target, reason, message, now)
         self.client.apply_admission(target)
         self.client.event(target, "Normal", "Preempted", message)
+        if self.metrics is not None:
+            self.metrics.preempted(preempting_cq, reason)
+        if self.journeys is not None:
+            # the victim's journey re-opens
+            self.journeys.preempted(wlpkg.key(wl), preempting_cq, reason)
 
     # --- requeue (reference: scheduler.go:674-692) ---
 
@@ -1814,6 +2274,9 @@ class Scheduler:
         if e.status != NOT_NOMINATED \
                 and e.requeue_reason == RequeueReason.GENERIC:
             e.requeue_reason = RequeueReason.FAILED_AFTER_NOMINATION
+        if self.journeys is not None:
+            self.journeys.requeued(e.info, e.status, e.requeue_reason,
+                                   e.inadmissible_msg)
         self.queues.requeue_workload(e.info, e.requeue_reason)
         if e.status in (NOT_NOMINATED, SKIPPED):
             # Clone only when the Pending condition would actually change.

@@ -146,11 +146,18 @@ class NominatedCycle:
     entries: list = field(default_factory=list)
     solver_entries: list = field(default_factory=list)
     route: str = ""
+    # filled by the apply stage: per-CQ preemption-skip counts for the
+    # admission_cycle_preemption_skips gauge
+    skipped_preemptions: dict = field(default_factory=dict)
 
 
 @dataclass
 class AppliedCycle:
-    """Output of the apply stage: the cycle's admission outcome."""
+    """Output of the apply stage: the cycle's admission outcome, its
+    observed regime ("fit" or "preempt") and whether a preempt-mode entry
+    was blocked (the starvation bound's evidence)."""
 
     admitted: int = 0
     success: bool = False
+    regime: str = "fit"
+    blocked_preemptor: bool = False

@@ -34,6 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # nvcc's stderr per kernel (the ptxas register / shared-memory report),
 # for the smoke run to print.
 BUILD_LOG: dict = {}
+# libraries compiled by nvcc in this process, and libraries asked for
+# and found built already: the compile governor's provenance reads them
+# (solver/warmgov.py)
+EVENTS = {"builds": 0, "found": 0}
 _entries: dict = {}
 _lock = threading.Lock()
 
@@ -61,8 +65,9 @@ def build_all(names=KERNELS) -> float:
     """Compile every kernel library that is missing, all in parallel.
     Returns the wall seconds spent (0.0 when everything was built)."""
     t0 = time.perf_counter()
-    todo = [(n, library_path(n)) for n in names]
-    todo = [(n, p) for n, p in todo if not p.exists()]
+    libs = [(n, library_path(n)) for n in names]
+    todo = [(n, p) for n, p in libs if not p.exists()]
+    EVENTS["found"] += len(libs) - len(todo)
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -81,6 +86,7 @@ def build_all(names=KERNELS) -> float:
             failed.append(f"{name}:\n{BUILD_LOG[name]}")
             continue
         os.replace(tmp, out)
+        EVENTS["builds"] += 1
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0

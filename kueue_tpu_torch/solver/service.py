@@ -94,8 +94,39 @@ decisions' copies into pinned host buffers behind the launches, and
 only its own time against the deadline and adds no sample to the
 watchdog's.
 
-Left out of these slices (the JAX package has them): the background
-fetch pool (the started fetch needs none) and the flight recorder.
+The flight recorder (`bind_recorder`, kueue_tpu/solver/service.py:
+370-382): every interval the solver times also lands as a span in the
+Scheduler's open cycle trace and in the cumulative `phase_s`, under the
+JAX package's names where the interval is the JAX one (encode, route,
+dispatch with dispatch.scatter nested, fetch, decode) and under a dotted
+name nested in its prefix where it is the port's own (dispatch.plan,
+fetch.device, preempt-plan.solve, nominate.partial), so that the
+traces' phase_sums stay comparable. `last_phase_s` keeps the port's
+per-cycle phases (PHASES).
+
+Nothing is compiled per shape here: the kernels are built whole when a
+solver is made on the card, and every shape is a launch argument. So
+the card is warm from the start, as the JAX package's compile governor
+treats a mesh: `warm_setup` returns None there (solver/warmgov.py then
+never gates a cycle to "cpu-warmup") and no program variant is keyed
+or counted. On the CPU (`warm_ladder`), which the paired tests hold
+against the JAX package, the solver keeps the JAX package's
+bookkeeping: counters["mid_traffic_compiles"] counts the first
+execution in this process of a program variant, keyed as the JAX
+package keys it (kind, topology dims, width bucket, rank bucket over
+the bucket's rows padding included, flags, delta and preemption
+shapes), that no warm registered and no earlier dispatch ran, each
+annotated "compile" on the open trace; and the warm API (`warm_setup`,
+`warm_router`, `warm_bucket`, `warm_scatter`, `warm_preempt_bucket`)
+runs each program's plain version once at a bucket's shapes on inert
+padded rows, registers the JAX package's keys and returns its program
+counts. A preempt-mode cycle on the synchronous path keys its fit
+dispatch without the preemption shapes and its K9/K11 launch
+(solve_preemptions) as a program of its own ("preempt-solve"), since
+the port launches them apart.
+
+Left out (the JAX package has it): the background fetch pool (the
+started fetch needs none).
 """
 
 from __future__ import annotations
@@ -123,7 +154,9 @@ from kueue_tpu_torch.scheduler.podset_reducer import (
     reduction_space,
 )
 from kueue_tpu_torch.solver import _build, encode, kernel
-from kueue_tpu_torch.solver.arena import WorkloadArena
+from kueue_tpu_torch.solver import fairpreempt
+from kueue_tpu_torch.solver import preempt as devpreempt
+from kueue_tpu_torch.solver.arena import ARENA_FIELDS, WorkloadArena
 from kueue_tpu_torch.solver.fairpreempt import fair_args
 from kueue_tpu_torch.solver.kernel import (
     DECISION_KEYS,
@@ -154,6 +187,52 @@ DENSE_DECISION_KEYS = ("admitted", "fit", "chosen", "borrows",
 # launches, sync and fetch, "partial" batched_partial_admission's rounds
 PHASES = ("encode", "route", "plan", "upload", "device", "fetch", "decode",
           "preempt", "partial")
+
+# --- the registry of program variants run in this process ---
+#
+# The variant keys are the JAX package's (kueue_tpu/solver/service.py:
+# 101-130): a dispatch or route whose key was never registered (by a
+# warm or an earlier run) counts as counters["mid_traffic_compiles"].
+_SEEN_PROGRAMS: set = set()
+_SEEN_LOCK = threading.Lock()
+
+
+def note_program(key: tuple) -> bool:
+    """Record a program variant as run; True when it was new."""
+    with _SEEN_LOCK:
+        if key in _SEEN_PROGRAMS:
+            return False
+        _SEEN_PROGRAMS.add(key)
+        return True
+
+
+def reset_seen_programs() -> None:
+    """Forget every recorded variant (a test's simulated restart)."""
+    with _SEEN_LOCK:
+        _SEEN_PROGRAMS.clear()
+
+
+def _warm_deltas(L: int, dlt):
+    """An inert delta prologue of `dlt` rows (every coord -1), or None
+    (kueue_tpu/solver/service.py:132-146)."""
+    if dlt is None:
+        return None
+    return (np.full(dlt, -1, np.int32),
+            np.zeros(dlt, np.int32),
+            np.zeros(dlt, np.int32),
+            np.zeros(dlt, np.int64),
+            np.full((L, dlt, 3), -1, np.int32),
+            np.full((L, dlt), -1, np.int32))
+
+
+class WarmContext:
+    """The shapes every bucket warm runs at, built once by
+    BatchSolver.warm_setup (the only warm step that changes solver
+    state); each later warm call only reads the solver."""
+
+    __slots__ = ("topo", "topo_dev", "usage", "cohort_usage",
+                 "arena_dev", "arena_cap", "cluster")
+
 
 # batched_partial_admission's answer for a head whose probe could not be
 # encoded: it goes back to CPU nomination and its sequential reducer
@@ -357,7 +436,14 @@ class BatchSolver:
                          "fetch_bytes": 0, "resident_cycles": 0,
                          "establishes": 0, "syncs": 0,
                          "dispatch_timeouts": 0, "validation_faults": 0,
-                         "scatter_faults": 0, "supervised_timeouts": 0}
+                         "scatter_faults": 0, "supervised_timeouts": 0,
+                         "mid_traffic_compiles": 0}
+        # cumulative seconds per traced phase (_phase), the JAX package's
+        # keys first; dotted keys are nested in their prefix
+        self.phase_s = {"encode": 0.0, "route": 0.0, "dispatch": 0.0,
+                        "dispatch.scatter": 0.0, "fetch": 0.0,
+                        "decode": 0.0}
+        self._recorder = None  # the Scheduler's FlightRecorder
         self.last_upload_bytes = 0
         self.last_phase_s = dict.fromkeys(PHASES, 0.0)
         # workload key -> remote cluster name, for the admitted heads the
@@ -400,6 +486,366 @@ class BatchSolver:
         self._cache = cache
         if self.mesh is None:
             cache.enable_usage_journal()
+
+    def bind_recorder(self, recorder) -> None:
+        """Attach the Scheduler's FlightRecorder: every phase interval
+        is also a span of its open cycle trace."""
+        self._recorder = recorder
+
+    def _phase(self, name: str, t0: float, t1: float) -> None:
+        """One phase interval: into the cumulative phase_s and, when a
+        recorder is bound, a span of the open trace."""
+        self.phase_s[name] = self.phase_s.get(name, 0.0) + t1 - t0
+        rec = self._recorder
+        if rec is not None:
+            rec.span(name, t0, t1 - t0)
+
+    @property
+    def warm_ladder(self) -> bool:
+        """Whether the compile governor walks the JAX package's warm
+        ladder for this solver and its program variants are keyed: on
+        the CPU only (see the module docstring)."""
+        return self.mesh is None and self.device.type != "cuda"
+
+    def _note_variant(self, key: tuple, width: int) -> None:
+        """A hot-path run of the program variant `key`; on the CPU, one
+        that no warm registered and no earlier run ran is a mid-traffic
+        compile."""
+        if self.warm_ladder and note_program(key):
+            self._note_mid_traffic_compile(key[0], width)
+
+    def _note_mid_traffic_compile(self, kind: str, width: int) -> None:
+        """A program variant no warm registered runs for the first time
+        in this process: counted, and annotated on the open trace
+        (kueue_tpu/solver/service.py:1168-1182)."""
+        self.counters["mid_traffic_compiles"] += 1
+        rec = self._recorder
+        if rec is not None:
+            rec.annotate("compile",
+                         f"unwarmed {kind} program at width {width} "
+                         f"compiled mid-traffic", program=kind, width=width)
+
+    def _topo_dims(self, topo) -> tuple:
+        """The topology dims the variant keys carry."""
+        return (topo.nominal.shape, topo.cohort_subtree.shape[0],
+                topo.cq_chain.shape[1])
+
+    @staticmethod
+    def _compact_flag(topo) -> bool:
+        """Whether the cycle fetches the packed decisions (K8)."""
+        return topo.nominal.shape[1] <= MAX_COMPACT_FLAVORS
+
+    # --- shape-bucket warmup (the compile governor's seam) ---
+
+    def warm_setup(self, snapshot: Snapshot,
+                   expected_pending: Optional[int] = None):
+        """The zero state every bucket warm runs against
+        (kueue_tpu/solver/service.py:516-574): the topology at the
+        snapshot (cached, as a cycle caches it), zero usage on the
+        solver's device, the snapshot's cluster columns, and, with the
+        arena engaged (a bound Manager, or `expected_pending`), a zero
+        twin at the arena's capacity, which is reserved here (at
+        `expected_pending`, else at its floor). The only warm step that
+        changes solver state. None on the card and under a mesh
+        (`warm_ladder`): nothing there is compiled per shape, and the
+        governor treats the solver as warm."""
+        if not self.warm_ladder:
+            return None
+        topo, topo_dev = self._topology(snapshot)
+        Q, F, R = topo.nominal.shape
+        C = topo.cohort_subtree.shape[0]
+        ctx = WarmContext()
+        ctx.topo, ctx.topo_dev = topo, topo_dev
+        ctx.usage = (Q, F, R)
+        ctx.cohort_usage = (C, F, R)
+        ctx.arena_dev = None
+        ctx.arena_cap = 0
+        ctx.cluster = encode.encode_cluster_columns(snapshot, topo)
+        if expected_pending is not None:
+            self._arena.reserve(expected_pending, topo)
+        elif self._queues is not None:
+            self._arena.reserve(1, topo)
+        if self._arena.cap and (expected_pending is not None
+                                or self._queues is not None):
+            ctx.arena_dev = {
+                name: torch.zeros(getattr(self._arena, name).shape,
+                                  dtype=torch.from_numpy(getattr(
+                                      self._arena, name)[:0]).dtype,
+                                  device=self.device)
+                for name in ARENA_FIELDS}
+            ctx.arena_cap = self._arena.cap
+        return ctx
+
+    def _warm_zeros(self, ctx) -> tuple:
+        """Fresh zero usage and cohort usage on the device (a resident
+        variant's prologue writes them in place)."""
+        return (torch.zeros(ctx.usage, dtype=torch.int64,
+                            device=self.device),
+                torch.zeros(ctx.cohort_usage, dtype=torch.int64,
+                            device=self.device))
+
+    @staticmethod
+    def _warm_batch_arrays(topo, width: int, max_podsets: int):
+        """A batch of `width`'s bucket of inert rows (nothing solvable)
+        and an all-zero resume-rank array."""
+        _, F, R = topo.nominal.shape
+        W = encode._bucket(max(1, width))
+        P = max_podsets
+        return (W, np.zeros((W, P, R), np.int64), np.zeros((W, P), bool),
+                np.zeros(W, np.int32), np.zeros(W, np.int64),
+                np.zeros(W, np.float64), np.zeros((W, P, F), bool),
+                np.zeros(W, bool), np.zeros((W, P, R), np.int32))
+
+    def _cluster_variants(self, ctx) -> list:
+        """(cluster args on the device or None, kdim) for each variant a
+        solve warms: without columns, and at the snapshot's columns when
+        it carried any (kueue_tpu/solver/service.py:680-692)."""
+        variants = [(None, None)]
+        cluster = ctx.cluster
+        if cluster is not None:
+            variants.append((tuple(self._upload(a) for a in
+                                   encode.cluster_args_device(cluster)),
+                             cluster.ccap.shape))
+        return variants
+
+    def warm_router(self, ctx, width: int) -> int:
+        """The fit router (K1, K2) at one width bucket, with and without
+        resume ranks: 2 programs, as the JAX package counts them."""
+        topo = ctx.topo
+        (W, requests, podset_active, wl_cq, priority, timestamp,
+         eligible, solvable, start_rank) = self._warm_batch_arrays(
+            topo, width, self.max_podsets)
+        b = encode.WorkloadBatch(infos=[], n=0)
+        (b.requests, b.podset_active, b.wl_cq, b.priority, b.timestamp,
+         b.eligible, b.solvable, b.start_rank) = (
+            requests, podset_active, wl_cq, priority, timestamp, eligible,
+            solvable, start_rank)
+        state = encode.State(usage=np.zeros(ctx.usage, np.int64),
+                             cohort_usage=np.zeros(ctx.cohort_usage,
+                                                   np.int64))
+        self._route(ctx.topo_dev, state, b, None, warm=True)
+        self._route(ctx.topo_dev, state, b, start_rank, warm=True)
+        return 2
+
+    def _warm_launch(self, kind: str, ctx, dev: list, deltas, kw: dict):
+        """One launch of a solve program on the warm's inert batch."""
+        usage, cohort_usage = self._warm_zeros(ctx)
+        if kind == "fused":
+            if kw.get("preempt_args") is None \
+                    and kw.get("fair_preempt_args") is None:
+                kw = {k: v for k, v in kw.items()
+                      if k not in ("preempt_args", "fair_preempt_args",
+                                   "fs_strategies")}
+                return solve_cycle_fused(ctx.topo_dev, usage, cohort_usage,
+                                         *dev, **kw)
+            kw = dict(kw)
+            pargs = kw.pop("preempt_args")
+            return solve_cycle_with_preempt(ctx.topo_dev, usage,
+                                            cohort_usage, *dev, pargs, **kw)
+        deltas_dev = None if deltas is None else \
+            tuple(self._upload(a) for a in deltas)
+        if kind == "resident":
+            return solve_cycle_resident(ctx.topo_dev, usage, cohort_usage,
+                                        deltas_dev, *dev, **kw)
+        slots = self._upload(np.full(dev[0].shape[0], -1, np.int32))
+        return solve_cycle_resident_arena(ctx.topo_dev, usage, cohort_usage,
+                                          deltas_dev, ctx.arena_dev, slots,
+                                          **kw)
+
+    def _warm_solves(self, ctx, width: int, max_ranks, deltas_buckets,
+                     fair_sharing: bool, variants, srs) -> int:
+        """The solve programs of one width bucket (the shared body of
+        warm_bucket and warm_preempt_bucket): for each rank rung, resume
+        flag, preemption variant and cluster variant, the fused (or with
+        preemption) program and the resident one (the arena one when the
+        arena is engaged) without and with each delta bucket. Each
+        distinct program is launched once (a rank rung changes no kernel
+        here); every JAX key is registered and counted."""
+        topo = ctx.topo
+        dims = self._topo_dims(topo)
+        (W, *arrays, sr_arr) = self._warm_batch_arrays(
+            topo, width, self.max_podsets)
+        P = self.max_podsets
+        dev = [self._upload(a) for a in arrays]
+        sr_dev = self._upload(sr_arr)
+        L = topo.cq_chain.shape[1]
+        compact = self._compact_flag(topo)
+        clusters = self._cluster_variants(ctx)
+        launched: set = set()
+        warmed = 0
+
+        def run(kind, launch_key, deltas, kw):
+            if launch_key not in launched:
+                launched.add(launch_key)
+                self._warm_launch(kind, ctx, dev, deltas, kw)
+
+        for max_rank in dict.fromkeys(max_ranks):
+            for vi, (pargs, psh, fargs, fsh, fflags) in enumerate(variants):
+                for sr_on in srs:
+                    for ci, (cargs, kdim) in enumerate(clusters):
+                        kw = dict(num_podsets=P, fair_sharing=fair_sharing,
+                                  start_rank=sr_dev if sr_on else None,
+                                  compact=compact, cluster_args=cargs,
+                                  preempt_args=pargs,
+                                  fair_preempt_args=fargs,
+                                  fs_strategies=fflags)
+                        base = (vi, sr_on, ci)
+                        preempting = pargs is not None or fargs is not None
+                        run("fused", ("fused",) + base, None, kw)
+                        note_program(
+                            ("preempt" if preempting else "fused", dims, W,
+                             P, max_rank, fair_sharing, sr_on)
+                            + ((psh, fsh, fflags) if preempting
+                               else ((), (), ())) + (compact, kdim))
+                        warmed += 1
+                        for dlt in (None,) + tuple(deltas_buckets):
+                            deltas = _warm_deltas(L, dlt)
+                            if ctx.arena_dev is None:
+                                run("resident", ("resident", dlt) + base,
+                                    deltas, kw)
+                                key = ("resident", dims, W, P, max_rank,
+                                       fair_sharing, sr_on, dlt, psh, fsh,
+                                       fflags, compact, kdim)
+                            else:
+                                run("arena", ("arena", dlt) + base, deltas,
+                                    kw)
+                                key = ("arena", dims, ctx.arena_cap, W, P,
+                                       max_rank, fair_sharing, sr_on, dlt,
+                                       psh, fsh, fflags, compact, kdim)
+                            note_program(key)
+                            warmed += 1
+        return warmed
+
+    def warm_bucket(self, ctx, width: int, max_ranks=(8, 32, 128, 512),
+                    deltas_buckets=(8,), fair_sharing: bool = False) -> int:
+        """Every fit-path solve program of one width bucket
+        (kueue_tpu/solver/service.py:612-677): the fused cycle (K1, K2,
+        K4, K5, K8, and K3 with fair sharing) and the resident cycle
+        with and without a delta prologue (K6), gathering from the
+        arena twin (K7b) when the arena is engaged, each with and without
+        resume ranks and per cluster variant (K12). Returns the JAX
+        package's count for the same ladder."""
+        return self._warm_solves(ctx, width, max_ranks, deltas_buckets,
+                                 fair_sharing, [(None, (), None, (), ())],
+                                 (False, True))
+
+    def warm_scatter(self, ctx) -> int:
+        """The arena scatter (K7a) at each changed-row bucket, on a
+        throwaway zero twin with every slot out of range (dropped): one
+        program a bucket (kueue_tpu/solver/service.py:694-718)."""
+        if ctx.arena_dev is None:
+            return 0
+        from kueue_tpu_torch.solver.arena import _UPD_BUCKETS
+        dims = self._topo_dims(ctx.topo)
+        warmed = 0
+        for D in _UPD_BUCKETS:
+            slots = self._upload(np.full(D, ctx.arena_cap, np.int32))
+            rows = {name: torch.zeros((D,) + tuple(a.shape[1:]),
+                                      dtype=a.dtype, device=self.device)
+                    for name, a in ctx.arena_dev.items()}
+            burn = {name: torch.zeros_like(a)
+                    for name, a in ctx.arena_dev.items()}
+            kernel.scatter_arena_rows(burn, slots, rows)
+            note_program(("scatter", ctx.arena_cap, self.max_podsets, dims,
+                          D))
+            warmed += 1
+        return warmed
+
+    def warm_preempt_bucket(self, ctx, width: int, pshapes,
+                            max_ranks=(8,), deltas_buckets=(8,),
+                            fair_sharing: bool = False,
+                            fs_flags: tuple = (),
+                            start_rank: bool = False) -> int:
+        """The mixed admission and preemption programs of one width
+        bucket over the preemption shape ladder `pshapes` (dicts of
+        bucketed B, K, QL, CL, RF, U; kueue_tpu/solver/service.py:
+        720-884): without fair sharing a minimal batch (K9) per shape;
+        with it, minimal batches of the QL = 1 shapes, fair batches (K11)
+        of the wider ones, and mixed pairs of equal B. Each variant is
+        launched as the pipelined cycle runs it (in the solve, inert
+        problems), and K9/K11 once more alone as the synchronous path's
+        solve_preemptions runs them. Returns the JAX package's count."""
+        if isinstance(pshapes, dict):
+            pshapes = (pshapes,)
+        DC = ctx.topo.cq_chain.shape[1]
+
+        def build_pb(shape):
+            B, K = shape["B"], shape["K"]
+            QL, CL = shape["QL"], shape["CL"]
+            RF, U = shape["RF"], shape["U"]
+            pb = devpreempt.PreemptionBatch()
+            pb.gq = np.full((B, QL), -1, np.int32)
+            pb.gf = np.full((B, RF), -1, np.int32)
+            pb.gr = np.zeros((B, RF), np.int32)
+            pb.gc = np.full((B, CL), -1, np.int32)
+            pb.chain_local = np.full((B, QL, DC), -1, np.int32)
+            pb.requests = np.zeros((B, RF), np.int64)
+            pb.frs_np = np.zeros((B, RF), bool)
+            pb.cand_idx = np.zeros((B, K), np.int32)
+            pb.cand_ql = np.full((B, K), -1, np.int16)
+            pb.cand_usage = np.zeros((U, RF), np.int64)
+            pb.cand_prio = np.zeros(U, np.int32)
+            pb.allow_borrowing = np.zeros(B, bool)
+            pb.threshold_active = np.zeros(B, bool)
+            pb.threshold = np.zeros(B, np.int64)
+            pb.has_cohort = np.zeros(B, bool)
+            return pb
+
+        def build_fb(pb, shape):
+            B, K = shape["B"], shape["K"]
+            QL, RF = shape["QL"], shape["RF"]
+            fb = fairpreempt.FairBatch(
+                **{f: getattr(pb, f) for f in (
+                    "gq", "gf", "gr", "gc", "chain_local", "requests",
+                    "frs_np", "cand_idx", "cand_ql", "cand_usage",
+                    "cand_prio", "allow_borrowing", "threshold_active",
+                    "threshold", "has_cohort")})
+            fb.cand_rank = np.full((B, K), -1, np.int32)
+            fb.cq_count = np.zeros((B, QL), np.int32)
+            fb.cq_order = np.full((B, QL), 2**30, np.int32)
+            fb.base_other = np.zeros((B, QL, RF), np.int64)
+            fb.floor_ratio = np.full((B, QL), -1, np.int64)
+            fb.floor_any = np.zeros((B, QL), bool)
+            fb.weight = np.full((B, QL), 1000, np.int64)
+            fb.lendable = np.zeros((B, RF), np.int64)
+            return fb
+
+        flags = tuple(fs_flags)
+        built = []
+        for shape in pshapes:
+            pb = build_pb(shape)
+            hp = preempt_args(pb)
+            built.append((shape, pb, hp, tuple(a.shape for a in hp)))
+        # (host pargs, pshapes key, host fargs, fshapes key, flags)
+        host_variants = []
+        for shape, pb, hp, psh in built:
+            if not fair_sharing or shape["QL"] == 1:
+                host_variants.append((hp, psh, None, (), ()))
+        if fair_sharing:
+            fair_by_b = {}
+            for shape, pb, hp, psh in built:
+                if shape["QL"] > 1:
+                    hf = fair_args(build_fb(pb, shape))
+                    fsh = tuple(a.shape for a in hf)
+                    host_variants.append((None, (), hf, fsh, flags))
+                    fair_by_b.setdefault(shape["B"], (hf, fsh))
+            for shape, pb, hp, psh in built:
+                if shape["QL"] == 1 and shape["B"] in fair_by_b:
+                    hf, fsh = fair_by_b[shape["B"]]
+                    host_variants.append((hp, psh, hf, fsh, flags))
+        variants = []
+        dims = self._topo_dims(ctx.topo)
+        for hp, psh, hf, fsh, fflags in host_variants:
+            pargs = None if hp is None else hp.map(self._upload)
+            fargs = None if hf is None else tuple(self._upload(a)
+                                                  for a in hf)
+            variants.append((pargs, psh, fargs, fsh, fflags))
+            if note_program(("preempt-solve", dims, psh, fsh, fflags)):
+                usage, cohort_usage = self._warm_zeros(ctx)
+                kernel.solve_preemptions(ctx.topo_dev, usage, cohort_usage,
+                                         pargs, fargs, fflags)
+        return self._warm_solves(ctx, width, max_ranks, deltas_buckets,
+                                 fair_sharing, variants, (start_rank,))
 
     def bind_queues(self, queues) -> None:
         """Attach the queue Manager's workload delta feed: the encode
@@ -535,13 +981,16 @@ class BatchSolver:
         cluster = encode.encode_cluster_columns(cycle_snapshot, topo)
         t1 = time.perf_counter()
         self.last_phase_s["encode"] = t1 - t0
+        self._phase("encode", t0, t1)
         if not batch.solvable.any():
             return None
         start_rank = batch.start_rank if batch.start_rank.any() else None
         fit_pred = None
         if route:
             fit_pred = self._route(topo_dev, state, batch, start_rank)
-            self.last_phase_s["route"] = time.perf_counter() - t1
+            t2 = time.perf_counter()
+            self.last_phase_s["route"] = t2 - t1
+            self._phase("route", t1, t2)
         plan = Plan(topo, topo_dev, state, batch, start_rank, fit_pred)
         plan.cluster = cluster
         plan.slots = slots
@@ -553,7 +1002,8 @@ class BatchSolver:
             plan.backlog_gen = self._resident.backlog_gen
         return plan
 
-    def _route(self, topo_dev, state, batch, start_rank) -> np.ndarray:
+    def _route(self, topo_dev, state, batch, start_rank,
+               warm: bool = False) -> np.ndarray:
         """The fit router (kueue_tpu/solver/service.py:1183-1217): Phase A
         (kernel.solve_phase_a, fair sharing off, the batch's resume
         ranks) against the host mirror of the resident usage
@@ -561,12 +1011,22 @@ class BatchSolver:
         uploaded to the solver's device. One sync, counted in
         counters["syncs"]; returns fit[:n] as a numpy bool array.
 
+        A warm (warm_router) registers its variant without counting a
+        mid-traffic compile and leaves the transport counters alone.
+
         On the card it launches avail and phase_a (K1, K2), or raises;
         on the CPU it runs their plain versions. There is no host-side
         route: the JAX package runs the same program on its local CPU
         backend. The launches share the device's default stream with
         any dispatch still in flight, so the router's sync waits behind
         that dispatch's kernels."""
+        topo = self._topo_cache[0]
+        key = ("route", self._topo_dims(topo), batch.requests.shape[0],
+               self.max_podsets, start_rank is not None)
+        if warm:
+            note_program(key)
+        else:
+            self._note_variant(key, batch.requests.shape[0])
         host = (state.usage, state.cohort_usage, batch.requests,
                 batch.podset_active, batch.wl_cq, batch.eligible,
                 batch.solvable)
@@ -575,6 +1035,9 @@ class BatchSolver:
             num_podsets=self.max_podsets, fair_sharing=False,
             start_rank=None if start_rank is None else
             self._upload(start_rank))[0]
+        if warm:
+            fit = fit.cpu().numpy()  # waits for the launches
+            return fit[:batch.n].astype(bool)
         self._sync()
         up = sum(a.nbytes for a in host)
         if start_rank is not None:
@@ -830,17 +1293,32 @@ class BatchSolver:
     def _dispatch_body(self, plan: Plan, fair_sharing, preempt_batch,
                        fair_batch, fs_flags, deadline_s,
                        epoch) -> InFlight:
+        td = time.perf_counter()
         if self.mesh is not None:
             if fair_batch is not None:
                 raise ValueError(_NO_FAIR_UNDER_MESH)
-            tp = time.perf_counter()
             self.last_domain_plan = meshpkg.plan_cycle(self.mesh, plan.topo,
                                                        plan.batch.wl_cq)
-            self.last_phase_s["plan"] = time.perf_counter() - tp
-        t0 = time.perf_counter()
+            tp = time.perf_counter()
+            self.last_phase_s["plan"] = tp - td
+            self._phase("dispatch.plan", td, tp)
+        t0 = td
         scramble = None
         topo, batch, state = plan.topo, plan.batch, plan.state
-        compact = topo.nominal.shape[1] <= MAX_COMPACT_FLAVORS
+        compact = self._compact_flag(topo)
+        # the variant key (kueue_tpu/solver/service.py:1376-1396): a
+        # dispatch of a registered variant never counts a mid-traffic
+        # compile, one of an unregistered variant always does
+        dims = self._topo_dims(topo)
+        W = batch.requests.shape[0]
+        D = plan.deltas[0].shape[0] if plan.deltas is not None else None
+        # over the bucket's rows, padding (wl_cq 0) included, as the JAX
+        # key counts them
+        max_rank = kernel.max_rank_bound(
+            batch.wl_cq, topo.cq_cohort, topo.cohort_root) \
+            if self.warm_ladder else None
+        sr_flag = plan.start_rank is not None
+        kdim = plan.cluster.ccap.shape if plan.cluster is not None else None
         start_rank = None if plan.start_rank is None else \
             self._upload(plan.start_rank)
         # Identity check: the plan must have been built on the CURRENT
@@ -870,6 +1348,11 @@ class BatchSolver:
             fargs = tuple(self._upload(a) for a in host_fargs)
             kwargs.update(fair_preempt_args=fargs,
                           fs_strategies=tuple(fs_flags))
+        pshapes = (tuple(a.shape for a in host_pargs)
+                   if host_pargs is not None else ())
+        fshapes = (tuple(a.shape for a in host_fargs)
+                   if host_fargs is not None else ())
+        flags = tuple(fs_flags) if host_fargs is not None else ()
         if plan.resident and rs is not None and rs.token == topo.token:
             if rs.usage_dev is None:
                 usage_in = self._upload(state.usage)
@@ -881,7 +1364,13 @@ class BatchSolver:
             if plan.slots is not None:
                 # Arena dispatch: the batch rows already live on the
                 # device — ship the head slots and the changed rows.
+                t_sc = time.perf_counter()
                 arena_dev, up, scramble = self._prepare_arena(epoch)
+                self._phase("dispatch.scatter", t_sc, time.perf_counter())
+                self._note_variant(("arena", dims, self._arena.cap, W,
+                                    self.max_podsets, max_rank,
+                                    fair_sharing, sr_flag, D, pshapes,
+                                    fshapes, flags, compact, kdim), W)
                 slots_w = np.full(batch.requests.shape[0], -1, np.int32)
                 slots_w[:batch.n] = plan.slots
                 slots_dev = self._upload(slots_w)
@@ -894,6 +1383,10 @@ class BatchSolver:
                     plan.topo_dev, usage_in, cohort_in, deltas, arena_dev,
                     slots_dev, preempt_args=pargs, **kwargs)
             else:
+                self._note_variant(("resident", dims, W, self.max_podsets,
+                                    max_rank, fair_sharing, sr_flag, D,
+                                    pshapes, fshapes, flags, compact,
+                                    kdim), W)
                 dev = [self._upload(a) for a in batch_np]
                 up = sum(a.nbytes for a in batch_np)
                 self._sync()
@@ -931,8 +1424,15 @@ class BatchSolver:
                                           meshpkg.preempt_weights(
                                               host_pargs[7]))))
             elif pargs is None and fargs is None:
+                self._note_variant(("fused", dims, W, self.max_podsets,
+                                    max_rank, fair_sharing, sr_flag,
+                                    (), (), (), compact, kdim), W)
                 result = solve_cycle_fused(plan.topo_dev, *dev, **kwargs)
             else:
+                self._note_variant(("preempt", dims, W, self.max_podsets,
+                                    max_rank, fair_sharing, sr_flag,
+                                    pshapes, fshapes, flags, compact,
+                                    kdim), W)
                 result = solve_cycle_with_preempt(plan.topo_dev, *dev, pargs,
                                                   **kwargs)
             self._check_epoch(epoch)
@@ -943,7 +1443,7 @@ class BatchSolver:
             # default one (see kernel._launch), after the cycle's launches
             event = torch.cuda.Event(enable_timing=True)
             event.record()
-        self.last_phase_s["upload"] = t1 - t0
+        self.last_phase_s["upload"] = t1 - t0 - self.last_phase_s["plan"]
         for host in (host_pargs, host_fargs, host_cargs):
             if host is not None:
                 up += sum(a.nbytes for a in host)
@@ -965,9 +1465,11 @@ class BatchSolver:
             keys = keys + PREEMPT_KEYS
         if fargs is not None:
             keys = keys + FAIR_KEYS
-        return InFlight(plan, result, keys, event, deadline_s, t1,
-                        scramble=scramble, start_event=start_event,
-                        preempt_batch=preempt_batch)
+        inflight = InFlight(plan, result, keys, event, deadline_s, t1,
+                            scramble=scramble, start_event=start_event,
+                            preempt_batch=preempt_batch)
+        self._phase("dispatch", t0, inflight.t_dispatch)
+        return inflight
 
     def _launch_mark(self) -> tuple:
         """(host time, CUDA event or None) just before the cycle's
@@ -1093,6 +1595,7 @@ class BatchSolver:
         plan = inflight.plan
         t0 = time.perf_counter()
         self._await_device(inflight)
+        t_dev = time.perf_counter()
         src = inflight.host
         if src is None:
             src = {k: inflight.result[k] for k in inflight.keys}
@@ -1126,6 +1629,10 @@ class BatchSolver:
             raise InjectedFault(faultinject.SITE_SCATTER, inflight.scramble)
         self.counters["collects"] += 1
         t2 = time.perf_counter()
+        # the JAX package's fetch is its wait and its copy; the wait is
+        # nested as fetch.device
+        self._phase("fetch", t0, t2)
+        self._phase("fetch.device", t0, t_dev)
         # Mirror/pending updates only apply when the plan's ResidentState
         # is still the live one (not invalidated+re-established since).
         resident_ok = plan.resident and plan.rs is self._resident
@@ -1133,8 +1640,10 @@ class BatchSolver:
             plan.batch.infos, snapshot, plan.topo, plan.batch, fetched,
             resident=resident_ok,
             cluster_names=plan.cluster.names if plan.cluster else None)
+        t3 = time.perf_counter()
         self.last_phase_s["fetch"] = t2 - t1
-        self.last_phase_s["decode"] = time.perf_counter() - t2
+        self.last_phase_s["decode"] = t3 - t2
+        self._phase("decode", t2, t3)
         return decisions, preempt_aux(fetched)
 
     def solve_prepared(self, plan: Plan, snapshot: Snapshot,
@@ -1196,6 +1705,16 @@ class BatchSolver:
         host_p = None if preempt_batch is None else preempt_args(
             preempt_batch)
         host_f = None if fair_batch is None else fair_args(fair_batch)
+        # the port launches K9/K11 apart from the fit cycle: their own
+        # variant, keyed by the batches' shapes
+        if self._topo_cache is not None:
+            self._note_variant((
+                "preempt-solve", self._topo_dims(self._topo_cache[0]),
+                tuple(a.shape for a in host_p) if host_p is not None
+                else (),
+                tuple(a.shape for a in host_f) if host_f is not None
+                else (), tuple(fs_flags) if host_f is not None else ()),
+                0 if host_p is None else len(host_p[0]))
         dev_p = None if host_p is None else host_p.map(self._upload)
         dev_f = None if host_f is None else \
             tuple(self._upload(a) for a in host_f)
@@ -1217,7 +1736,9 @@ class BatchSolver:
         self.counters["upload_bytes"] += up
         self.counters["fetch_bytes"] += sum(v.nbytes
                                             for v in fetched.values())
-        self.last_phase_s["preempt"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.last_phase_s["preempt"] = t1 - t0
+        self._phase("preempt-plan.solve", t0, t1)
         return preempt_aux(fetched)
 
     def batched_partial_admission(self, plan: Plan, snapshot: Snapshot,
@@ -1317,7 +1838,9 @@ class BatchSolver:
         self.last_partial_rounds = rounds
         self.last_upload_bytes += up
         self.counters["upload_bytes"] += up
-        self.last_phase_s["partial"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.last_phase_s["partial"] = t1 - t0
+        self._phase("nominate.partial", t0, t1)
         return out
 
     def solve_preempt(self, preempt_batch) -> tuple:

@@ -2427,3 +2427,48 @@ def test_pipelined_scheduler_on_card_equals_cpu(depth, cuda_device):
     assert gt[-1][3].get("injected") == 1 and gt[-1][2] > 0
     assert gh == ch == 0
     assert gl["avail"] > gl["arena_gather"] > 0
+
+
+# --- the compile governor on the card (slice 18) ---
+
+def governed_env(device, num_cqs=32, waves=4):
+    env = ns.build_scheduler(num_cqs, 8, ["f0", "f1"], 8,
+                             solver=BatchSolver(device=device))
+    ns.stage_waves(env[2], waves, num_cqs, 4)
+    return env
+
+
+@pytest.mark.cuda
+def test_governor_on_the_card_is_warm_from_start(cuda_device):
+    """Nothing on the card is compiled per shape: a governor started
+    before the first cycle is warm at once (no walk, no thread, no
+    bucket), warm_setup has no context to build, every cycle takes the
+    device route and admits what the same Scheduler on the CPU admits,
+    and the card counts no mid-traffic compile."""
+    from kueue_tpu_torch.solver.warmgov import GOV_WARM, CompileGovernor
+    card, cpu = governed_env(cuda_device), governed_env("cpu")
+    solver = card[0].solver
+    assert not solver.warm_ladder
+    snap = card[1].snapshot()
+    assert solver.warm_setup(snap) is None
+    card[1].release_snapshot(snap)
+    gov = CompileGovernor(solver, card[1], warm_preempt=False)
+    card[0].warm_gov = gov
+    gov.start()
+    st = gov.status()
+    assert gov.state == GOV_WARM and gov._thread is None
+    assert st["buckets"] == [] and st["programs_warmed"] == 0
+    assert st["source"] in ("fresh", "cache-hit")
+    tk.reset_launch_counts()
+    for cycle in range(3):
+        for env in (card, cpu):
+            if cycle:
+                ns.finish_applied(env[1], env[2], env[3])
+            env[0].schedule(timeout=0)
+        assert card[0].last_route == "device"
+        assert sorted(w.metadata.name for w in card[3].new_applied) \
+            == sorted(w.metadata.name for w in cpu[3].new_applied)
+    assert card[0].cycle_counts == {"device": 3}
+    assert gov.unwarm_routed == 0
+    assert tk.launch_counts()["phase_b"] == 3
+    assert solver.counters["mid_traffic_compiles"] == 0
