@@ -209,6 +209,39 @@ versions:
    at what the query plane holds, no aging verdict fails. It prints the
    routes, the governor's status, the router's median admitted/s per
    engine and regime and each traced phase's p50.
+12. manager: the control plane's main path, the port's
+   KueueManager(cfg, solver=BatchSolver()) at the production defaults
+   (the pipeline at depth 2, adaptive routing, the watchdog, the
+   breaker, supervised dispatch, journeys, the query plane, the warm
+   governor started) on the north star's 2048 CQs in 256 cohorts with
+   16 flavors of cpu and memory in one resource group (the webhook's
+   limit a group) and 4,096 batch/v1 Jobs, two a CQ, their pod counts
+   from --seed (cut from the north star: the backlog, 4,096 Jobs and
+   not 51,200), every object created through the manager's store:
+   cycles until settled, 1,024 Jobs marked Complete, settled again.
+   Every admitted Workload's Job is unsuspended and every pending one's
+   suspended, nothing is admitted twice, each CQ's reservation and
+   usage are its Workloads' requests within its quota, borrowing limit
+   and cohort, the bound cycle's kernels launch, and every kernel call
+   of the run, kept with its inputs, equals its plain version on them;
+   then a 256-CQ copy on a FakeClock, on the card (which must take a
+   device route) and with solver=None, must end in the same store
+   state. It prints the intake Jobs/s, each route's schedule() p50 and
+   max, the creation-to-admission wait from the journey ledger's
+   histograms, the settle times and its wall.
+13. manager multikueue: the same manager, with the synchronous cycle,
+   on 256 CQs carrying the MultiKueue check, three worker
+   KueueManagers with no solver (one 768-core ClusterQueue each), 1,024
+   Jobs: K12 launches from the MultiKueueController's capacity columns
+   and every launch equals its plain version and the host oracle on
+   the columns of its cycle, as every other kernel call does its plain
+   version; every placement is mirrored and reserved on its worker and
+   on no other, the admitted Workloads are the placed ones, and every
+   worker takes placements.
+
+`python3 chip_smoke.py --phase NAME` (repeatable) runs the build and the
+named main-path phases alone, without the kernels line; `--seed` draws
+the manager phases' Jobs.
 
 The bound and Scheduler phases print their snapshot_stats and the
 snapshot phase's p50: the Cache takes incremental snapshots by default,
@@ -4918,6 +4951,836 @@ def scheduler_observed_phase(device) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# The control plane's main path: KueueManager on the card
+# ---------------------------------------------------------------------------
+
+# The manager phase (kueue_tpu_torch/manager.py): the north star's topology
+# and cycle width (2048 CQs in 256 cohorts), 16 flavors of cpu and memory in
+# one resource group (the webhook's limit a group; the north star's 32 would
+# be refused) and 4,096 batch/v1 Jobs, two a CQ. Cut from the north star:
+# the backlog, 4,096 Jobs and not 51,200 (intake through the controllers
+# costs milliseconds a Job on the host). Each CQ owns two flavors of the 16
+# (MANAGER_HOME_CPU cores each); the even CQs of a cohort borrow nothing,
+# the odd ones up to MANAGER_BORROW cores a flavor. A Job runs 1-8 pods of
+# one core and 2 GiB, drawn from --seed.
+MANAGER = dict(num_cqs=2048, num_cohorts=256, num_flavors=16,
+               jobs_per_cq=2, finishes=1024)
+MANAGER_HOME_CPU = 8
+MANAGER_BORROW = 8
+MANAGER_MAX_POD = 8
+# the paired equality run: a 256-CQ copy, on the card and with solver=None
+MANAGER_PAIRED = dict(MANAGER, num_cqs=256, num_cohorts=32, finishes=128)
+# the MultiKueue step: the manager's 256 CQs on the mk-check (2,048
+# cores), three worker KueueManagers with no solver, 1,024 Jobs. A worker
+# is one ClusterQueue, "pool", of MANAGER_WORKER_POOL cores on one flavor
+# behind a LocalQueue for each of the manager's: the capacity column
+# MultiKueueController reads off a worker (nominal minus usage, summed
+# over its CQs) is then exactly what the worker can admit, so every Job
+# the manager places fits its worker; three pools of 768 hold the
+# manager's 2,048 cores and no two of them do, so every worker takes
+# placements.
+MANAGER_MK = dict(num_cqs=256, num_cohorts=32, num_flavors=16, jobs=1024,
+                  workers=3)
+MANAGER_WORKER_POOL = 768
+MANAGER_MAX_CALLS = 80
+MANAGER_SETTLE = 2     # quiet schedule() calls in a row that end a settle
+SEED = 2026            # --seed
+# what every manager run must launch: the bound cycle's kernels (the
+# router's avail and phase_a beside the cycle's), K12 on the MultiKueue step
+PHASE_KERNELS["manager"] = ("arena_gather", "avail", "phase_a", "order",
+                            "phase_b", "pack")
+PHASE_KERNELS["manager_multikueue"] = PHASE_KERNELS["manager"] + (
+    "cluster_cols",)
+
+
+def manager_cfg():
+    """The production defaults (pipeline depth 2, adaptive routing, the
+    watchdog, the breaker, supervised dispatch, journeys, the query
+    plane), with the warm governor started by the manager."""
+    from kueue_tpu_torch import config as cfgpkg
+    cfg = cfgpkg.Configuration()
+    cfg.solver.warmup_at_startup = True
+    return cfg
+
+
+def manager_cluster(store, spec: dict, home_cpu: int, borrow: int,
+                    check: str = "") -> None:
+    """Flavors, CQs in cohorts and a LocalQueue a CQ, through the store.
+    Every CQ lists the 16 flavors in its one resource group, its home
+    flavor f(2k) first (k = i mod 8, its place in the cohort), with
+    `home_cpu` cores and 4 GiB a core there and nothing elsewhere; even
+    CQs borrow nothing, odd ones up to `borrow` cores a flavor from the
+    cohort."""
+    from kueue_tpu_torch.api import kueue as api
+    from kueue_tpu_torch.api.meta import LabelSelector, ObjectMeta
+    flavors = [f"f{i}" for i in range(spec["num_flavors"])]
+    for f in flavors:
+        store.create(api.ResourceFlavor(
+            metadata=ObjectMeta(name=f),
+            spec=api.ResourceFlavorSpec(node_labels={"pool": f})))
+    per_cohort = spec["num_cqs"] // spec["num_cohorts"]
+    for i in range(spec["num_cqs"]):
+        k = i % per_cohort
+        home = flavors[(2 * k) % len(flavors)]
+        lend = borrow if k % 2 else 0
+
+        def quota(f, home=home, lend=lend):
+            own = home_cpu if f == home else 0
+            return api.FlavorQuotas(name=f, resources=[
+                api.ResourceQuota(name="cpu", nominal_quota=own * 1000,
+                                  borrowing_limit=lend * 1000),
+                api.ResourceQuota(name="memory", nominal_quota=own << 32,
+                                  borrowing_limit=lend << 32)])
+
+        order = [home] + [f for f in flavors if f != home]
+        store.create(api.ClusterQueue(
+            metadata=ObjectMeta(name=f"cq{i}"),
+            spec=api.ClusterQueueSpec(
+                cohort=f"cohort{i // per_cohort}",
+                namespace_selector=LabelSelector(),
+                admission_checks=[check] if check else [],
+                resource_groups=[api.ResourceGroup(
+                    covered_resources=["cpu", "memory"],
+                    flavors=[quota(f) for f in order])])))
+        store.create(api.LocalQueue(
+            metadata=ObjectMeta(name=f"lq{i}", namespace="default"),
+            spec=api.LocalQueueSpec(cluster_queue=f"cq{i}")))
+
+
+def worker_cluster(store, num_lqs: int, pool_cpu: int) -> None:
+    """A MultiKueue worker: flavor f0, the ClusterQueue "pool" of
+    `pool_cpu` cores and 4 GiB a core there, and LocalQueues lq0 ..
+    lq{num_lqs - 1} into it, through the store."""
+    from kueue_tpu_torch.api import kueue as api
+    from kueue_tpu_torch.api.meta import LabelSelector, ObjectMeta
+    store.create(api.ResourceFlavor(
+        metadata=ObjectMeta(name="f0"),
+        spec=api.ResourceFlavorSpec(node_labels={"pool": "f0"})))
+    store.create(api.ClusterQueue(
+        metadata=ObjectMeta(name="pool"),
+        spec=api.ClusterQueueSpec(
+            namespace_selector=LabelSelector(),
+            resource_groups=[api.ResourceGroup(
+                covered_resources=["cpu", "memory"],
+                flavors=[api.FlavorQuotas(name="f0", resources=[
+                    api.ResourceQuota(name="cpu",
+                                      nominal_quota=pool_cpu * 1000),
+                    api.ResourceQuota(name="memory",
+                                      nominal_quota=pool_cpu << 32)])])])))
+    for i in range(num_lqs):
+        store.create(api.LocalQueue(
+            metadata=ObjectMeta(name=f"lq{i}", namespace="default"),
+            spec=api.LocalQueueSpec(cluster_queue="pool")))
+
+
+def manager_jobs(num_cqs: int, count: int, seed: int) -> list:
+    """(name, local queue, pods) of `count` Jobs spread over the CQs in
+    turn, their pod counts drawn from `seed`."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pods = rng.integers(1, MANAGER_MAX_POD + 1, size=count)
+    return [(f"j{n}", f"lq{n % num_cqs}", int(pods[n])) for n in range(count)]
+
+
+def make_job(name: str, lq: str, pods: int):
+    from kueue_tpu_torch.api import batchv1, corev1
+    from kueue_tpu_torch.api import kueue as api
+    from kueue_tpu_torch.api.meta import ObjectMeta
+    job = batchv1.Job(metadata=ObjectMeta(
+        name=name, namespace="default", labels={api.QUEUE_LABEL: lq}))
+    job.spec.suspend = True
+    job.spec.parallelism = pods
+    job.spec.template = corev1.PodTemplateSpec(spec=corev1.PodSpec(
+        containers=[corev1.Container(name="c", requests={
+            "cpu": 1000, "memory": 2 << 30})]))
+    return job
+
+
+class ManagerRun:
+    """One KueueManager (kueue_tpu_torch/manager.py) driven through its
+    store: the cluster, then the Jobs (intake timed), cycles until
+    settled (each schedule() call timed by its route), a finish wave and
+    cycles until settled again."""
+
+    def __init__(self, spec: dict, solver, clock=None,
+                 remote_clusters=None, check: str = "",
+                 home_cpu: int = MANAGER_HOME_CPU,
+                 borrow: int = MANAGER_BORROW, label: str = "",
+                 pipeline: bool = True):
+        from kueue_tpu_torch.api.meta import REAL_CLOCK
+        from kueue_tpu_torch.manager import KueueManager
+        self.spec, self.label = spec, label
+        self.clock = clock or REAL_CLOCK
+        t0 = time.perf_counter()
+        cfg = manager_cfg()
+        cfg.solver.pipeline = pipeline
+        self.mgr = KueueManager(cfg, clock=self.clock,
+                                solver=solver,
+                                remote_clusters=remote_clusters)
+        if check:
+            manager_mk_objects(self.mgr.store, remote_clusters)
+        manager_cluster(self.mgr.store, spec, home_cpu, borrow, check)
+        self.mgr.run_until_idle()
+        self.setup_s = time.perf_counter() - t0
+        self.calls = []   # (route, seconds) a schedule() call
+        self.workers = remote_clusters or {}
+
+    def intake(self, jobs: list) -> float:
+        """Create the Jobs and drain the controllers (Workloads made and
+        queued); returns the seconds."""
+        t0 = time.perf_counter()
+        for name, lq, pods in jobs:
+            self.mgr.store.create(make_job(name, lq, pods))
+        self.mgr.run_until_idle()
+        return time.perf_counter() - t0
+
+    def call(self) -> None:
+        mgr, sched = self.mgr, self.mgr.scheduler
+        mgr.runtime.run_until_idle()
+        counts0 = dict(sched.cycle_counts)
+        t0 = time.perf_counter()
+        sched.schedule(timeout=0)
+        dt = time.perf_counter() - t0
+        mgr.runtime.run_until_idle()
+        for wm in self.workers.values():
+            wm.schedule_until_settled()
+        if self.workers:
+            mgr.runtime.run_until_idle()
+        route = [r for r, c in sched.cycle_counts.items()
+                 if c != counts0.get(r, 0)]
+        self.calls.append((route[0] if route else "idle", dt))
+
+    def settle(self) -> float:
+        """schedule() calls until MANAGER_SETTLE in a row change nothing,
+        leave no cycle in flight and no active head; returns the
+        seconds."""
+        mgr, sched = self.mgr, self.mgr.scheduler
+        t0 = time.perf_counter()
+        quiet = 0
+        for _ in range(MANAGER_MAX_CALLS):
+            rv0 = mgr.store._rv
+            self.call()
+            active = any(cqh.active and cqh.pending_active() > 0
+                         for cqh in mgr.queues.cluster_queues.values())
+            if mgr.store._rv == rv0 and not active \
+                    and sched._inflight is None:
+                quiet += 1
+                if quiet >= MANAGER_SETTLE:
+                    return time.perf_counter() - t0
+            else:
+                quiet = 0
+        raise AssertionError(f"manager {self.label} did not settle in "
+                             f"{MANAGER_MAX_CALLS} calls")
+
+    def finish(self, count: int) -> list:
+        """Mark the first `count` running Jobs (by name) Complete."""
+        from kueue_tpu_torch.api import batchv1
+        from kueue_tpu_torch.api.meta import Condition
+        store = self.mgr.store
+        running = sorted(
+            (j.metadata.name for j in store.list("Job", copy_objects=False)
+             if not j.spec.suspend and not j.status.conditions),
+            key=lambda n: int(n[1:]))[:count]
+        for name in running:
+            job = store.get("Job", "default", name)
+            job.status.conditions.append(Condition(
+                type=batchv1.JOB_COMPLETE, status="True", message="done"))
+            store.update(job)
+        self.mgr.run_until_idle()
+        return running
+
+    def run(self, jobs: list, finishes: int) -> dict:
+        out = {"intake_s": self.intake(jobs)}
+        out["settle_s"] = self.settle()
+        out["pending_after_first_settle"] = len(self.pending())
+        out["finished"] = len(self.finish(finishes))
+        out["resettle_s"] = self.settle()
+        return out
+
+    def pending(self) -> list:
+        from kueue_tpu_torch.core import workload as wlpkg
+        return [w for w in self.mgr.store.list("Workload", copy_objects=False)
+                if not wlpkg.has_quota_reservation(w)
+                and not wlpkg.is_finished(w)]
+
+    def shutdown(self) -> int:
+        self.mgr.shutdown()
+        for wm in self.workers.values():
+            wm.shutdown()
+        return self.mgr.cache.live_handouts
+
+
+def manager_checks(mgr, label: str) -> list:
+    """The store after settling: every admitted Workload's Job unsuspended
+    and every pending one's suspended, no Workload admitted twice (one
+    QuotaReserved event a Workload), each CQ's status (its reservation
+    and its usage) the sum of its quota-reserving and of its admitted
+    Workloads' requests, the reservation within its quota and borrowing
+    limits, and each cohort's within its CQs' quota."""
+    from kueue_tpu_torch.core import workload as wlpkg
+    failures = []
+    store = mgr.store
+    jobs = {j.metadata.name: j for j in store.list("Job", copy_objects=False)}
+    usage: dict = {"reservation": {}, "usage": {}}
+    for wl in store.list("Workload", copy_objects=False):
+        job = jobs[wl.metadata.owner_references[0].name]
+        if wlpkg.is_finished(wl):
+            continue
+        admitted = wlpkg.is_admitted(wl)
+        if admitted == job.spec.suspend:
+            failures.append(f"{label}: {job.metadata.name} suspend "
+                            f"{job.spec.suspend}, workload admitted "
+                            f"{admitted}")
+        if not wlpkg.has_quota_reservation(wl):
+            continue
+        adm = wl.status.admission
+        for part in ("reservation", "usage") if admitted \
+                else ("reservation",):
+            u = usage[part].setdefault(adm.cluster_queue, {})
+            for psa in adm.pod_set_assignments:
+                for res, q in psa.resource_usage.items():
+                    key = (psa.flavors[res], res)
+                    u[key] = u.get(key, 0) + q
+    reserved = {}
+    for e in mgr.recorder.events:
+        if e.reason == "QuotaReserved":
+            reserved[e.object_key] = reserved.get(e.object_key, 0) + 1
+    twice = sorted(k for k, n in reserved.items() if n > 1)
+    if twice:
+        failures.append(f"{label}: admitted twice: {twice[:6]}")
+    cohort_use, cohort_cap = {}, {}
+    for cq in store.list("ClusterQueue", copy_objects=False):
+        name = cq.metadata.name
+        for part, listed in (("reservation", cq.status.flavors_reservation),
+                             ("usage", cq.status.flavors_usage)):
+            status = {(fu.name, ru.name): ru.total
+                      for fu in listed for ru in fu.resources if ru.total}
+            want = {k: v for k, v in usage[part].get(name, {}).items() if v}
+            if status != want:
+                failures.append(f"{label}: {name} status {part} {status} "
+                                f"!= the Workloads' requests {want}")
+        want = usage["reservation"].get(name, {})
+        for rg in cq.spec.resource_groups:
+            for fq in rg.flavors:
+                for rq in fq.resources:
+                    key = (fq.name, rq.name)
+                    used = want.get(key, 0)
+                    cap = rq.nominal_quota + (rq.borrowing_limit
+                                              if rq.borrowing_limit is not None
+                                              else 1 << 62)
+                    if used > cap:
+                        failures.append(f"{label}: {name} {key} uses {used} "
+                                        f"over {cap}")
+                    ck = (cq.spec.cohort, key)
+                    cohort_use[ck] = cohort_use.get(ck, 0) + used
+                    cohort_cap[ck] = cohort_cap.get(ck, 0) + rq.nominal_quota
+    over = [k for k, v in cohort_use.items() if v > cohort_cap[k]]
+    if over:
+        failures.append(f"{label}: cohorts over their quota: {over[:4]}")
+    return failures
+
+
+def manager_state(mgr) -> dict:
+    """The store's state, each Workload by its Job's name (names hash the
+    owner's uid): every Workload's spec and status, every Job's spec and
+    status, every CQ's and LQ's status. A Pending condition's message is
+    left out: a head the device route finds no fit for carries the
+    batched assignment's message ("couldn't assign flavors: insufficient
+    quota (batched assignment)", as the JAX Scheduler's device-NoFit
+    heads do), the CPU route's the per-flavor reasons."""
+    import dataclasses
+
+    def canon(x):
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            pending = getattr(x, "reason", None) == "Pending"
+            return tuple((f.name, canon(getattr(x, f.name)))
+                         for f in dataclasses.fields(x)
+                         if not (pending and f.name == "message"))
+        if isinstance(x, dict):
+            return tuple(sorted((str(k), canon(v)) for k, v in x.items()))
+        if isinstance(x, (list, tuple)):
+            return tuple(canon(v) for v in x)
+        return x
+
+    store = mgr.store
+    return {
+        "workloads": {w.metadata.owner_references[0].name:
+                      (canon(w.spec), canon(w.status))
+                      for w in store.list("Workload", copy_objects=False)},
+        "jobs": {j.metadata.name: (canon(j.spec), canon(j.status))
+                 for j in store.list("Job", copy_objects=False)},
+        "cluster_queues": {c.metadata.name: canon(c.status) for c in
+                           store.list("ClusterQueue", copy_objects=False)},
+        "local_queues": {q.metadata.name: canon(q.status) for q in
+                         store.list("LocalQueue", copy_objects=False)}}
+
+
+def state_difference(a: dict, b: dict) -> str:
+    for part in a:
+        for key in sorted(set(a[part]) | set(b[part])):
+            if a[part].get(key) != b[part].get(key):
+                return (f"{part} {key}: {str(a[part].get(key))[:600]} != "
+                        f"{str(b[part].get(key))[:600]}")
+    return ""
+
+
+def wait_quantiles(metrics) -> dict:
+    """The creation-to-admission wait (the journey ledger's
+    admission_wait_time histograms, every CQ's series summed): count,
+    mean and the p50/p99 bucket estimates, seconds."""
+    from kueue_tpu_torch import metrics as metricspkg
+    h = metrics.admission_wait_time
+    merged = metricspkg.Histogram("merged", "", (), buckets=h.buckets)
+    counts = [0] * (len(h.buckets) + 1)
+    total, n = 0.0, 0
+    for c, s, k in h.series.values():
+        counts = [a + b for a, b in zip(counts, c)]
+        total += s
+        n += k
+    merged.series[()] = [counts, total, n]
+    return {"count": n, "mean_s": total / n if n else math.nan,
+            "p50_s": merged.percentile(0.5), "p99_s": merged.percentile(0.99)}
+
+
+def route_times(calls: list) -> dict:
+    by: dict = {}
+    for route, secs in calls:
+        by.setdefault(route, []).append(secs * 1e3)
+    return {r: {"calls": len(v), "p50_ms": percentile(v, 50),
+                "max_ms": max(v)} for r, v in sorted(by.items())}
+
+
+def manager_mk_objects(store, workers: dict) -> None:
+    from kueue_tpu_torch.api import autoscaling as asapi
+    from kueue_tpu_torch.api import kueue as api
+    from kueue_tpu_torch.api.meta import ObjectMeta
+    from kueue_tpu_torch.controller.admissionchecks import multikueue as mk
+    for w in sorted(workers):
+        store.create(asapi.MultiKueueCluster(metadata=ObjectMeta(name=w)))
+    store.create(asapi.MultiKueueConfig(
+        metadata=ObjectMeta(name="mk-config"),
+        spec=asapi.MultiKueueConfigSpec(clusters=sorted(workers))))
+    ac = api.AdmissionCheck(metadata=ObjectMeta(name="mk-check"))
+    ac.spec.controller_name = mk.CONTROLLER_NAME
+    ac.spec.parameters = api.AdmissionCheckParametersReference(
+        kind="MultiKueueConfig", name="mk-config")
+    store.create(ac)
+
+
+class ClusterCalls:
+    """Within the block, every call of kernel.score_cluster_columns keeps
+    its arguments and result (cloned) beside the solver's topology; the
+    launch count stays on the registered wrapper."""
+
+    def __init__(self, kernel, mgr):
+        self.kernel, self.mgr = kernel, mgr
+        self.real = kernel.score_cluster_columns
+        self.calls = []
+
+    @property
+    def launches(self) -> int:
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.real.launches = n
+
+    def __call__(self, *args, **kwargs):
+        out = self.real(*args, **kwargs)
+        self.calls.append((tuple(a.clone() for a in args), out.clone(),
+                           self.mgr.scheduler.solver._topo_cache[0]))
+        return out
+
+    def __enter__(self):
+        self.kernel.score_cluster_columns = self
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel.score_cluster_columns = self.real
+
+
+# the main path's kernels held call by call against their plain versions:
+# KERNEL_WRAPPERS name -> (the wrapper's name in kernel, its plain version)
+CAPTURED_KERNELS = {
+    "avail": ("avail", "avail_plain"),
+    "phase_a": ("phase_a", "phase_a_plain"),
+    "drf_share": ("drf_share", "drf_share_plain"),
+    "order": ("order_csr", "order_csr_plain"),
+    "phase_b": ("phase_b", "phase_b_plain"),
+    "pack": ("pack", "pack_plain"),
+    "deltas": ("apply_state_deltas", "apply_state_deltas_plain"),
+    "arena_scatter": ("scatter_arena_rows", "scatter_arena_rows_plain"),
+    "arena_gather": ("gather_arena", "gather_arena_plain")}
+KERNEL_CALLS_LIMIT = 64    # calls kept a kernel
+
+
+def clone_value(x, to=None):
+    """A copy of a call's argument or result: tensors cloned (or moved to
+    `to`), dicts, lists and tuples (named ones too) copied through, the
+    rest as they are."""
+    if isinstance(x, dict):
+        return {k: clone_value(v, to) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        vals = [clone_value(v, to) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else type(x)(vals)
+    if hasattr(x, "clone"):
+        return x.to(to, copy=True) if to is not None else x.clone()
+    return x
+
+
+def tensors_of(x) -> list:
+    """The tensors of a value, in order, through dicts (by key), lists
+    and tuples."""
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in tensors_of(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in tensors_of(v)]
+    return [x] if hasattr(x, "clone") else []
+
+
+class KernelCallShim(Captured):
+    """One wrapper's shim in KernelCalls: Captured, keeping a list."""
+
+    def __init__(self, module, name: str):
+        super().__init__(module, name)
+        self.calls = []
+
+    def __call__(self, *args, **kwargs):
+        if len(self.calls) >= KERNEL_CALLS_LIMIT:
+            return self.real(*args, **kwargs)
+        before = clone_value(args)
+        out = self.real(*args, **kwargs)
+        self.calls.append((before, dict(kwargs), clone_value(args),
+                           clone_value(out)))
+        return out
+
+
+class KernelCalls:
+    """Within the block, each wrapper of CAPTURED_KERNELS (those named)
+    keeps, for its first KERNEL_CALLS_LIMIT calls, the arguments cloned
+    before the call, and the arguments and the result cloned after it
+    (K6 and K7a write their arguments in place; a result the next cycle
+    writes in place stays as the kernel left it). The clones are queued
+    on the call's stream, so they hold the values the kernel read and
+    wrote. The launch counts stay on the registered wrappers."""
+
+    def __init__(self, kernel, names):
+        self.shims = {name: KernelCallShim(kernel, CAPTURED_KERNELS[name][0])
+                      for name in names}
+
+    @property
+    def calls(self) -> dict:
+        return {name: shim.calls for name, shim in self.shims.items()}
+
+    def __enter__(self):
+        for shim in self.shims.values():
+            shim.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for shim in self.shims.values():
+            shim.__exit__(*exc)
+
+
+def check_kernel_calls(phase: str, kernel, calls: dict,
+                       launches: dict) -> dict:
+    """Every captured call on the main path against its plain version on
+    the same inputs, on the CPU (where the plain versions are the
+    reference: torch's sort on the card orders NaNs otherwise): the
+    results and the arguments after the call (K6 and K7a write in place)
+    equal element by element. Raises unless every launch of the run was
+    captured and equal. Returns {kernel: {calls, shapes}}."""
+    cpu = "cpu"
+    out = {}
+    for name, got in calls.items():
+        plain = getattr(kernel, CAPTURED_KERNELS[name][1])
+        if len(got) != min(launches[name], KERNEL_CALLS_LIMIT):
+            raise AssertionError(f"{phase}: {name} launched {launches[name]} "
+                                 f"times, {len(got)} calls captured")
+        shapes = set()
+        for i, (before, kwargs, after, result) in enumerate(got):
+            args = clone_value(before, cpu)
+            want = plain(*args, **kwargs)
+            label = f"{phase} {name} call {i}"
+            have = tensors_of(result) + tensors_of(after)
+            need = tensors_of(want) + tensors_of(args)
+            if len(have) != len(need):
+                raise AssertionError(f"{label}: {len(have)} tensors against "
+                                     f"the plain version's {len(need)}")
+            compare([f"{label} tensor {j}" for j in range(len(have))],
+                    [t.cpu() for t in have], need)
+            shapes.add(tuple(tuple(t.shape) for t in tensors_of(result))[:3])
+        out[name] = {"calls": len(got), "max_abs_err": 0,
+                     "result_shapes": sorted(map(str, shapes))[:4]}
+    log(f"[{phase}] every captured kernel call equal to its plain version: "
+        + json.dumps(out))
+    return out
+
+
+def launch_columns(args: tuple, topo) -> tuple:
+    """The capacity columns one K12 launch was given, as the host
+    oracle's dicts: column k offers (flavor, resource) where coffer is
+    set, with ccap's capacity, and is active where cactive is."""
+    ccap, coffer, cactive = (a.cpu().numpy() for a in args[:3])
+    flavors = sorted(topo.flavor_index, key=topo.flavor_index.get)
+    resources = sorted(topo.resource_index, key=topo.resource_index.get)
+    return tuple((f"column{k}", {
+        (flavors[f], resources[r]): int(ccap[k, f, r])
+        for f in range(len(flavors)) for r in range(len(resources))
+        if coffer[k, f, r]}, bool(cactive[k])) for k in range(len(cactive)))
+
+
+def manager_mk_run(solver, seed: int) -> tuple:
+    """The MultiKueue step on a FakeClock: three worker KueueManagers
+    with no solver, the manager's CQs on the mk-check, MANAGER_MK["jobs"]
+    Jobs, settled. The manager runs the synchronous cycle (the
+    production wiring but the pipeline): a pipelined cycle is dispatched
+    on capacity columns stamped before the cycles in flight place, as in
+    the JAX package, so it places Jobs on a worker they no longer fit
+    and the planned mirrors wait there; with the synchronous cycle every
+    cycle reads the columns after the last one's placements. Returns (run, placements by Job name, mirrors by Job
+    name: (worker, reserved there) for each worker holding one)."""
+    from kueue_tpu_torch.core import workload as wlpkg
+    from kueue_tpu_torch.api.meta import FakeClock
+    from kueue_tpu_torch.manager import KueueManager
+    clock = FakeClock(1000.0)
+    workers = {}
+    for w in range(MANAGER_MK["workers"]):
+        wm = KueueManager(clock=clock)
+        worker_cluster(wm.store, MANAGER_MK["num_cqs"], MANAGER_WORKER_POOL)
+        wm.run_until_idle()
+        workers[f"w{w}"] = wm
+    run = ManagerRun(MANAGER_MK, solver, clock=clock,
+                     remote_clusters=workers, check="mk-check",
+                     label="multikueue", pipeline=False)
+    from kueue_tpu_torch.solver import kernel
+    run.k12 = ClusterCalls(kernel, run.mgr)
+    run.captured = KernelCalls(kernel, CAPTURED_KERNELS)
+    with run.k12, run.captured:
+        run.intake(manager_jobs(MANAGER_MK["num_cqs"], MANAGER_MK["jobs"],
+                                seed + 1))
+        run.settle()
+    owner = {}
+    for wl in run.mgr.store.list("Workload", copy_objects=False):
+        owner[f"{wl.metadata.namespace}/{wl.metadata.name}"] = \
+            wl.metadata.owner_references[0].name
+    placements = {owner[k]: c for k, c in run.mgr.multikueue.planned.items()
+                  if k in owner}
+    mirrors: dict = {}
+    for w, wm in workers.items():
+        for wl in wm.store.list("Workload", copy_objects=False):
+            key = f"{wl.metadata.namespace}/{wl.metadata.name}"
+            if key in owner:
+                mirrors.setdefault(owner[key], []).append(
+                    (w, wlpkg.has_quota_reservation(wl)))
+    return run, placements, mirrors
+
+
+def manager_phase(device) -> dict:
+    """The control plane's main path on the card (see MANAGER): the port's
+    KueueManager(cfg, solver=BatchSolver()) at the production defaults,
+    the objects created through its store, cycles until settled, a
+    finish wave of MANAGER["finishes"] Jobs marked Complete, cycles until
+    settled again. Checks (manager_checks): Jobs' suspend flags against
+    their Workloads', nothing admitted twice, usage per CQ the admitted
+    requests' sum within quota, borrowing limits and the cohort's quota;
+    the launches of PHASE_KERNELS["manager"]; every kernel call of the
+    run (KernelCalls: avail, phase_a, order, phase_b, pack, deltas and
+    the arena's scatter and gather at this path's own shapes) equal to
+    its plain version on the same inputs (check_kernel_calls);
+    live_handouts 0 after shutdown. Then the paired run: MANAGER_PAIRED
+    on a FakeClock with BatchSolver() on the card and with solver=None
+    must end in the same store state (manager_state), the card's arm
+    taking a device route and launching phase_a and phase_b. Prints the intake Jobs/s, the
+    schedule() call's p50 and max per route, the creation-to-admission
+    wait from the journey ledger's histograms, the settle times and the
+    phase's wall."""
+    from kueue_tpu_torch.api.meta import FakeClock
+    from kueue_tpu_torch.solver import BatchSolver, kernel
+    phase = "manager"
+    t_phase = time.perf_counter()
+    failures = []
+    with collector_paused():
+        run = ManagerRun(MANAGER, BatchSolver(device=device), label="main")
+        jobs = manager_jobs(MANAGER["num_cqs"],
+                            MANAGER["num_cqs"] * MANAGER["jobs_per_cq"], SEED)
+        kernel.reset_launch_counts()
+        with KernelCalls(kernel, CAPTURED_KERNELS) as captured:
+            steps = run.run(jobs, MANAGER["finishes"])
+        launches = kernel.launch_counts()
+    mgr = run.mgr
+    failures += manager_checks(mgr, "main")
+    for name in PHASE_KERNELS[phase]:
+        if launches[name] <= 0:
+            failures.append(f"kernel {name} never launched")
+    try:
+        captured_calls = check_kernel_calls(phase, kernel, captured.calls,
+                                            launches)
+    except AssertionError as exc:
+        failures.append(str(exc))
+        captured_calls = None
+    del captured
+    sched = mgr.scheduler
+    if sched.solver_faults:
+        failures.append(f"{sched.solver_faults} device faults")
+    gov = mgr.warm_governor
+    if gov is None or gov.unwarm_routed or gov.warmup_faults:
+        failures.append(f"the governor routed or faulted: {gov and gov.status()}")
+    summary = {
+        "cqs": MANAGER["num_cqs"], "cohorts": MANAGER["num_cohorts"],
+        "flavors": MANAGER["num_flavors"], "jobs": len(jobs),
+        "cut": "the backlog: 4,096 Jobs, not the north star's 51,200",
+        "setup_s": run.setup_s,
+        "intake_jobs_per_s": len(jobs) / steps["intake_s"],
+        **steps,
+        "admitted": len(jobs) - len(run.pending()),
+        "calls_by_route": route_times(run.calls),
+        "cycle_counts": dict(sched.cycle_counts),
+        "speculation": {"hits": sched.speculation_hits,
+                        "aborts": sched.speculation_abort_reasons},
+        "wait": wait_quantiles(mgr.metrics),
+        "journeys": {k: mgr.journey_ledger.status()[k] for k in (
+            "started", "completed", "requeues_per_admission")},
+        "launches": launches,
+        "kernel_calls_equal_plain": captured_calls,
+    }
+    held = run.shutdown()
+    if held:
+        failures.append(f"live_handouts {held} after shutdown")
+    del run, mgr, sched
+    gc.collect()
+    log(f"[{phase}] main: {nvidia_smi()}; " + json.dumps(summary))
+
+    # the paired run: the card against solver=None, on a FakeClock
+    states = {}
+    for arm, solver in (("card", BatchSolver(device=device)), ("none", None)):
+        t0 = time.perf_counter()
+        paired = ManagerRun(MANAGER_PAIRED, solver, clock=FakeClock(1000.0),
+                            label=f"paired-{arm}")
+        kernel.reset_launch_counts()
+        out = paired.run(manager_jobs(MANAGER_PAIRED["num_cqs"],
+                                      MANAGER_PAIRED["num_cqs"]
+                                      * MANAGER_PAIRED["jobs_per_cq"], SEED),
+                         MANAGER_PAIRED["finishes"])
+        arm_launches = kernel.launch_counts()
+        counts = dict(paired.mgr.scheduler.cycle_counts)
+        failures += manager_checks(paired.mgr, f"paired-{arm}")
+        states[arm] = manager_state(paired.mgr)
+        summary[f"paired_{arm}"] = {
+            "wall_s": time.perf_counter() - t0,
+            "pending_after_first_settle": out["pending_after_first_settle"],
+            "admitted": len(states[arm]["workloads"]) - len(paired.pending()),
+            "cycle_counts": counts,
+            "launches": {k: arm_launches[k] for k in ("phase_a", "phase_b")}}
+        if arm == "card" and not (
+                any(r.startswith("device") for r in counts)
+                and arm_launches["phase_a"] > 0
+                and arm_launches["phase_b"] > 0):
+            failures.append(f"the paired card arm took no device route: "
+                            f"{counts}, launches {arm_launches}")
+        paired.shutdown()
+    diff = state_difference(states["card"], states["none"])
+    if diff:
+        failures.append(f"the paired runs end apart: {diff}")
+    summary["paired_equal"] = not diff
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[{phase}] paired: " + json.dumps(
+        {k: summary[k] for k in ("paired_card", "paired_none",
+                                 "paired_equal")}))
+    log(f"[{phase}] wall {summary['wall_s']:.1f} s; {nvidia_smi()}")
+    if failures:
+        raise AssertionError(f"{phase}: " + "; ".join(failures[:12]))
+    return summary
+
+
+def manager_multikueue_phase(device) -> dict:
+    """The MultiKueue step (MANAGER_MK): a manager on the card with its
+    CQs on the mk-check, three worker KueueManagers with no solver. K12
+    launches from MultiKueueController.capacity_columns (the cache's
+    remote_capacity_source), and every launch's placements equal the
+    plain version's and the host oracle's (synth.cluster_oracle: the
+    admitted rows walked in the admit order through
+    encode.place_remote_dicts on the columns of that launch,
+    launch_columns); every other kernel call equal to its plain version
+    (check_kernel_calls); every placement mirrored on its worker and on
+    no other, and reserved there; the manager's admitted Workloads
+    exactly the placed ones; every worker given placements. (A
+    solver=None run of the same step places by the same
+    oracle but not on the same columns: the pipeline lands a cycle's
+    decisions one or two calls later, after the workers have moved.)"""
+    from kueue_tpu_torch.core import workload as wlpkg
+    from kueue_tpu_torch.solver import BatchSolver, kernel
+    phase = "manager_multikueue"
+    t_phase = time.perf_counter()
+    failures = []
+    with collector_paused():
+        kernel.reset_launch_counts()
+        run, placed, mirrors = manager_mk_run(BatchSolver(device=device),
+                                              SEED)
+        launches = kernel.launch_counts()
+    failures += manager_checks(run.mgr, "multikueue")
+    for name in PHASE_KERNELS[phase]:
+        if launches[name] <= 0:
+            failures.append(f"kernel {name} never launched")
+    try:
+        captured_calls = check_kernel_calls(phase, kernel,
+                                            run.captured.calls, launches)
+    except AssertionError as exc:
+        failures.append(str(exc))
+        captured_calls = None
+    run.captured = None
+    admitted = {w.metadata.owner_references[0].name
+                for w in run.mgr.store.list("Workload", copy_objects=False)
+                if wlpkg.is_admitted(w)}
+    bad = sorted(n for n, c in placed.items()
+                 if mirrors.get(n) != [(c, True)])
+    if bad or not placed:
+        failures.append(f"{len(bad)} of {len(placed)} placements not "
+                        f"mirrored and reserved on their worker alone: "
+                        f"{[(n, placed[n], mirrors.get(n)) for n in bad[:4]]}")
+    if admitted != set(placed):
+        failures.append(f"admitted and placed differ: "
+                        f"{sorted(admitted ^ set(placed))[:6]}")
+    unmirrored = sorted(set(mirrors) - set(placed))
+    if unmirrored:
+        failures.append(f"mirrors without a placement: {unmirrored[:6]}")
+    summary = {
+        "cqs": MANAGER_MK["num_cqs"], "workers": MANAGER_MK["workers"],
+        "jobs": MANAGER_MK["jobs"], "admitted": len(admitted),
+        "placements": len(placed),
+        "by_worker": {w: sum(1 for c in placed.values() if c == w)
+                      for w in sorted(run.workers)},
+        "pending": len(run.pending()),
+        "calls_by_route": route_times(run.calls),
+        "cycle_counts": dict(run.mgr.scheduler.cycle_counts),
+        "launches": launches,
+        "kernel_calls_equal_plain": captured_calls}
+    if not all(summary["by_worker"].values()):
+        failures.append(f"a worker took no placement: {summary['by_worker']}")
+    calls = run.k12.calls
+    if not calls:
+        failures.append("cluster_cols was never called")
+    rows = placed_rows = 0
+    for i, (args, out, topo) in enumerate(calls):
+        row = cluster_kernel_check(f"manager call {i}", kernel, args, out,
+                                   launch_columns(args, topo),
+                                   topo.resources, False)
+        rows += row["rows"]
+        placed_rows += row["placed"]
+    summary["k12_calls"] = len(calls)
+    summary["k12_rows"] = {"rows": rows, "placed": placed_rows}
+    summary["k12_equal_oracle_every_call"] = bool(calls)
+    held = run.shutdown()
+    if held:
+        failures.append(f"live_handouts {held} after shutdown")
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[{phase}] {nvidia_smi()}; " + json.dumps(summary))
+    if failures:
+        raise AssertionError(f"{phase}: " + "; ".join(failures[:12]))
+    return summary
+
+
 def traced_cycle(phase: str, run_cycle, cycle: int,
                  kernel: str = None, kernels: tuple = None) -> dict:
     """One more main-path cycle under torch.profiler (after the timed
@@ -4951,11 +5814,43 @@ def traced_cycle(phase: str, run_cycle, cycle: int,
     return out
 
 
+# the main-path phases with a runner of their own (the others run
+# e2e_phase; the sharded phase takes the preempt and MultiKueue records)
+RUNNERS = {"oracles": oracle_phase,
+           "scheduler_partial": scheduler_partial_phase,
+           "scheduler_fair": scheduler_phase,
+           "scheduler_preempt": scheduler_preempt_phase,
+           "scheduler_fair_preempt": scheduler_fair_preempt_phase,
+           "scheduler_multikueue": scheduler_multikueue_phase,
+           "scheduler_faults": scheduler_faults_phase,
+           "scheduler_pipelined": scheduler_pipelined_phase,
+           "scheduler_observed": scheduler_observed_phase,
+           "manager": manager_phase,
+           "manager_multikueue": manager_multikueue_phase}
+
+
 # the numbers of a wide_phase row that the kernels line carries
 WIDE_KEYS = ("ms", "call_ms", "plain_ms", "bound_ms", "max_abs_err")
 
 
-def main() -> int:
+def parse_args(argv: list):
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of kueue_tpu_torch "
+                                 "on one NVIDIA H100.")
+    ap.add_argument("--seed", type=int, default=SEED,
+                    help="the manager phases' Job requests")
+    ap.add_argument("--phase", action="append", default=[],
+                    choices=sorted(set(PHASE_KERNELS)
+                                   - {"scheduler_sharded"}),
+                    help="run only this main-path phase (repeatable) after "
+                         "the build; the kernels line is then not printed")
+    return ap.parse_args(argv)
+
+
+def main(argv: list = None) -> int:
+    global SEED
+    args = parse_args(sys.argv[1:] if argv is None else argv)
+    SEED = args.seed
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4985,6 +5880,20 @@ def main() -> int:
         for line in _build.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    if args.phase:
+        # a rehearsal of chosen phases: no kernels line, and the last
+        # line says which phases ran
+        for phase in args.phase:
+            if phase in RUNNERS:
+                RUNNERS[phase](device)
+            else:
+                e2e_phase(device, phase)
+        log(f"[wall] {time.perf_counter() - t_start:.1f} s")
+        log(smi)
+        log(json.dumps({"ok": True, "phases": args.phase, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # the launch floor: an empty kernel's device time, and one with a load
     # and a store, which every small kernel here pays
@@ -4998,15 +5907,7 @@ def main() -> int:
         kernel_phase(kind, device, results)
         log(f"[kernels:{kind}] wall {time.perf_counter() - t0:.1f} s")
     wide = wide_phase(device)
-    runners = {"oracles": oracle_phase,
-               "scheduler_partial": scheduler_partial_phase,
-               "scheduler_fair": scheduler_phase,
-               "scheduler_preempt": scheduler_preempt_phase,
-               "scheduler_fair_preempt": scheduler_fair_preempt_phase,
-               "scheduler_multikueue": scheduler_multikueue_phase,
-               "scheduler_faults": scheduler_faults_phase,
-               "scheduler_pipelined": scheduler_pipelined_phase,
-               "scheduler_observed": scheduler_observed_phase}
+    runners = RUNNERS
     e2e, full = {}, None
     for phase in PHASE_KERNELS:
         if phase == "scheduler_sharded":
@@ -5037,7 +5938,8 @@ def main() -> int:
     for phase, summary in e2e.items():
         # the cluster columns ride only the MultiKueue cells' cycles, the
         # combine only the mesh's
-        if phase not in ("scheduler_multikueue", "scheduler_sharded") \
+        if phase not in ("scheduler_multikueue", "scheduler_sharded",
+                         "manager_multikueue") \
                 and summary["launches"]["cluster_cols"]:
             raise AssertionError(f"cluster_cols launched on the {phase} "
                                  "path")

@@ -1,7 +1,9 @@
 """API types for kueue_tpu_torch: the three core modules (meta, corev1,
 kueue), re-exported. Plain dataclasses equivalent to the reference CRD
-Go structs (apis/kueue/v1beta1, apis/kueue/v1alpha1); job kinds are not
-part of the port yet.
+Go structs (apis/kueue/v1beta1, apis/kueue/v1alpha1). The job kinds the
+port's integrations consume are in their own modules: `batchv1` (the
+batch/v1 Job) and `autoscaling` (ProvisioningRequest and the MultiKueue
+types); the other frameworks' kinds wait for ROADMAP item 5b.
 """
 
 from kueue_tpu_torch.api.meta import (  # noqa: F401

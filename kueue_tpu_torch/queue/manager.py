@@ -11,8 +11,9 @@ reference's pkg/queue/manager.go:73-606:
 - the journey listeners of the observability layer (obs/journey.py)
 - the per-shard cq_filter on every heads pop
 
-Workloads are ordered by the default wlpkg.Ordering. Left out (the JAX
-package has it): the ordering parameter.
+Left out (the JAX package has them): the QueueVisibility top-N snapshots
+(update_snapshot) and the manager's cron that refreshes them. They come
+with their reader, the visibility server (ROADMAP item 5b).
 """
 
 from __future__ import annotations
@@ -34,12 +35,13 @@ class LocalQueueItems:
 
 
 class Manager:
-    def __init__(self, clock: Clock = REAL_CLOCK,
+    def __init__(self, ordering: Optional[wlpkg.Ordering] = None,
+                 clock: Clock = REAL_CLOCK,
                  namespace_labels: Optional[Callable] = None,
                  excluded_resource_prefixes: Optional[list] = None):
         self._lock = threading.RLock()
         self._cond = threading.Condition(self._lock)
-        self.ordering = wlpkg.Ordering()
+        self.ordering = ordering or wlpkg.Ordering()
         self.clock = clock
         self.cluster_queues: dict = {}  # name -> ClusterQueueHeap
         self.local_queues: dict = {}    # "ns/name" -> LocalQueueItems
@@ -344,6 +346,10 @@ class Manager:
     def stop(self) -> None:
         with self._lock:
             self._stopped = True
+            self._cond.notify_all()
+
+    def broadcast(self) -> None:
+        with self._lock:
             self._cond.notify_all()
 
     # --- pending counts ---

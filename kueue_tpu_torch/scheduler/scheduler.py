@@ -137,8 +137,14 @@ Differences from the JAX Scheduler, on this synchronous path:
   in no span; preempt-plan.solve and preempt-plan.decode: K9/K11's
   launch and their decode; fetch.device: the wait; nominate.partial).
 - Not ported yet: `fencing_check`'s setters, `standby_status`,
-  `shards_status`, `last_promotion` and the start/stop/_run loop; they
-  wait for the control plane (ROADMAP items 5 and 6).
+  `shards_status` and `last_promotion`; they wait for the replicas and
+  the shards (ROADMAP item 6).
+
+The threaded loop (kueue_tpu/scheduler/scheduler.py:365-388): `start()`
+runs `schedule(timeout=0.2)` on a daemon thread under
+utils/wait.until_with_backoff (KeepGoing re-runs at once, SlowDown backs
+off 1 ms doubling to 100 ms); `stop()` ends it, releases a snapshot
+parked for a seal and abandons an in-flight pipelined cycle.
 
 The speculative pipeline (kueue_tpu/scheduler/scheduler.py:1207-1876,
 kueue_tpu/scheduler/PIPELINE.md): with `pipeline_enabled` (off by
@@ -205,6 +211,7 @@ in `last_preempt_plan`.
 
 from __future__ import annotations
 
+import threading
 import time as _time
 from collections import deque
 from dataclasses import dataclass, field
@@ -243,7 +250,13 @@ from kueue_tpu_torch.solver import encode as solver_encode
 from kueue_tpu_torch.solver import fairpreempt
 from kueue_tpu_torch.solver import preempt as devpreempt
 from kueue_tpu_torch.solver.candidates import candidate_index
-from kueue_tpu_torch.utils.wait import KeepGoing, SlowDown, SpeedSignal
+from kueue_tpu_torch.utils import vlog
+from kueue_tpu_torch.utils.wait import (
+    KeepGoing,
+    SlowDown,
+    SpeedSignal,
+    until_with_backoff,
+)
 
 # entry statuses (reference: scheduler.go:355-366)
 NOT_NOMINATED = ""
@@ -331,6 +344,7 @@ class Scheduler:
         self.admitted_total = 0
         # metrics.Registry, or None (kueue_tpu/scheduler/scheduler.py:126)
         self.metrics = metrics
+        self.log = vlog.logger("scheduler")
         # The cycle flight recorder (obs/recorder.py): every schedule()
         # that popped heads leaves a CycleTrace (route, regime, phase
         # spans, annotations) in a bounded ring; the solver's phases land
@@ -484,6 +498,33 @@ class Scheduler:
         # scheduler.py:338-344). Its setters (replicas, shards) are not
         # ported yet.
         self.fencing_check: Optional[Callable[[], bool]] = None
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # --- lifecycle ---
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="scheduler")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self.queues.broadcast()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+        # A snapshot parked for a seal that never happened (a raise
+        # mid-cycle) must not outlive the scheduler.
+        self._flush_seal_snapshot()
+        # Never strand an in-flight speculative cycle: its handout goes
+        # back to the cache and its device residency and arena claims
+        # drop, or a solver reused by another Scheduler would chain its
+        # first cycle on this one's usage mirror.
+        if self._inflight is not None:
+            self._abandon_pipeline()
+
+    def _run(self) -> None:
+        until_with_backoff(self._stop, lambda: self.schedule(timeout=0.2))
 
     # --- the cycle ---
 
@@ -612,6 +653,7 @@ class Scheduler:
         t_ph = _time.perf_counter()
         snapshot = self.cache.snapshot()
         self._cycle_snapshot = snapshot
+        vlog.dump_snapshot(self.log, snapshot)
         self._span("snapshot", t_ph)
         nom = self._stage_nominate(heads, snapshot, route, timeout)
         self._stage_apply(nom, timeout)
@@ -1400,6 +1442,7 @@ class Scheduler:
             self._cycle_order = [e.info.key for e in entries]
         result_success = False
         admitted_n = 0
+        vlog.dump_attempts(self.log, entries)
         t_ph = _time.perf_counter()
         for e in entries:
             if e.status != ASSUMED:
@@ -1635,6 +1678,7 @@ class Scheduler:
         blocked (no feasible targets), the starvation bound's evidence."""
         entries = nom.solver_entries + nom.entries
         nom.entries = entries
+        vlog.dump_attempts(self.log, entries)
         admitted_n = 0
         t_ph = _time.perf_counter()
         for e in entries:

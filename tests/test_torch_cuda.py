@@ -2472,3 +2472,110 @@ def test_governor_on_the_card_is_warm_from_start(cuda_device):
     assert gov.unwarm_routed == 0
     assert tk.launch_counts()["phase_b"] == 3
     assert solver.counters["mid_traffic_compiles"] == 0
+
+
+def _manager_twin(solver, seed: int = 5):
+    """A 32-CQ KueueManager (4 cohorts of 8, 16 flavors in one resource
+    group, chip_smoke's manager sizing: each CQ 8 cores of its home
+    flavor, the odd ones borrowing up to 8 a flavor) on a FakeClock, every
+    cycle on the solver: two schedule_once calls over 64 Jobs of 1-8
+    one-core pods and calls until settled (no change, no cycle in
+    flight: the pipeline lands a cycle's decisions a call or two
+    later), then the first 16 running Jobs finish and calls settle
+    again. Returns the store's state (a Pending condition's
+    message left out: the device route's non-fit heads carry the batched
+    assignment's) and the routes."""
+    from kueue_tpu_torch.api import batchv1, corev1
+    from kueue_tpu_torch.api.meta import (Condition, FakeClock,
+                                          LabelSelector, ObjectMeta)
+    from kueue_tpu_torch.manager import KueueManager
+    mgr = KueueManager(clock=FakeClock(1000.0), solver=solver)
+    mgr.scheduler.solver_min_heads = 0
+    store = mgr.store
+    flavors = [f"f{i}" for i in range(16)]
+    for f in flavors:
+        store.create(api.ResourceFlavor(
+            metadata=ObjectMeta(name=f),
+            spec=api.ResourceFlavorSpec(node_labels={"pool": f})))
+    for i in range(32):
+        home, lend = flavors[2 * (i % 8)], 8000 if i % 2 else 0
+        store.create(api.ClusterQueue(
+            metadata=ObjectMeta(name=f"cq{i}"), spec=api.ClusterQueueSpec(
+                cohort=f"c{i // 8}", namespace_selector=LabelSelector(),
+                resource_groups=[api.ResourceGroup(
+                    covered_resources=["cpu"], flavors=[api.FlavorQuotas(
+                        name=f, resources=[api.ResourceQuota(
+                            name="cpu",
+                            nominal_quota=8000 if f == home else 0,
+                            borrowing_limit=lend)])
+                        for f in [home] + [f for f in flavors
+                                           if f != home]])])))
+        store.create(api.LocalQueue(
+            metadata=ObjectMeta(name=f"lq{i}", namespace="default"),
+            spec=api.LocalQueueSpec(cluster_queue=f"cq{i}")))
+    rng = np.random.default_rng(seed)
+    for n in range(64):
+        job = batchv1.Job(metadata=ObjectMeta(
+            name=f"j{n}", namespace="default",
+            labels={api.QUEUE_LABEL: f"lq{n % 32}"}))
+        job.spec.suspend = True
+        job.spec.parallelism = int(rng.integers(1, 9))
+        job.spec.template = corev1.PodTemplateSpec(spec=corev1.PodSpec(
+            containers=[corev1.Container(name="c",
+                                         requests={"cpu": 1000})]))
+        store.create(job)
+    def settle():
+        quiet = 0
+        for _ in range(20):
+            rv = store._rv
+            mgr.schedule_once()
+            quiet = quiet + 1 if (store._rv == rv and
+                                  mgr.scheduler._inflight is None) else 0
+            if quiet == 2:
+                return
+        raise AssertionError("the manager did not settle")
+
+    mgr.schedule_once()
+    mgr.schedule_once()
+    settle()
+    running = sorted((j.metadata.name for j in store.list("Job")
+                      if not j.spec.suspend), key=lambda n: int(n[1:]))
+    for name in running[:16]:
+        job = store.get("Job", "default", name)
+        job.status.conditions.append(Condition(
+            type=batchv1.JOB_COMPLETE, status="True", message="done"))
+        store.update(job)
+    settle()
+    state = {
+        "jobs": {j.metadata.name: (j.spec.suspend,
+                                   dict(j.spec.template.spec.node_selector),
+                                   j.spec.parallelism)
+                 for j in store.list("Job")},
+        "workloads": {w.metadata.owner_references[0].name: (
+            [(c.type, c.status, c.reason) for c in w.status.conditions],
+            w.status.admission)
+            for w in store.list("Workload")},
+        "cluster_queues": {c.metadata.name: c.status
+                           for c in store.list("ClusterQueue")}}
+    counts = dict(mgr.scheduler.cycle_counts)
+    mgr.shutdown()
+    assert mgr.cache.live_handouts == 0
+    return state, counts
+
+
+@pytest.mark.cuda
+def test_manager_on_card_equals_solver_none(cuda_device):
+    """KueueManager with BatchSolver() on the card (the production wiring:
+    the pipeline at depth 2, adaptive routing; every cycle may take the
+    solver) ends in the store state of its solver=None twin: Jobs'
+    suspend flags and node selectors, Workloads' conditions and
+    admissions, CQ status."""
+    tk.reset_launch_counts()
+    card, counts = _manager_twin(BatchSolver())
+    launches = tk.launch_counts()
+    plain, _ = _manager_twin(None)
+    assert card == plain
+    assert any(r.startswith("device") for r in counts), counts
+    assert launches["phase_a"] > 0 and launches["phase_b"] > 0
+    assert sum(1 for s, _, _ in card["jobs"].values() if not s) > 16
+    assert any(w[1] is None for w in card["workloads"].values())
